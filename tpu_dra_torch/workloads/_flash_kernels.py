@@ -1,0 +1,338 @@
+"""Build, load and launch the hand-written CUDA flash-attention kernels.
+
+Three kernels, one per source under ``csrc/`` (see each source's header
+for the TPU kernel it replaces, what bounds it on the H100 and what its
+design does about that):
+
+- ``flash_fwd``     (csrc/flash_fwd.cu)     replaces ``_fwd_kernel``;
+- ``flash_bwd_dq``  (csrc/flash_bwd_dq.cu)  replaces ``_bwd_dq_kernel``;
+- ``flash_bwd_dkv`` (csrc/flash_bwd_dkv.cu) replaces ``_bwd_dkv_kernel``
+  (all in tpu_dra/workloads/flashattention.py).
+
+Build: ``nvcc`` compiles each source, all at once, into its own shared
+library with a plain C interface under ``build/tpu_dra_torch/`` at the
+repository root (listed in .gitignore), at first use. File names carry a
+hash of the sources and flags, so an edit rebuilds. The libraries are
+loaded with ``ctypes``; every pointer and the stream are ``c_void_p``.
+
+Each wrapper (``fwd``, ``bwd_dq``, ``bwd_dkv``) takes [B, S, H, D]
+tensors. For CPU tensors it runs its plain PyTorch version beside it in
+this module (``fwd_plain``, ``bwd_dq_plain``, ``bwd_dkv_plain``); for CUDA
+tensors it launches its kernel on the current stream, adds one to its
+``launches`` count, and raises if the launch fails. There is no other
+path: no fallback from a failed build or launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import subprocess
+from pathlib import Path
+
+import torch
+
+from tpu_dra_torch.native import gpuinfo
+
+NEG_INF = -1e30
+# Rows per tile of every kernel (stationary and streamed side alike).
+BLOCK = 64
+MAX_HEAD_DIM = 128
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_dra_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+_PTR = ctypes.c_void_p
+_INT = ctypes.c_int
+_I64 = ctypes.c_longlong
+_SHAPE = [_INT] * 4 + [_I64] * 3 + [_INT] * 2   # B S H D, in strides, causal rope
+ARGTYPES = {
+    "flash_fwd": [_PTR] * 7 + _SHAPE + [_PTR],
+    "flash_bwd_dq": [_PTR] * 10 + _SHAPE + [_PTR],
+    "flash_bwd_dkv": [_PTR] * 11 + _SHAPE + [_PTR],
+}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> dict[str, Path]:
+    """Compile every kernel source that has no library for the current
+    sources yet, one nvcc per source, all started together. Returns
+    {kernel name: library path}; raises with the compilers' output if
+    any source fails."""
+    nvcc = gpuinfo.nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin)")
+    digest = _digest()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    libs = {src.stem: BUILD_DIR / f"lib{src.stem}_{digest}.so"
+            for src in sorted(CSRC.glob("*.cu"))}
+    jobs = []
+    for name, lib in libs.items():
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".tmp{os.getpid()}")
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, lib, tmp, proc))
+    log = []
+    failed = []
+    for name, lib, tmp, proc in jobs:
+        out, _ = proc.communicate(timeout=900)
+        log.append(f"== {name}\n{out}")
+        if proc.returncode:
+            failed.append(name)
+        else:
+            tmp.replace(lib)
+    if failed:
+        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
+    return libs
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    if name not in _loaded:
+        libs = build()
+        for stem, path in libs.items():
+            lib = ctypes.CDLL(str(path))
+            fn = getattr(lib, stem)
+            fn.argtypes = ARGTYPES[stem]
+            fn.restype = ctypes.c_int
+            _loaded[stem] = lib
+    return _loaded[name]
+
+
+def _call(name: str, *args) -> None:
+    err = getattr(_lib(name), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+# ---------------------------------------------------------------------------
+# The rotation, shared by the plain versions and flashattention.py
+# ---------------------------------------------------------------------------
+
+def rope_rotate(x: torch.Tensor, cos_t: torch.Tensor, sinm_t: torch.Tensor,
+                *, inverse: bool = False) -> torch.Tensor:
+    """x [B, S, H, D] rotated by the [S, D] tables (position = row):
+    x * cos + roll(x, D/2) * sinm in fp32, x.dtype out — the TPU kernels'
+    _rope_apply. inverse=True applies the transpose rotation (-sinm), the
+    VJP of the forward one."""
+    sinm = -sinm_t if inverse else sinm_t
+    xf = x.float()
+    rolled = torch.roll(xf, x.shape[-1] // 2, dims=-1)
+    return (xf * cos_t[:, None, :] + rolled * sinm[:, None, :]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the kernels' functions, one dense pass each)
+# ---------------------------------------------------------------------------
+
+def _scores(q, k, tables, causal):
+    """Scaled fp32 scores [B, H, S, S] of (roped) q and k, masked with the
+    finite NEG_INF, plus the roped operands in the input dtype."""
+    if tables is not None:
+        q, k = rope_rotate(q, *tables), rope_rotate(k, *tables)
+    s = q.shape[1]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores = scores * (1.0 / math.sqrt(q.shape[-1]))
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~keep, NEG_INF)
+    return scores, q, k
+
+
+def fwd_plain(q, k, v, tables, *, causal):
+    """(o [B, S, H, D], lse [B, H, S] fp32). Unnormalized p is rounded to
+    the input dtype before P.V and the sum is divided after, as in the
+    kernel."""
+    scores, _, _ = _scores(q, k, tables, causal)
+    row_max = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - row_max)
+    denom = p.sum(-1)
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    o = acc / denom.permute(0, 2, 1)[..., None]
+    return o.to(q.dtype), row_max[..., 0] + torch.log(denom)
+
+
+def _probs_and_ds(q, k, v, dout, lse, delta, dlse, tables, causal):
+    scores, qr, kr = _scores(q, k, tables, causal)
+    p = torch.exp(scores - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    ds = p * (dp + (dlse - delta)[..., None])
+    return p, ds, qr, kr
+
+
+def bwd_dq_plain(q, k, v, dout, lse, delta, dlse, tables, *, causal):
+    """dq [B, S, H, D]: scale * bf16(dS) . K, then the inverse rotation."""
+    _, ds, _, kr = _probs_and_ds(q, k, v, dout, lse, delta, dlse, tables,
+                                 causal)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(q.dtype).float(), kr.float())
+    dq = dq * (1.0 / math.sqrt(q.shape[-1]))
+    if tables is not None:
+        dq = rope_rotate(dq, *tables, inverse=True)
+    return dq.to(q.dtype)
+
+
+def bwd_dkv_plain(q, k, v, dout, lse, delta, dlse, tables, *, causal):
+    """(dk, dv) [B, S, H, D]: dV = bf16(P)^T . dO; dK = scale *
+    bf16(dS)^T . Q, then the inverse rotation."""
+    p, ds, qr, _ = _probs_and_ds(q, k, v, dout, lse, delta, dlse, tables,
+                                 causal)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).float(), dout.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(k.dtype).float(), qr.float())
+    dk = dk * (1.0 / math.sqrt(q.shape[-1]))
+    if tables is not None:
+        dk = rope_rotate(dk, *tables, inverse=True)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+def _aligned(x: torch.Tensor) -> bool:
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st in x.stride()[:-1]))
+
+
+def _kernel_inputs(q, k, v, tables):
+    """Check what the kernels take and return (q, k, v, tables) as they
+    take them: bf16 on one card, D a multiple of 16 up to 128, q/k/v
+    sharing one 16-byte-aligned layout (views of one fused projection
+    pass as they are; anything else is made contiguous)."""
+    if q.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"CUDA flash kernels take bfloat16, got {q.dtype} (fp32 kernel "
+            "inputs: ROADMAP queue 1, 'fp32 kernel inputs')")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError("q, k, v dtypes differ")
+    if not (q.shape == k.shape == v.shape) or q.dim() != 4:
+        raise ValueError(f"q, k, v must share a [B, S, H, D] shape: "
+                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    d = q.shape[-1]
+    if d % 16 or d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d}: the kernels take multiples of 16 up "
+                         f"to {MAX_HEAD_DIM}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v on different devices")
+    if not (q.stride() == k.stride() == v.stride()
+            and all(_aligned(x) for x in (q, k, v))):
+        q, k, v = (x.contiguous() for x in (q, k, v))
+    if tables is not None:
+        tables = tuple(t.to(device=q.device, dtype=torch.bfloat16).contiguous()
+                       for t in tables)
+    return q, k, v, tables
+
+
+def _table_ptrs(tables):
+    return (None, None) if tables is None else (tables[0].data_ptr(),
+                                                tables[1].data_ptr())
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _dims(q):
+    b, s, h, d = q.shape
+    st = q.stride()
+    return (b, s, h, d, st[0], st[1], st[2])
+
+
+def _device_of(x: torch.Tensor) -> str:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no flash kernel for device {x.device}")
+    return x.device.type
+
+
+def fwd(q, k, v, tables, *, causal: bool):
+    """(o [B, S, H, D], lse [B, H, S] fp32) of attention over q, k, v
+    ([B, S, H, D]); tables = the [S, D] (cos, sinm) rope tables, or None
+    for no rope."""
+    if _device_of(q) == "cpu":
+        return fwd_plain(q, k, v, tables, causal=causal)
+    q, k, v, tables = _kernel_inputs(q, k, v, tables)
+    b, s, h, d = q.shape
+    o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _call("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              *_table_ptrs(tables), o.data_ptr(), lse.data_ptr(),
+              *_dims(q), int(causal), int(tables is not None), _stream(q))
+    fwd.launches += 1
+    return o, lse
+
+
+def _bwd_inputs(q, dout, lse, delta, dlse):
+    b, s, h, d = q.shape
+    if dout.shape != (b, s, h, d) or lse.shape != (b, h, s) \
+            or delta.shape != (b, h, s) or dlse.shape != (b, h, s):
+        raise ValueError("backward operands do not match q's [B, S, H, D]")
+    dout = dout.to(q.dtype).contiguous()
+    return (dout,) + tuple(x.float().contiguous() for x in (lse, delta, dlse))
+
+
+def bwd_dq(q, k, v, dout, lse, delta, dlse, tables, *, causal: bool):
+    """dq [B, S, H, D]; dout [B, S, H, D]; lse, delta = rowsum(dO * O) and
+    dlse (the lse cotangent) [B, H, S] fp32."""
+    if _device_of(q) == "cpu":
+        return bwd_dq_plain(q, k, v, dout, lse, delta, dlse, tables,
+                            causal=causal)
+    q, k, v, tables = _kernel_inputs(q, k, v, tables)
+    dout, lse, delta, dlse = _bwd_inputs(q, dout, lse, delta, dlse)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        _call("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+              dlse.data_ptr(), *_table_ptrs(tables), dq.data_ptr(),
+              *_dims(q), int(causal), int(tables is not None), _stream(q))
+    bwd_dq.launches += 1
+    return dq
+
+
+def bwd_dkv(q, k, v, dout, lse, delta, dlse, tables, *, causal: bool):
+    """(dk, dv) [B, S, H, D]; operands as bwd_dq."""
+    if _device_of(q) == "cpu":
+        return bwd_dkv_plain(q, k, v, dout, lse, delta, dlse, tables,
+                             causal=causal)
+    q, k, v, tables = _kernel_inputs(q, k, v, tables)
+    dout, lse, delta, dlse = _bwd_inputs(q, dout, lse, delta, dlse)
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        _call("flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+              dlse.data_ptr(), *_table_ptrs(tables), dk.data_ptr(),
+              dv.data_ptr(), *_dims(q), int(causal),
+              int(tables is not None), _stream(q))
+    bwd_dkv.launches += 1
+    return dk, dv
+
+
+fwd.launches = 0
+bwd_dq.launches = 0
+bwd_dkv.launches = 0
+WRAPPERS = {"flash_fwd": fwd, "flash_bwd_dq": bwd_dq,
+            "flash_bwd_dkv": bwd_dkv}
+
+
+def reset_launches() -> None:
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {name: wrapper.launches for name, wrapper in WRAPPERS.items()}

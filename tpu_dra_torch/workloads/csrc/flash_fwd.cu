@@ -1,0 +1,193 @@
+// Flash-attention forward for Hopper (sm_90a): causal or full attention of
+// one 64-row Q tile against every K/V tile it needs, with RoPE rotated
+// in-tile, writing O and the per-row logsumexp.
+//
+// Replaces tpu_dra/workloads/flashattention.py:_fwd_kernel (the Pallas
+// kernel reached through _fwd_call).
+//
+// What bounds it on the H100: at the flagship shape (B8 S1023 H16 D128,
+// causal) it does 34 GFLOP against 135 MB of compulsory traffic, so the
+// roofline puts it on the memory side (~40 us against ~35 us of bf16
+// tensor-core time). This first version runs far from that bound:
+// mma.sync runs well below wgmma's rate, and the tiles are staged through
+// registers without cp.async/TMA overlap.
+//
+// What the design does about it: scores never leave registers (the online
+// softmax runs on the mma accumulators and P feeds the P.V product as an
+// A fragment directly); Q fragments stay in registers across the K loop;
+// causal tiles above the diagonal are skipped and only the diagonal (and
+// ragged last) tile is masked; the heaviest causal tiles are scheduled
+// first. Staging by TMA with a producer warp and wgmma consumers is the
+// next step for speed.
+#include "flash_common.cuh"
+
+namespace flash {
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_kernel(const Params p) {
+  constexpr int LD = D + kPad;
+  constexpr int NT = D / 8;   // n-tiles of the output across D
+  constexpr int KT = D / 16;  // k-steps of Q.K^T across D
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + kBlock * LD;
+  bf16* Vs = Ks + kBlock * LD;
+
+  const int n_tiles = (p.S + kBlock - 1) / kBlock;
+  const int qt = n_tiles - 1 - blockIdx.x;  // longest causal rows first
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int q0 = qt * kBlock;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int row_g = q0 + warp * 16 + (lane >> 2), row_g8 = row_g + 8;
+  const long long in_off = b * p.in.b + h * p.in.h;
+
+  stage_tile<D>(Qs, p.q + in_off, p.in.s, q0, p.S, p.cos_t, p.sinm_t, p.rope);
+  __syncthreads();
+  uint32_t qa[KT][4];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) load_a<LD>(qa[kk], Qs, warp * 16, kk * 16, lane);
+
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};
+  float l_run[2] = {0.f, 0.f};  // this thread's share of the row sums
+
+  const int last = p.causal ? qt + 1 : n_tiles;
+  for (int kt = 0; kt < last; ++kt) {
+    const int k0 = kt * kBlock;
+    __syncthreads();  // every warp is done with the previous K/V tile
+    stage_tile<D>(Ks, p.k + in_off, p.in.s, k0, p.S, p.cos_t, p.sinm_t, p.rope);
+    stage_tile<D>(Vs, p.v + in_off, p.in.s, k0, p.S, nullptr, nullptr, false);
+    __syncthreads();
+
+    float s[8][4];  // 16 rows x 64 keys
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KT; ++kk) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t bk[2];
+        load_b_rows_n<LD>(bk, Ks, j * 8, kk * 16, lane);
+        mma(s[j], qa[kk], bk);
+      }
+    }
+    const bool masked = (p.causal && kt == qt) || k0 + kBlock > p.S;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] *= p.sm_scale;
+        if (masked) {
+          const int col = k0 + j * 8 + 2 * t + (e & 1);
+          const int row = e < 2 ? row_g : row_g8;
+          if ((p.causal && col > row) || col >= p.S) s[j][e] = kNegInf;
+        }
+      }
+    }
+    // Online softmax on the accumulators: rows g (e = 0, 1) and g+8 (2, 3).
+    float mx[2] = {m_run[0], m_run[1]};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+    }
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+    const float corr[2] = {expf(m_run[0] - mx[0]), expf(m_run[1] - mx[1])};
+    m_run[0] = mx[0];
+    m_run[1] = mx[1];
+    float rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = expf(s[j][0] - mx[0]);
+      s[j][1] = expf(s[j][1] - mx[0]);
+      s[j][2] = expf(s[j][2] - mx[1]);
+      s[j][3] = expf(s[j][3] - mx[1]);
+      rs[0] += s[j][0] + s[j][1];
+      rs[1] += s[j][2] + s[j][3];
+    }
+    l_run[0] = l_run[0] * corr[0] + rs[0];
+    l_run[1] = l_run[1] * corr[1] + rs[1];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      acc[j][0] *= corr[0];
+      acc[j][1] *= corr[0];
+      acc[j][2] *= corr[1];
+      acc[j][3] *= corr[1];
+    }
+    // acc += bf16(P) . V, 16 keys per k-step.
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t b0[2], b1[2];
+        load_b_rows_k_x2<LD>(b0, b1, Vs, kk * 16, j * 8, lane);
+        mma(acc[j], pa, b0);
+        mma(acc[j + 1], pa, b1);
+      }
+    }
+  }
+
+  const float l_g = quad_sum(l_run[0]), l_g8 = quad_sum(l_run[1]);
+  const long long out_off = b * p.out.b + h * p.out.h;
+  // o = acc / denom: divide first, as the TPU kernel does, then round.
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    acc[j][0] = acc[j][0] / l_g;
+    acc[j][1] = acc[j][1] / l_g;
+    acc[j][2] = acc[j][2] / l_g8;
+    acc[j][3] = acc[j][3] / l_g8;
+  }
+  store_rows<D>(p.o + out_off, p.out.s, acc, row_g, row_g8, p.S, lane);
+  if (t == 0) {
+    float* lse = p.lse_out + (long long)bh * p.S;
+    if (row_g < p.S) lse[row_g] = m_run[0] + logf(l_g);
+    if (row_g8 < p.S) lse[row_g8] = m_run[1] + logf(l_g8);
+  }
+}
+
+template <int D>
+struct LaunchFwd {
+  static cudaError_t run(const Params& p, cudaStream_t stream) {
+    const int smem = 3 * kBlock * (D + kPad) * (int)sizeof(bf16);
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((p.S + kBlock - 1) / kBlock, p.B * p.H);
+    flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+    return cudaGetLastError();
+  }
+};
+
+}  // namespace flash
+
+// q, k, v: [B, S, H, D] bf16 sharing strides (in_b, in_s, in_h), D stride
+// 1, 16-byte aligned rows. o: [B, S, H, D] contiguous bf16; lse: [B, H, S]
+// fp32. cos_t/sinm_t: [S, D] bf16 (read only when rope). Returns the CUDA
+// error of the launch (0 on success); allocates nothing, never syncs.
+extern "C" int flash_fwd(const void* q, const void* k, const void* v,
+                         const void* cos_t, const void* sinm_t, void* o,
+                         void* lse, int B, int S, int H, int D, long long in_b,
+                         long long in_s, long long in_h, int causal, int rope,
+                         void* stream) {
+  using namespace flash;
+  Params p = make_params(B, S, H, D, in_b, in_s, in_h, causal, rope);
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.cos_t = static_cast<const bf16*>(cos_t);
+  p.sinm_t = static_cast<const bf16*>(sinm_t);
+  p.o = static_cast<bf16*>(o);
+  p.lse_out = static_cast<float*>(lse);
+  return static_cast<int>(dispatch_head_dim<LaunchFwd>(
+      D, p, static_cast<cudaStream_t>(stream)));
+}
