@@ -270,16 +270,66 @@ class TestKernelInputChecks:
     """What the CUDA wrappers refuse, checked on CPU tensors of the same
     shapes (the checks run before any launch)."""
 
-    def test_fp32_refused_naming_roadmap(self):
-        q = torch.zeros(1, 64, 1, 64)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            fk._kernel_inputs(q, q, q, None)
+    def test_fp32_inputs_pass_with_fp32_tables_kept(self):
+        q = torch.zeros(1, 64, 1, 128)
+        tables = tfa._rope_operands(64, 128, torch.float32,
+                                    torch.device("cpu"))
+        got_q, _, _, got_tables = fk._kernel_inputs(q, q, q, tables)
+        assert got_q.dtype == torch.float32
+        assert all(t.dtype == torch.float32 for t in got_tables)
+        # fp32 tables are the fp32 tables, unrounded.
+        for got, want in zip(got_tables, tables):
+            assert torch.equal(got, want)
+
+    def test_bf16_inputs_get_bf16_tables(self):
+        q = torch.zeros(1, 64, 1, 64, dtype=torch.bfloat16)
+        fp32_tables = tfa._rope_operands(64, 64, torch.float32,
+                                         torch.device("cpu"))
+        _, _, _, got = fk._kernel_inputs(q, q, q, fp32_tables)
+        assert all(t.dtype == torch.bfloat16 for t in got)
+        for got_t, want in zip(got, fp32_tables):
+            assert torch.equal(got_t, want.to(torch.bfloat16))
+
+    @pytest.mark.parametrize("dtypes", [
+        (torch.float16,) * 3,                                 # float16
+        (torch.float32, torch.bfloat16, torch.bfloat16),      # mixed
+        (torch.bfloat16, torch.bfloat16, torch.float32),
+    ])
+    def test_float16_and_mixed_types_refused(self, dtypes):
+        q, k, v = (torch.zeros(1, 64, 1, 64, dtype=dt) for dt in dtypes)
+        with pytest.raises(TypeError, match="float32|differ"):
+            fk._kernel_inputs(q, k, v, None)
+
+    def test_each_kernel_is_told_the_element_size(self):
+        """The C entry points take the element size after the shape."""
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            assert fk.ARGTYPES[name][-2] is fk._INT
+        for dtype, size in fk.KERNEL_DTYPES.items():
+            q = torch.zeros(1, 64, 2, 32, dtype=dtype)
+            assert fk._dims(q, True, None)[-1] == size == q.element_size()
 
     @pytest.mark.parametrize("d", [24, 144])
     def test_head_dim_refused(self, d):
         q = torch.zeros(1, 64, 1, d, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head dim"):
             fk._kernel_inputs(q, q, q, None)
+
+    @pytest.mark.parametrize("d", [32, 64, 96])
+    def test_fp32_head_dim_without_instance_refused(self, d):
+        """bf16 takes every multiple of 16; fp32 only the dims it is
+        built for, refused before a launch could return an error."""
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.zeros(1, 64, 1, d, dtype=dtype)
+            if dtype == torch.bfloat16:
+                fk._kernel_inputs(q, q, q, None)
+                continue
+            with pytest.raises(ValueError, match="fp32 kernels are built"):
+                fk._kernel_inputs(q, q, q, None)
+
+    @pytest.mark.parametrize("d", fk.FP32_HEAD_DIMS)
+    def test_fp32_head_dims_with_instance_pass(self, d):
+        q = torch.zeros(1, 64, 1, d)
+        assert fk._kernel_inputs(q, q, q, None)[0].dtype == torch.float32
 
     def test_fused_projection_views_pass_in_place(self):
         qkv = torch.zeros(2, 64, 3 * 128, dtype=torch.bfloat16)

@@ -1,15 +1,18 @@
 """Train-step throughput of the flagship model on one NVIDIA GPU
-(counterpart of bench.py's bench_mfu and its helpers).
+(counterpart of bench.py's bench_mfu, bench_long_context and their
+helpers).
 
-bench_mfu and profile_train_step are device measurements: they run on a
-CUDA device or raise. The long-context phase (bench_long_context) is a
-later slice.
+bench_mfu, bench_long_context and profile_train_step are device
+measurements: they run on a CUDA device or raise.
 
-    python -m tpu_dra_torch.bench    # one JSON line each: mfu, profile
+    python -m tpu_dra_torch.bench
+    # one JSON line each: mfu, long_ctx (S=8192), long_ctx_xl (S=16384),
+    # profile (flagship) and profile_xl (S=16384)
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import time
@@ -25,6 +28,7 @@ from tpu_dra_torch.workloads.model import (
 FLAGSHIP = ModelConfig(vocab=32768, d_model=2048, n_heads=16, n_layers=8,
                        d_ff=8192, max_seq=1024)
 FLAGSHIP_BATCH = 8
+LONG_CONTEXT_BATCH = 1
 TOP_KERNELS = 15
 
 
@@ -121,6 +125,50 @@ def bench_mfu(steps: int = 10, device="cuda") -> dict:
     }
 
 
+def long_context_config(seq: int) -> ModelConfig:
+    """The flagship model at max_seq=`seq` (bench.py:1863-1864)."""
+    return dataclasses.replace(FLAGSHIP, max_seq=seq)
+
+
+def bench_long_context(steps: int = 4, seq: int = 8192,
+                       prefix: str = "long_ctx", device="cuda") -> dict:
+    """Long-context train step of the flagship model on one card, batch 1
+    (counterpart of bench.py:bench_long_context): attention goes through
+    the same three kernels at every S, where the reference moves to its
+    streaming kernels past its VMEM budget (S=16384 in bf16). Returns the
+    reference's keys ({prefix}_seq, _step_s, _tokens_per_s with seq - 1
+    trained tokens per step, and _mfu against the card's dense bf16 peak,
+    None for a card the peak table does not know) plus the final loss,
+    the step calls made, the depth, the peak of allocated device memory
+    and the card's name and power limit."""
+    device = _require_card(device)
+    cfg = long_context_config(seq)
+    torch.cuda.reset_peak_memory_stats(device)
+    step_s, loss_v, model, calls = _train_step_rate(cfg, LONG_CONTEXT_BATCH,
+                                                    steps, device)
+    peak_bytes = torch.cuda.max_memory_allocated(device)
+    if not math.isfinite(loss_v):
+        raise RuntimeError(f"non-finite long-context loss: {loss_v}")
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens_per_step = LONG_CONTEXT_BATCH * (cfg.max_seq - 1)
+    flops_per_token, _ = _flops_per_token(cfg, n_params)
+    name = torch.cuda.get_device_name(device)
+    peak = gpuinfo.PEAK_BF16_TFLOPS.get(name)
+    step_tflops = flops_per_token * tokens_per_step / step_s / 1e12
+    return {
+        f"{prefix}_seq": cfg.max_seq,
+        f"{prefix}_step_s": step_s,
+        f"{prefix}_tokens_per_s": tokens_per_step / step_s,
+        f"{prefix}_mfu": None if peak is None else step_tflops / peak,
+        "loss": loss_v,
+        "step_calls": calls,
+        "n_layers": cfg.n_layers,
+        "peak_memory_bytes": peak_bytes,
+        "device_name": name,
+        "power_limit": gpuinfo.power_limit(device.index or 0),
+    }
+
+
 def _category(kernel: str) -> str:
     name = kernel.lower()
     if "flash_" in name:
@@ -132,17 +180,18 @@ def _category(kernel: str) -> str:
     return "other elementwise and reductions"
 
 
-def profile_train_step(steps: int = 3, device="cuda") -> dict:
-    """Device time of the flagship train step by kernel, from
-    torch.profiler's CUDA activity over `steps` steps after a warm one:
-    the per-step device-busy time, the window it sits in (first kernel
-    start to last kernel end) and so the device's idle share, the busy
-    time by category and the TOP_KERNELS kernels with most time."""
+def profile_train_step(steps: int = 3, device="cuda", cfg=FLAGSHIP,
+                       batch: int = FLAGSHIP_BATCH) -> dict:
+    """Device time of a train step (the flagship's by default) by kernel,
+    from torch.profiler's CUDA activity over `steps` steps after a warm
+    one: the per-step device-busy time, the window it sits in (first
+    kernel start to last kernel end) and so the device's idle share, the
+    busy time by category and the TOP_KERNELS kernels with most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     device = _require_card(device)
-    _, tokens, step = _setup(FLAGSHIP, FLAGSHIP_BATCH, device)
+    _, tokens, step = _setup(cfg, batch, device)
     step(tokens)
     _sync(device)
     with profile(activities=[ProfilerActivity.CPU,
@@ -169,6 +218,8 @@ def profile_train_step(steps: int = 3, device="cuda") -> dict:
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]
     return {
         "device_events": len(spans),
+        "seq": cfg.max_seq,
+        "batch": batch,
         "steps": steps,
         "busy_ms_per_step": busy / steps / 1e3,
         "window_ms_per_step": window / steps / 1e3,
@@ -185,4 +236,10 @@ def profile_train_step(steps: int = 3, device="cuda") -> dict:
 
 if __name__ == "__main__":
     print(json.dumps({"bench_mfu": bench_mfu(steps=5)}), flush=True)
+    print(json.dumps({"long_ctx": bench_long_context(seq=8192)}), flush=True)
+    print(json.dumps({"long_ctx_xl": bench_long_context(
+        steps=3, seq=16384, prefix="long_ctx_xl")}), flush=True)
     print(json.dumps({"profile": profile_train_step()}), flush=True)
+    print(json.dumps({"profile_xl": profile_train_step(
+        steps=2, cfg=long_context_config(16384),
+        batch=LONG_CONTEXT_BATCH)}), flush=True)

@@ -1,13 +1,22 @@
 """Build, load and launch the hand-written CUDA flash-attention kernels.
 
 Three kernels, one per source under ``csrc/`` (see each source's header
-for the TPU kernel it replaces, what bounds it on the H100 and what its
-design does about that):
+for the TPU kernels it replaces, what bounds it on the H100 and what its
+design does about that). Each streams its non-stationary side through
+shared memory at every sequence length, so each is the counterpart of
+one resident TPU kernel and of its streaming (XL) twin:
 
-- ``flash_fwd``     (csrc/flash_fwd.cu)     replaces ``_fwd_kernel``;
-- ``flash_bwd_dq``  (csrc/flash_bwd_dq.cu)  replaces ``_bwd_dq_kernel``;
+- ``flash_fwd``     (csrc/flash_fwd.cu)     replaces ``_fwd_kernel`` and
+  ``_fwd_stream_kernel``;
+- ``flash_bwd_dq``  (csrc/flash_bwd_dq.cu)  replaces ``_bwd_dq_kernel``
+  and ``_bwd_dq_stream_kernel``;
 - ``flash_bwd_dkv`` (csrc/flash_bwd_dkv.cu) replaces ``_bwd_dkv_kernel``
+  and ``_bwd_dkv_stream_kernel``
   (all in tpu_dra/workloads/flashattention.py).
+
+They take bf16 or fp32 inputs (``KERNEL_DTYPES``). fp32 products run as
+three TF32 tensor-core products each, to fp32 accuracy
+(csrc/flash_common.cuh says why).
 
 Build: ``nvcc`` compiles each source, all at once, into its own shared
 library with a plain C interface under ``build/tpu_dra_torch/`` at the
@@ -40,6 +49,12 @@ NEG_INF = -1e30
 # Rows per tile of every kernel (stationary and streamed side alike).
 BLOCK = 64
 MAX_HEAD_DIM = 128
+# What the kernels take, and the element size each is told.
+KERNEL_DTYPES = {torch.bfloat16: 2, torch.float32: 4}
+# The head dims the fp32 instances are built for (csrc/flash_common.cuh,
+# dispatch_head_dim): the reference's streaming-tier test shape and the
+# flagship's. bf16 takes every multiple of 16 up to MAX_HEAD_DIM.
+FP32_HEAD_DIMS = (16, 128)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_dra_torch"
@@ -49,7 +64,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _I64 = ctypes.c_longlong
-_SHAPE = [_INT] * 4 + [_I64] * 3 + [_INT] * 2   # B S H D, in strides, causal rope
+# B S H D, in strides, causal, rope, element bytes
+_SHAPE = [_INT] * 4 + [_I64] * 3 + [_INT] * 3
 ARGTYPES = {
     "flash_fwd": [_PTR] * 7 + _SHAPE + [_PTR],
     "flash_bwd_dq": [_PTR] * 10 + _SHAPE + [_PTR],
@@ -176,7 +192,8 @@ def _probs_and_ds(q, k, v, dout, lse, delta, dlse, tables, causal):
 
 
 def bwd_dq_plain(q, k, v, dout, lse, delta, dlse, tables, *, causal):
-    """dq [B, S, H, D]: scale * bf16(dS) . K, then the inverse rotation."""
+    """dq [B, S, H, D]: scale * dS . K with dS rounded to the input dtype,
+    then the inverse rotation."""
     _, ds, _, kr = _probs_and_ds(q, k, v, dout, lse, delta, dlse, tables,
                                  causal)
     dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(q.dtype).float(), kr.float())
@@ -187,8 +204,8 @@ def bwd_dq_plain(q, k, v, dout, lse, delta, dlse, tables, *, causal):
 
 
 def bwd_dkv_plain(q, k, v, dout, lse, delta, dlse, tables, *, causal):
-    """(dk, dv) [B, S, H, D]: dV = bf16(P)^T . dO; dK = scale *
-    bf16(dS)^T . Q, then the inverse rotation."""
+    """(dk, dv) [B, S, H, D]: dV = P^T . dO; dK = scale * dS^T . Q, then
+    the inverse rotation; P and dS rounded to the input dtype."""
     p, ds, qr, _ = _probs_and_ds(q, k, v, dout, lse, delta, dlse, tables,
                                  causal)
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).float(), dout.float())
@@ -210,15 +227,16 @@ def _aligned(x: torch.Tensor) -> bool:
 
 def _kernel_inputs(q, k, v, tables):
     """Check what the kernels take and return (q, k, v, tables) as they
-    take them: bf16 on one card, D a multiple of 16 up to 128, q/k/v
-    sharing one 16-byte-aligned layout (views of one fused projection
-    pass as they are; anything else is made contiguous)."""
-    if q.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"CUDA flash kernels take bfloat16, got {q.dtype} (fp32 kernel "
-            "inputs: ROADMAP queue 1, 'fp32 kernel inputs')")
+    take them: all bf16 or all fp32 on one card, D a multiple of 16 up to
+    128 (fp32: one of FP32_HEAD_DIMS), q/k/v sharing one 16-byte-aligned
+    layout (views of one fused projection pass as they are; anything else
+    is made contiguous), and the rope tables in q's dtype."""
     if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError("q, k, v dtypes differ")
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"CUDA flash kernels take bfloat16 or float32, got "
+                        f"{q.dtype}")
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
         raise ValueError(f"q, k, v must share a [B, S, H, D] shape: "
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
@@ -226,13 +244,16 @@ def _kernel_inputs(q, k, v, tables):
     if d % 16 or d > MAX_HEAD_DIM:
         raise ValueError(f"head dim {d}: the kernels take multiples of 16 up "
                          f"to {MAX_HEAD_DIM}")
+    if q.dtype == torch.float32 and d not in FP32_HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the fp32 kernels are built for "
+                         f"{FP32_HEAD_DIMS}")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v on different devices")
     if not (q.stride() == k.stride() == v.stride()
             and all(_aligned(x) for x in (q, k, v))):
         q, k, v = (x.contiguous() for x in (q, k, v))
     if tables is not None:
-        tables = tuple(t.to(device=q.device, dtype=torch.bfloat16).contiguous()
+        tables = tuple(t.to(device=q.device, dtype=q.dtype).contiguous()
                        for t in tables)
     return q, k, v, tables
 
@@ -246,10 +267,12 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _dims(q):
+def _dims(q, causal, tables):
+    """The shape arguments every kernel takes after its pointers."""
     b, s, h, d = q.shape
     st = q.stride()
-    return (b, s, h, d, st[0], st[1], st[2])
+    return (b, s, h, d, st[0], st[1], st[2], int(causal),
+            int(tables is not None), KERNEL_DTYPES[q.dtype])
 
 
 def _device_of(x: torch.Tensor) -> str:
@@ -271,7 +294,7 @@ def fwd(q, k, v, tables, *, causal: bool):
     with torch.cuda.device(q.device):
         _call("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
               *_table_ptrs(tables), o.data_ptr(), lse.data_ptr(),
-              *_dims(q), int(causal), int(tables is not None), _stream(q))
+              *_dims(q, causal, tables), _stream(q))
     fwd.launches += 1
     return o, lse
 
@@ -298,7 +321,7 @@ def bwd_dq(q, k, v, dout, lse, delta, dlse, tables, *, causal: bool):
         _call("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
               dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
               dlse.data_ptr(), *_table_ptrs(tables), dq.data_ptr(),
-              *_dims(q), int(causal), int(tables is not None), _stream(q))
+              *_dims(q, causal, tables), _stream(q))
     bwd_dq.launches += 1
     return dq
 
@@ -316,8 +339,7 @@ def bwd_dkv(q, k, v, dout, lse, delta, dlse, tables, *, causal: bool):
         _call("flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
               dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
               dlse.data_ptr(), *_table_ptrs(tables), dk.data_ptr(),
-              dv.data_ptr(), *_dims(q), int(causal),
-              int(tables is not None), _stream(q))
+              dv.data_ptr(), *_dims(q, causal, tables), _stream(q))
     bwd_dkv.launches += 1
     return dk, dv
 

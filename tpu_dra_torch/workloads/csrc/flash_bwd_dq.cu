@@ -2,14 +2,21 @@
 // streams the K/V tiles it attends to, recomputes P = exp(s - lse) and
 // accumulates dQ = scale * sum_j dS_j . K_j with
 // dS = P * (dO . V^T - delta + dlse), then applies the inverse RoPE.
+// bf16 or fp32 inputs.
 //
 // Replaces tpu_dra/workloads/flashattention.py:_bwd_dq_kernel (the Pallas
-// kernel reached through _flash_bwd_rule).
+// kernel reached through _flash_bwd_rule) and _bwd_dq_stream_kernel (the
+// same function with K/V as a grid axis, reached through
+// _bwd_calls_stream): this kernel streams K/V through shared memory at
+// every S, so it is the counterpart of both tiers.
 //
 // What bounds it on the H100: at the flagship shape (B8 S1023 H16 D128,
 // causal) three products make 51 GFLOP against 169 MB, so the roofline is
-// the tensor cores' (~52 us). This first version runs far from it: mma.sync
-// runs well below wgmma's rate and each K/V tile is staged synchronously.
+// the tensor cores' (~52 us); at B1 S16384 H16 D128, 1.65 TFLOP (~1.7 ms).
+// fp32 inputs run three TF32 products per product (flash_common.cuh), so
+// their bound is the FLOPs over 495/3 TFLOP/s. This first version runs
+// far from it: mma.sync runs well below wgmma's rate and each K/V tile is
+// staged synchronously.
 //
 // What the design does about it: P and dS stay in registers and feed
 // dS.K as A fragments; the dlse - delta row term is folded once per row
@@ -20,17 +27,18 @@
 
 namespace flash {
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const Params p) {
-  constexpr int LD = D + kPad;
+    flash_bwd_dq_kernel(const Params<T> p) {
+  constexpr int LD = D + Elem<T>::kPad;
+  constexpr int kDepth = Elem<T>::kDepth;
   constexpr int NT = D / 8;
-  constexpr int KT = D / 16;
+  constexpr int KT = D / kDepth;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + kBlock * LD;
-  bf16* Ks = dOs + kBlock * LD;
-  bf16* Vs = Ks + kBlock * LD;
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* dOs = Qs + kBlock * LD;
+  T* Ks = dOs + kBlock * LD;
+  T* Vs = Ks + kBlock * LD;
 
   const int n_tiles = (p.S + kBlock - 1) / kBlock;
   const int qt = n_tiles - 1 - blockIdx.x;  // longest causal rows first
@@ -42,8 +50,10 @@ __global__ void __launch_bounds__(kThreads)
   const long long in_off = b * p.in.b + h * p.in.h;
   const long long out_off = b * p.out.b + h * p.out.h;
 
-  stage_tile<D>(Qs, p.q + in_off, p.in.s, q0, p.S, p.cos_t, p.sinm_t, p.rope);
-  stage_tile<D>(dOs, p.dout + out_off, p.out.s, q0, p.S, nullptr, nullptr, false);
+  stage_tile<T, D>(Qs, p.q + in_off, p.in.s, q0, p.S, p.cos_t, p.sinm_t,
+                   p.rope);
+  stage_tile<T, D>(dOs, p.dout + out_off, p.out.s, q0, p.S, nullptr, nullptr,
+                   false);
   const float* lse_row = p.lse_in + (long long)bh * p.S;
   const float* delta_row = p.delta + (long long)bh * p.S;
   const float* dlse_row = p.dlse + (long long)bh * p.S;
@@ -65,8 +75,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < last; ++kt) {
     const int k0 = kt * kBlock;
     __syncthreads();
-    stage_tile<D>(Ks, p.k + in_off, p.in.s, k0, p.S, p.cos_t, p.sinm_t, p.rope);
-    stage_tile<D>(Vs, p.v + in_off, p.in.s, k0, p.S, nullptr, nullptr, false);
+    stage_tile<T, D>(Ks, p.k + in_off, p.in.s, k0, p.S, p.cos_t, p.sinm_t,
+                     p.rope);
+    stage_tile<T, D>(Vs, p.v + in_off, p.in.s, k0, p.S, nullptr, nullptr,
+                     false);
     __syncthreads();
 
     float s[8][4], dp[8][4];
@@ -77,14 +89,14 @@ __global__ void __launch_bounds__(kThreads)
     }
 #pragma unroll
     for (int kk = 0; kk < KT; ++kk) {
-      uint32_t qa[4], da[4];
-      load_a<LD>(qa, Qs, warp * 16, kk * 16, lane);
-      load_a<LD>(da, dOs, warp * 16, kk * 16, lane);
+      FragA<T> qa, da;
+      load_a<LD>(qa, Qs, warp * 16, kk * kDepth, lane);
+      load_a<LD>(da, dOs, warp * 16, kk * kDepth, lane);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        uint32_t bk[2], bv[2];
-        load_b_rows_n<LD>(bk, Ks, j * 8, kk * 16, lane);
-        load_b_rows_n<LD>(bv, Vs, j * 8, kk * 16, lane);
+        FragB<T> bk, bv;
+        load_b_rows_n<LD>(bk, Ks, j * 8, kk * kDepth, lane);
+        load_b_rows_n<LD>(bv, Vs, j * 8, kk * kDepth, lane);
         mma(s[j], qa, bk);
         mma(dp[j], da, bv);
       }
@@ -104,22 +116,8 @@ __global__ void __launch_bounds__(kThreads)
         s[j][e] = pr * (dp[j][e] + corr[e >> 1]);  // dS
       }
     }
-    // acc += bf16(dS) . K
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t da[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b0[2], b1[2];
-        load_b_rows_k_x2<LD>(b0, b1, Ks, kk * 16, j * 8, lane);
-        mma(acc[j], da, b0);
-        mma(acc[j + 1], da, b1);
-      }
-    }
+    // acc += T(dS) . K
+    mma_c_rows<D, LD, kBlock / kDepth>(acc, s, Ks, 0, lane);
   }
 
 #pragma unroll
@@ -129,48 +127,52 @@ __global__ void __launch_bounds__(kThreads)
     acc[j][2] *= p.sm_scale;
     acc[j][3] *= p.sm_scale;
   }
-  if (p.rope) rope_inverse<D>(acc, p.cos_t, p.sinm_t, row_g, row_g8, p.S, lane);
-  store_rows<D>(p.dq + out_off, p.out.s, acc, row_g, row_g8, p.S, lane);
+  if (p.rope)
+    rope_inverse<T, D>(acc, p.cos_t, p.sinm_t, row_g, row_g8, p.S, lane);
+  store_rows<T, D>(p.dq + out_off, p.out.s, acc, row_g, row_g8, p.S, lane);
 }
 
-template <int D>
+template <typename T, int D>
 struct LaunchDq {
-  static cudaError_t run(const Params& p, cudaStream_t stream) {
-    const int smem = 4 * kBlock * (D + kPad) * (int)sizeof(bf16);
+  static cudaError_t run(const Params<T>& p, cudaStream_t stream) {
+    const int smem = 4 * kBlock * (D + Elem<T>::kPad) * (int)sizeof(T);
     cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_bwd_dq_kernel<T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((p.S + kBlock - 1) / kBlock, p.B * p.H);
-    flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+    flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
     return cudaGetLastError();
   }
 };
 
 }  // namespace flash
 
-// q, k, v: [B, S, H, D] bf16 sharing strides (in_b, in_s, in_h); dout and
-// dq: [B, S, H, D] contiguous bf16; lse, delta, dlse: [B, H, S] fp32;
-// cos_t/sinm_t: [S, D] bf16 (read only when rope). Returns the CUDA error
-// of the launch (0 on success); allocates nothing, never syncs.
+// q, k, v: [B, S, H, D] sharing strides (in_b, in_s, in_h); dout and
+// dq: [B, S, H, D] contiguous; lse, delta, dlse: [B, H, S] fp32;
+// cos_t/sinm_t: [S, D] (read only when rope). q, k, v, dout, dq and the
+// tables are all bf16 (elem_bytes 2) or all fp32 (elem_bytes 4). Returns
+// the CUDA error of the launch (0 on success); allocates nothing, never
+// syncs.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, const void* dlse,
                             const void* cos_t, const void* sinm_t, void* dq,
                             int B, int S, int H, int D, long long in_b,
                             long long in_s, long long in_h, int causal,
-                            int rope, void* stream) {
-  using namespace flash;
-  Params p = make_params(B, S, H, D, in_b, in_s, in_h, causal, rope);
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.dout = static_cast<const bf16*>(dout);
-  p.lse_in = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.dlse = static_cast<const float*>(dlse);
-  p.cos_t = static_cast<const bf16*>(cos_t);
-  p.sinm_t = static_cast<const bf16*>(sinm_t);
-  p.dq = static_cast<bf16*>(dq);
-  return static_cast<int>(dispatch_head_dim<LaunchDq>(
-      D, p, static_cast<cudaStream_t>(stream)));
+                            int rope, int elem_bytes, void* stream) {
+  flash::Operands x = {};
+  x.q = q;
+  x.k = k;
+  x.v = v;
+  x.dout = dout;
+  x.lse_in = static_cast<const float*>(lse);
+  x.delta = static_cast<const float*>(delta);
+  x.dlse = static_cast<const float*>(dlse);
+  x.cos_t = cos_t;
+  x.sinm_t = sinm_t;
+  x.dq = dq;
+  return flash::dispatch<flash::LaunchDq>(
+      elem_bytes, x, flash::Shape{B, S, H, D, in_b, in_s, in_h, causal, rope},
+      stream);
 }

@@ -1,38 +1,49 @@
 // Flash-attention forward for Hopper (sm_90a): causal or full attention of
 // one 64-row Q tile against every K/V tile it needs, with RoPE rotated
-// in-tile, writing O and the per-row logsumexp.
+// in-tile, writing O and the per-row logsumexp. bf16 or fp32 inputs.
 //
 // Replaces tpu_dra/workloads/flashattention.py:_fwd_kernel (the Pallas
-// kernel reached through _fwd_call).
+// kernel reached through _fwd_call) and _fwd_stream_kernel (the same
+// function with K/V as a grid axis, reached through _fwd_call_stream):
+// this kernel streams K/V through shared memory at every S, so it is the
+// counterpart of both tiers.
 //
 // What bounds it on the H100: at the flagship shape (B8 S1023 H16 D128,
 // causal) it does 34 GFLOP against 135 MB of compulsory traffic, so the
 // roofline puts it on the memory side (~40 us against ~35 us of bf16
-// tensor-core time). This first version runs far from that bound:
+// tensor-core time); at B1 S16384 H16 D128 it does 1.1 TFLOP against
+// 0.27 GB, on the tensor cores' side (~1.1 ms). fp32 inputs run three TF32
+// products per product (flash_common.cuh), so their bound is the FLOPs
+// over 495/3 TFLOP/s. This first version runs far from those bounds:
 // mma.sync runs well below wgmma's rate, and the tiles are staged through
 // registers without cp.async/TMA overlap.
 //
 // What the design does about it: scores never leave registers (the online
 // softmax runs on the mma accumulators and P feeds the P.V product as an
-// A fragment directly); Q fragments stay in registers across the K loop;
-// causal tiles above the diagonal are skipped and only the diagonal (and
-// ragged last) tile is masked; the heaviest causal tiles are scheduled
-// first. Staging by TMA with a producer warp and wgmma consumers is the
-// next step for speed.
+// A fragment directly); bf16 Q fragments stay in registers across the K
+// loop; causal tiles above the diagonal are skipped and only the diagonal
+// (and ragged last) tile is masked; the heaviest causal tiles are
+// scheduled first. Staging by TMA with a producer warp and wgmma
+// consumers is the next step for speed.
 #include "flash_common.cuh"
 
 namespace flash {
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const Params p) {
-  constexpr int LD = D + kPad;
-  constexpr int NT = D / 8;   // n-tiles of the output across D
-  constexpr int KT = D / 16;  // k-steps of Q.K^T across D
+    flash_fwd_kernel(const Params<T> p) {
+  constexpr int LD = D + Elem<T>::kPad;
+  constexpr int kDepth = Elem<T>::kDepth;
+  constexpr int NT = D / 8;       // n-tiles of the output across D
+  constexpr int KT = D / kDepth;  // k-steps of Q.K^T across D
+  // bf16 Q fragments stay in registers across the K loop (32 registers
+  // at D=128); fp32's split fragments would take 128, so they are
+  // reloaded from the staged Q tile for every K tile.
+  constexpr bool kHoldQ = sizeof(T) == 2;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kBlock * LD;
-  bf16* Vs = Ks + kBlock * LD;
+  T* Qs = reinterpret_cast<T*>(smem);
+  T* Ks = Qs + kBlock * LD;
+  T* Vs = Ks + kBlock * LD;
 
   const int n_tiles = (p.S + kBlock - 1) / kBlock;
   const int qt = n_tiles - 1 - blockIdx.x;  // longest causal rows first
@@ -43,11 +54,15 @@ __global__ void __launch_bounds__(kThreads)
   const int row_g = q0 + warp * 16 + (lane >> 2), row_g8 = row_g + 8;
   const long long in_off = b * p.in.b + h * p.in.h;
 
-  stage_tile<D>(Qs, p.q + in_off, p.in.s, q0, p.S, p.cos_t, p.sinm_t, p.rope);
+  stage_tile<T, D>(Qs, p.q + in_off, p.in.s, q0, p.S, p.cos_t, p.sinm_t,
+                   p.rope);
   __syncthreads();
-  uint32_t qa[KT][4];
+  FragA<T> qa[kHoldQ ? KT : 1];
+  if constexpr (kHoldQ) {
 #pragma unroll
-  for (int kk = 0; kk < KT; ++kk) load_a<LD>(qa[kk], Qs, warp * 16, kk * 16, lane);
+    for (int kk = 0; kk < KT; ++kk)
+      load_a<LD>(qa[kk], Qs, warp * 16, kk * kDepth, lane);
+  }
 
   float acc[NT][4];
 #pragma unroll
@@ -59,8 +74,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int kt = 0; kt < last; ++kt) {
     const int k0 = kt * kBlock;
     __syncthreads();  // every warp is done with the previous K/V tile
-    stage_tile<D>(Ks, p.k + in_off, p.in.s, k0, p.S, p.cos_t, p.sinm_t, p.rope);
-    stage_tile<D>(Vs, p.v + in_off, p.in.s, k0, p.S, nullptr, nullptr, false);
+    stage_tile<T, D>(Ks, p.k + in_off, p.in.s, k0, p.S, p.cos_t, p.sinm_t,
+                     p.rope);
+    stage_tile<T, D>(Vs, p.v + in_off, p.in.s, k0, p.S, nullptr, nullptr,
+                     false);
     __syncthreads();
 
     float s[8][4];  // 16 rows x 64 keys
@@ -68,11 +85,14 @@ __global__ void __launch_bounds__(kThreads)
     for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KT; ++kk) {
+      FragA<T> a;
+      if constexpr (kHoldQ) a = qa[kk];
+      else load_a<LD>(a, Qs, warp * 16, kk * kDepth, lane);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        uint32_t bk[2];
-        load_b_rows_n<LD>(bk, Ks, j * 8, kk * 16, lane);
-        mma(s[j], qa[kk], bk);
+        FragB<T> bk;
+        load_b_rows_n<LD>(bk, Ks, j * 8, kk * kDepth, lane);
+        mma(s[j], a, bk);
       }
     }
     const bool masked = (p.causal && kt == qt) || k0 + kBlock > p.S;
@@ -119,22 +139,8 @@ __global__ void __launch_bounds__(kThreads)
       acc[j][2] *= corr[1];
       acc[j][3] *= corr[1];
     }
-    // acc += bf16(P) . V, 16 keys per k-step.
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t b0[2], b1[2];
-        load_b_rows_k_x2<LD>(b0, b1, Vs, kk * 16, j * 8, lane);
-        mma(acc[j], pa, b0);
-        mma(acc[j + 1], pa, b1);
-      }
-    }
+    // acc += T(P) . V
+    mma_c_rows<D, LD, kBlock / kDepth>(acc, s, Vs, 0, lane);
   }
 
   const float l_g = quad_sum(l_run[0]), l_g8 = quad_sum(l_run[1]);
@@ -147,7 +153,7 @@ __global__ void __launch_bounds__(kThreads)
     acc[j][2] = acc[j][2] / l_g8;
     acc[j][3] = acc[j][3] / l_g8;
   }
-  store_rows<D>(p.o + out_off, p.out.s, acc, row_g, row_g8, p.S, lane);
+  store_rows<T, D>(p.o + out_off, p.out.s, acc, row_g, row_g8, p.S, lane);
   if (t == 0) {
     float* lse = p.lse_out + (long long)bh * p.S;
     if (row_g < p.S) lse[row_g] = m_run[0] + logf(l_g);
@@ -155,39 +161,41 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D>
+template <typename T, int D>
 struct LaunchFwd {
-  static cudaError_t run(const Params& p, cudaStream_t stream) {
-    const int smem = 3 * kBlock * (D + kPad) * (int)sizeof(bf16);
+  static cudaError_t run(const Params<T>& p, cudaStream_t stream) {
+    const int smem = 3 * kBlock * (D + Elem<T>::kPad) * (int)sizeof(T);
     cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((p.S + kBlock - 1) / kBlock, p.B * p.H);
-    flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+    flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
     return cudaGetLastError();
   }
 };
 
 }  // namespace flash
 
-// q, k, v: [B, S, H, D] bf16 sharing strides (in_b, in_s, in_h), D stride
-// 1, 16-byte aligned rows. o: [B, S, H, D] contiguous bf16; lse: [B, H, S]
-// fp32. cos_t/sinm_t: [S, D] bf16 (read only when rope). Returns the CUDA
-// error of the launch (0 on success); allocates nothing, never syncs.
+// q, k, v: [B, S, H, D] sharing strides (in_b, in_s, in_h), D stride 1,
+// 16-byte aligned rows. o: [B, S, H, D] contiguous; lse: [B, H, S] fp32.
+// cos_t/sinm_t: [S, D] (read only when rope). q, k, v, o and the tables
+// are all bf16 (elem_bytes 2) or all fp32 (elem_bytes 4). Returns the
+// CUDA error of the launch (0 on success); allocates nothing, never syncs.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* cos_t, const void* sinm_t, void* o,
                          void* lse, int B, int S, int H, int D, long long in_b,
                          long long in_s, long long in_h, int causal, int rope,
-                         void* stream) {
-  using namespace flash;
-  Params p = make_params(B, S, H, D, in_b, in_s, in_h, causal, rope);
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.cos_t = static_cast<const bf16*>(cos_t);
-  p.sinm_t = static_cast<const bf16*>(sinm_t);
-  p.o = static_cast<bf16*>(o);
-  p.lse_out = static_cast<float*>(lse);
-  return static_cast<int>(dispatch_head_dim<LaunchFwd>(
-      D, p, static_cast<cudaStream_t>(stream)));
+                         int elem_bytes, void* stream) {
+  flash::Operands x = {};
+  x.q = q;
+  x.k = k;
+  x.v = v;
+  x.cos_t = cos_t;
+  x.sinm_t = sinm_t;
+  x.o = o;
+  x.lse_out = static_cast<float*>(lse);
+  return flash::dispatch<flash::LaunchFwd>(
+      elem_bytes, x, flash::Shape{B, S, H, D, in_b, in_s, in_h, causal, rope},
+      stream);
 }

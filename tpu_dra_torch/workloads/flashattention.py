@@ -10,6 +10,14 @@ logsumexp; the backward recomputes probabilities tile by tile from
 their contract: rope tables, the joint autograd over (out, lse), and the
 ``attend`` dispatch the model calls.
 
+The reference has two tiers of kernels, resident and streaming, because
+a TPU core's VMEM holds the stationary K/V and rope tables only up to a
+budget (tpu_dra/workloads/flashattention.py:436-468). Each Hopper kernel
+here keeps one 64-row stationary tile and streams the other side
+through shared memory at every S, so its shared memory does not grow
+with S. So one kernel per direction serves both tiers: the port has no
+``_needs_streaming``, no ``STREAM_BLOCKS`` and no ``streaming=`` flag.
+
 Causal inputs of any length run on the kernels: they mask the ragged last
 tile themselves (keys past S sit above every real row's diagonal, rows
 past S are never stored), so nothing is padded here. Non-causal S must

@@ -6,9 +6,9 @@ and numerics, in PyTorch's idiom.
 - Parameters are fp32 masters in JAX's [in, out] layout (``x @ W``), so
   carrying weights across from the reference is a copy, never a
   transpose (``params_from_jax``). The forward casts them to
-  ``cfg.dtype`` (bf16) on the matmul path.
+  ``cfg.dtype`` (bf16 or fp32) on the matmul path.
 - Attention is ``flashattention.attend(..., causal=True, rope=True)``:
-  the hand-written CUDA kernels on a CUDA tensor.
+  the hand-written CUDA kernels on a CUDA tensor, in bf16 or fp32.
 - The train step is plain SGD on one device, updated in place.
 
 Not in this slice: rematerialization policies other than "none", and
