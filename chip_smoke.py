@@ -8,12 +8,15 @@ Phases, each printing one JSON line ({"phase": ...}):
 1. probe        — the card (nvidia-smi name and power limit, torch name
                   and compute capability, expected (9, 0)) and nvcc's
                   version;
-2. build        — compiles the three flash-attention kernels from
+2. build        — compiles the four flash-attention kernels from
                   tpu_dra_torch/workloads/csrc with nvcc for sm_90a;
 3. kernels      — each kernel against its plain PyTorch version on the
                   card, on the same bf16 inputs (q, k, v views of one
                   fused projection, as the model passes them), at small
-                  shapes and at the flagship attention shape; tolerance
+                  shapes (S=40 and 384, causal and not, rope and not, at
+                  D=64 and 128: every branch of the Hopper forward
+                  flash_fwd_sm90; D=32 for the bf16 mma.sync forward)
+                  and at the flagship attention shape; tolerance
                   ||diff|| / ||ref|| <= TOL_REL for out/dq/dk/dv and
                   |diff| <= TOL_LSE for lse; then the same readings for a
                   planted fault (one dropped 64-wide tile), which must
@@ -35,10 +38,13 @@ Phases, each printing one JSON line ({"phase": ...}):
                   fp32 against the 3xTF32 product path's peak;
 7. main         — the flagship TransformerLM train step through
                   tpu_dra_torch.bench.bench_mfu, with the kernels' launch
-                  counts zeroed just before and read just after;
+                  counts zeroed just before and read just after: every
+                  forward through flash_fwd_sm90, n_layers x step calls
+                  of each kernel;
 8. long_ctx     — tpu_dra_torch.bench.bench_long_context at S=8192 and
                   at S=16384 (long_ctx_xl), each with the launch counts
-                  zeroed just before and read just after;
+                  zeroed just before and read just after, checked as in
+                  main;
 9. parity       — a reduced TransformerLM on the card, two seeds, the
                   kernel path against the same path on the kernels' plain
                   versions and against plain attention: logits and every
@@ -96,25 +102,33 @@ FP32_LONG_S = 8192   # where the reference's fp32 path streams
 FP32_MODEL_ATTN = dict(b=1, h=4, d=128)   # parity_fp32's attention
 H100_SXM = "NVIDIA H100 80GB HBM3"
 SOURCES = {
+    "flash_fwd_sm90": "tpu_dra_torch/workloads/csrc/flash_fwd_sm90.cu",
     "flash_fwd": "tpu_dra_torch/workloads/csrc/flash_fwd.cu",
     "flash_bwd_dq": "tpu_dra_torch/workloads/csrc/flash_bwd_dq.cu",
     "flash_bwd_dkv": "tpu_dra_torch/workloads/csrc/flash_bwd_dkv.cu",
 }
-# Every TPU kernel in the repo: (entry name, port kernel, replaces).
-# Rows 4-6, the streaming tier, are the same three kernels held at the
-# tier's shapes (tpu_dra_torch/workloads/flashattention.py says why).
+# Every TPU kernel in the repo: (entry name, wrapper, port kernel on the
+# main path, replaces). Rows 4-6, the streaming tier, are the same
+# kernels held at the tier's shapes (tpu_dra_torch/workloads/
+# flashattention.py says why). The forward wrapper routes bf16 at D 64
+# and 128 (every model path) to flash_fwd_sm90, fp32 to flash_fwd.
 TPU_KERNELS = [
-    ("flash_fwd", "flash_fwd", "tpu_dra/workloads/flashattention.py:191"),
-    ("flash_bwd_dq", "flash_bwd_dq",
+    ("flash_fwd", "flash_fwd", "flash_fwd_sm90",
+     "tpu_dra/workloads/flashattention.py:191"),
+    ("flash_bwd_dq", "flash_bwd_dq", "flash_bwd_dq",
      "tpu_dra/workloads/flashattention.py:269"),
-    ("flash_bwd_dkv", "flash_bwd_dkv",
+    ("flash_bwd_dkv", "flash_bwd_dkv", "flash_bwd_dkv",
      "tpu_dra/workloads/flashattention.py:339"),
-    ("flash_fwd_xl", "flash_fwd", "tpu_dra/workloads/flashattention.py:491"),
-    ("flash_bwd_dq_xl", "flash_bwd_dq",
+    ("flash_fwd_xl", "flash_fwd", "flash_fwd_sm90",
+     "tpu_dra/workloads/flashattention.py:491"),
+    ("flash_bwd_dq_xl", "flash_bwd_dq", "flash_bwd_dq",
      "tpu_dra/workloads/flashattention.py:550"),
-    ("flash_bwd_dkv_xl", "flash_bwd_dkv",
+    ("flash_bwd_dkv_xl", "flash_bwd_dkv", "flash_bwd_dkv",
      "tpu_dra/workloads/flashattention.py:601"),
 ]
+# What a bf16 model path at D=128 launches per forward/backward: the
+# Hopper forward, never the mma.sync one.
+MODEL_PATH_KERNELS = ("flash_fwd_sm90", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def emit(phase: str, **fields) -> None:
@@ -282,7 +296,8 @@ def check_case(s, causal, rope, b, h, d, seed, dtype=None, chunk=None,
         del sub, refs, o_ref, lse_ref
     res = {
         "s": s, "causal": causal, "rope": rope, "b": b, "h": h, "d": d,
-        "dtype": str(dtype).removeprefix("torch."), "finite": finite,
+        "dtype": str(dtype).removeprefix("torch."),
+        "fwd_kernel": fk.FWD_KERNELS[fk.fwd_route(dtype, d)], "finite": finite,
         "plain_heads_per_pass": chunk, "lse_abs": diffs["lse"].abs,
         **{f"{n}_rel": diffs[n].rel for n in names if n != "lse"},
         **{f"{n}_abs": diffs[n].abs for n in names if n != "lse"},
@@ -306,10 +321,19 @@ def check_case(s, causal, rope, b, h, d, seed, dtype=None, chunk=None,
 
 
 def phase_kernels() -> dict:
-    cases = [(384, c, r) for c in (True, False) for r in (True, False)]
-    cases += [(1023, True, True), (1023, True, False), (40, False, True)]
+    """Small cases at D=64 and 128 (S=40 and 384, causal and not, rope
+    and not: every branch of flash_fwd_sm90) and D=32 (bf16 through the
+    mma.sync forward), then the flagship attention shape with a planted
+    fault. Returns the flagship shape's readings."""
+    cases = [(s, c, r) for s in (384, 40) for c in (True, False)
+             for r in (True, False)]
+    cases += [(1023, True, True), (1023, True, False)]
     for i, (s, causal, rope) in enumerate(cases):
         check_case(s, causal, rope, seed=i, **SMALL)
+        check_case(s, causal, rope, seed=200 + i,
+                   **{**SMALL, "d": FLAGSHIP_ATTN["d"]})
+    for i, (causal, rope) in enumerate(((True, True), (False, False))):
+        check_case(384, causal, rope, seed=220 + i, **{**SMALL, "d": 32})
     check_case(1024, True, True, seed=100, **FLAGSHIP_ATTN)
     return check_case(MAIN_S, True, True, seed=101, fault_at=512,
                       **FLAGSHIP_ATTN)
@@ -536,19 +560,35 @@ def phase_times_fp32(peak_flops: float, peak_bytes: float) -> dict:
                         inner=3, **LONG_CHECK)
 
 
+def check_path_launches(where: str, want: int) -> dict:
+    """The launch counts since the last reset on a bf16 model path: each
+    wrapper `want` times (n_layers x step calls), every forward through
+    flash_fwd_sm90 and none through the mma.sync forward. Returns the
+    per-kernel counts."""
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+
+    per_wrapper, per_kernel = fk.launches(), fk.kernel_launches()
+    for name, n in per_wrapper.items():
+        check(n == want, f"{name} launched {n} times in {where}, want "
+                         f"n_layers x steps = {want}")
+    for name, n in per_kernel.items():
+        expect = want if name in MODEL_PATH_KERNELS else 0
+        check(n == expect, f"kernel {name} launched {n} times in {where}, "
+                           f"want {expect}")
+    return per_kernel
+
+
 def phase_main_path() -> tuple[dict, dict]:
     from tpu_dra_torch import bench
     from tpu_dra_torch.workloads import _flash_kernels as fk
 
     fk.reset_launches()
     res = bench.bench_mfu(steps=5)
-    counts = fk.launches()
-    emit("main", launches=counts, **res)
+    emit("main", launches=fk.launches(),
+         kernel_launches=fk.kernel_launches(), **res)
     check(math.isfinite(res["loss"]), f"non-finite loss {res['loss']}")
-    want = res["n_layers"] * res["step_calls"]
-    for name, n in counts.items():
-        check(n == want, f"{name} launched {n} times in the main path, "
-                         f"want n_layers x steps = {want}")
+    counts = check_path_launches("the main path",
+                                 res["n_layers"] * res["step_calls"])
     return res, counts
 
 
@@ -564,14 +604,12 @@ def phase_long_context() -> dict:
                                (3, XL_S, "long_ctx_xl")):
         fk.reset_launches()
         res = bench.bench_long_context(steps=steps, seq=seq, prefix=prefix)
-        counts = fk.launches()
         _free()
-        emit("long_ctx", launches=counts, **res)
+        emit("long_ctx", launches=fk.launches(),
+             kernel_launches=fk.kernel_launches(), **res)
         check(math.isfinite(res["loss"]), f"non-finite {prefix} loss")
-        want = res["n_layers"] * res["step_calls"]
-        for name, n in counts.items():
-            check(n == want, f"{name} launched {n} times in {prefix}, "
-                             f"want n_layers x steps = {want}")
+        counts = check_path_launches(prefix,
+                                     res["n_layers"] * res["step_calls"])
     return counts
 
 
@@ -669,11 +707,12 @@ def phase_model_parity_fp32(seed=3) -> dict:
         generator=torch.Generator().manual_seed(seed + 1000)).cuda()
     fk.reset_launches()
     lk, loss_k, gk, names = _model_run(base, params, tokens, "auto")
-    counts = fk.launches()
+    counts = fk.kernel_launches()
     check(math.isfinite(loss_k) and bool(torch.isfinite(lk).all()),
           "non-finite fp32 kernel-path logits or loss")
-    # Two forwards (logits, loss) and one backward per layer.
-    want = {"flash_fwd": 2 * base["n_layers"],
+    # Two forwards (logits, loss), through the mma.sync forward, and one
+    # backward per layer.
+    want = {"flash_fwd_sm90": 0, "flash_fwd": 2 * base["n_layers"],
             "flash_bwd_dq": base["n_layers"],
             "flash_bwd_dkv": base["n_layers"]}
     check(counts == want, f"fp32 model launches {counts}, want {want}")
@@ -731,20 +770,20 @@ def main() -> int:
         return {"flash_fwd": res["out_abs"], "flash_bwd_dq": res["dq_abs"],
                 "flash_bwd_dkv": max(res["dk_abs"], res["dv_abs"])}
 
+    wrappers = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     rows = {  # entry name -> (times, launches, max_abs_err)
-        **{kname: (times, counts, max_err(flagship))
-           for kname in SOURCES},
-        **{kname + "_xl": (times_xl, counts_xl, max_err(long_bf16))
-           for kname in SOURCES},
+        **{name: (times, counts, max_err(flagship)) for name in wrappers},
+        **{name + "_xl": (times_xl, counts_xl, max_err(long_bf16))
+           for name in wrappers},
     }
     kernels = []
-    for entry, kname, replaces in TPU_KERNELS:
+    for entry, wrapper, kname, replaces in TPU_KERNELS:
         t_all, cnt, err = rows[entry]
-        t = t_all[kname]
+        t = t_all[wrapper]
         kernels.append({
             "name": entry, "route": "cuda", "source": SOURCES[kname],
             "replaces": replaces, "launches": cnt[kname],
-            "max_abs_err": err[kname], "ms": t["ms"],
+            "max_abs_err": err[wrapper], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     emit("done", seconds=time.perf_counter() - t_start)

@@ -12,8 +12,10 @@ this file) with that tree's own build code, and prints one JSON line:
   built library;
 - ``ms``: each kernel's CUDA-event time (median of 5 windows of 10
   calls) at the flagship shape, B8 S1023 H16 D128 bf16, causal, rope,
-  q/k/v views of one fused projection; and at B1 S8192 H2 D128 fp32
-  where the tree's kernels take fp32.
+  q/k/v views of one fused projection (the forward also without rope,
+  ``flash_fwd_no_rope``, to show what the rotation costs); at the
+  long_ctx_xl shape, B1 S16384 H16 D128 bf16 (windows of 3 calls); and
+  at B1 S8192 H2 D128 fp32 where the tree's kernels take fp32.
 
 To compare two trees on one card, unpack the other into a directory
 that .gitignore lists and run this script on each in turn (A, B, B, A):
@@ -70,7 +72,7 @@ def time_ms(fn, reps=5, inner=10) -> float:
     return statistics.median(times)
 
 
-def kernel_times(fk, rope_operands, b, s, h, d, dtype) -> dict:
+def kernel_times(fk, rope_operands, b, s, h, d, dtype, inner=10) -> dict:
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -82,11 +84,20 @@ def kernel_times(fk, rope_operands, b, s, h, d, dtype) -> dict:
     o, lse = fk.fwd(q, k, v, tables, causal=True)
     delta = (dout.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, dout, lse, delta, dlse, tables)
-    return {
-        "flash_fwd": time_ms(lambda: fk.fwd(q, k, v, tables, causal=True)),
-        "flash_bwd_dq": time_ms(lambda: fk.bwd_dq(*args, causal=True)),
-        "flash_bwd_dkv": time_ms(lambda: fk.bwd_dkv(*args, causal=True)),
+    ms = {
+        "flash_fwd": time_ms(lambda: fk.fwd(q, k, v, tables, causal=True),
+                             inner=inner),
+        # The same forward without the fused rotation: what RoPE costs.
+        "flash_fwd_no_rope": time_ms(
+            lambda: fk.fwd(q, k, v, None, causal=True), inner=inner),
+        "flash_bwd_dq": time_ms(lambda: fk.bwd_dq(*args, causal=True),
+                                inner=inner),
+        "flash_bwd_dkv": time_ms(lambda: fk.bwd_dkv(*args, causal=True),
+                                 inner=inner),
     }
+    del q, k, v, dout, o, lse, delta, args, qkv
+    torch.cuda.empty_cache()
+    return ms
 
 
 def main() -> int:
@@ -116,7 +127,9 @@ def main() -> int:
         "resources": {name: resources(lib, cuobjdump)
                       for name, lib in sorted(libs.items())},
         "ms": {"bf16_b8_s1023_h16_d128": kernel_times(
-            fk, _rope_operands, 8, 1023, 16, 128, torch.bfloat16)},
+            fk, _rope_operands, 8, 1023, 16, 128, torch.bfloat16),
+               "bf16_b1_s16384_h16_d128": kernel_times(
+            fk, _rope_operands, 1, 16384, 16, 128, torch.bfloat16, inner=3)},
     }
     if torch.float32 in getattr(fk, "KERNEL_DTYPES", {}):
         report["ms"]["fp32_b1_s8192_h2_d128"] = kernel_times(

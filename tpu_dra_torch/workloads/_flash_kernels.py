@@ -1,13 +1,18 @@
 """Build, load and launch the hand-written CUDA flash-attention kernels.
 
-Three kernels, one per source under ``csrc/`` (see each source's header
+Four kernels, one per source under ``csrc/`` (see each source's header
 for the TPU kernels it replaces, what bounds it on the H100 and what its
 design does about that). Each streams its non-stationary side through
 shared memory at every sequence length, so each is the counterpart of
 one resident TPU kernel and of its streaming (XL) twin:
 
-- ``flash_fwd``     (csrc/flash_fwd.cu)     replaces ``_fwd_kernel`` and
-  ``_fwd_stream_kernel``;
+- ``flash_fwd_sm90`` (csrc/flash_fwd_sm90.cu) and ``flash_fwd``
+  (csrc/flash_fwd.cu) replace ``_fwd_kernel`` and ``_fwd_stream_kernel``.
+  ``fwd_route`` picks one per (dtype, D): bf16 at D in
+  ``FWD_SM90_HEAD_DIMS`` (64, 128: every forward of the model paths) runs
+  the Hopper kernel (128-row Q tiles, TMA ring, warp-specialised wgmma);
+  fp32, and bf16 at the other head dims, run ``flash_fwd`` (64-row Q
+  tiles, mma.sync);
 - ``flash_bwd_dq``  (csrc/flash_bwd_dq.cu)  replaces ``_bwd_dq_kernel``
   and ``_bwd_dq_stream_kernel``;
 - ``flash_bwd_dkv`` (csrc/flash_bwd_dkv.cu) replaces ``_bwd_dkv_kernel``
@@ -28,8 +33,9 @@ Each wrapper (``fwd``, ``bwd_dq``, ``bwd_dkv``) takes [B, S, H, D]
 tensors. For CPU tensors it runs its plain PyTorch version beside it in
 this module (``fwd_plain``, ``bwd_dq_plain``, ``bwd_dkv_plain``); for CUDA
 tensors it launches its kernel on the current stream, adds one to its
-``launches`` count, and raises if the launch fails. There is no other
-path: no fallback from a failed build or launch.
+``launches`` count (``fwd`` also to ``fwd.route_launches[route]``), and
+raises if the launch fails. There is no other path: no fallback from a
+failed build or launch, and none from one forward kernel to the other.
 """
 
 from __future__ import annotations
@@ -55,6 +61,11 @@ KERNEL_DTYPES = {torch.bfloat16: 2, torch.float32: 4}
 # dispatch_head_dim): the reference's streaming-tier test shape and the
 # flagship's. bf16 takes every multiple of 16 up to MAX_HEAD_DIM.
 FP32_HEAD_DIMS = (16, 128)
+# The head dims the Hopper forward (csrc/flash_fwd_sm90.cu) is built for,
+# in bf16.
+FWD_SM90_HEAD_DIMS = (64, 128)
+# The forward kernel of each route.
+FWD_KERNELS = {"sm90": "flash_fwd_sm90", "mma": "flash_fwd"}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_dra_torch"
@@ -68,6 +79,7 @@ _I64 = ctypes.c_longlong
 _SHAPE = [_INT] * 4 + [_I64] * 3 + [_INT] * 3
 ARGTYPES = {
     "flash_fwd": [_PTR] * 7 + _SHAPE + [_PTR],
+    "flash_fwd_sm90": [_PTR] * 7 + _SHAPE + [_PTR],
     "flash_bwd_dq": [_PTR] * 10 + _SHAPE + [_PTR],
     "flash_bwd_dkv": [_PTR] * 11 + _SHAPE + [_PTR],
 }
@@ -281,6 +293,17 @@ def _device_of(x: torch.Tensor) -> str:
     return x.device.type
 
 
+def fwd_route(dtype: torch.dtype, d: int) -> str:
+    """The forward kernel that serves (dtype, D): "sm90" (flash_fwd_sm90:
+    bf16 at D in FWD_SM90_HEAD_DIMS) or "mma" (flash_fwd: fp32, and bf16
+    at the other head dims). wgmma takes fp32 only as TF32 with both
+    operands K-major, and P.V needs V MN-major, so fp32 keeps the 3xTF32
+    mma.sync kernel."""
+    if dtype == torch.bfloat16 and d in FWD_SM90_HEAD_DIMS:
+        return "sm90"
+    return "mma"
+
+
 def fwd(q, k, v, tables, *, causal: bool):
     """(o [B, S, H, D], lse [B, H, S] fp32) of attention over q, k, v
     ([B, S, H, D]); tables = the [S, D] (cos, sinm) rope tables, or None
@@ -289,13 +312,15 @@ def fwd(q, k, v, tables, *, causal: bool):
         return fwd_plain(q, k, v, tables, causal=causal)
     q, k, v, tables = _kernel_inputs(q, k, v, tables)
     b, s, h, d = q.shape
+    route = fwd_route(q.dtype, d)
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        _call("flash_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _call(FWD_KERNELS[route], q.data_ptr(), k.data_ptr(), v.data_ptr(),
               *_table_ptrs(tables), o.data_ptr(), lse.data_ptr(),
               *_dims(q, causal, tables), _stream(q))
     fwd.launches += 1
+    fwd.route_launches[route] += 1
     return o, lse
 
 
@@ -345,6 +370,7 @@ def bwd_dkv(q, k, v, dout, lse, delta, dlse, tables, *, causal: bool):
 
 
 fwd.launches = 0
+fwd.route_launches = dict.fromkeys(FWD_KERNELS, 0)
 bwd_dq.launches = 0
 bwd_dkv.launches = 0
 WRAPPERS = {"flash_fwd": fwd, "flash_bwd_dq": bwd_dq,
@@ -354,7 +380,19 @@ WRAPPERS = {"flash_fwd": fwd, "flash_bwd_dq": bwd_dq,
 def reset_launches() -> None:
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
+    WRAPPERS["flash_fwd"].route_launches = dict.fromkeys(FWD_KERNELS, 0)
 
 
 def launches() -> dict[str, int]:
     return {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+
+
+def kernel_launches() -> dict[str, int]:
+    """Launches of each CUDA kernel since the last reset_launches(): the
+    forward's by route (FWD_KERNELS), the backward kernels' as
+    launches() counts them."""
+    routes = WRAPPERS["flash_fwd"].route_launches
+    counts = {FWD_KERNELS[route]: n for route, n in routes.items()}
+    counts.update((name, WRAPPERS[name].launches)
+                  for name in ("flash_bwd_dq", "flash_bwd_dkv"))
+    return counts

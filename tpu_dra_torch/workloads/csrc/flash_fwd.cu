@@ -1,6 +1,8 @@
 // Flash-attention forward for Hopper (sm_90a): causal or full attention of
 // one 64-row Q tile against every K/V tile it needs, with RoPE rotated
-// in-tile, writing O and the per-row logsumexp. bf16 or fp32 inputs.
+// in-tile, writing O and the per-row logsumexp. bf16 or fp32 inputs. It
+// serves fp32, and bf16 at the head dims flash_fwd_sm90.cu is not built
+// for (_flash_kernels.fwd_route).
 //
 // Replaces tpu_dra/workloads/flashattention.py:_fwd_kernel (the Pallas
 // kernel reached through _fwd_call) and _fwd_stream_kernel (the same
@@ -23,8 +25,9 @@
 // A fragment directly); bf16 Q fragments stay in registers across the K
 // loop; causal tiles above the diagonal are skipped and only the diagonal
 // (and ragged last) tile is masked; the heaviest causal tiles are
-// scheduled first. Staging by TMA with a producer warp and wgmma
-// consumers is the next step for speed.
+// scheduled first. bf16 at D 64 and 128, every forward of the model
+// paths, runs flash_fwd_sm90.cu instead: TMA staging, a producer
+// warpgroup and wgmma consumers.
 #include "flash_common.cuh"
 
 namespace flash {

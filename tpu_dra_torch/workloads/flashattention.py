@@ -13,10 +13,14 @@ their contract: rope tables, the joint autograd over (out, lse), and the
 The reference has two tiers of kernels, resident and streaming, because
 a TPU core's VMEM holds the stationary K/V and rope tables only up to a
 budget (tpu_dra/workloads/flashattention.py:436-468). Each Hopper kernel
-here keeps one 64-row stationary tile and streams the other side
-through shared memory at every S, so its shared memory does not grow
-with S. So one kernel per direction serves both tiers: the port has no
-``_needs_streaming``, no ``STREAM_BLOCKS`` and no ``streaming=`` flag.
+here keeps one stationary tile and streams the other side through
+shared memory at every S, so its shared memory does not grow with S:
+the forward a 128-row Q tile for bf16 at D 64 and 128 (flash_fwd_sm90,
+every model path) and a 64-row one otherwise (flash_fwd: fp32, other
+bf16 head dims; _flash_kernels.fwd_route), the backward kernels a
+64-row tile. So one kernel per direction and (dtype, D) serves both
+tiers: the port has no ``_needs_streaming``, no ``STREAM_BLOCKS`` and no
+``streaming=`` flag.
 
 Causal inputs of any length run on the kernels: they mask the ragged last
 tile themselves (keys past S sit above every real row's diagonal, rows
