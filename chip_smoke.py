@@ -8,19 +8,24 @@ Phases, each printing one JSON line ({"phase": ...}):
 1. probe        — the card (nvidia-smi name and power limit, torch name
                   and compute capability, expected (9, 0)) and nvcc's
                   version;
-2. build        — compiles the four flash-attention kernels from
+2. build        — compiles the five flash-attention kernels from
                   tpu_dra_torch/workloads/csrc with nvcc for sm_90a;
 3. kernels      — each kernel against its plain PyTorch version on the
                   card, on the same bf16 inputs (q, k, v views of one
                   fused projection, as the model passes them), at small
-                  shapes (S=40 and 384, causal and not, rope and not, at
-                  D=64 and 128: every branch of the Hopper forward
-                  flash_fwd_sm90; D=32 for the bf16 mma.sync forward)
-                  and at the flagship attention shape; tolerance
+                  shapes (S=40, 320 and 384, causal and not, rope and
+                  not, and S=1023 causal, at D=64 and 128: every branch
+                  of the Hopper kernels flash_fwd_sm90 and
+                  flash_bwd_sm90; D=32 for the bf16 mma.sync kernels)
+                  and at the flagship attention shape (dlse zero, as on
+                  the model's path, and nonzero); tolerance
                   ||diff|| / ||ref|| <= TOL_REL for out/dq/dk/dv and
                   |diff| <= TOL_LSE for lse; then the same readings for a
-                  planted fault (one dropped 64-wide tile), which must
-                  exceed TOL_REL;
+                  planted fault (one dropped 64-wide tile: keys in the
+                  forward, a Q tile in the backward), which must exceed
+                  TOL_REL; and the fused backward's reproducibility (dk,
+                  dv bitwise over two runs; dq, whose fp32 atomics add in
+                  no fixed order, within TOL_REPRO);
 4. kernels_fp32 — the same on fp32 inputs at the reference's streaming
                   tier's shapes (its TestStreamingKernels' B2 S384 H2
                   D16, causal x rope, and B1 S8192 H2 D128, where its
@@ -29,18 +34,21 @@ Phases, each printing one JSON line ({"phase": ...}):
 5. kernels_long — bf16 at the long-context paths' shapes, B1 H16 D128
                   at S=8191 and 16383, and at S=16384, each kernel run
                   once at the full shape and its plain version two heads
-                  at a time; a planted fault at 8192 of S=16383;
-6. times        — each kernel at the main path's shape (B8 S1023 H16
-                  D128, causal, rope): CUDA-event median, its roofline
-                  bound, its plain version's time and PyTorch's SDPA as
-                  the yardstick; times_xl the same at B1 S16384 H16 D128
-                  (plain versions at H2), times_fp32 at B1 S8192 H2 D128
-                  fp32 against the 3xTF32 product path's peak;
+                  at a time; a planted fault at 8192 of S=16383 and the
+                  reproducibility reading at S=16384;
+6. times        — the forward and the backward (one call of the
+                  backward wrapper: the fused kernel, or dq then dkv) at
+                  the main path's shape (B8 S1023 H16 D128, causal,
+                  rope): CUDA-event median, its roofline bound, its plain
+                  version's time and PyTorch's SDPA forward and backward
+                  as the yardstick; times_xl the same at B1 S16384 H16
+                  D128 (plain versions at H2), times_fp32 at B1 S8192 H2
+                  D128 fp32 against the 3xTF32 product path's peak;
 7. main         — the flagship TransformerLM train step through
                   tpu_dra_torch.bench.bench_mfu, with the kernels' launch
                   counts zeroed just before and read just after: every
-                  forward through flash_fwd_sm90, n_layers x step calls
-                  of each kernel;
+                  forward through flash_fwd_sm90 and every backward
+                  through flash_bwd_sm90, n_layers x step calls of each;
 8. long_ctx     — tpu_dra_torch.bench.bench_long_context at S=8192 and
                   at S=16384 (long_ctx_xl), each with the launch counts
                   zeroed just before and read just after, checked as in
@@ -53,7 +61,9 @@ Phases, each printing one JSON line ({"phase": ...}):
 
 Then it prints the kernels' summary as one JSON line (one entry per TPU
 kernel: rows 1-3 at the main path, rows 4-6, the streaming tier, at
-S=16384), the nvidia-smi name/power-limit line, and last {"ok": true,
+S=16384; rows 2/3 and 5/6, the dq and dkv kernels, both name the fused
+backward and its time), the nvidia-smi name/power-limit line, and last
+{"ok": true,
 "device": {...}}. Any failed check raises, so the script exits non-zero
 without that last line; it refuses to run without a CUDA device.
 """
@@ -76,6 +86,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # 0.02 or more at S=16384.
 TOL_REL = 5e-3   # out, dq, dk, dv: bf16 output rounding + summation order
 TOL_LSE = 1e-4   # lse, absolute: fp32 sums in a different order
+# dq of the fused backward over two runs, ||diff|| / ||dq||: its fp32
+# atomics add the K tiles' partials in no fixed order, so a few values
+# round to the neighbouring bf16 after the epilogue.
+TOL_REPRO = 1e-3
 TOL_LOGITS = 1e-2   # model logits, relative norm (the reference's bound)
 TOL_GRAD = 5e-2     # model gradient leaves, max-rel (the reference's bound)
 # fp32 kernels against their fp32 plain versions: the reference's fp32
@@ -106,29 +120,32 @@ SOURCES = {
     "flash_fwd": "tpu_dra_torch/workloads/csrc/flash_fwd.cu",
     "flash_bwd_dq": "tpu_dra_torch/workloads/csrc/flash_bwd_dq.cu",
     "flash_bwd_dkv": "tpu_dra_torch/workloads/csrc/flash_bwd_dkv.cu",
+    "flash_bwd_sm90": "tpu_dra_torch/workloads/csrc/flash_bwd_sm90.cu",
 }
-# Every TPU kernel in the repo: (entry name, wrapper, port kernel on the
-# main path, replaces). Rows 4-6, the streaming tier, are the same
+# Every TPU kernel in the repo: (entry name, timed wrapper, port kernel
+# on the main path, replaces). Rows 4-6, the streaming tier, are the same
 # kernels held at the tier's shapes (tpu_dra_torch/workloads/
 # flashattention.py says why). The forward wrapper routes bf16 at D 64
-# and 128 (every model path) to flash_fwd_sm90, fp32 to flash_fwd.
+# and 128 (every model path) to flash_fwd_sm90, fp32 to flash_fwd; the
+# backward wrapper routes the same inputs to flash_bwd_sm90, one fused
+# pass that stands for the dq and the dkv kernel, and fp32 to the pair.
 TPU_KERNELS = [
     ("flash_fwd", "flash_fwd", "flash_fwd_sm90",
      "tpu_dra/workloads/flashattention.py:191"),
-    ("flash_bwd_dq", "flash_bwd_dq", "flash_bwd_dq",
+    ("flash_bwd_dq", "flash_bwd", "flash_bwd_sm90",
      "tpu_dra/workloads/flashattention.py:269"),
-    ("flash_bwd_dkv", "flash_bwd_dkv", "flash_bwd_dkv",
+    ("flash_bwd_dkv", "flash_bwd", "flash_bwd_sm90",
      "tpu_dra/workloads/flashattention.py:339"),
     ("flash_fwd_xl", "flash_fwd", "flash_fwd_sm90",
      "tpu_dra/workloads/flashattention.py:491"),
-    ("flash_bwd_dq_xl", "flash_bwd_dq", "flash_bwd_dq",
+    ("flash_bwd_dq_xl", "flash_bwd", "flash_bwd_sm90",
      "tpu_dra/workloads/flashattention.py:550"),
-    ("flash_bwd_dkv_xl", "flash_bwd_dkv", "flash_bwd_dkv",
+    ("flash_bwd_dkv_xl", "flash_bwd", "flash_bwd_sm90",
      "tpu_dra/workloads/flashattention.py:601"),
 ]
 # What a bf16 model path at D=128 launches per forward/backward: the
-# Hopper forward, never the mma.sync one.
-MODEL_PATH_KERNELS = ("flash_fwd_sm90", "flash_bwd_dq", "flash_bwd_dkv")
+# Hopper kernels, never the mma.sync ones.
+MODEL_PATH_KERNELS = ("flash_fwd_sm90", "flash_bwd_sm90")
 
 
 def emit(phase: str, **fields) -> None:
@@ -169,7 +186,7 @@ def phase_build() -> None:
     emit("build", seconds=seconds, libs=[str(p) for p in libs.values()])
 
 
-def _inputs(b, s, h, d, seed, dtype=None):
+def _inputs(b, s, h, d, seed, dtype=None, zero_dlse=False):
     import torch
 
     dtype = dtype or torch.bfloat16
@@ -183,7 +200,7 @@ def _inputs(b, s, h, d, seed, dtype=None):
     qkv = randn(b, s, 3 * h * d)
     q, k, v = (t.view(b, s, h, d) for t in qkv.split(h * d, dim=-1))
     dout = randn(b, s, h, d)
-    dlse = randn(b, h, s, to=torch.float32) * 0.1
+    dlse = randn(b, h, s, to=torch.float32) * (0.0 if zero_dlse else 0.1)
     return q, k, v, dout, dlse
 
 
@@ -249,14 +266,15 @@ def _heads(args, hs):
 
 
 def check_case(s, causal, rope, b, h, d, seed, dtype=None, chunk=None,
-               fault_at=None) -> dict:
-    """Every kernel once on one set of [b, s, h, d] inputs (bf16 unless
-    `dtype` says otherwise; q, k, v views of one fused projection, as the
-    model passes them), against its plain version on the same tensors,
-    `chunk` heads at a time (all at once by default: the dense plain
-    backward at long S holds four [B, chunk, S, S] fp32 tensors), at the
-    tolerances of that type. With `fault_at`, also the planted-fault
-    readings at these inputs (planted_faults)."""
+               fault_at=None, zero_dlse=False, repro=False) -> dict:
+    """The forward and the backward wrapper once on one set of [b, s, h,
+    d] inputs (bf16 unless `dtype` says otherwise; q, k, v views of one
+    fused projection, as the model passes them), against their plain
+    versions on the same tensors, `chunk` heads at a time (all at once by
+    default: the dense plain backward at long S holds four [B, chunk, S,
+    S] fp32 tensors), at the tolerances of that type. With `fault_at`,
+    also the planted-fault readings at these inputs (planted_faults);
+    with `repro`, the backward's reproducibility (check_repro)."""
     import torch
 
     from tpu_dra_torch.workloads import _flash_kernels as fk
@@ -266,14 +284,13 @@ def check_case(s, causal, rope, b, h, d, seed, dtype=None, chunk=None,
     tol_rel = TOL_REL_FP32 if fp32 else TOL_REL
     tol_lse = TOL_LSE_FP32 if fp32 else TOL_LSE
     chunk = chunk or h
-    q, k, v, dout, dlse = _inputs(b, s, h, d, seed, dtype)
+    q, k, v, dout, dlse = _inputs(b, s, h, d, seed, dtype, zero_dlse)
     tables = _tables(s, d, rope, dtype)
     o, lse = fk.fwd(q, k, v, tables, causal=causal)
-    # The backward pair takes the kernel's (o, lse) on both sides.
+    # The backward takes the kernel's (o, lse) on both sides.
     delta = (dout.float() * o.float()).sum(-1).transpose(1, 2)
     args = (q, k, v, dout, lse, delta, dlse, tables)
-    dq = fk.bwd_dq(*args, causal=causal)
-    dk, dv = fk.bwd_dkv(*args, causal=causal)
+    dq, dk, dv = fk.bwd(*args, causal=causal)
     torch.cuda.synchronize()
     finite = all(bool(torch.isfinite(x.float()).all())
                  for x in (o, lse, dq, dk, dv))
@@ -284,9 +301,9 @@ def check_case(s, causal, rope, b, h, d, seed, dtype=None, chunk=None,
         hs = slice(h0, h0 + chunk)
         sub = _heads(args, hs)
         o_ref, lse_ref = fk.fwd_plain(*sub[:3], tables, causal=causal)
-        refs = {"out": o_ref, "lse": lse_ref,
-                "dq": fk.bwd_dq_plain(*sub, causal=causal)}
-        refs["dk"], refs["dv"] = fk.bwd_dkv_plain(*sub, causal=causal)
+        refs = {"out": o_ref, "lse": lse_ref}
+        refs["dq"], refs["dk"], refs["dv"] = fk.bwd_plain(*sub,
+                                                          causal=causal)
         for name, got in zip(names, (o[:, :, hs], lse[:, hs], dq[:, :, hs],
                                      dk[:, :, hs], dv[:, :, hs])):
             diffs[name].add(got, refs[name])
@@ -297,7 +314,9 @@ def check_case(s, causal, rope, b, h, d, seed, dtype=None, chunk=None,
     res = {
         "s": s, "causal": causal, "rope": rope, "b": b, "h": h, "d": d,
         "dtype": str(dtype).removeprefix("torch."),
-        "fwd_kernel": fk.FWD_KERNELS[fk.fwd_route(dtype, d)], "finite": finite,
+        "fwd_kernel": fk.FWD_KERNELS[fk.fwd_route(dtype, d)],
+        "bwd_kernels": fk.BWD_KERNELS[fk.bwd_route(dtype, d)],
+        "dlse": "zero" if zero_dlse else "nonzero", "finite": finite,
         "plain_heads_per_pass": chunk, "lse_abs": diffs["lse"].abs,
         **{f"{n}_rel": diffs[n].rel for n in names if n != "lse"},
         **{f"{n}_abs": diffs[n].abs for n in names if n != "lse"},
@@ -317,15 +336,44 @@ def check_case(s, causal, rope, b, h, d, seed, dtype=None, chunk=None,
             check(fres[f"{name}_rel"] > TOL_REL,
                   f"a dropped tile reads {fres[name + '_rel']} on {name}, "
                   f"within TOL_REL {TOL_REL}: the check cannot see it")
+    if repro:
+        res.update(check_repro(args, causal, (dq, dk, dv)))
+    return res
+
+
+def check_repro(args, causal, first) -> dict:
+    """The backward wrapper run again on the same operands: dk and dv
+    must equal the first run's bit for bit (each is summed by one CTA in
+    a fixed order); dq's ||diff|| / ||dq|| is read and held within
+    TOL_REPRO (its K tiles' partials meet in fp32 atomics)."""
+    import torch
+
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+
+    dq, dk, dv = fk.bwd(*args, causal=causal)
+    torch.cuda.synchronize()
+    dq0, dk0, dv0 = first
+    res = {"repro_dk_equal": bool(torch.equal(dk, dk0)),
+           "repro_dv_equal": bool(torch.equal(dv, dv0)),
+           "repro_dq_rel": float((dq.float() - dq0.float()).norm()
+                                 / dq0.float().norm()),
+           "repro_dq_values_changed": int((dq != dq0).sum())}
+    emit("repro", s=args[0].shape[1], **res)
+    check(res["repro_dk_equal"] and res["repro_dv_equal"],
+          f"dk/dv differ between two runs: {res}")
+    check(res["repro_dq_rel"] <= TOL_REPRO,
+          f"dq run-to-run {res['repro_dq_rel']} > {TOL_REPRO}")
     return res
 
 
 def phase_kernels() -> dict:
-    """Small cases at D=64 and 128 (S=40 and 384, causal and not, rope
-    and not: every branch of flash_fwd_sm90) and D=32 (bf16 through the
-    mma.sync forward), then the flagship attention shape with a planted
-    fault. Returns the flagship shape's readings."""
-    cases = [(s, c, r) for s in (384, 40) for c in (True, False)
+    """Small cases at D=64 and 128 (S=40, 320 and 384, causal and not,
+    rope and not; S=1023 causal: every branch of flash_fwd_sm90 and
+    flash_bwd_sm90, ragged Q and K tiles included) and D=32 (bf16 through
+    the mma.sync kernels), then the flagship attention shape with dlse
+    zero (the model's path) and with a planted fault and the
+    reproducibility reading. Returns the flagship shape's readings."""
+    cases = [(s, c, r) for s in (384, 320, 40) for c in (True, False)
              for r in (True, False)]
     cases += [(1023, True, True), (1023, True, False)]
     for i, (s, causal, rope) in enumerate(cases):
@@ -334,9 +382,9 @@ def phase_kernels() -> dict:
                    **{**SMALL, "d": FLAGSHIP_ATTN["d"]})
     for i, (causal, rope) in enumerate(((True, True), (False, False))):
         check_case(384, causal, rope, seed=220 + i, **{**SMALL, "d": 32})
-    check_case(1024, True, True, seed=100, **FLAGSHIP_ATTN)
+    check_case(1024, True, True, seed=100, zero_dlse=True, **FLAGSHIP_ATTN)
     return check_case(MAIN_S, True, True, seed=101, fault_at=512,
-                      **FLAGSHIP_ATTN)
+                      repro=True, **FLAGSHIP_ATTN)
 
 
 def phase_kernels_fp32() -> dict:
@@ -363,12 +411,13 @@ def phase_kernels_long() -> dict:
     """bf16 at every shape the long-context paths give the kernels (B1
     H16 D128 at S=8191 and 16383) and at the S=16384 the times take, the
     plain versions PLAIN_HEADS heads at a time, with a planted fault at
-    the middle tile of the long_ctx_xl shape. Returns that shape's
-    readings."""
+    the middle tile of the long_ctx_xl shape and the reproducibility
+    reading at S=16384. Returns the long_ctx_xl shape's readings."""
     check_case(LONG_S - 1, True, True, seed=400, chunk=PLAIN_HEADS,
                **XL_ATTN)
     _free()
-    check_case(XL_S, True, True, seed=401, chunk=PLAIN_HEADS, **XL_ATTN)
+    check_case(XL_S, True, True, seed=401, chunk=PLAIN_HEADS, repro=True,
+               **XL_ATTN)
     _free()
     res = check_case(XL_S - 1, True, True, seed=402, chunk=PLAIN_HEADS,
                      fault_at=XL_S // 2, **XL_ATTN)
@@ -380,10 +429,11 @@ def planted_faults(args, tile_start) -> dict:
     """What the kernel checks would read for a kernel that drops one
     64-wide tile: the plain versions' outputs on `args` (q, k, v, dout,
     lse, delta, dlse, tables; causal, rope) with keys [tile_start, +64)
-    cut from the forward's softmax and from dq's dS.K, and queries
-    [tile_start, +64) cut from dk/dv's stream. check_case holds these
-    against the plain versions' own outputs: each reading must clear
-    TOL_REL, or the check could not see such a fault."""
+    cut from the forward's softmax, and the Q tile [tile_start, +64) cut
+    from the backward's stream (its dq rows get nothing, dk and dv lose
+    its terms). check_case holds these against the plain versions' own
+    outputs: each reading must clear TOL_REL, or the check could not see
+    such a fault."""
     import torch
 
     from tpu_dra_torch.workloads import _flash_kernels as fk
@@ -407,12 +457,9 @@ def planted_faults(args, tile_start) -> dict:
                    / p.sum(-1).permute(0, 2, 1)[..., None]).to(q.dtype)}
     del p
     p, ds, _, _ = fk._probs_and_ds(*args, causal=True)
-    ds_k = ds.clone()
-    ds_k[..., t] = 0
-    out["dq"] = unrope(in_dot("bhqk,bkhd->bqhd", ds_k, kr) * scale)
-    del ds_k
     p[..., t, :] = 0
     ds[..., t, :] = 0
+    out["dq"] = unrope(in_dot("bhqk,bkhd->bqhd", ds, kr) * scale)
     out["dv"] = in_dot("bhqk,bqhd->bkhd", p, dout).to(q.dtype)
     out["dk"] = unrope(in_dot("bhqk,bqhd->bkhd", ds, qr) * scale)
     return out
@@ -455,6 +502,9 @@ def bounds(b, s, h, d, peak_flops, peak_bytes, elem=2) -> dict:
         "flash_bwd_dq": (6 * d * pairs, 5 * tile + 3 * row + tables),
         # as dq in; dk, dv out. QK^T, dO V^T, P^T dO, dS^T Q.
         "flash_bwd_dkv": (8 * d * pairs, 6 * tile + 3 * row + tables),
+        # The fused backward: as dq in; dq, dk, dv out. QK^T, dO V^T,
+        # P^T dO, dS^T Q, dS K (its fp32 dQ accumulator is scratch).
+        "flash_bwd": (10 * d * pairs, 7 * tile + 3 * row + tables),
     }
     out = {}
     for name, (flops, nbytes) in work.items():
@@ -469,10 +519,11 @@ def bounds(b, s, h, d, peak_flops, peak_bytes, elem=2) -> dict:
 
 def time_kernels(label, b, s, h, d, peak_flops, peak_bytes, dtype=None,
                  plain_h=None, inner=10) -> dict:
-    """Each kernel at [b, s, h, d] (causal, rope, out-only dlse as on the
-    model's path): its CUDA-event time, its bound, its plain version's
-    time (at `plain_h` heads where the dense plain version would not fit
-    at h) and PyTorch's SDPA forward and backward as the yardstick."""
+    """The forward and the backward wrapper at [b, s, h, d] (causal,
+    rope, out-only dlse as on the model's path): CUDA-event time, bound,
+    plain version's time (at `plain_h` heads where the dense plain
+    version would not fit at h) and PyTorch's SDPA forward and backward
+    as the yardstick."""
     import torch
     import torch.nn.functional as F
 
@@ -493,10 +544,8 @@ def time_kernels(label, b, s, h, d, peak_flops, peak_bytes, dtype=None,
     ms = {
         "flash_fwd": time_ms(lambda: fk.fwd(q, k, v, tables, causal=True),
                              inner=inner),
-        "flash_bwd_dq": time_ms(lambda: fk.bwd_dq(*args, causal=True),
-                                inner=inner),
-        "flash_bwd_dkv": time_ms(lambda: fk.bwd_dkv(*args, causal=True),
-                                 inner=inner),
+        "flash_bwd": time_ms(lambda: fk.bwd(*args, causal=True),
+                             inner=inner),
     }
     # Yardstick only (the port never calls it): SDPA on the roped inputs,
     # [B, H, S, D] contiguous, forward and backward (dq, dk, dv together).
@@ -520,21 +569,19 @@ def time_kernels(label, b, s, h, d, peak_flops, peak_bytes, dtype=None,
     plain_ms = {
         "flash_fwd": time_ms(lambda: fk.fwd_plain(q, k, v, tables,
                                                   causal=True), 3, 1),
-        "flash_bwd_dq": time_ms(lambda: fk.bwd_dq_plain(*args, causal=True),
-                                3, 1),
-        "flash_bwd_dkv": time_ms(lambda: fk.bwd_dkv_plain(*args, causal=True),
-                                 3, 1),
+        "flash_bwd": time_ms(lambda: fk.bwd_plain(*args, causal=True),
+                             3, 1),
     }
     del args, q, k, v, dout, dlse
     _free()
-    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dq": sdpa_bwd,
-               "flash_bwd_dkv": sdpa_bwd}
+    library = {"flash_fwd": sdpa_fwd, "flash_bwd": sdpa_bwd}
     elem = torch.empty((), dtype=dtype).element_size()
     bnd = bounds(b, s, h, d, peak_flops, peak_bytes, elem)
     res = {name: {"ms": ms[name], "plain_ms": plain_ms[name],
                   "library_ms": library[name], **bnd[name]} for name in ms}
     emit(label, shape=dict(b=b, s=s, h=h, d=d, causal=True, rope=True,
                            dtype=str(dtype).removeprefix("torch.")),
+         bwd_kernels=fk.BWD_KERNELS[fk.bwd_route(dtype, d)],
          plain_shape=dict(b=b, s=s, h=plain_h, d=d),
          sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd,
          peak_flops=peak_flops, peak_bytes_per_s=peak_bytes, kernels=res)
@@ -561,14 +608,16 @@ def phase_times_fp32(peak_flops: float, peak_bytes: float) -> dict:
 
 
 def check_path_launches(where: str, want: int) -> dict:
-    """The launch counts since the last reset on a bf16 model path: each
-    wrapper `want` times (n_layers x step calls), every forward through
-    flash_fwd_sm90 and none through the mma.sync forward. Returns the
+    """The launch counts since the last reset on a bf16 model path: the
+    forward and the backward wrapper `want` times each (n_layers x step
+    calls), every forward through flash_fwd_sm90, every backward through
+    flash_bwd_sm90 and none through the mma.sync kernels. Returns the
     per-kernel counts."""
     from tpu_dra_torch.workloads import _flash_kernels as fk
 
     per_wrapper, per_kernel = fk.launches(), fk.kernel_launches()
-    for name, n in per_wrapper.items():
+    for name in ("flash_fwd", "flash_bwd"):
+        n = per_wrapper[name]
         check(n == want, f"{name} launched {n} times in {where}, want "
                          f"n_layers x steps = {want}")
     for name, n in per_kernel.items():
@@ -619,13 +668,12 @@ def plain_kernels():
     version (the same rounding points), restored on exit."""
     from tpu_dra_torch.workloads import _flash_kernels as fk
 
-    saved = fk.fwd, fk.bwd_dq, fk.bwd_dkv
-    fk.fwd, fk.bwd_dq, fk.bwd_dkv = (fk.fwd_plain, fk.bwd_dq_plain,
-                                     fk.bwd_dkv_plain)
+    saved = fk.fwd, fk.bwd
+    fk.fwd, fk.bwd = fk.fwd_plain, fk.bwd_plain
     try:
         yield
     finally:
-        fk.fwd, fk.bwd_dq, fk.bwd_dkv = saved
+        fk.fwd, fk.bwd = saved
 
 
 def _model_run(base, params, tokens, impl):
@@ -711,9 +759,9 @@ def phase_model_parity_fp32(seed=3) -> dict:
     check(math.isfinite(loss_k) and bool(torch.isfinite(lk).all()),
           "non-finite fp32 kernel-path logits or loss")
     # Two forwards (logits, loss), through the mma.sync forward, and one
-    # backward per layer.
+    # backward per layer, through the mma.sync pair.
     want = {"flash_fwd_sm90": 0, "flash_fwd": 2 * base["n_layers"],
-            "flash_bwd_dq": base["n_layers"],
+            "flash_bwd_sm90": 0, "flash_bwd_dq": base["n_layers"],
             "flash_bwd_dkv": base["n_layers"]}
     check(counts == want, f"fp32 model launches {counts}, want {want}")
     with plain_kernels():
@@ -770,11 +818,11 @@ def main() -> int:
         return {"flash_fwd": res["out_abs"], "flash_bwd_dq": res["dq_abs"],
                 "flash_bwd_dkv": max(res["dk_abs"], res["dv_abs"])}
 
-    wrappers = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    entries = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
     rows = {  # entry name -> (times, launches, max_abs_err)
-        **{name: (times, counts, max_err(flagship)) for name in wrappers},
+        **{name: (times, counts, max_err(flagship)) for name in entries},
         **{name + "_xl": (times_xl, counts_xl, max_err(long_bf16))
-           for name in wrappers},
+           for name in entries},
     }
     kernels = []
     for entry, wrapper, kname, replaces in TPU_KERNELS:
@@ -783,7 +831,7 @@ def main() -> int:
         kernels.append({
             "name": entry, "route": "cuda", "source": SOURCES[kname],
             "replaces": replaces, "launches": cnt[kname],
-            "max_abs_err": err[wrapper], "ms": t["ms"],
+            "max_abs_err": err[entry.removesuffix("_xl")], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     emit("done", seconds=time.perf_counter() - t_start)

@@ -205,8 +205,8 @@ class TestKernelPlainVersions:
         fk.reset_launches()
         q, k, v = _torch(_np_inputs(64, seed=3), torch.float32)
         fk.fwd(q, k, v, None, causal=True)
-        assert fk.launches() == {"flash_fwd": 0, "flash_bwd_dq": 0,
-                                 "flash_bwd_dkv": 0}
+        assert fk.launches() == {"flash_fwd": 0, "flash_bwd": 0,
+                                 "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 
 class TestRope:

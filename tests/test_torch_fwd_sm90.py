@@ -77,7 +77,8 @@ class TestRoute:
         q = torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16)
         fk.fwd(q, q, q, None, causal=True)
         assert fk.kernel_launches() == {"flash_fwd_sm90": 0, "flash_fwd": 0,
-                                        "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                                        "flash_bwd_sm90": 0, "flash_bwd_dq": 0,
+                                        "flash_bwd_dkv": 0}
 
 
 class TestEntrySignature:

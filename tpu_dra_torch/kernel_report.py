@@ -10,12 +10,18 @@ this file) with that tree's own build code, and prints one JSON line:
   frame and local-memory bytes per thread (local memory holds register
   spills), as ``cuobjdump --dump-resource-usage`` reads them from the
   built library;
-- ``ms``: each kernel's CUDA-event time (median of 5 windows of 10
-  calls) at the flagship shape, B8 S1023 H16 D128 bf16, causal, rope,
-  q/k/v views of one fused projection (the forward also without rope,
-  ``flash_fwd_no_rope``, to show what the rotation costs); at the
-  long_ctx_xl shape, B1 S16384 H16 D128 bf16 (windows of 3 calls); and
-  at B1 S8192 H2 D128 fp32 where the tree's kernels take fp32.
+- ``ms``: CUDA-event times (median of 5 windows of 10 calls) of the
+  forward and of the backward, first at B1 S8192 H2 D128 fp32 where the
+  tree's kernels take fp32 (its dkv kernel's times swing between
+  processes, so it runs before any other shape's allocations), then at
+  the flagship shape, B8 S1023 H16 D128 bf16, causal, rope, q/k/v views
+  of one fused projection, and at the long_ctx_xl shape, B1 S16384 H16
+  D128 bf16 (windows of 3 calls). The
+  backward (``flash_bwd``) is one timed call of the tree's ``bwd``
+  wrapper where it has one, else ``bwd_dq`` then ``bwd_dkv``, so trees
+  before and after the fused kernel read the same work. Both directions
+  are also timed without rope (``flash_fwd_no_rope``,
+  ``flash_bwd_no_rope``) to show what the rotation costs.
 
 To compare two trees on one card, unpack the other into a directory
 that .gitignore lists and run this script on each in turn (A, B, B, A):
@@ -81,23 +87,36 @@ def kernel_times(fk, rope_operands, b, s, h, d, dtype, inner=10) -> dict:
     dout = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
     dlse = torch.zeros((b, h, s), device="cuda")
     tables = rope_operands(s, d, dtype, torch.device("cuda"))
-    o, lse = fk.fwd(q, k, v, tables, causal=True)
-    delta = (dout.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    args = (q, k, v, dout, lse, delta, dlse, tables)
+    def backward(tables):
+        o, lse = fk.fwd(q, k, v, tables, causal=True)
+        delta = (dout.float() * o.float()).sum(-1).transpose(1, 2)
+        args = (q, k, v, dout, lse, delta.contiguous(), dlse, tables)
+        if hasattr(fk, "bwd"):
+            return lambda: fk.bwd(*args, causal=True)
+        return lambda: (fk.bwd_dq(*args, causal=True),
+                        fk.bwd_dkv(*args, causal=True))
+
     ms = {
         "flash_fwd": time_ms(lambda: fk.fwd(q, k, v, tables, causal=True),
                              inner=inner),
         # The same forward without the fused rotation: what RoPE costs.
         "flash_fwd_no_rope": time_ms(
             lambda: fk.fwd(q, k, v, None, causal=True), inner=inner),
-        "flash_bwd_dq": time_ms(lambda: fk.bwd_dq(*args, causal=True),
-                                inner=inner),
-        "flash_bwd_dkv": time_ms(lambda: fk.bwd_dkv(*args, causal=True),
-                                 inner=inner),
+        "flash_bwd": time_ms(backward(tables), inner=inner),
+        "flash_bwd_no_rope": time_ms(backward(None), inner=inner),
     }
-    del q, k, v, dout, o, lse, delta, args, qkv
+    del q, k, v, dout, qkv
     torch.cuda.empty_cache()
     return ms
+
+
+# name: (B, S, H, D, dtype name, calls per timed window), in the order
+# timed.
+SHAPES = {
+    "fp32_b1_s8192_h2_d128": (1, 8192, 2, 128, "float32", 10),
+    "bf16_b8_s1023_h16_d128": (8, 1023, 16, 128, "bfloat16", 10),
+    "bf16_b1_s16384_h16_d128": (1, 16384, 16, 128, "bfloat16", 3),
+}
 
 
 def main() -> int:
@@ -126,14 +145,13 @@ def main() -> int:
         "label": opts.label or str(root), "card": gpuinfo.nvidia_smi(),
         "resources": {name: resources(lib, cuobjdump)
                       for name, lib in sorted(libs.items())},
-        "ms": {"bf16_b8_s1023_h16_d128": kernel_times(
-            fk, _rope_operands, 8, 1023, 16, 128, torch.bfloat16),
-               "bf16_b1_s16384_h16_d128": kernel_times(
-            fk, _rope_operands, 1, 16384, 16, 128, torch.bfloat16, inner=3)},
+        "ms": {},
     }
-    if torch.float32 in getattr(fk, "KERNEL_DTYPES", {}):
-        report["ms"]["fp32_b1_s8192_h2_d128"] = kernel_times(
-            fk, _rope_operands, 1, 8192, 2, 128, torch.float32)
+    for name, (b, s, h, d, dtype, inner) in SHAPES.items():
+        dtype = getattr(torch, dtype)
+        if dtype in getattr(fk, "KERNEL_DTYPES", {torch.bfloat16: 2}):
+            report["ms"][name] = kernel_times(fk, _rope_operands, b, s, h, d,
+                                              dtype, inner=inner)
     print(json.dumps(report), flush=True)
     return 0
 

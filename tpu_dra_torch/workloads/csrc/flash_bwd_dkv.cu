@@ -9,7 +9,10 @@
 // kernel reached through _flash_bwd_rule) and _bwd_dkv_stream_kernel (the
 // same function with Q/dO as a grid axis, reached through
 // _bwd_calls_stream): this kernel streams Q/dO through shared memory at
-// every S, so it is the counterpart of both tiers.
+// every S, so it is the counterpart of both tiers. It serves fp32 inputs
+// and bf16 at head dims other than 64 and 128, with flash_bwd_dq.cu; bf16
+// at D 64 and 128, every model path, runs the fused flash_bwd_sm90.cu
+// (_flash_kernels.bwd_route).
 //
 // What bounds it on the H100: at the flagship shape (B8 S1023 H16 D128,
 // causal) four products make 69 GFLOP against 203 MB, so the roofline is

@@ -8,7 +8,10 @@
 // kernel reached through _flash_bwd_rule) and _bwd_dq_stream_kernel (the
 // same function with K/V as a grid axis, reached through
 // _bwd_calls_stream): this kernel streams K/V through shared memory at
-// every S, so it is the counterpart of both tiers.
+// every S, so it is the counterpart of both tiers. It serves fp32 inputs
+// and bf16 at head dims other than 64 and 128, with flash_bwd_dkv.cu; bf16
+// at D 64 and 128, every model path, runs the fused flash_bwd_sm90.cu
+// (_flash_kernels.bwd_route).
 //
 // What bounds it on the H100: at the flagship shape (B8 S1023 H16 D128,
 // causal) three products make 51 GFLOP against 169 MB, so the roofline is

@@ -1,6 +1,8 @@
-// Shared pieces of the hand-written Hopper flash-attention kernels
+// Shared pieces of the hand-written mma.sync flash-attention kernels
 // (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu), for bf16 and fp32
-// inputs (the element type T is a template parameter throughout).
+// inputs (the element type T is a template parameter throughout); the
+// wgmma kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu) take its scalar
+// helpers (bf16 packing, rot, ld_pair).
 //
 // Tile geometry: one CTA of 4 warps owns a 64-row stationary tile (Q rows
 // for fwd/dq, K/V rows for dkv); each warp owns 16 of those rows and runs

@@ -97,96 +97,17 @@ struct Smem {
   static constexpr int kAlloc = kBytes + 1024;  // base rounded up to 1 KB
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float bf16_lo(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float bf16_hi(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-// x * c + y * s rounded as flash::rot rounds it (two products, their
-// sum): a product of two bf16 values is exact in fp32, so the fused form
-// rounds the same sum once, as the unfused one does.
-__device__ __forceinline__ float rot_exact(float x, float c, float y, float s) {
-  return __fmaf_rn(x, c, __fmul_rn(y, s));
-}
-
-// One 32-bit word (two columns) of the rotation x * cos + roll(x, D/2) *
-// sinm, as flash::rope16 computes it: lo = x * c + y * s and hi = y * c +
-// x * (-s) in fp32, each rounded to bf16, where x holds columns c0, c0+1
-// < D/2, y their partners c0 + D/2, c0 + D/2 + 1, and c, s the tables'
-// columns c0, c0+1 (their second halves are c and -s). In a swizzled
-// tile, 16-byte chunk j and its partner j + D/16 sit at offsets known
-// from the row alone.
-__device__ __forceinline__ void rope_word(uint32_t& x, uint32_t& y,
-                                          uint32_t c, uint32_t s) {
-  const float x0 = bf16_lo(x), x1 = bf16_hi(x), y0 = bf16_lo(y),
-              y1 = bf16_hi(y), c0 = bf16_lo(c), c1 = bf16_hi(c),
-              s0 = bf16_lo(s), s1 = bf16_hi(s);
-  x = flash::pack_bf16(rot_exact(x0, c0, y0, s0), rot_exact(x1, c1, y1, s1));
-  y = flash::pack_bf16(rot_exact(y0, c0, x0, -s0),
-                       rot_exact(y1, c1, x1, -s1));
-}
-
-// A consumer's 64 rows [r0, r0 + 64) of a 128-row tile whose row 0 sits
-// at position pos0, rotated in place. `table(pos, row, j, c, s)` fetches
-// the row's cos_t/sinm_t chunk j. A thread takes its items two at a
-// time, every load of a pair before either rotation, so the pair costs
-// one trip to memory (four at once would spill). Rows at or past S hold
-// TMA's zeros and are left alone.
-template <int D, typename Table>
-__device__ __forceinline__ void rope_rows64(uint8_t* tile, int r0, int pos0,
-                                            int S, int tid, Table table) {
-  constexpr int kHalf = D / 16;              // chunks in half a row
-  constexpr int kItems = 64 * kHalf / 128;   // per thread: 2 or 4
-#pragma unroll
-  for (int n0 = 0; n0 < kItems; n0 += 2) {
-    uint4 c[2], s[2], lo[2], hi[2];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int i = tid + 128 * (n0 + u), r = r0 + i / kHalf, j = i % kHalf;
-      if (pos0 + r < S) {
-        table(pos0 + r, r, j, c[u], s[u]);
-        lo[u] = *reinterpret_cast<const uint4*>(
-            tile + sm90::swz_off(r, j, kBoxBytes));
-        hi[u] = *reinterpret_cast<const uint4*>(
-            tile + sm90::swz_off(r, j + kHalf, kBoxBytes));
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int i = tid + 128 * (n0 + u), r = r0 + i / kHalf, j = i % kHalf;
-      if (pos0 + r < S) {
-        rope_word(lo[u].x, hi[u].x, c[u].x, s[u].x);
-        rope_word(lo[u].y, hi[u].y, c[u].y, s[u].y);
-        rope_word(lo[u].z, hi[u].z, c[u].z, s[u].z);
-        rope_word(lo[u].w, hi[u].w, c[u].w, s[u].w);
-        *reinterpret_cast<uint4*>(tile + sm90::swz_off(r, j, kBoxBytes)) =
-            lo[u];
-        *reinterpret_cast<uint4*>(tile + sm90::swz_off(r, j + kHalf,
-                                                       kBoxBytes)) = hi[u];
-      }
-    }
-  }
-}
-
 // Q rows: the tables from global memory (L2), once per block.
 template <int D>
 __device__ __forceinline__ void rope_q(uint8_t* q_tile, int r0, int q0, int S,
                                        const bf16* cos_t, const bf16* sinm_t,
                                        int tid) {
-  rope_rows64<D>(q_tile, r0, q0, S, tid,
-                 [&](int pos, int, int j, uint4& c, uint4& s) {
-                   const long long at = (long long)pos * D + j * 8;
-                   c = __ldg(reinterpret_cast<const uint4*>(cos_t + at));
-                   s = __ldg(reinterpret_cast<const uint4*>(sinm_t + at));
-                 });
+  sm90::rope_rows<D, kBoxBytes, 64>(
+      q_tile, r0, q0, S, tid, [&](int pos, int, int j, uint4& c, uint4& s) {
+        const long long at = (long long)pos * D + j * 8;
+        c = __ldg(reinterpret_cast<const uint4*>(cos_t + at));
+        s = __ldg(reinterpret_cast<const uint4*>(sinm_t + at));
+      });
 }
 
 // K rows of one stage: the table rows came with it by TMA (Smem).
@@ -194,12 +115,12 @@ template <int D>
 __device__ __forceinline__ void rope_k(uint8_t* k_tile, int r0, int k0, int S,
                                        int tid) {
   const uint8_t* tables = k_tile + 2 * Smem<D>::kTile;
-  rope_rows64<D>(k_tile, r0, k0, S, tid,
-                 [&](int, int r, int j, uint4& c, uint4& s) {
-                   const uint8_t* at = tables + r * D + j * 16;
-                   c = *reinterpret_cast<const uint4*>(at);
-                   s = *reinterpret_cast<const uint4*>(at + kRows * D);
-                 });
+  sm90::rope_rows<D, kBoxBytes, 64>(
+      k_tile, r0, k0, S, tid, [&](int, int r, int j, uint4& c, uint4& s) {
+        const uint8_t* at = tables + r * D + j * 16;
+        c = *reinterpret_cast<const uint4*>(at);
+        s = *reinterpret_cast<const uint4*>(at + kRows * D);
+      });
 }
 
 // O += P . V for one 128-key tile: P as 8 k-steps of A fragments.
@@ -400,21 +321,21 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     mx[0] = flash::quad_max(mx[0]);
     mx[1] = flash::quad_max(mx[1]);
-    corr[0] = ex2(m_run[0] - mx[0]);
-    corr[1] = ex2(m_run[1] - mx[1]);
+    corr[0] = sm90::ex2(m_run[0] - mx[0]);
+    corr[1] = sm90::ex2(m_run[1] - mx[1]);
     m_run[0] = mx[0];
     m_run[1] = mx[1];
     rs[0] = rs[1] = 0.f;
     if (masked) {
 #pragma unroll
       for (int i = 0; i < 64; ++i) {
-        sc[i] = ex2(sc[i] - mx[(i >> 1) & 1]);
+        sc[i] = sm90::ex2(sc[i] - mx[(i >> 1) & 1]);
         rs[(i >> 1) & 1] += sc[i];
       }
     } else {
 #pragma unroll
       for (int i = 0; i < 64; ++i) {
-        sc[i] = ex2(__fmaf_rn(sc[i], a.scale_log2, -mx[(i >> 1) & 1]));
+        sc[i] = sm90::ex2(__fmaf_rn(sc[i], a.scale_log2, -mx[(i >> 1) & 1]));
         rs[(i >> 1) & 1] += sc[i];
       }
     }

@@ -1,17 +1,19 @@
 // Hopper (sm_90a) machinery for the hand-written kernels, in raw PTX (no
 // CUTLASS/CuTe, so a source that includes it builds in seconds):
 //
-// - TMA: 4-D tensor maps over a [B, S, H, D] bf16 view and 2-D maps over
-//   the leading columns of a row-major matrix (host side, encode_bshd,
-//   encode_rows), bulk tensor loads that complete on an mbarrier and bulk
-//   tensor stores;
+// - TMA: 4-D tensor maps over a [B, S, H, D] bf16 or fp32 view and 2-D
+//   maps over the leading columns of a row-major matrix (host side,
+//   encode_bshd_box, encode_rows), bulk tensor loads that complete on an
+//   mbarrier, bulk tensor stores and fp32 reduce-adds;
 // - mbarriers: init, arrive, arrive with an expected byte count, and a
 //   wait on a phase parity;
 // - warpgroup matrix products (wgmma.mma_async) with both operands in
 //   shared memory, or A in registers, and their shared-memory matrix
 //   descriptors for 128-byte-swizzled tiles;
 // - register reallocation between warpgroups (setmaxnreg), named
-//   barriers and the proxy fence between thread stores and async reads.
+//   barriers and the proxy fence between thread stores and async reads;
+// - base-2 exponentials and the in-place RoPE rotation of swizzled bf16
+//   tiles (rope_rows) that the Hopper kernels share.
 //
 // Shared-memory tiles: TMA writes a box of 64 bf16 columns (128 bytes) by
 // R rows with the 128-byte swizzle: 16-byte chunk c of row r lands at
@@ -30,6 +32,8 @@
 #include <cuda.h>  // CUtensorMap and its enums only: nothing links libcuda
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_common.cuh"  // pack_bf16
 
 namespace sm90 {
 
@@ -132,11 +136,36 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       : "memory");
 }
 
+// One fp32 box from shared memory added element by element into the
+// map's tensor (the reduction runs in L2); elements outside the tensor
+// are not written.
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map,
+                                                  const void* src, int c0,
+                                                  int c1, int c2, int c3) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Close this thread's group of bulk stores and reductions.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's committed bulk operations have read their
+// shared-memory sources (the source may then be rewritten or the block
+// exit).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // Commit this thread's bulk stores and wait until their shared-memory
 // reads are done (the source may then be reused or the block exit).
 __device__ __forceinline__ void tma_store_wait() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  bulk_commit();
+  bulk_wait_read();
 }
 
 // Orders this thread's generic-proxy shared-memory writes before later
@@ -237,6 +266,28 @@ __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d = A . B (scale_d 0) or d += A . B (scale_d 1), m64n64k16, both
+// operands in shared memory. TransA / TransB 0 reads the operand K-major
+// (A = rows of M, B = rows of N, k along a row: Q and K in K.Q^T), 1
+// MN-major (k along the rows: dS^T read as dS, K read as B in dS.K).
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TransA), "n"(TransB));
+}
+
 // d += A . B, m64n128k16: A (64 x 16) from registers in the mma.sync
 // A-fragment layout (a[4] per thread), B MN-major in shared memory
 // (descriptor db, transposed: imm-trans-b 1).
@@ -285,6 +336,89 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t* 
 }
 
 // ---------------------------------------------------------------------------
+// Exponentials and RoPE on swizzled bf16 tiles
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// x * c + y * s rounded as flash::rot rounds it (two products, their
+// sum): a product of two bf16 values is exact in fp32, so the fused form
+// rounds the same sum once, as the unfused one does.
+__device__ __forceinline__ float rot_exact(float x, float c, float y, float s) {
+  return __fmaf_rn(x, c, __fmul_rn(y, s));
+}
+
+// One 32-bit word (two columns) of the rotation x * cos + roll(x, D/2) *
+// sinm, as flash::rope16 computes it: lo = x * c + y * s and hi = y * c +
+// x * (-s) in fp32, each rounded to bf16, where x holds columns c0, c0+1
+// < D/2, y their partners c0 + D/2, c0 + D/2 + 1, and c, s the tables'
+// columns c0, c0+1 (their second halves are c and -s). In a swizzled
+// tile, 16-byte chunk j and its partner j + D/16 sit at offsets known
+// from the row alone.
+__device__ __forceinline__ void rope_word(uint32_t& x, uint32_t& y,
+                                          uint32_t c, uint32_t s) {
+  const float x0 = bf16_lo(x), x1 = bf16_hi(x), y0 = bf16_lo(y),
+              y1 = bf16_hi(y), c0 = bf16_lo(c), c1 = bf16_hi(c),
+              s0 = bf16_lo(s), s1 = bf16_hi(s);
+  x = flash::pack_bf16(rot_exact(x0, c0, y0, s0), rot_exact(x1, c1, y1, s1));
+  y = flash::pack_bf16(rot_exact(y0, c0, x0, -s0),
+                       rot_exact(y1, c1, x1, -s1));
+}
+
+// Rows [r0, r0 + kRows) of a tile of D/64 swizzled boxes of kBox bytes
+// each, whose row 0 sits at position pos0, rotated in place by the 128
+// threads of one warpgroup (tid 0..127). `table(pos, row, j, c, s)`
+// fetches chunk j of the row's cos_t/sinm_t first halves. A thread takes
+// its items two at a time, every load of a pair before either rotation,
+// so the pair costs one trip to memory (four at once would spill). Rows
+// at or past S hold TMA's zeros and are left alone.
+template <int D, int kBox, int kRows, typename Table>
+__device__ __forceinline__ void rope_rows(uint8_t* tile, int r0, int pos0,
+                                          int S, int tid, Table table) {
+  constexpr int kHalf = D / 16;              // chunks in half a row
+  constexpr int kItems = kRows * kHalf / 128;
+  constexpr int kPair = kItems < 2 ? kItems : 2;
+  static_assert(kItems >= 1 && kItems % kPair == 0, "rows x D per warpgroup");
+#pragma unroll
+  for (int n0 = 0; n0 < kItems; n0 += kPair) {
+    uint4 c[kPair], s[kPair], lo[kPair], hi[kPair];
+#pragma unroll
+    for (int u = 0; u < kPair; ++u) {
+      const int i = tid + 128 * (n0 + u), r = r0 + i / kHalf, j = i % kHalf;
+      if (pos0 + r < S) {
+        table(pos0 + r, r, j, c[u], s[u]);
+        lo[u] = *reinterpret_cast<const uint4*>(tile + swz_off(r, j, kBox));
+        hi[u] = *reinterpret_cast<const uint4*>(tile +
+                                                swz_off(r, j + kHalf, kBox));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kPair; ++u) {
+      const int i = tid + 128 * (n0 + u), r = r0 + i / kHalf, j = i % kHalf;
+      if (pos0 + r < S) {
+        rope_word(lo[u].x, hi[u].x, c[u].x, s[u].x);
+        rope_word(lo[u].y, hi[u].y, c[u].y, s[u].y);
+        rope_word(lo[u].z, hi[u].z, c[u].z, s[u].z);
+        rope_word(lo[u].w, hi[u].w, c[u].w, s[u].w);
+        *reinterpret_cast<uint4*>(tile + swz_off(r, j, kBox)) = lo[u];
+        *reinterpret_cast<uint4*>(tile + swz_off(r, j + kHalf, kBox)) = hi[u];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Host: tensor maps
 // ---------------------------------------------------------------------------
 
@@ -315,26 +449,37 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 map over the [B, S, H, D] view at `base` with element strides
-// (sb, ss, sh) and D stride 1, as dims (D, H, S, B); its box is 64
-// columns by `rows` rows of one (b, h), 128-byte swizzled. Rows past S
-// load as zeros and are not stored. Strides must be multiples of 8
-// elements (16 bytes). Returns false if the driver refuses it.
-inline bool encode_bshd(CUtensorMap* map, const void* base, int B, int S,
-                        int H, int D, long long sb, long long ss, long long sh,
-                        int rows) {
+// A map over the [B, S, H, D] view at `base` with element strides (sb,
+// ss, sh) and D stride 1, as dims (D, H, S, B), whose box is 128 bytes
+// of columns (64 bf16 or 32 fp32) by `rows` rows of one (b, h), 128-byte
+// swizzled. Rows past S load as zeros and are not stored. Strides must
+// be multiples of 16 bytes. Returns false if the driver refuses it.
+inline bool encode_bshd_box(CUtensorMap* map, CUtensorMapDataType type,
+                            int elem_bytes, const void* base, int B, int S,
+                            int H, int D, long long sb, long long ss,
+                            long long sh, int rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
                               (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)(sh * elem_bytes),
+                                 (cuuint64_t)(ss * elem_bytes),
+                                 (cuuint64_t)(sb * elem_bytes)};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / elem_bytes), 1,
+                             (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16 [B, S, H, D]: boxes of 64 columns by `rows` rows.
+inline bool encode_bshd(CUtensorMap* map, const void* base, int B, int S,
+                        int H, int D, long long sb, long long ss, long long sh,
+                        int rows) {
+  return encode_bshd_box(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, B, S,
+                         H, D, sb, ss, sh, rows);
 }
 
 // A bf16 map over the first `cols` columns of a row-major [rows, pitch]

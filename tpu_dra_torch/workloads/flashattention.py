@@ -5,7 +5,9 @@ attention: the [S, S] score matrix never reaches device memory, in
 either direction. The forward streams K/V tiles for one Q tile through
 shared memory with the online-softmax recurrence and saves the per-row
 logsumexp; the backward recomputes probabilities tile by tile from
-(q, k, lse), as two more kernels (dq; dk/dv). The kernels are CUDA C++
+(q, k, lse), in one fused kernel for bf16 at D 64 and 128 (every model
+path; dK/dV per K/V tile, dQ added into an fp32 accumulator) and as two
+kernels (dq; dk/dv) otherwise. The kernels are CUDA C++
 (``csrc/``, built and launched by ``_flash_kernels``); this module holds
 their contract: rope tables, the joint autograd over (out, lse), and the
 ``attend`` dispatch the model calls.
@@ -17,8 +19,10 @@ here keeps one stationary tile and streams the other side through
 shared memory at every S, so its shared memory does not grow with S:
 the forward a 128-row Q tile for bf16 at D 64 and 128 (flash_fwd_sm90,
 every model path) and a 64-row one otherwise (flash_fwd: fp32, other
-bf16 head dims; _flash_kernels.fwd_route), the backward kernels a
-64-row tile. So one kernel per direction and (dtype, D) serves both
+bf16 head dims; _flash_kernels.fwd_route), the fused backward a 128-key
+K/V tile (flash_bwd_sm90, the same dtypes and head dims;
+_flash_kernels.bwd_route) and the dq/dkv pair a 64-row tile. So one
+kernel per direction and (dtype, D) serves both
 tiers: the port has no ``_needs_streaming``, no ``STREAM_BLOCKS`` and no
 ``streaming=`` flag.
 
@@ -122,9 +126,8 @@ class _FlashAttention(torch.autograd.Function):
         # delta_i = dO_i . O_i: one elementwise+reduce pass outside the
         # kernels, [B, H, S] like lse.
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
-        args = (q, k, v, dout, lse, delta, dlse, ctx.tables)
-        dq = _flash_kernels.bwd_dq(*args, causal=ctx.causal)
-        dk, dv = _flash_kernels.bwd_dkv(*args, causal=ctx.causal)
+        dq, dk, dv = _flash_kernels.bwd(q, k, v, dout, lse, delta, dlse,
+                                        ctx.tables, causal=ctx.causal)
         return dq, dk, dv, None, None
 
 
