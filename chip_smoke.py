@@ -44,16 +44,34 @@ Phases, each printing one JSON line ({"phase": ...}):
                   as the yardstick; times_xl the same at B1 S16384 H16
                   D128 (plain versions at H2), times_fp32 at B1 S8192 H2
                   D128 fp32 against the 3xTF32 product path's peak;
-7. main         — the flagship TransformerLM train step through
+7. claim_path   — the device plane: the node's GPUs discovered through
+                  NVML (NativeBackend, the host driver's
+                  libnvidia-ml.so.1; its count, names and UUIDs held
+                  against torch's), one claim for the GPU torch calls
+                  cuda:0 prepared with the default config by DeviceState
+                  over a scratch state dir and CDI root (the specs and
+                  /dev/nvidia{minor}, /dev/nvidiactl checked on disk),
+                  then the flagship train step at full width run for
+                  CLAIM_STEPS steps in a child process whose environment
+                  is the claim's CDI env, as a container runtime applies
+                  it (plan_from_env -> devices_from_env ->
+                  launch_workload("train"), launch counts zeroed just
+                  before): finite loss, the claim's UUID, n_layers x
+                  steps launches of flash_fwd_sm90 and flash_bwd_sm90 and
+                  none of the mma.sync kernels; then unprepare (spec and
+                  checkpoint entry gone) and the prepare/unprepare times:
+                  the first claim's, and the median, min and max over
+                  CLAIM_TIMING_CYCLES more prepare/unprepare cycles;
+8. main         — the flagship TransformerLM train step through
                   tpu_dra_torch.bench.bench_mfu, with the kernels' launch
                   counts zeroed just before and read just after: every
                   forward through flash_fwd_sm90 and every backward
                   through flash_bwd_sm90, n_layers x step calls of each;
-8. long_ctx     — tpu_dra_torch.bench.bench_long_context at S=8192 and
+9. long_ctx     — tpu_dra_torch.bench.bench_long_context at S=8192 and
                   at S=16384 (long_ctx_xl), each with the launch counts
                   zeroed just before and read just after, checked as in
                   main;
-9. parity       — a reduced TransformerLM on the card, two seeds, the
+10. parity      — a reduced TransformerLM on the card, two seeds, the
                   kernel path against the same path on the kernels' plain
                   versions and against plain attention: logits and every
                   gradient leaf; parity_fp32 the kernel path of an fp32
@@ -66,6 +84,8 @@ backward and its time), the nvidia-smi name/power-limit line, and last
 {"ok": true,
 "device": {...}}. Any failed check raises, so the script exits non-zero
 without that last line; it refuses to run without a CUDA device.
+`python3 chip_smoke.py claim-child` is the claim_path child: it reads
+its own environment as a claim's CDI env and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -146,6 +166,11 @@ TPU_KERNELS = [
 # What a bf16 model path at D=128 launches per forward/backward: the
 # Hopper kernels, never the mma.sync ones.
 MODEL_PATH_KERNELS = ("flash_fwd_sm90", "flash_bwd_sm90")
+# Train steps of the claim_path child (full width; depth and batch as the
+# main path's).
+CLAIM_STEPS = 3
+CLAIM_TIMING_CYCLES = 50
+CLAIM_CHILD = "claim-child"
 
 
 def emit(phase: str, **fields) -> None:
@@ -607,15 +632,16 @@ def phase_times_fp32(peak_flops: float, peak_bytes: float) -> dict:
                         inner=3, **LONG_CHECK)
 
 
-def check_path_launches(where: str, want: int) -> dict:
-    """The launch counts since the last reset on a bf16 model path: the
-    forward and the backward wrapper `want` times each (n_layers x step
-    calls), every forward through flash_fwd_sm90, every backward through
-    flash_bwd_sm90 and none through the mma.sync kernels. Returns the
-    per-kernel counts."""
+def check_path_launches(where: str, want: int, counts=None) -> dict:
+    """The launch counts since the last reset on a bf16 model path (or
+    `counts`, (per wrapper, per kernel) as another process read them):
+    the forward and the backward wrapper `want` times each (n_layers x
+    step calls), every forward through flash_fwd_sm90, every backward
+    through flash_bwd_sm90 and none through the mma.sync kernels.
+    Returns the per-kernel counts."""
     from tpu_dra_torch.workloads import _flash_kernels as fk
 
-    per_wrapper, per_kernel = fk.launches(), fk.kernel_launches()
+    per_wrapper, per_kernel = counts or (fk.launches(), fk.kernel_launches())
     for name in ("flash_fwd", "flash_bwd"):
         n = per_wrapper[name]
         check(n == want, f"{name} launched {n} times in {where}, want "
@@ -625,6 +651,189 @@ def check_path_launches(where: str, want: int) -> dict:
         check(n == expect, f"kernel {name} launched {n} times in {where}, "
                            f"want {expect}")
     return per_kernel
+
+
+def _nvml_inventory(backend) -> list:
+    """The node's GPUs as NVML lists them, each held against torch's
+    device of the same UUID: the counts agree, and every NVML GPU is a
+    torch device with the same name. Each row names the fields NVML
+    withheld and the CUDA driver API supplied (NativeBackend.filled)."""
+    import torch
+
+    from tpu_dra_torch.workloads.meshbuild import normalize_uuid
+
+    gpus = backend.gpus()
+    n = torch.cuda.device_count()
+    check(len(gpus) == n,
+          f"NVML counts {len(gpus)} GPUs, torch.cuda.device_count() {n}")
+    by_uuid = {normalize_uuid(torch.cuda.get_device_properties(i).uuid): i
+               for i in range(n)}
+    rows = []
+    for g in gpus:
+        i = by_uuid.get(normalize_uuid(g.uuid))
+        check(i is not None, f"NVML GPU {g.index} ({g.uuid}) is no torch "
+                             f"device: torch sees {sorted(by_uuid)}")
+        name = torch.cuda.get_device_name(i)
+        check(g.product_name == name,
+              f"NVML names GPU {g.index} {g.product_name!r}, torch "
+              f"cuda:{i} {name!r}")
+        rows.append({"index": g.index, "cuda": i, "uuid": g.uuid,
+                     "name": g.product_name, "minor": g.minor,
+                     "pci_bus_id": g.pci_bus_id,
+                     "memory_bytes": g.memory_bytes,
+                     "compute_capability": list(g.compute_capability),
+                     "mig_mode": g.mig_mode, "clique_id": g.clique_id,
+                     "coords": list(g.coords),
+                     "topology": g.slice_topology,
+                     "from_cuda_driver": backend.filled.get(g.index, [])})
+    return rows
+
+
+def phase_claim_path() -> dict:
+    """Discovery through NVML, one prepared claim for the GPU torch calls
+    cuda:0, the flagship train step in a child process whose environment
+    is that claim's CDI env, and the unprepare. Returns the readings."""
+    import shutil
+    import tempfile
+
+    from tpu_dra_torch.api.types import GPU_DRIVER_NAME
+    from tpu_dra_torch.cdi.handler import CONTROL_DEVICE_NODES, CDIHandler
+    from tpu_dra_torch.gpuplugin.checkpoint import CheckpointManager
+    from tpu_dra_torch.gpuplugin.device_state import DeviceState
+    from tpu_dra_torch.native import gpuinfo
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads.meshbuild import normalize_uuid
+
+    backend = gpuinfo.NativeBackend()   # an NVML that fails raises here
+    scratch = tempfile.mkdtemp(prefix="claim_path_",
+                               dir=fk.BUILD_DIR.parent)
+    state = None
+    try:
+        inventory = _nvml_inventory(backend)
+        emit("inventory", backend=backend.kind, gpus=inventory)
+        gpu = next(r for r in inventory if r["cuda"] == 0)
+        ckpt_dir = os.path.join(scratch, "plugin")
+        cdi = CDIHandler(os.path.join(scratch, "cdi"))
+        state = DeviceState(backend=backend, cdi=cdi,
+                            checkpoints=CheckpointManager(ckpt_dir),
+                            driver_name=GPU_DRIVER_NAME, node_name="node-0")
+
+        def claim_for(uid):
+            return {
+                "metadata": {"uid": uid, "name": uid, "namespace": "d"},
+                "status": {"allocation": {"devices": {"results": [{
+                    "request": "gpu", "driver": GPU_DRIVER_NAME,
+                    "pool": "node-0", "device": f"gpu-{gpu['index']}"}],
+                    "config": []}}}}
+
+        uid = "claim-path-0"
+        t0 = time.perf_counter()
+        result = state.prepare(claim_for(uid))
+        prepare_ms = (time.perf_counter() - t0) * 1e3
+        check(not result.error, f"prepare failed: {result.error}")
+        check(cdi.claim_spec_exists(uid)
+              and os.path.exists(cdi.standard_spec_path()),
+              "the claim's CDI specs are not on disk")
+        node = f"/dev/nvidia{gpu['minor']}"
+        nodes = {p: os.path.exists(p)
+                 for p in (node, *CONTROL_DEVICE_NODES)}
+        check(nodes[node] and nodes["/dev/nvidiactl"],
+              f"device nodes missing: {nodes}")
+        edits = cdi.container_edits(result.devices[0].cdi_device_ids)
+        # The child is the container: this process's environment with the
+        # claim's CDI env applied over it. CUDA is initialised here, so
+        # CUDA_VISIBLE_DEVICES must reach a fresh process.
+        libs_before = sorted(os.listdir(fk.BUILD_DIR))
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             CLAIM_CHILD], env={**os.environ, **edits["env"]}, cwd=ROOT,
+            capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0,
+              f"claim child exited {proc.returncode}:\n{proc.stdout}\n"
+              f"{proc.stderr[-4000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        check(sorted(os.listdir(fk.BUILD_DIR)) == libs_before,
+              "the claim child built kernels")
+        check(all(math.isfinite(x) for x in child["losses"]),
+              f"non-finite claim-path loss {child['losses']}")
+        check(normalize_uuid(child["uuid"]) == normalize_uuid(gpu["uuid"]),
+              f"the child ran on {child['uuid']}, the claim holds "
+              f"{gpu['uuid']}")
+        counts = check_path_launches(
+            "the claim path", child["n_layers"] * child["steps"],
+            (child["launches"], child["kernel_launches"]))
+        t0 = time.perf_counter()
+        err = state.unprepare(uid)
+        unprepare_ms = (time.perf_counter() - t0) * 1e3
+        check(err is None, f"unprepare failed: {err}")
+        check(not cdi.claim_spec_exists(uid), "claim spec left on disk")
+        check(state.prepared_claim_uids() == [],
+              "checkpoint still holds the claim")
+        # Host-clock spread of the device plane: the same claim prepared
+        # and unprepared CLAIM_TIMING_CYCLES times more on this state.
+        cycles = {"prepare_ms": [], "unprepare_ms": []}
+        for k in range(CLAIM_TIMING_CYCLES):
+            t0 = time.perf_counter()
+            r = state.prepare(claim_for(f"claim-path-t{k}"))
+            t1 = time.perf_counter()
+            err = state.unprepare(f"claim-path-t{k}")
+            t2 = time.perf_counter()
+            check(not r.error and err is None,
+                  f"timing cycle {k} failed: {r.error or err}")
+            cycles["prepare_ms"].append((t1 - t0) * 1e3)
+            cycles["unprepare_ms"].append((t2 - t1) * 1e3)
+        check(state.prepared_claim_uids() == [] and not cdi.list_claim_uids(),
+              "the timing cycles left a claim behind")
+        spread = {k: {"median": statistics.median(v), "min": min(v),
+                      "max": max(v), "n": len(v)} for k, v in cycles.items()}
+        state.close()
+        state = None
+        on_disk = CheckpointManager(ckpt_dir)
+        reloaded = on_disk.load()
+        on_disk.close()
+        check(reloaded is None or not reloaded.claims,
+              "the checkpoint on disk still holds the claim")
+        res = {"prepare_ms": prepare_ms, "unprepare_ms": unprepare_ms,
+               "cycles": spread,
+               "gpu": gpu["uuid"], "device": f"gpu-{gpu['index']}",
+               "device_nodes": nodes, "env": edits["env"],
+               "mounts": [m["hostPath"] for m in edits["mounts"]],
+               "child": child, "kernel_launches": counts,
+               "nvidia_smi": gpuinfo.nvidia_smi()}
+        emit("claim_path", **res)
+        return res
+    finally:
+        if state is not None:
+            state.close()
+        backend.close()
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+def claim_child(steps: int = CLAIM_STEPS) -> int:
+    """The claim_path child: plan_from_env -> devices_from_env ->
+    launch_workload("train") on this process's environment, at the
+    flagship's full width, with the launch counts zeroed just before.
+    Prints one JSON line: losses, step times, the UUID of the device it
+    ran on, the depth and steps, and the launch counts."""
+    import torch
+
+    from tpu_dra_torch.topology.meshexport import plan_from_env
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import meshbuild
+
+    env = dict(os.environ)
+    plan = plan_from_env(env)
+    devices = meshbuild.devices_from_env(env)
+    fk.reset_launches()
+    res = meshbuild.launch_workload("train", plan, devices, steps=steps)
+    device = torch.device(res["device"])
+    print(json.dumps({
+        **res, "uuid": str(torch.cuda.get_device_properties(device).uuid),
+        "plan": {"coords": plan.coords, "topology": plan.fabric_dims,
+                 "generation": plan.generation},
+        "launches": fk.launches(), "kernel_launches": fk.kernel_launches(),
+    }), flush=True)
+    return 0
 
 
 def phase_main_path() -> tuple[dict, dict]:
@@ -808,6 +1017,8 @@ def main() -> int:
     times_xl = phase_times_xl(peak_bf16, peak_bytes)
     phase_times_fp32(gpuinfo.PEAK_TF32_TFLOPS[H100_SXM] * 1e12 / 3,
                      peak_bytes)
+    _free()
+    phase_claim_path()
     _, counts = phase_main_path()
     _free()
     counts_xl = phase_long_context()
@@ -844,4 +1055,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == [CLAIM_CHILD]:
+        sys.path.insert(0, ROOT)
+        sys.exit(claim_child())
     sys.exit(main())

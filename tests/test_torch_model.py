@@ -260,7 +260,12 @@ class TestNoCpuFallback:
 
 class TestImportIsolation:
     MODULES = ("tpu_dra_torch.workloads.model", "tpu_dra_torch.entry",
-               "tpu_dra_torch.bench", "chip_smoke")
+               "tpu_dra_torch.bench", "chip_smoke",
+               "tpu_dra_torch.gpuplugin.device_state",
+               "tpu_dra_torch.cdi.handler",
+               "tpu_dra_torch.topology.meshexport",
+               "tpu_dra_torch.workloads.meshbuild",
+               "tpu_dra_torch.native.gpuinfo")
 
     def test_port_imports_neither_jax_nor_reference(self):
         code = (
