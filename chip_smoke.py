@@ -44,24 +44,39 @@ Phases, each printing one JSON line ({"phase": ...}):
                   as the yardstick; times_xl the same at B1 S16384 H16
                   D128 (plain versions at H2), times_fp32 at B1 S8192 H2
                   D128 fp32 against the 3xTF32 product path's peak;
-7. claim_path   — the device plane: the node's GPUs discovered through
-                  NVML (NativeBackend, the host driver's
-                  libnvidia-ml.so.1; its count, names and UUIDs held
-                  against torch's), one claim for the GPU torch calls
-                  cuda:0 prepared with the default config by DeviceState
-                  over a scratch state dir and CDI root (the specs and
-                  /dev/nvidia{minor}, /dev/nvidiactl checked on disk),
-                  then the flagship train step at full width run for
-                  CLAIM_STEPS steps in a child process whose environment
-                  is the claim's CDI env, as a container runtime applies
-                  it (plan_from_env -> devices_from_env ->
+7. claim_path   — the device plane through the kubelet plugin: the
+                  node's GPUs discovered through NVML (NativeBackend, the
+                  host driver's libnvidia-ml.so.1; its count, names and
+                  UUIDs held against torch's; inventory), the NVLink
+                  clique read (clique) and the health event registration
+                  per GPU (health_registration); whether grpc imports
+                  (transports: {"grpc": true|false, "framed": true}; a
+                  grpc_unavailable line names the failed import). A
+                  GpuDriver over NativeBackend and a FakeCluster, sockets
+                  and state under a scratch dir: its first ResourceSlice
+                  publish (one device per NVML GPU with NVML's UUID and
+                  name), then kubelet registration (GetInfo answers the
+                  driver's name) and the self-probe (plugin). An
+                  allocated claim for the GPU torch calls cuda:0,
+                  prepared with NodePrepareResources over the framed
+                  socket; the CDI specs its cdi_device_ids name (and
+                  /dev/nvidia{minor}, /dev/nvidiactl) checked on disk;
+                  the flagship train step at full width for CLAIM_STEPS
+                  steps in a child process whose environment is the
+                  claim's CDI env, as a container runtime applies it
+                  (plan_from_env -> devices_from_env ->
                   launch_workload("train"), launch counts zeroed just
                   before): finite loss, the claim's UUID, n_layers x
                   steps launches of flash_fwd_sm90 and flash_bwd_sm90 and
-                  none of the mma.sync kernels; then unprepare (spec and
-                  checkpoint entry gone) and the prepare/unprepare times:
-                  the first claim's, and the median, min and max over
-                  CLAIM_TIMING_CYCLES more prepare/unprepare cycles;
+                  none of the mma.sync kernels; NodeUnprepareResources
+                  over the socket (spec and checkpoint entry gone); the
+                  same cycle over gRPC where grpc imports; DeviceState's
+                  own prepare/unprepare times, median, min and max over
+                  CLAIM_TIMING_CYCLES cycles (claim_path); then
+                  tpu_dra_torch.bench.bench_claim_to_ready on the card's
+                  NativeBackend (claim_to_ready: p50/p10/p95 and the
+                  breakdown) and one health-monitor wait that must end
+                  with no event and no wedge (health);
 8. main         — the flagship TransformerLM train step through
                   tpu_dra_torch.bench.bench_mfu, with the kernels' launch
                   counts zeroed just before and read just after: every
@@ -171,6 +186,7 @@ MODEL_PATH_KERNELS = ("flash_fwd_sm90", "flash_bwd_sm90")
 CLAIM_STEPS = 3
 CLAIM_TIMING_CYCLES = 50
 CLAIM_CHILD = "claim-child"
+NODE = "node-0"   # the node name the claim_path plugin publishes for
 
 
 def emit(phase: str, **fields) -> None:
@@ -689,17 +705,115 @@ def _nvml_inventory(backend) -> list:
     return rows
 
 
+def _slice_check(cluster, inventory) -> list:
+    """The ResourceSlice the plugin published: one device per NVML GPU,
+    named gpu-{index}, with NVML's UUID and product name. Returns its
+    rows."""
+    from tpu_dra_torch.api.types import GPU_DRIVER_NAME
+    from tpu_dra_torch.k8s import RESOURCESLICES
+
+    slices = cluster.list(RESOURCESLICES)
+    check(len(slices) == 1, f"{len(slices)} ResourceSlices published")
+    spec = slices[0]["spec"]
+    check(spec["driver"] == GPU_DRIVER_NAME and spec["nodeName"] == NODE,
+          f"slice for {spec['driver']} on {spec['nodeName']}")
+    devices = {d["name"]: d["attributes"] for d in spec["devices"]}
+    check(sorted(devices) == sorted(f"gpu-{g['index']}" for g in inventory),
+          f"slice devices {sorted(devices)}, NVML GPUs "
+          f"{[g['index'] for g in inventory]}")
+    rows = []
+    for g in inventory:
+        attrs = devices[f"gpu-{g['index']}"]
+        check(attrs["uuid"] == {"string": g["uuid"]}
+              and attrs["productName"] == {"string": g["name"]},
+              f"slice device gpu-{g['index']}: {attrs}")
+        rows.append({"name": f"gpu-{g['index']}",
+                     "uuid": attrs["uuid"]["string"],
+                     "productName": attrs["productName"]["string"],
+                     "clique": attrs["clique"]["string"],
+                     "fabricTopology": attrs["fabricTopology"]["string"]})
+    return rows
+
+
+def _registration_check(driver) -> dict:
+    """As kubelet's plugin watcher: GetInfo on the registration socket
+    (the driver's name, DRA v1, the DRA socket) and the registration
+    status handed back."""
+    from tpu_dra_torch.api.types import GPU_DRIVER_NAME
+    from tpu_dra_torch.kubeletplugin import wire
+    from tpu_dra_torch.kubeletplugin.server import registration_stubs
+
+    sock = driver.server.registration_socket
+    check(sock is not None and os.path.exists(sock),
+          "no registration socket after the first publish")
+    channel, get_info, notify = registration_stubs(sock)
+    try:
+        info = get_info(wire.InfoRequest(), timeout=30)
+        check(info.name == GPU_DRIVER_NAME and info.type == "DRAPlugin"
+              and info.supported_versions == ["v1"]
+              and info.endpoint == driver.server.dra_socket,
+              f"GetInfo answered {info}")
+        notify(wire.RegistrationStatus(plugin_registered=True), timeout=30)
+    finally:
+        channel.close()
+    check(driver.server.registration_registered.wait(10),
+          "the registration status did not reach the plugin")
+    return info.to_dict()
+
+
+def _kubelet_cycle(prepare, unprepare, claim) -> tuple:
+    """NodePrepareResources then (by the caller) NodeUnprepareResources
+    of one claim, as kubelet sends them: (prepare response entry,
+    prepare ms, unprepare callable returning its ms)."""
+    from tpu_dra_torch.kubeletplugin import wire
+
+    req = [wire.Claim(uid=claim["metadata"]["uid"],
+                      name=claim["metadata"]["name"],
+                      namespace=claim["metadata"]["namespace"])]
+    t0 = time.perf_counter()
+    resp = prepare(wire.NodePrepareResourcesRequest(claims=req))
+    ms = (time.perf_counter() - t0) * 1e3
+    res = resp.claims.get(claim["metadata"]["uid"])
+    check(res is not None and not res.error and len(res.devices) == 1,
+          f"NodePrepareResources answered {resp}")
+
+    def undo() -> float:
+        t1 = time.perf_counter()
+        out = unprepare(wire.NodeUnprepareResourcesRequest(claims=req))
+        undo_ms = (time.perf_counter() - t1) * 1e3
+        err = out.claims.get(claim["metadata"]["uid"])
+        check(err is not None and not err.error,
+              f"NodeUnprepareResources answered {out}")
+        return undo_ms
+    return res, ms, undo
+
+
 def phase_claim_path() -> dict:
-    """Discovery through NVML, one prepared claim for the GPU torch calls
-    cuda:0, the flagship train step in a child process whose environment
-    is that claim's CDI env, and the unprepare. Returns the readings."""
+    """The kubelet plugin on the card's GPUs: a GpuDriver over
+    NativeBackend and a FakeCluster, its first ResourceSlice publish and
+    kubelet registration, a claim for the GPU torch calls cuda:0
+    prepared with NodePrepareResources over the framed socket (and over
+    gRPC, where grpc imports), the flagship train step in a child
+    process whose environment is that claim's CDI env, the unprepare
+    over the socket; DeviceState's own prepare/unprepare times, with no
+    plugin around it; bench_claim_to_ready; and one health wait. Returns
+    the readings."""
     import shutil
     import tempfile
 
+    from tpu_dra_torch import bench
     from tpu_dra_torch.api.types import GPU_DRIVER_NAME
     from tpu_dra_torch.cdi.handler import CONTROL_DEVICE_NODES, CDIHandler
     from tpu_dra_torch.gpuplugin.checkpoint import CheckpointManager
     from tpu_dra_torch.gpuplugin.device_state import DeviceState
+    from tpu_dra_torch.gpuplugin.driver import GpuDriver
+    from tpu_dra_torch.gpuplugin.health import (
+        WAIT_TIMEOUT_S, DeviceHealthMonitor,
+    )
+    from tpu_dra_torch.k8s import RESOURCECLAIMS, FakeCluster
+    from tpu_dra_torch.kubeletplugin.server import (
+        framed_stubs, kubelet_stubs, self_probe,
+    )
     from tpu_dra_torch.native import gpuinfo
     from tpu_dra_torch.workloads import _flash_kernels as fk
     from tpu_dra_torch.workloads.meshbuild import normalize_uuid
@@ -707,74 +821,133 @@ def phase_claim_path() -> dict:
     backend = gpuinfo.NativeBackend()   # an NVML that fails raises here
     scratch = tempfile.mkdtemp(prefix="claim_path_",
                                dir=fk.BUILD_DIR.parent)
-    state = None
+    driver = None
     try:
         inventory = _nvml_inventory(backend)
         emit("inventory", backend=backend.kind, gpus=inventory)
+        emit("clique", fabric={str(k): v for k, v in backend.fabric.items()},
+             gpus=[{"index": g["index"], "clique_id": g["clique_id"],
+                    "topology": g["topology"], "coords": g["coords"]}
+                   for g in inventory],
+             missing_nvml_symbols=backend.missing_symbols)
+        registration = backend.health_registration()
+        emit("health_registration",
+             gpus={str(k): v for k, v in registration.items()},
+             not_supported=backend.health_unsupported)
+        grpc_reason = bench.grpc_unavailable()
+        grpc_ok = grpc_reason is None
+        emit("transports", grpc=grpc_ok, framed=True)
+        if not grpc_ok:
+            emit("grpc_unavailable", reason=grpc_reason,
+                 served="framed socket only; no kubelet registration")
         gpu = next(r for r in inventory if r["cuda"] == 0)
-        ckpt_dir = os.path.join(scratch, "plugin")
+        plugin_dir = os.path.join(scratch, "plugin")
         cdi = CDIHandler(os.path.join(scratch, "cdi"))
+        cluster = FakeCluster()
         state = DeviceState(backend=backend, cdi=cdi,
-                            checkpoints=CheckpointManager(ckpt_dir),
-                            driver_name=GPU_DRIVER_NAME, node_name="node-0")
-
-        def claim_for(uid):
-            return {
-                "metadata": {"uid": uid, "name": uid, "namespace": "d"},
-                "status": {"allocation": {"devices": {"results": [{
-                    "request": "gpu", "driver": GPU_DRIVER_NAME,
-                    "pool": "node-0", "device": f"gpu-{gpu['index']}"}],
-                    "config": []}}}}
-
-        uid = "claim-path-0"
+                            checkpoints=CheckpointManager(plugin_dir),
+                            driver_name=GPU_DRIVER_NAME, node_name=NODE)
+        driver = GpuDriver(state=state, client=cluster,
+                           driver_name=GPU_DRIVER_NAME, node_name=NODE,
+                           plugin_dir=plugin_dir,
+                           registry_dir=os.path.join(scratch, "registry"),
+                           kubelet_grpc=grpc_ok)
         t0 = time.perf_counter()
-        result = state.prepare(claim_for(uid))
-        prepare_ms = (time.perf_counter() - t0) * 1e3
-        check(not result.error, f"prepare failed: {result.error}")
-        check(cdi.claim_spec_exists(uid)
-              and os.path.exists(cdi.standard_spec_path()),
-              "the claim's CDI specs are not on disk")
-        node = f"/dev/nvidia{gpu['minor']}"
-        nodes = {p: os.path.exists(p)
-                 for p in (node, *CONTROL_DEVICE_NODES)}
-        check(nodes[node] and nodes["/dev/nvidiactl"],
-              f"device nodes missing: {nodes}")
-        edits = cdi.container_edits(result.devices[0].cdi_device_ids)
-        # The child is the container: this process's environment with the
-        # claim's CDI env applied over it. CUDA is initialised here, so
-        # CUDA_VISIBLE_DEVICES must reach a fresh process.
-        libs_before = sorted(os.listdir(fk.BUILD_DIR))
-        proc = subprocess.run(
-            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
-             CLAIM_CHILD], env={**os.environ, **edits["env"]}, cwd=ROOT,
-            capture_output=True, text=True, timeout=900)
-        check(proc.returncode == 0,
-              f"claim child exited {proc.returncode}:\n{proc.stdout}\n"
-              f"{proc.stderr[-4000:]}")
-        child = json.loads(proc.stdout.strip().splitlines()[-1])
-        check(sorted(os.listdir(fk.BUILD_DIR)) == libs_before,
-              "the claim child built kernels")
-        check(all(math.isfinite(x) for x in child["losses"]),
-              f"non-finite claim-path loss {child['losses']}")
-        check(normalize_uuid(child["uuid"]) == normalize_uuid(gpu["uuid"]),
-              f"the child ran on {child['uuid']}, the claim holds "
-              f"{gpu['uuid']}")
-        counts = check_path_launches(
-            "the claim path", child["n_layers"] * child["steps"],
-            (child["launches"], child["kernel_launches"]))
-        t0 = time.perf_counter()
-        err = state.unprepare(uid)
-        unprepare_ms = (time.perf_counter() - t0) * 1e3
-        check(err is None, f"unprepare failed: {err}")
+        driver.start(publish_wait=30.0)
+        start_ms = (time.perf_counter() - t0) * 1e3
+        check(driver.first_published.is_set(),
+              "the first ResourceSlice publish did not land")
+        slice_rows = _slice_check(cluster, inventory)
+        info = _registration_check(driver) if grpc_ok else None
+        check(self_probe(driver.server, timeout=30),
+              "the plugin's self-probe failed")
+        emit("plugin", start_ms=start_ms, slice=slice_rows,
+             registration=info, self_probe=True,
+             sockets={"grpc": driver.server.dra_socket if grpc_ok else None,
+                      "framed": driver.server.fast_socket})
+
+        allocation = {"allocation": {"devices": {"results": [{
+            "request": "gpu", "driver": GPU_DRIVER_NAME, "pool": NODE,
+            "device": f"gpu-{gpu['index']}"}], "config": []}}}
+
+        def allocated(name):
+            return cluster.create(RESOURCECLAIMS, {
+                "apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+                "metadata": {"name": name, "namespace": "default"},
+                "spec": {"devices": {"requests": [{"name": "gpu"}]}},
+                "status": allocation})
+
+        client, prepare, unprepare = framed_stubs(driver.server.fast_socket,
+                                                  timeout_s=60)
+        try:
+            claim = allocated("claim-path-0")
+            uid = claim["metadata"]["uid"]
+            entry, prepare_ms, undo = _kubelet_cycle(prepare, unprepare,
+                                                     claim)
+            check(cdi.claim_spec_exists(uid)
+                  and os.path.exists(cdi.standard_spec_path()),
+                  "the claim's CDI specs are not on disk")
+            node = f"/dev/nvidia{gpu['minor']}"
+            nodes = {p: os.path.exists(p)
+                     for p in (node, *CONTROL_DEVICE_NODES)}
+            check(nodes[node] and nodes["/dev/nvidiactl"],
+                  f"device nodes missing: {nodes}")
+            # The container runtime's view: the CDI specs the response's
+            # cdi_device_ids name.
+            cdi_ids = list(entry.devices[0].cdi_device_ids)
+            edits = cdi.container_edits(cdi_ids)
+            # The child is the container: this process's environment with
+            # the claim's CDI env applied over it. CUDA is initialised
+            # here, so CUDA_VISIBLE_DEVICES must reach a fresh process.
+            libs_before = sorted(os.listdir(fk.BUILD_DIR))
+            proc = subprocess.run(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 CLAIM_CHILD], env={**os.environ, **edits["env"]}, cwd=ROOT,
+                capture_output=True, text=True, timeout=900)
+            check(proc.returncode == 0,
+                  f"claim child exited {proc.returncode}:\n{proc.stdout}\n"
+                  f"{proc.stderr[-4000:]}")
+            child = json.loads(proc.stdout.strip().splitlines()[-1])
+            check(sorted(os.listdir(fk.BUILD_DIR)) == libs_before,
+                  "the claim child built kernels")
+            check(all(math.isfinite(x) for x in child["losses"]),
+                  f"non-finite claim-path loss {child['losses']}")
+            check(normalize_uuid(child["uuid"]) == normalize_uuid(gpu["uuid"]),
+                  f"the child ran on {child['uuid']}, the claim holds "
+                  f"{gpu['uuid']}")
+            counts = check_path_launches(
+                "the claim path", child["n_layers"] * child["steps"],
+                (child["launches"], child["kernel_launches"]))
+            unprepare_ms = undo()
+        finally:
+            client.close()
         check(not cdi.claim_spec_exists(uid), "claim spec left on disk")
         check(state.prepared_claim_uids() == [],
               "checkpoint still holds the claim")
-        # Host-clock spread of the device plane: the same claim prepared
-        # and unprepared CLAIM_TIMING_CYCLES times more on this state.
+        grpc_cycle = None
+        if grpc_ok:
+            channel, g_prepare, g_unprepare = kubelet_stubs(
+                driver.server.dra_socket)
+            try:
+                _, g_ms, g_undo = _kubelet_cycle(
+                    lambda r: g_prepare(r, timeout=60),
+                    lambda r: g_unprepare(r, timeout=60),
+                    allocated("claim-path-grpc"))
+                grpc_cycle = {"prepare_ms": g_ms, "unprepare_ms": g_undo()}
+            finally:
+                channel.close()
+            check(state.prepared_claim_uids() == []
+                  and not cdi.list_claim_uids(),
+                  "the gRPC cycle left a claim behind")
+        # Host-clock spread of DeviceState alone (no plugin around it): a
+        # claim prepared and unprepared CLAIM_TIMING_CYCLES times.
         cycles = {"prepare_ms": [], "unprepare_ms": []}
         for k in range(CLAIM_TIMING_CYCLES):
+            direct = {"metadata": {"uid": f"claim-path-t{k}",
+                                   "name": f"t{k}", "namespace": "d"},
+                      "status": allocation}
             t0 = time.perf_counter()
-            r = state.prepare(claim_for(f"claim-path-t{k}"))
+            r = state.prepare(direct)
             t1 = time.perf_counter()
             err = state.unprepare(f"claim-path-t{k}")
             t2 = time.perf_counter()
@@ -786,25 +959,47 @@ def phase_claim_path() -> dict:
               "the timing cycles left a claim behind")
         spread = {k: {"median": statistics.median(v), "min": min(v),
                       "max": max(v), "n": len(v)} for k, v in cycles.items()}
-        state.close()
-        state = None
-        on_disk = CheckpointManager(ckpt_dir)
+        drain_s = driver.shutdown()
+        driver = None
+        on_disk = CheckpointManager(plugin_dir)
         reloaded = on_disk.load()
         on_disk.close()
         check(reloaded is None or not reloaded.claims,
               "the checkpoint on disk still holds the claim")
-        res = {"prepare_ms": prepare_ms, "unprepare_ms": unprepare_ms,
-               "cycles": spread,
+        res = {"transport": "framed", "prepare_ms": prepare_ms,
+               "unprepare_ms": unprepare_ms, "grpc_cycle": grpc_cycle,
+               "drain_s": drain_s, "cycles": spread,
                "gpu": gpu["uuid"], "device": f"gpu-{gpu['index']}",
+               "cdi_device_ids": cdi_ids,
                "device_nodes": nodes, "env": edits["env"],
                "mounts": [m["hostPath"] for m in edits["mounts"]],
                "child": child, "kernel_launches": counts,
                "nvidia_smi": gpuinfo.nvidia_smi()}
         emit("claim_path", **res)
-        return res
+        ctr = bench.bench_claim_to_ready(backend, scratch=scratch)
+        check(ctr["claim_to_ready_grpc_unavailable"] == grpc_reason,
+              "the bench and the probe disagree on grpc")
+        emit("claim_to_ready", **ctr, nvidia_smi=gpuinfo.nvidia_smi())
+        # One health wait: no event within the timeout, no wedge.
+        events = []
+        monitor = DeviceHealthMonitor(backend, events.append)
+        monitor.start()
+        time.sleep(2.5 * WAIT_TIMEOUT_S)
+        monitor.stop()
+        t0 = time.perf_counter()
+        event = backend.wait_health_event(WAIT_TIMEOUT_S)
+        waited = time.perf_counter() - t0
+        check(not monitor.wedged and events == [] and event is None,
+              f"health wait: wedged={monitor.wedged} events={events} "
+              f"event={event}")
+        emit("health", registration={str(k): v
+                                     for k, v in registration.items()},
+             wait_s=waited, timeout_s=WAIT_TIMEOUT_S, event=None,
+             wedged=False)
+        return {"claim_path": res, "claim_to_ready": ctr}
     finally:
-        if state is not None:
-            state.close()
+        if driver is not None:
+            driver.shutdown(drain=False)
         backend.close()
         shutil.rmtree(scratch, ignore_errors=True)
 

@@ -43,6 +43,8 @@ from tpu_dra.workloads import flashattention as jfa
 from tpu_dra_torch.workloads import _flash_kernels as fk
 from tpu_dra_torch.workloads import flashattention as tfa
 
+torch.set_num_threads(2)   # the suite runs 6 workers beside timing tests
+
 KEYS = 128     # keys per CTA
 ROWS = 64      # queries per streamed tile
 LOG2E = 1.4426950408889634

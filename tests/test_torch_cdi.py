@@ -14,6 +14,7 @@ import json
 import os
 
 import pytest
+import torch
 
 from tpu_dra.cdi import handler as ref_handler
 from tpu_dra.infra.faults import FAULTS as REF_FAULTS
@@ -27,6 +28,8 @@ from tpu_dra_torch.infra.faults import Always as PortAlways
 from tpu_dra_torch.infra.faults import FaultInjected as PortFaultInjected
 from tpu_dra_torch.native import gpuinfo
 
+torch.set_num_threads(2)   # the suite runs 6 workers beside timing tests
+
 # Reference name -> port name, applied in order to the reference's JSON.
 NAME_MAP = (
     ("k8s.tpu.dev-chip.json", "k8s.gpu.dev-gpu.json"),  # standard spec file
@@ -35,6 +38,7 @@ NAME_MAP = (
     ("resource.tpu.dev/v1beta1", "resource.gpu.dev/v1beta1"),  # API group
     ('"driver": "tpu.dev"', '"driver": "gpu.dev"'),  # DRA driver name
     ("TpuConfig", "GpuConfig"),                # opaque config kind
+    ("TPUDeviceHealthCheck", "NVMLDeviceHealthCheck"),  # health gate
     ("/dev/accel", "/dev/nvidia"),             # device node (minor = index)
     ("TPU_CHIP_COORDS", "GPU_COORDS"),
     ("TPU_CHIP_", "GPU_"),                     # TPU_CHIP_<i>_UUID

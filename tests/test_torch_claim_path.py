@@ -46,6 +46,8 @@ from tpu_dra_torch.workloads import model as tm
 
 from test_torch_cdi import reference_chips
 
+torch.set_num_threads(2)   # the suite runs 6 workers beside timing tests
+
 SMALL = dict(vocab=128, d_model=64, n_heads=2, n_layers=2, d_ff=128,
              max_seq=64)
 LR = 0.1

@@ -18,6 +18,7 @@ import dataclasses
 import json
 
 import pytest
+import torch
 
 from tpu_dra.api import types as ref_types
 from tpu_dra.cdi.handler import CDIHandler as RefCDI
@@ -44,6 +45,8 @@ from test_torch_cdi import (
     PORT_ONLY, REFERENCE_ONLY, TRACE_KEY, reference_chips, split_env,
     to_port,
 )
+
+torch.set_num_threads(2)   # the suite runs 6 workers beside timing tests
 
 
 @pytest.fixture(autouse=True)
@@ -566,7 +569,14 @@ class TestCheckpointFormat:
 
 def test_port_registers_only_the_gates_it_reads():
     assert port_gates.Features.known() == [
-        "MultiprocessSupport", "PassthroughSupport", "TimeSlicingSettings"]
-    assert set(port_gates.Features.known()) <= set(ref_gates.Features.known())
+        "MultiprocessSupport", "NVMLDeviceHealthCheck", "PassthroughSupport",
+        "TimeSlicingSettings"]
+    ref_known = to_port(list(ref_gates.Features.known()))
+    assert set(port_gates.Features.known()) <= set(ref_known)
+    # Each gate's default is the reference's (the health check on).
+    ref_defaults = to_port(ref_gates.Features.snapshot())
+    assert {n: ref_defaults[n] for n in port_gates.Features.known()} \
+        == port_gates.Features.snapshot()
+    assert port_gates.Features.enabled(port_gates.NVMLDeviceHealthCheck)
     with pytest.raises(ValueError, match="unknown feature gate"):
         port_gates.Features.set_from_string("TopologyAwareScheduling=true")

@@ -37,6 +37,8 @@ from tpu_dra.workloads import flashattention as jfa
 from tpu_dra_torch.workloads import _flash_kernels as fk
 from tpu_dra_torch.workloads import flashattention as tfa
 
+torch.set_num_threads(2)   # the suite runs 6 workers beside timing tests
+
 TILE = 128
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453

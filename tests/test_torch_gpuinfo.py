@@ -7,7 +7,12 @@ tpu_dra.native.tpuinfo (TPU chip discovery), on the CPU.
 - NativeBackend over a stub NVML function table standing in for the
   CDLL: struct decoding (nvmlPciInfo_t's layout, memory, compute
   capability), NVML_ERROR_NOT_SUPPORTED from nvmlDeviceGetMigMode read as
-  "no MIG", an init failure that raises, and the compute-mode setter.
+  "no MIG", an init failure that raises, and the compute-mode setter;
+  the NVLink clique (a fabric clique id, a node-local NVLink clique, a
+  GPU with no active link or no NVLink answer alone), a GPU without a
+  bus id refused; the health event set (registration, NOT_SUPPORTED
+  GPUs listed, XID and ECC events mapped to their GPU, the timeout).
+- The fake's injected health events, against the reference fake's.
 - get_backend: fake only when asked; native otherwise, with no fallback.
 
 Exact comparisons: these are bookkeeping and decoding, no arithmetic.
@@ -17,11 +22,14 @@ import ctypes
 import types
 
 import pytest
+import torch
 
 from tpu_dra.native import tpuinfo
 from tpu_dra_torch.infra import featuregates as port_gates
 from tpu_dra_torch.infra.faults import FAULTS as PORT_FAULTS
 from tpu_dra_torch.native import gpuinfo
+
+torch.set_num_threads(2)   # the suite runs 6 workers beside timing tests
 
 
 @pytest.fixture(autouse=True)
@@ -135,14 +143,24 @@ def stub_cuda(devices):
     return _recording(table)
 
 
-def stub_nvml(gpus, init_rc=0, mig_rc=None, pci_rc=0):
+def stub_nvml(gpus, init_rc=0, mig_rc=None, pci_rc=0, events=(),
+              register_rc=None, event_set_rc=0):
     """A stand-in for ctypes.CDLL("libnvidia-ml.so.1"): one Python function
     per NVML symbol, filling the caller's buffers as NVML does. `gpus` is
     a list of dicts; `mig_rc` maps a GPU index to the return code of
-    nvmlDeviceGetMigMode; `pci_rc` is nvmlDeviceGetPciInfo_v3's. Records
-    every call in `lib.calls`."""
+    nvmlDeviceGetMigMode; `pci_rc` is nvmlDeviceGetPciInfo_v3's. A GPU's
+    "fabric" is (rc, status, state, clique id, cluster UUID bytes) of
+    nvmlDeviceGetGpuFabricInfo (default NOT_SUPPORTED), its "links" the
+    state of each NVLink (default one active link), or an int: the code
+    nvmlDeviceGetNvLinkState answers for every link. `events` are
+    (GPU index or None, event type, data) served by nvmlEventSetWait_v2
+    in order, then NVML_ERROR_TIMEOUT; `register_rc` maps a GPU index to
+    nvmlDeviceRegisterEvents' code. Records every call in `lib.calls`."""
     compute_modes = {}
     mig_rc = mig_rc or {}
+    register_rc = register_rc or {}
+    pending = list(events)
+    registered = {}
 
     def gpu(h):
         return gpus[h.value - 1]
@@ -205,6 +223,44 @@ def stub_nvml(gpus, init_rc=0, mig_rc=None, pci_rc=0):
         compute_modes[h.value - 1] = mode
         return 0 if gpu(h).get("root", True) else 4   # NO_PERMISSION
 
+    def fabric(h, ref):
+        rc, status, state, clique, cluster = gpu(h).get(
+            "fabric", (NOT_SUPPORTED, 0, 0, 0, bytes(16)))
+        if rc == 0:
+            info = ref._obj
+            info.status, info.state, info.cliqueId = status, state, clique
+            info.clusterUuid[:] = list(cluster)
+        return rc
+
+    def nvlink(h, link, ref):
+        links = gpu(h).get("links", [1])
+        if isinstance(links, int):
+            return links
+        if link >= len(links):
+            return 2   # NVML_ERROR_INVALID_ARGUMENT: past the last link
+        ref._obj.value = links[link]
+        return 0
+
+    def event_set_create(ref):
+        ref._obj.value = 0xE5E7
+        return event_set_rc
+
+    def register(h, mask, event_set):
+        assert event_set.value == 0xE5E7
+        rc = register_rc.get(h.value - 1, 0)
+        if rc == 0:
+            registered[h.value - 1] = mask
+        return rc
+
+    def wait(event_set, ref, timeout_ms):
+        if not pending:
+            return gpuinfo.NVML_ERROR_TIMEOUT
+        index, kind, data = pending.pop(0)
+        ev = ref._obj
+        ev.device = None if index is None else index + 1
+        ev.eventType, ev.eventData = kind, data
+        return 0
+
     table = {
         "nvmlInit_v2": init, "nvmlShutdown": lambda: 0,
         "nvmlErrorString": error_string,
@@ -217,10 +273,17 @@ def stub_nvml(gpus, init_rc=0, mig_rc=None, pci_rc=0):
         "nvmlDeviceGetCudaComputeCapability": capability,
         "nvmlDeviceGetMigMode": mig,
         "nvmlDeviceSetComputeMode": set_mode,
+        "nvmlDeviceGetGpuFabricInfo": fabric,
+        "nvmlDeviceGetNvLinkState": nvlink,
+        "nvmlEventSetCreate": event_set_create,
+        "nvmlDeviceRegisterEvents": register,
+        "nvmlEventSetWait_v2": wait,
+        "nvmlEventSetFree": lambda event_set: 0,
     }
     assert set(table) == set(gpuinfo.NVML_SYMBOLS)
     lib = _recording(table)
     lib.compute_modes = compute_modes
+    lib.registered = registered
     return lib
 
 
@@ -299,21 +362,39 @@ class TestNativeBackend:
     def test_withheld_pci_filled_from_cuda_driver_by_uuid(self):
         """An NVML that answers NOT_SUPPORTED for PCI info (as the H100
         host's does) gets the bus ids from the CUDA driver API, matched
-        by UUID whatever the CUDA ordinal order; a GPU this process's
-        CUDA does not see keeps none and is placed by its NVML index."""
+        by UUID whatever the CUDA ordinal order, and the clique is laid
+        out in that bus order."""
         lib = stub_nvml([h100(0), h100(1), h100(2)], pci_rc=NOT_SUPPORTED)
-        uuid1 = bytes.fromhex("00000001111122223333444444444444")
-        uuid0 = bytes.fromhex("00000000111122223333444444444444")
-        cuda = stub_cuda([("0000:18:00.0", uuid1), ("0000:99:00.0", uuid0)])
+        uuid = [bytes.fromhex(f"0000000{i}111122223333444444444444")
+                for i in range(3)]
+        cuda = stub_cuda([("0000:18:00.0", uuid[1]),
+                          ("0000:99:00.0", uuid[0]),
+                          ("0000:4C:00.0", uuid[2])])
         backend = gpuinfo.NativeBackend(lib=lib, cuda_lib=cuda)
         gpus = backend.gpus()
         assert [g.pci_bus_id for g in gpus] == ["0000:99:00.0",
-                                                "0000:18:00.0", ""]
+                                                "0000:18:00.0",
+                                                "0000:4C:00.0"]
         assert [g.uuid for g in gpus] == [h100(i)["uuid"] for i in range(3)]
-        assert [g.coords for g in gpus] == [(1, 0, 0), (0, 0, 0),
-                                            (2, 0, 0)]
-        assert backend.filled == {0: ["pci_bus_id"], 1: ["pci_bus_id"]}
+        assert [g.coords for g in gpus] == [(2, 0, 0), (0, 0, 0),
+                                            (1, 0, 0)]
+        assert backend.filled == {i: ["pci_bus_id"] for i in range(3)}
         assert cuda.calls[0] == "cuInit"
+
+    def test_gpu_without_bus_id_refused(self):
+        """A GPU that NVML withholds the bus id of and this process's CUDA
+        does not see cannot be placed in its clique: refused, naming it."""
+        lib = stub_nvml([h100(0), h100(1)], pci_rc=NOT_SUPPORTED)
+        uuid0 = bytes.fromhex("00000000111122223333444444444444")
+        cuda = stub_cuda([("0000:18:00.0", uuid0)])
+        backend = gpuinfo.NativeBackend(lib=lib, cuda_lib=cuda)
+        with pytest.raises(RuntimeError,
+                           match=r"GPU 1 \(GPU-00000001.*does not see it"):
+            backend.gpus()
+        g = gpuinfo.default_fake_gpus(2)
+        with pytest.raises(ValueError, match="GPU 1 .* no PCI bus id"):
+            gpuinfo.assign_fabric_coords(
+                [g[0], gpuinfo.Gpu(**{**g[1].__dict__, "pci_bus_id": ""})])
 
     def test_cuda_uuid_format(self):
         cuda = stub_cuda([("0000:4C:00.0", bytes(range(16)))])
@@ -335,6 +416,132 @@ class TestNativeBackend:
         monkeypatch.setattr(gpuinfo.ctypes, "CDLL", no_lib)
         with pytest.raises(OSError, match="libnvidia-ml.so.1"):
             gpuinfo.NativeBackend()
+
+
+CLUSTER = bytes.fromhex("0123456789abcdef0123456789abcdef")
+
+
+class TestNvlinkClique:
+    def test_nvlink_connected_gpus_share_one_clique(self):
+        lib = stub_nvml([h100(i, links=[1] * 18) for i in range(4)])
+        backend = gpuinfo.NativeBackend(lib=lib)
+        gpus = backend.gpus()
+        assert {g.clique_id for g in gpus} == {""}
+        assert {g.slice_topology for g in gpus} == {"4x1x1"}
+        assert [g.coords for g in gpus] == [(i, 0, 0) for i in range(4)]
+        assert backend.fabric[0] == {"source": "nvlink", "active_links": 18}
+        # The read stops past the last link (INVALID_ARGUMENT).
+        assert lib.calls.count("nvmlDeviceGetNvLinkState") == 4 * 18
+
+    @pytest.mark.parametrize("lone", [
+        {"links": [0, 0, 0]}, {"links": NOT_SUPPORTED}],
+        ids=["no-active-link", "nvlink-not-supported"])
+    def test_gpu_without_nvlink_is_its_own_clique(self, lone):
+        lib = stub_nvml([h100(0), h100(1, **lone), h100(2), h100(3)])
+        backend = gpuinfo.NativeBackend(lib=lib)
+        gpus = backend.gpus()
+        assert gpus[1].clique_id == gpus[1].uuid
+        assert gpus[1].slice_topology == "1x1x1"
+        assert gpus[1].coords == (0, 0, 0)
+        assert [g.slice_topology for g in gpus[::2]] == ["3x1x1"] * 2
+        assert [gpus[i].coords for i in (0, 2, 3)] == [
+            (0, 0, 0), (1, 0, 0), (2, 0, 0)]
+        assert backend.fabric[1] == {"source": "none", "active_links": 0}
+
+    def test_fabric_clique_id_read(self):
+        fabric = (0, 0, gpuinfo.NVML_GPU_FABRIC_STATE_COMPLETED, 7, CLUSTER)
+        lib = stub_nvml([h100(0, fabric=fabric), h100(1, fabric=fabric),
+                         h100(2)])
+        gpus = gpuinfo.NativeBackend(lib=lib).gpus()
+        want = "01234567-89ab-cdef-0123-456789abcdef.7"
+        assert [g.clique_id for g in gpus] == [want, want, ""]
+        assert [g.slice_topology for g in gpus] == ["2x1x1", "2x1x1",
+                                                    "1x1x1"]
+
+    @pytest.mark.parametrize("fabric", [
+        (0, 0, gpuinfo.NVML_GPU_FABRIC_STATE_COMPLETED, 0, bytes(16)),
+        (0, 0, 1, 3, CLUSTER),           # registration not started
+        (0, 999, gpuinfo.NVML_GPU_FABRIC_STATE_COMPLETED, 3, CLUSTER)],
+        ids=["zero-cluster", "not-completed", "failed-status"])
+    def test_incomplete_fabric_falls_back_to_nvlink(self, fabric):
+        """A single node's fabric manager registers its GPUs with an
+        all-zero cluster UUID (the H100 host's NVML does): no fabric id,
+        the NVLink state decides."""
+        lib = stub_nvml([h100(0, fabric=fabric), h100(1, fabric=fabric)])
+        gpus = gpuinfo.NativeBackend(lib=lib).gpus()
+        assert [g.clique_id for g in gpus] == ["", ""]
+        assert {g.slice_topology for g in gpus} == {"2x1x1"}
+
+    def test_optional_symbols_missing_read_as_not_supported(self):
+        lib = stub_nvml([h100(0), h100(1)])
+        for sym in gpuinfo.NVML_OPTIONAL_SYMBOLS:
+            delattr(lib, sym)
+        backend = gpuinfo.NativeBackend(lib=lib)
+        assert sorted(backend.missing_symbols) == sorted(
+            gpuinfo.NVML_OPTIONAL_SYMBOLS)
+        gpus = backend.gpus()
+        assert [g.slice_topology for g in gpus] == ["1x1x1", "1x1x1"]
+        assert backend.health_registration() == {0: "not_supported",
+                                                 1: "not_supported"}
+        assert backend.wait_health_event(0.01) is None
+
+    def test_a_required_symbol_missing_raises(self):
+        lib = stub_nvml([h100(0)])
+        del lib.nvmlDeviceGetUUID
+        with pytest.raises(AttributeError):
+            gpuinfo.NativeBackend(lib=lib)
+
+
+class TestHealthEvents:
+    def test_event_set_registered_for_xid_and_ecc(self):
+        lib = stub_nvml([h100(0), h100(1), h100(2)],
+                        register_rc={1: NOT_SUPPORTED})
+        backend = gpuinfo.NativeBackend(lib=lib)
+        assert backend.health_registration() == {
+            0: "registered", 1: "not_supported", 2: "registered"}
+        assert backend.health_unsupported == [1]
+        assert lib.registered == {0: 0xA, 2: 0xA}
+        # Made once.
+        backend.wait_health_event(0.01)
+        assert lib.calls.count("nvmlEventSetCreate") == 1
+        backend.close()
+        assert lib.calls[-2:] == ["nvmlEventSetFree", "nvmlShutdown"]
+
+    def test_events_map_to_their_gpu(self):
+        lib = stub_nvml([h100(0), h100(1)], events=[
+            (1, gpuinfo.NVML_EVENT_XID_CRITICAL, 79),
+            (0, gpuinfo.NVML_EVENT_DOUBLE_BIT_ECC, 0),
+            (None, gpuinfo.NVML_EVENT_XID_CRITICAL, 31)])
+        backend = gpuinfo.NativeBackend(lib=lib)
+        got = [backend.wait_health_event(0.5) for _ in range(4)]
+        assert got == [
+            gpuinfo.HealthEvent(1, "xid", 79, "critical XID 79"),
+            gpuinfo.HealthEvent(0, "ecc_dbe", 48, "double-bit ECC error"),
+            gpuinfo.HealthEvent(-1, "xid", 31, "critical XID 31"),
+            None]
+
+    def test_registration_error_raises(self):
+        lib = stub_nvml([h100(0)], register_rc={0: 999})
+        with pytest.raises(gpuinfo.NvmlError,
+                           match="nvmlDeviceRegisterEvents"):
+            gpuinfo.NativeBackend(lib=lib).wait_health_event(0.01)
+
+    def test_fake_events_match_reference_fake(self):
+        ref = tpuinfo.FakeBackend(tpuinfo.default_fake_chips(8, "v5e"))
+        port = gpuinfo.FakeBackend()
+        for idx, kind, code in ((3, "xid", 79), (-1, "info", 13),
+                                (3, "recovered", 0), (5, "xid", 48)):
+            ref.inject_health_event(tpuinfo.HealthEvent(idx, code, kind))
+            port.inject_health_event(gpuinfo.HealthEvent(idx, kind, code))
+        for _ in range(4):
+            r, p = ref.wait_health_event(0.5), port.wait_health_event(0.5)
+            assert (p.gpu_index, p.kind, p.code) == (r.chip_index, r.kind,
+                                                     r.code)
+        assert ref.wait_health_event(0.01) is None
+        assert port.wait_health_event(0.01) is None
+        assert [g.healthy for g in port.gpus()] == [
+            c.healthy for c in ref.chips()]
+        assert not port.get_gpu(5).healthy and port.get_gpu(3).healthy
 
 
 class TestGetBackend:

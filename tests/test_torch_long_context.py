@@ -37,6 +37,8 @@ from tpu_dra.workloads import model as jm
 from tpu_dra_torch import bench as tbench
 from tpu_dra_torch.workloads import flashattention as tfa
 
+torch.set_num_threads(2)   # the suite runs 6 workers beside timing tests
+
 # TestStreamingKernels' shape (tests/test_flashattention.py:327).
 B, S, H, D = 2, 384, 2, 16
 STREAM = dict(interpret=True, streaming=True, block_q=128, block_k=128)

@@ -31,6 +31,8 @@ from tpu_dra_torch.workloads import meshbuild as mb
 
 from test_torch_cdi import reference_chips, to_port
 
+torch.set_num_threads(2)   # the suite runs 6 workers beside timing tests
+
 
 @pytest.fixture(autouse=True)
 def _reset_port_registries():

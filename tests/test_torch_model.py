@@ -37,6 +37,8 @@ from tpu_dra_torch import bench as tbench
 from tpu_dra_torch import entry as tentry
 from tpu_dra_torch.workloads import model as tm
 
+torch.set_num_threads(2)   # the suite runs 6 workers beside timing tests
+
 ROOT = Path(__file__).resolve().parents[1]
 SMALL = dict(vocab=128, d_model=64, n_heads=2, n_layers=2, d_ff=128,
              max_seq=256)
@@ -265,7 +267,18 @@ class TestImportIsolation:
                "tpu_dra_torch.cdi.handler",
                "tpu_dra_torch.topology.meshexport",
                "tpu_dra_torch.workloads.meshbuild",
-               "tpu_dra_torch.native.gpuinfo")
+               "tpu_dra_torch.native.gpuinfo",
+               "tpu_dra_torch.kubeletplugin.wire",
+               "tpu_dra_torch.kubeletplugin.pipeline",
+               "tpu_dra_torch.kubeletplugin.aio_server",
+               "tpu_dra_torch.kubeletplugin.server",
+               "tpu_dra_torch.gpuplugin.health",
+               "tpu_dra_torch.gpuplugin.driver",
+               "tpu_dra_torch.gpuplugin.main",
+               "tpu_dra_torch.infra.flock", "tpu_dra_torch.infra.workqueue",
+               "tpu_dra_torch.infra.debug", "tpu_dra_torch.infra.flags",
+               "tpu_dra_torch.k8s", "tpu_dra_torch.k8s.client",
+               "tpu_dra_torch.k8s.fake", "tpu_dra_torch.k8s.resources")
 
     def test_port_imports_neither_jax_nor_reference(self):
         code = (
@@ -297,3 +310,27 @@ class TestImportIsolation:
                 hits += [f"{path.relative_to(ROOT)}: {n}" for n in names
                          if n.split(".")[0] in ("jax", "jaxlib", "tpu_dra")]
         assert not hits, hits
+
+    def test_grpc_only_inside_functions_and_no_protobuf(self):
+        """The port's modules import neither grpc nor google.protobuf at
+        module level (the card may lack both; the framed transport needs
+        neither), and nothing imports google.protobuf at all."""
+        module_level, protobuf = [], []
+        for path in sorted((ROOT / "tpu_dra_torch").rglob("*.py")):
+            tree = ast.parse(path.read_text())
+            top = set(map(id, tree.body))
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom):
+                    names = [node.module or ""]
+                else:
+                    continue
+                where = f"{path.relative_to(ROOT)}:{node.lineno}"
+                if any(n.startswith("google") for n in names):
+                    protobuf.append(where)
+                if id(node) in top and any(n.split(".")[0] == "grpc"
+                                           for n in names):
+                    module_level.append(where)
+        assert not module_level, module_level
+        assert not protobuf, protobuf

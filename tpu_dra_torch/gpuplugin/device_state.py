@@ -200,6 +200,23 @@ class DeviceState:
                                 "GPU %d (continuing)", g.index,
                                 exc_info=True)
 
+    @property
+    def backend(self) -> GpuInfoBackend:
+        """The discovery backend (read-only seam for the health monitor;
+        the driver must not reach into _backend)."""
+        return self._backend
+
+    def gpu_indices(self) -> List[int]:
+        """Indices of every GPU of this node (an event addressed to all
+        GPUs marks each; the counterpart of chip_indices)."""
+        return [g.index for g in self._backend.gpus()]
+
+    def flush_journal(self) -> None:
+        """Settle every appended journal record to disk: the journal
+        barrier the driver's drain runs before close(), so the next
+        incarnation recovers a complete tail."""
+        self._ckpt_mgr.journal_flush()
+
     def close(self) -> None:
         """Release the pools and cached checkpoint slot fds."""
         if self._apply_pool is not None:

@@ -11,6 +11,8 @@ module that consults it:
 - TimeSlicingSettings  (GPU time-slice config)
 - MultiprocessSupport  (MPS sharing; the config decodes, the manager refuses)
 - PassthroughSupport   (VFIO passthrough; the config decodes, prepare refuses)
+- NVMLDeviceHealthCheck (the kubelet plugin's NVML health monitor; on by
+  default, beta, as the reference's TPUDeviceHealthCheck)
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ class VersionedSpecs:
 TimeSlicingSettings = "TimeSlicingSettings"
 MultiprocessSupport = "MultiprocessSupport"
 PassthroughSupport = "PassthroughSupport"
+NVMLDeviceHealthCheck = "NVMLDeviceHealthCheck"
 
 _DEFAULT_FEATURES: Dict[str, VersionedSpecs] = {
     TimeSlicingSettings: VersionedSpecs((
@@ -57,6 +60,9 @@ _DEFAULT_FEATURES: Dict[str, VersionedSpecs] = {
     )),
     PassthroughSupport: VersionedSpecs((
         ("0.1.0", FeatureSpec(default=False, pre_release=ALPHA)),
+    )),
+    NVMLDeviceHealthCheck: VersionedSpecs((
+        ("0.1.0", FeatureSpec(default=True, pre_release=BETA)),
     )),
 }
 

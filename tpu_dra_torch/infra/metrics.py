@@ -1,19 +1,24 @@
-"""Minimal Prometheus-compatible metrics registry (counterpart of
-tpu_dra/infra/metrics.py).
+"""Minimal Prometheus-compatible metrics registry and HTTP exposition
+(counterpart of tpu_dra/infra/metrics.py).
 
-Counters and gauges with label support and the text exposition format.
-Only the instruments the port's modules register are here: the
-checkpoint journal's, the tracer's, the quarantine gauge (each in its
-own module) and the mesh-build counter below. The metric names are the
-reference's, so one dashboard reads both. The reference's histograms,
-HTTP exposition server and control-plane instruments come with the
-slices that use them.
+Counters, gauges and fixed-bucket histograms with label support, the
+text exposition format, and ``MetricsServer``: /metrics, /healthz (with
+the kubelet plugin's self-probe) and the thread-stack dump at
+/debug/stacks. Only the instruments the port's modules register are
+here: the checkpoint journal's, the tracer's, the quarantine gauge, the
+kubelet plugin's prepare and RPC instruments (each in its own module)
+and the mesh-build counter below. The metric names are the reference's,
+so one dashboard reads both. The reference's control-plane instruments
+and its metric catalog come with the slices that use them.
 """
 
 from __future__ import annotations
 
 import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
+
+from tpu_dra_torch.infra import debug
 
 
 def _escape_label_value(value: str) -> str:
@@ -95,6 +100,43 @@ class Gauge(_Metric):
             self._values[self._key(labels)] = value
 
 
+class Histogram(_Metric):
+    """Fixed-bucket histogram; exposes _bucket/_sum/_count series."""
+
+    DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                       1.0, 2.5, 5.0, 10.0, 30.0, 60.0)
+
+    def __init__(self, name: str, help_text: str = "", buckets=None):
+        super().__init__(name, help_text, "histogram")
+        self._buckets = tuple(buckets or self.DEFAULT_BUCKETS)
+        self._counts = [0] * (len(self._buckets) + 1)
+        self._sum = 0.0
+        self._n = 0
+
+    def observe(self, value: float):
+        with self._lock:
+            self._sum += value
+            self._n += 1
+            for i, b in enumerate(self._buckets):
+                if value <= b:
+                    self._counts[i] += 1
+                    return
+            self._counts[-1] += 1
+
+    def expose(self) -> List[str]:
+        with self._lock:
+            lines = [f"# HELP {self.name} {_escape_help(self.help)}",
+                     f"# TYPE {self.name} histogram"]
+            cum = 0
+            for b, c in zip(self._buckets, self._counts):
+                cum += c
+                lines.append(f'{self.name}_bucket{{le="{b}"}} {cum}')
+            lines.append(f'{self.name}_bucket{{le="+Inf"}} {self._n}')
+            lines.append(f"{self.name}_sum {self._sum}")
+            lines.append(f"{self.name}_count {self._n}")
+            return lines
+
+
 class Registry:
     def __init__(self):
         self._metrics: List[_Metric] = []
@@ -111,6 +153,9 @@ class Registry:
     def gauge(self, name: str, help_text: str = "") -> Gauge:
         return self.register(Gauge(name, help_text))  # type: ignore[return-value]
 
+    def histogram(self, name: str, help_text: str = "", buckets=None) -> Histogram:
+        return self.register(Histogram(name, help_text, buckets))  # type: ignore[return-value]
+
     def expose(self) -> str:
         with self._lock:
             out: List[str] = []
@@ -120,6 +165,68 @@ class Registry:
 
 
 DefaultRegistry = Registry()
+
+
+class MetricsServer:
+    """Serves /metrics (text exposition), /debug/stacks (the thread-stack
+    dump) and /healthz. With a `health_probe` callable, /healthz runs it
+    per request and returns 503 when it reports unhealthy."""
+
+    def __init__(self, addr: str = "127.0.0.1", port: int = 0,
+                 registry: Registry = DefaultRegistry,
+                 health_probe=None):
+        registry_ref = registry
+        probe_ref = health_probe
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self):  # noqa: N802
+                if self.path == "/metrics":
+                    body = registry_ref.expose().encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "text/plain; version=0.0.4")
+                elif self.path == "/debug/stacks":
+                    path = debug.dump_stacks()
+                    with open(path, "rb") as f:
+                        body = f.read()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "text/plain")
+                elif self.path == "/healthz":
+                    healthy = True
+                    detail = "ok"
+                    if probe_ref is not None:
+                        try:
+                            healthy = bool(probe_ref())
+                            detail = "ok" if healthy else "probe failed"
+                        except Exception as e:  # noqa: BLE001
+                            healthy, detail = False, str(e)
+                    body = detail.encode()
+                    self.send_response(200 if healthy else 503)
+                else:
+                    body = b"not found"
+                    self.send_response(404)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):
+                pass
+
+        self._server = ThreadingHTTPServer((addr, port), Handler)
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def port(self) -> int:
+        return self._server.server_address[1]
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        daemon=True, name="metrics-http")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+
 
 # Allocation -> mesh handoff (topology/meshexport): plan builds by outcome.
 MESH_BUILDS = DefaultRegistry.counter(

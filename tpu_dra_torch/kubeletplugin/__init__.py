@@ -1,2 +1,3 @@
-"""DRA kubelet-plugin types (counterpart of tpu_dra.kubeletplugin): the
-prepare results handed back to kubelet."""
+"""DRA kubelet-plugin front-end (counterpart of tpu_dra.kubeletplugin):
+the DRA v1 and registration services on gRPC and the framed socket, the
+pipelined admission, and a hand-written proto3 codec for their messages."""
