@@ -10,6 +10,37 @@ Phases, each printing one JSON line ({"phase": ...}):
                   version;
 2. build        — compiles the five flash-attention kernels from
                   tpu_dra_torch/workloads/csrc with nvcc for sm_90a;
+   Then, before this process opens a CUDA context (under
+   EXCLUSIVE_PROCESS an MPS server could not open its own beside it), on
+   the GPU torch calls cuda:0 as NVML lists it:
+   shared_claim — tpu_dra_torch.bench.bench_shared_claim: one
+                  default-config claim prepared with NodePrepareResources
+                  over the framed socket of a GpuDriver (NativeBackend, a
+                  FakeCluster); one solo claim child, then two at once,
+                  each one warm step, then bench.SHARED_STEPS timed steps
+                  started together on the parent's "go": both windows
+                  overlap for >= 90% of each one's length, both on the
+                  claim's UUID, finite losses, n_layers x steps launches
+                  of flash_fwd_sm90 and flash_bwd_sm90 and none of the
+                  mma.sync kernels in every child, 2 x the solo peak
+                  within the GPU's memory, and unprepare leaves no spec
+                  and no checkpoint entry; each child's median step and
+                  the two's tokens/s against the solo child's;
+   mps          — the same two children on an MPS claim (50% active
+                  threads, a pinned limit of 1.5 x the solo peak in whole
+                  GiB), the card's nvidia-cuda-mps-control run by
+                  tpu_dra_torch.testing.MpsNodeSim; one of (a) the binary
+                  is not on PATH, (b) NVML refuses the compute mode and
+                  the prepare unwinds (no Deployment, daemon process,
+                  spec or checkpoint entry; compute mode DEFAULT), or (c)
+                  both children are the daemon's clients during their
+                  windows and everything of shared_claim holds;
+   mig          — read-only: MIG mode, and NVML's GPU-instance profiles
+                  and placements against the H100 table; only where MIG
+                  mode is already on, a 3g.40gb claim with one child on
+                  its MIG- UUID and no instance left after unprepare;
+   passthrough  — read-only: the GPU's sysfs function, driver, IOMMU
+                  group and whether vfio_pci is loaded; never rebound;
 3. kernels      — each kernel against its plain PyTorch version on the
                   card, on the same bf16 inputs (q, k, v views of one
                   fused projection, as the model passes them), at small
@@ -99,8 +130,9 @@ backward and its time), the nvidia-smi name/power-limit line, and last
 {"ok": true,
 "device": {...}}. Any failed check raises, so the script exits non-zero
 without that last line; it refuses to run without a CUDA device.
-`python3 chip_smoke.py claim-child` is the claim_path child: it reads
-its own environment as a claim's CDI env and prints one JSON line.
+`python3 chip_smoke.py claim-child [--steps N] [--warm N] [--wait-go]`
+is the claim child (claim_path, shared_claim, mps, mig): it reads its
+own environment as a claim's CDI env and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -1004,31 +1036,209 @@ def phase_claim_path() -> dict:
         shutil.rmtree(scratch, ignore_errors=True)
 
 
-def claim_child(steps: int = CLAIM_STEPS) -> int:
-    """The claim_path child: plan_from_env -> devices_from_env ->
-    launch_workload("train") on this process's environment, at the
-    flagship's full width, with the launch counts zeroed just before.
-    Prints one JSON line: losses, step times, the UUID of the device it
-    ran on, the depth and steps, and the launch counts."""
-    import torch
+def claim_child(argv) -> int:
+    """The claim child (claim_path, shared_claim, mps and mig):
+    tpu_dra_torch.bench.claim_child on this process's environment, read
+    as a claim's CDI env: plan_from_env -> devices_from_env ->
+    launch_workload("train") at the flagship's full width, the launch
+    counts zeroed just before the timed steps; with --wait-go it takes
+    its warm step and waits for the parent's "go" on stdin. Prints one
+    JSON line: losses, step times, the host-clock window, the UUID of the
+    device it ran on, the depth and steps, the launch counts and the
+    allocator's peak."""
+    from tpu_dra_torch import bench
 
-    from tpu_dra_torch.topology.meshexport import plan_from_env
+    return bench.claim_child(argv)
+
+
+def _shared_child_argv() -> list:
+    return [sys.executable, os.path.join(ROOT, "chip_smoke.py"), CLAIM_CHILD]
+
+
+def _check_tenant_launches(where: str, tenants) -> list:
+    """check_path_launches on each tenant's counts (its timed steps)."""
+    return [check_path_launches(f"{where} tenant {t['pid']}",
+                                t["n_layers"] * t["steps"],
+                                (t["launches"], t["kernel_launches"]))
+            for t in tenants]
+
+
+def phase_shared_claim(backend, gpu) -> dict:
+    """The gpu-test2 shape: one default-config claim of `gpu` prepared
+    over the plugin's framed socket (bench_shared_claim), a solo claim
+    child for bench.SHARED_STEPS steps, then two at once, their timed windows
+    started together; each on the claim's UUID through the Hopper
+    kernels. Returns bench_shared_claim's readings."""
+    from tpu_dra_torch import bench
+    from tpu_dra_torch.native import gpuinfo
     from tpu_dra_torch.workloads import _flash_kernels as fk
-    from tpu_dra_torch.workloads import meshbuild
 
-    env = dict(os.environ)
-    plan = plan_from_env(env)
-    devices = meshbuild.devices_from_env(env)
-    fk.reset_launches()
-    res = meshbuild.launch_workload("train", plan, devices, steps=steps)
-    device = torch.device(res["device"])
-    print(json.dumps({
-        **res, "uuid": str(torch.cuda.get_device_properties(device).uuid),
-        "plan": {"coords": plan.coords, "topology": plan.fabric_dims,
-                 "generation": plan.generation},
-        "launches": fk.launches(), "kernel_launches": fk.kernel_launches(),
-    }), flush=True)
-    return 0
+    res = bench.bench_shared_claim(
+        backend, child_argv=_shared_child_argv(), gpu_index=gpu["index"],
+        scratch=str(fk.BUILD_DIR.parent))
+    solo = bench._tenant_reading(res["solo"])
+    _check_tenant_launches("shared_claim solo", [solo])
+    _check_tenant_launches("shared_claim", res["tenants"])
+    emit("shared_claim", **bench.shared_claim_line(res),
+         solo_max_memory_allocated=res["solo"]["max_memory_allocated"],
+         gpu_memory_bytes=gpu["memory_bytes"],
+         nvidia_smi=gpuinfo.nvidia_smi())
+    return res
+
+
+def _mps_processes() -> list:
+    """Pids of the MPS control daemons and servers running here."""
+    pids = []
+    for pid in os.listdir("/proc"):
+        try:
+            with open(f"/proc/{pid}/comm") as f:
+                if f.read().strip().startswith("nvidia-cuda-mps"):
+                    pids.append(int(pid))
+        except OSError:
+            continue
+    return pids
+
+
+def phase_mps(backend, gpu, shared) -> dict:
+    """shared_claim's two children on an MPS claim (the reference demo's
+    50% active threads, a pinned memory limit of 1.5x the solo child's
+    peak), the card's nvidia-cuda-mps-control run by an MpsNodeSim. One
+    of three outcomes, each checked (bench_shared_claim): (a) the binary
+    is not on PATH; (b) NVML refuses the compute mode and the prepare
+    unwinds; (c) both children run as clients of the claim's daemon,
+    which is gone after unprepare. The script is the children's
+    container runtime: their env's mount paths are the host's."""
+    from tpu_dra_torch import bench
+    from tpu_dra_torch.native import gpuinfo
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+
+    config = bench.mps_shared_config(shared["solo"]["max_memory_allocated"])
+    res = bench.bench_shared_claim(
+        backend, config=config, solo=shared["solo"],
+        child_argv=_shared_child_argv(), gpu_index=gpu["index"],
+        scratch=str(fk.BUILD_DIR.parent))
+    line = bench.shared_claim_line(res)
+    check(res["outcome"] in ("a", "b", "c"), f"mps outcome {res}")
+    if res["ran"]:
+        _check_tenant_launches("mps", res["tenants"])
+        for t in res["tenants"]:
+            check(t["mem_get_info"] is not None,
+                  f"mps tenant {t['pid']} read no mem_get_info")
+        emit("runtime_env", of="mps", rewritten=res["env_rewritten"],
+             note="each mount's containerPath in the env replaced by its "
+                  "hostPath, as a container runtime's bind would")
+    else:
+        left = _mps_processes()
+        check(left == [], f"MPS processes {left} outlived outcome "
+                          f"{res['outcome']}")
+        line["mps_processes_after"] = left
+    emit("mps", **line, nvidia_smi=gpuinfo.nvidia_smi())
+    return res
+
+
+def phase_mig(backend, gpu) -> dict:
+    """Read-only unless the GPU is already in MIG mode: its MIG mode and,
+    where NVML answers, its GPU-instance profiles and placements held
+    against the H100 table FakeBackend serves (NVIDIA's MIG User Guide).
+    In MIG mode, one 3g.40gb claim, a flagship child on its MIG- UUID,
+    and an unprepare that leaves no instance. MIG mode is never changed
+    here: that needs a GPU reset."""
+    from tpu_dra_torch import bench
+    from tpu_dra_torch.native import gpuinfo
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+
+    g = backend.get_gpu(gpu["index"])
+    profiles, error = [], None
+    try:
+        profiles = backend.mig_profiles(g.index)
+    except gpuinfo.NvmlError as e:
+        error = str(e)
+    table = {name: starts
+             for name, _, _, _, starts in gpuinfo.H100_MIG_PROFILES}
+    mismatched = {p.name: list(p.starts) for p in profiles
+                  if p.name in table and tuple(p.starts) != table[p.name]}
+    res = {"mig_mode": g.mig_mode, "profiles": [
+        {"name": p.name, "profile_id": p.profile_id,
+         "memory_slices": p.memory_slices, "starts": list(p.starts)}
+        for p in profiles], "profiles_error": error,
+        "fake_table": {k: list(v) for k, v in table.items()},
+        "mismatched": mismatched}
+    check(not mismatched, f"NVML's MIG placements differ from the H100 "
+                          f"table: {mismatched}")
+    if not g.mig_mode:
+        emit("mig", **res, claim=None,
+             note="MIG mode is off; not enabled here (that needs a GPU "
+                  "reset, which would take the card from every other "
+                  "phase)")
+        return res
+    bd = bench._BenchDriver(backend, scratch=str(fk.BUILD_DIR.parent))
+    try:
+        name = next(n for n, d in bd.state.allocatable.items()
+                    if d.gpu.index == g.index and d.mig is not None
+                    and d.mig.profile == "3g.40gb")
+        obj = bench._make_claim(bd.cluster, [], "mig-claim", devices=[name])
+        entry = bd.prepare(obj)
+        env, _ = bench.runtime_env(bd.cdi.container_edits(
+            entry.devices[0].cdi_device_ids))
+        mig_uuid = env["CUDA_VISIBLE_DEVICES"]
+        check(mig_uuid.startswith("MIG-"), f"MIG claim env {mig_uuid}")
+        (rec,), _ = bench._run_tenants(
+            _shared_child_argv() + ["--steps", str(CLAIM_STEPS), "--warm",
+                                    "1", "--wait-go"],
+            {**os.environ, **env}, 1, ROOT)
+        bench._check_tenants([rec], mig_uuid, "cuda")
+        tenant = bench._tenant_reading(rec)
+        _check_tenant_launches("mig", [tenant])
+        bd.unprepare([obj])
+        left = backend.mig_devices(g.index)
+        check(left == [], f"MIG instances left after unprepare: {left}")
+        res["claim"] = {"device": name, "uuid": mig_uuid, "tenant": tenant}
+    finally:
+        bd.release_prepared()
+        bd.close()
+    emit("mig", **res)
+    return res
+
+
+def phase_passthrough(gpu) -> dict:
+    """Read-only: the GPU's PCI function in sysfs, its driver and IOMMU
+    group (or their absence), whether the IOMMU is on and vfio_pci is
+    loaded. Nothing is rebound: the run is on this GPU."""
+    from tpu_dra_torch.gpuplugin.passthrough import PciSysfs, sysfs_address
+
+    fs = PciSysfs("/")
+    addr = sysfs_address(gpu["pci_bus_id"]) if gpu["pci_bus_id"] else None
+    group = fs.iommu_group(addr) if addr else None
+    res = {"pci_address": addr,
+           "in_sysfs": bool(addr) and os.path.isdir(
+               f"/sys/bus/pci/devices/{addr}"),
+           "driver": fs.current_driver(addr) if addr else None,
+           "iommu_group": group,
+           "group_devices": fs.group_devices(group) if group else [],
+           "iommu_enabled": fs.iommu_enabled(),
+           "vfio_pci_loaded": fs.module_loaded("vfio_pci"),
+           "rebound": False}
+    emit("passthrough", **res)
+    return res
+
+
+def phase_device_sharing() -> dict:
+    """shared_claim, mps, mig and passthrough, on the GPU torch calls
+    cuda:0, before this process opens a CUDA context: under
+    EXCLUSIVE_PROCESS the MPS server could not open its own beside one."""
+    from tpu_dra_torch.native import gpuinfo
+
+    backend = gpuinfo.NativeBackend()
+    try:
+        gpu = next(r for r in _nvml_inventory(backend) if r["cuda"] == 0)
+        shared = phase_shared_claim(backend, gpu)
+        mps = phase_mps(backend, gpu, shared)
+        mig = phase_mig(backend, gpu)
+        passthrough = phase_passthrough(gpu)
+    finally:
+        backend.close()
+    return {"shared_claim": shared, "mps": mps, "mig": mig,
+            "passthrough": passthrough}
 
 
 def phase_main_path() -> tuple[dict, dict]:
@@ -1201,6 +1411,7 @@ def main() -> int:
     t_start = time.perf_counter()
     info = phase_probe()
     phase_build()
+    phase_device_sharing()
     flagship = phase_kernels()
     phase_kernels_fp32()
     long_bf16 = phase_kernels_long()
@@ -1250,7 +1461,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == [CLAIM_CHILD]:
+    if sys.argv[1:2] == [CLAIM_CHILD]:
         sys.path.insert(0, ROOT)
-        sys.exit(claim_child())
+        sys.exit(claim_child(sys.argv[2:]))
     sys.exit(main())

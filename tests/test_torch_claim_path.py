@@ -188,3 +188,90 @@ def test_unprepared_claim_leaves_nothing(tmp_path):
         assert cp is None or cp.claims == {}
     finally:
         reloaded.close()
+
+
+def two_tenants(env):
+    """Two tenants of one claim, each reading the claim env on its own:
+    plan_from_env -> devices_from_env -> launch_workload("train"), the
+    same weights and tokens. Returns their plans and records."""
+    cfg = tm.ModelConfig(**SMALL, dtype=torch.float32)
+    tree = jax.tree.map(np.asarray, jm.init_params(
+        jax.random.PRNGKey(7), jm.ModelConfig(**SMALL, dtype=jnp.float32)))
+    tokens = np.random.RandomState(8).randint(0, SMALL["vocab"],
+                                              (8, SMALL["max_seq"]))
+    out = []
+    for _ in range(2):
+        plan = me.plan_from_env(env)
+        devices = mb.devices_from_env(env, "cpu")
+        out.append((plan, mb.launch_workload(
+            "train", plan, devices, cfg=cfg, steps=STEPS, lr=LR,
+            params=tm.params_from_jax(tree, cfg, "cpu"), tokens=tokens)))
+    return tree, tokens, out
+
+
+def test_one_claim_two_tenants(tmp_path):
+    """The gpu-test2 shape (the reference's demo/specs/tpu-test2.yaml):
+    one default-config claim of GPU 5 consumed by two train runs. Both
+    read the same plan and UUID, and both train to the reference's
+    losses for the same claim within TOL."""
+    gpus, env, ref_env = prepared_envs(tmp_path, [5])
+    tree, tokens, runs = two_tenants(env)
+    (plan_a, a), (plan_b, b) = runs
+    assert plan_a == plan_b and plan_a.coords == ((5, 0, 0),)
+    assert env["CUDA_VISIBLE_DEVICES"] == gpus[5].uuid
+    assert a["losses"] == b["losses"]
+    want = reference_losses(ref_env, jax.tree.map(jnp.asarray, tree),
+                            tokens, "auto")
+    for g, w in zip(a["losses"], want):
+        assert abs(g - w) <= TOL * abs(w), (a["losses"], want)
+
+
+def test_mps_claim_two_tenants(tmp_path):
+    """One MPS claim of GPU 5: its env carries the claim's pipe directory
+    (the stand-in control daemon answers there once the runtime's mount
+    is applied, bench.runtime_env) and the 50% thread share, and two
+    tenants train on it to equal, finite losses."""
+    from tpu_dra_torch import bench
+    from tpu_dra_torch.gpuplugin.sharing import MpsManager
+    from tpu_dra_torch.k8s import FakeCluster
+    from tpu_dra_torch.testing import MPS_STANDIN, MpsNodeSim
+
+    port_gates.Features.set_from_string("MultiprocessSupport=true")
+    cluster = FakeCluster()
+    sim = MpsNodeSim(cluster, "gpu-dra", binary=MPS_STANDIN,
+                     interval=0.02).start()
+    cdi = PortCDI(str(tmp_path / "cdi"))
+    state = PortState(
+        backend=gpuinfo.FakeBackend(), cdi=cdi,
+        checkpoints=PortCkpt(str(tmp_path / "plugin")),
+        driver_name=port_types.GPU_DRIVER_NAME, node_name="node-a",
+        mps_manager=MpsManager(gpuinfo.FakeBackend(), cluster,
+                               node_name="node-a", namespace="gpu-dra",
+                               root_dir=str(tmp_path / "mps")))
+    obj = claim(port_types.GPU_DRIVER_NAME, "gpu", [5])
+    obj["status"]["allocation"]["devices"]["config"] = [{
+        "source": "FromClaim", "requests": [], "opaque": {
+            "driver": port_types.GPU_DRIVER_NAME,
+            "parameters": {"apiVersion": port_types.API_VERSION,
+                           "kind": "GpuConfig",
+                           **bench.mps_shared_config(1 << 30)}}}]
+    try:
+        res = state.prepare(obj)
+        assert res.error == ""
+        ids = [i for d in res.devices for i in d.cdi_device_ids]
+        env, rewritten = bench.runtime_env(cdi.container_edits(ids))
+        pipe = env["CUDA_MPS_PIPE_DIRECTORY"]
+        assert rewritten == [("CUDA_MPS_PIPE_DIRECTORY", "/mps/pipe", pipe)]
+        assert pipe == str(tmp_path / "mps" / "claim-1" / "pipe")
+        assert env["CUDA_MPS_ACTIVE_THREAD_PERCENTAGE"] == "50"
+        assert env["GPU_SHARING_STRATEGY"] == "mps"
+        assert bench.mps_clients(pipe, MPS_STANDIN) == {}
+        _, _, runs = two_tenants(env)
+        (plan_a, a), (plan_b, b) = runs
+        assert plan_a == plan_b and a["losses"] == b["losses"]
+        assert all(np.isfinite(a["losses"]))
+        assert state.unprepare("claim-1") is None
+        assert cluster.wait_for(lambda: not sim.processes, 10)
+    finally:
+        state.close()
+        sim.stop()

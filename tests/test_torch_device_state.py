@@ -10,8 +10,10 @@ after that map: the kubelet-facing results, the checkpoint records (live
 and after a restart from the journal), the claim env (minus the keys one
 side has alone, REFERENCE_ONLY / PORT_ONLY, checked on their own, and the
 per-trace traceparent), the backends' settings, the rollbacks and the
-quarantine ledger. What the port refuses because it is not yet ported
-(MPS, MIG) is held to "nothing was prepared".
+quarantine ledger. What the port refuses as the reference does (an MPS
+claim with no MPS manager, a MIG config aimed at a whole GPU, a
+passthrough claim on a node that cannot rebind) is held to "nothing was
+prepared".
 """
 
 import dataclasses
@@ -417,8 +419,12 @@ class TestQuarantine:
 
 
 class TestNotYetPorted:
-    def _nothing_prepared(self, node, port_result):
-        assert "not yet ported" in port_result["error"]
+    """The refusals of the earlier slices, which refused MPS, MIG and the
+    VFIO rebind outright: each kind now prepares, and is refused only
+    where the reference refuses its counterpart."""
+
+    def _nothing_prepared(self, node, port_result, message):
+        assert message in port_result["error"]
         assert port_result["devices"] == []
         assert node.port.prepared_claim_uids() == []
         assert node.port_cdi.list_claim_uids() == []
@@ -426,40 +432,93 @@ class TestNotYetPorted:
         assert node.port_backend.exclusive == {}
 
     def test_mps_refused_cleanly(self, node):
+        """An MPS claim on a plugin started without an MPS manager (its
+        gate was off at start) is refused, as the reference refuses a
+        multiprocess claim without its manager."""
         port_gates.Features.set_from_string("MultiprocessSupport=true")
-        a0 = node.port_ckpt.journal_appends
-        claim = to_port(ref_claim("u1", [0], configs=[tpu_config(sharing={
-            "strategy": "MPS", "mpsConfig": {
-                "defaultActiveThreadPercentage": 50,
-                "defaultPinnedDeviceMemoryLimit": "8Gi"}})]))
-        res = dataclasses.asdict(node.port.prepare_batch([claim])["u1"])
-        self._nothing_prepared(node, res)
-        assert "MPS" in res["error"]
-        assert node.port_ckpt.journal_appends == a0
-        # The GPU stays free for the next claim.
-        ok = node.port.prepare_batch([to_port(ref_claim("u2", [0]))])
-        assert ok["u2"].error == ""
+        ref_gates.Features.set_from_string("MultiprocessSupport=true")
+        try:
+            a0 = (node.ref_ckpt.journal_appends,
+                  node.port_ckpt.journal_appends)
+            claim = ref_claim("u1", [0], configs=[tpu_config(sharing={
+                "strategy": "Multiprocess", "multiprocessConfig": {
+                    "defaultActiveCoresPercentage": 50,
+                    "defaultHbmLimit": "8Gi"}})])
+            port_claim = to_port(claim)
+            port_claim["status"]["allocation"]["devices"]["config"][0][
+                "opaque"]["parameters"]["sharing"] = {
+                "strategy": "MPS", "mpsConfig": {
+                    "defaultActiveThreadPercentage": 50,
+                    "defaultPinnedDeviceMemoryLimit": "8Gi"}}
+            ref = node.ref.prepare_batch([claim])["u1"]
+            res = dataclasses.asdict(
+                node.port.prepare_batch([port_claim])["u1"])
+            assert "multiprocess requested but manager disabled" \
+                in ref.error
+            self._nothing_prepared(node, res,
+                                   "MPS requested but manager disabled")
+            # Both journal the intent and the rollback of a hazardous claim.
+            assert node.port_ckpt.journal_appends - a0[1] \
+                == node.ref_ckpt.journal_appends - a0[0] == 2
+            # The GPU stays free for the next claim.
+            ok = node.port.prepare_batch([to_port(ref_claim("u2", [0]))])
+            assert ok["u2"].error == ""
+        finally:
+            ref_gates.Features.reset()
 
     def test_mig_config_refused(self, node):
-        claim = to_port(ref_claim("u1", [0]))
-        claim["status"]["allocation"]["devices"]["config"] = [{
-            "source": "FromClaim", "requests": [],
-            "opaque": {"driver": port_types.GPU_DRIVER_NAME, "parameters": {
-                "apiVersion": port_types.API_VERSION,
-                "kind": "MigDeviceConfig"}}}]
-        res = dataclasses.asdict(node.port.prepare_batch([claim])["u1"])
-        self._nothing_prepared(node, res)
-        assert "MIG" in res["error"]
+        """A MigDeviceConfig aimed at a whole GPU's request is refused, as
+        the reference refuses a SubsliceConfig aimed at a chip."""
+        claim = ref_claim("u1", [0], configs=[{
+            "apiVersion": ref_types.API_VERSION, "kind": "SubsliceConfig"}])
+        claim["status"]["allocation"]["devices"]["config"][0]["requests"] \
+            = ["tpu"]
+        port_claim = to_port(claim)
+        port_claim["status"]["allocation"]["devices"]["config"][0][
+            "opaque"]["parameters"]["kind"] = "MigDeviceConfig"
+        ref = node.ref.prepare_batch([claim])["u1"]
+        res = dataclasses.asdict(node.port.prepare_batch([port_claim])["u1"])
+        assert to_port(ref.error).replace(
+            "SubsliceConfig", "MigDeviceConfig").replace(
+            "chip device", "gpu device") == res["error"]
+        self._nothing_prepared(
+            node, res, "config kind MigDeviceConfig does not apply to gpu "
+                       "device 'gpu-0'")
 
     def test_vfio_manager_refused(self, tmp_path):
-        """DeviceState takes no VFIO manager in this slice: a passthrough
-        claim is never rebound to vfio-pci."""
-        with pytest.raises(TypeError, match="pt_manager"):
-            PortState(backend=gpuinfo.FakeBackend(),
-                      cdi=PortCDI(str(tmp_path / "cdi")),
-                      checkpoints=PortCkpt(str(tmp_path / "cp")),
-                      driver_name=port_types.GPU_DRIVER_NAME,
-                      node_name="n", pt_manager=object())
+        """DeviceState takes a VFIO manager now; on a node without the
+        vfio_pci module the rebind is refused and the claim leaves the
+        GPU on its driver, out of exclusive mode."""
+        import shutil
+
+        from tpu_dra_torch.gpuplugin.passthrough import (
+            PassthroughManager, sysfs_address,
+        )
+        from tpu_dra_torch.testing import kernel_pci_sysfs, make_fake_pci_tree
+
+        port_gates.Features.set_from_string("PassthroughSupport=true")
+        backend = gpuinfo.FakeBackend()
+        root = make_fake_pci_tree(str(tmp_path / "root"), backend.gpus())
+        shutil.rmtree(str(tmp_path / "root" / "sys" / "module" / "vfio_pci"))
+        fs = kernel_pci_sysfs(root)
+        cdi = PortCDI(str(tmp_path / "cdi"))
+        state = PortState(backend=backend, cdi=cdi,
+                          checkpoints=PortCkpt(str(tmp_path / "cp")),
+                          driver_name=port_types.GPU_DRIVER_NAME,
+                          node_name="n", pt_manager=PassthroughManager(fs))
+        try:
+            res = state.prepare(to_port(ref_claim("u1", [4], configs=[{
+                "apiVersion": ref_types.API_VERSION,
+                "kind": "PassthroughConfig"}])))
+            assert "vfio_pci module is not loaded" in res.error
+            assert state.prepared_claim_uids() == []
+            assert cdi.list_claim_uids() == []
+            assert backend.exclusive == {4: False}
+            assert fs.current_driver(sysfs_address(
+                backend.get_gpu(4).pci_bus_id)) == "nvidia"
+            assert fs.writes == []
+        finally:
+            state.close()
 
     def test_mps_gated_off_is_an_unknown_strategy(self, node):
         claim = to_port(ref_claim("u1", [0], configs=[tpu_config(sharing={

@@ -143,8 +143,23 @@ def stub_cuda(devices):
     return _recording(table)
 
 
+# The H100 80GB's GPU-instance profiles as its NVML answers them: profile
+# enum -> (profile id, slices, memory MB, placement starts, memory slices).
+H100_NVML_PROFILES = {
+    0: (19, 1, 9856, (0, 1, 2, 3, 4, 5, 6), 1),     # 1g.10gb
+    7: (20, 1, 9856, (0, 1, 2, 3, 4, 5, 6), 1),     # 1g.10gb+me
+    9: (15, 1, 19968, (0, 2, 4, 6), 2),              # 1g.20gb
+    1: (14, 2, 19968, (0, 2, 4), 2),                 # 2g.20gb
+    2: (9, 3, 40192, (0, 4), 4),                     # 3g.40gb
+    3: (5, 4, 40192, (0,), 4),                       # 4g.40gb
+    4: (0, 7, 80384, (0,), 8),                       # 7g.80gb
+}
+NVML_ERROR_NOT_FOUND = gpuinfo.NVML_ERROR_NOT_FOUND
+GI_HANDLE, CI_HANDLE, MIG_HANDLE = 1 << 20, 2 << 20, 3 << 20
+
+
 def stub_nvml(gpus, init_rc=0, mig_rc=None, pci_rc=0, events=(),
-              register_rc=None, event_set_rc=0):
+              register_rc=None, event_set_rc=0, procs=()):
     """A stand-in for ctypes.CDLL("libnvidia-ml.so.1"): one Python function
     per NVML symbol, filling the caller's buffers as NVML does. `gpus` is
     a list of dicts; `mig_rc` maps a GPU index to the return code of
@@ -155,15 +170,26 @@ def stub_nvml(gpus, init_rc=0, mig_rc=None, pci_rc=0, events=(),
     nvmlDeviceGetNvLinkState answers for every link. `events` are
     (GPU index or None, event type, data) served by nvmlEventSetWait_v2
     in order, then NVML_ERROR_TIMEOUT; `register_rc` maps a GPU index to
-    nvmlDeviceRegisterEvents' code. Records every call in `lib.calls`."""
+    nvmlDeviceRegisterEvents' code. `procs` are the pids of
+    nvmlDeviceGetComputeRunningProcesses_v3. A GPU whose "mig" is 1 answers
+    the MIG calls with the H100 80GB's profiles (H100_NVML_PROFILES) and
+    keeps its GPU instances in `lib.instances`, refusing overlapping
+    memory slices as the card does. Records every call in `lib.calls`."""
     compute_modes = {}
     mig_rc = mig_rc or {}
     register_rc = register_rc or {}
     pending = list(events)
     registered = {}
 
+    instances = {}   # GPU index -> GI id -> [profile enum, start, CIs]
+
     def gpu(h):
         return gpus[h.value - 1]
+
+    def split(handle, base):
+        """(GPU index, GI id, CI id) of a GI/CI/MIG-device handle."""
+        v = handle.value - base
+        return v >> 8 & 0xFF, v >> 4 & 0xF, v & 0xF
 
     def init():
         return init_rc
@@ -184,6 +210,10 @@ def stub_nvml(gpus, init_rc=0, mig_rc=None, pci_rc=0, events=(),
 
     def uuid(h, buf, n):
         assert n == 96
+        if h.value >= MIG_HANDLE:
+            i, gi, ci = split(h, MIG_HANDLE)
+            buf.value = f"MIG-{i:08x}-{gi:04x}-{ci:04x}-0000-00000000".encode()
+            return 0
         buf.value = gpu(h)["uuid"].encode()
         return 0
 
@@ -261,6 +291,134 @@ def stub_nvml(gpus, init_rc=0, mig_rc=None, pci_rc=0, events=(),
         ev.eventType, ev.eventData = kind, data
         return 0
 
+    def running(h, n, out):
+        n._obj.value = len(procs)
+        for k, pid in enumerate(procs):
+            out[k].pid = pid
+        return 0
+
+    def get_mode(h, ref):
+        ref._obj.value = compute_modes.get(h.value - 1, 0)
+        return 0
+
+    def profile(h, enum, ref):
+        if not gpu(h)["mig"]:
+            return NOT_SUPPORTED
+        if enum not in H100_NVML_PROFILES:
+            return 2   # INVALID_ARGUMENT: not on this GPU
+        pid, slices, mb, _, _ = H100_NVML_PROFILES[enum]
+        ref._obj.id, ref._obj.sliceCount = pid, slices
+        ref._obj.memorySizeMB = mb
+        return 0
+
+    def by_id(pid):
+        return next(e for e, p in H100_NVML_PROFILES.items() if p[0] == pid)
+
+    def placements(h, pid, out, n):
+        _, _, _, starts, size = H100_NVML_PROFILES[by_id(pid)]
+        if out is not None:
+            for k, start in enumerate(starts):
+                out[k].start, out[k].size = start, size
+        n._obj.value = len(starts)
+        return 0
+
+    def create_gi(h, pid, placement, out):
+        i = h.value - 1
+        enum = by_id(pid)
+        _, _, _, starts, size = H100_NVML_PROFILES[enum]
+        p = placement._obj
+        live = instances.setdefault(i, {})
+        taken = {s for e, st, _ in live.values()
+                 for s in range(st, st + H100_NVML_PROFILES[e][4])}
+        if p.start not in starts or p.size != size or taken & set(
+                range(p.start, p.start + size)):
+            return gpuinfo.NVML_ERROR_INSUFFICIENT_RESOURCES
+        gi = min(set(range(1, 15)) - set(live))
+        live[gi] = [enum, p.start, {}]
+        out._obj.value = GI_HANDLE + (i << 8 | gi << 4)
+        return 0
+
+    def gi_info(gi_h, ref):
+        i, gi, _ = split(gi_h, GI_HANDLE)
+        enum, start, _ = instances[i][gi]
+        ref._obj.id, ref._obj.profileId = gi, H100_NVML_PROFILES[enum][0]
+        ref._obj.placement.start = start
+        ref._obj.placement.size = H100_NVML_PROFILES[enum][4]
+        return 0
+
+    def ci_profile(gi_h, enum, engine, ref):
+        ref._obj.id, ref._obj.sliceCount = enum, 0
+        return 0
+
+    def create_ci(gi_h, ci_profile_id, out):
+        i, gi, _ = split(gi_h, GI_HANDLE)
+        cis = instances[i][gi][2]
+        ci = min(set(range(8)) - set(cis))
+        cis[ci] = ci_profile_id
+        out._obj.value = CI_HANDLE + (i << 8 | gi << 4 | ci)
+        return 0
+
+    def ci_info(ci_h, ref):
+        ref._obj.id = split(ci_h, CI_HANDLE)[2]
+        return 0
+
+    def gpu_instances(h, pid, out, n):
+        i = h.value - 1
+        mine = sorted(gi for gi, (e, _, _) in instances.get(i, {}).items()
+                      if H100_NVML_PROFILES[e][0] == pid)
+        for k, gi in enumerate(mine):
+            out[k] = GI_HANDLE + (i << 8 | gi << 4)
+        n._obj.value = len(mine)
+        return 0
+
+    def gi_by_id(h, gi, out):
+        i = h.value - 1
+        if gi not in instances.get(i, {}):
+            return NVML_ERROR_NOT_FOUND
+        out._obj.value = GI_HANDLE + (i << 8 | gi << 4)
+        return 0
+
+    def ci_by_id(gi_h, ci, out):
+        i, gi, _ = split(gi_h, GI_HANDLE)
+        if ci not in instances[i][gi][2]:
+            return NVML_ERROR_NOT_FOUND
+        out._obj.value = CI_HANDLE + (i << 8 | gi << 4 | ci)
+        return 0
+
+    def destroy_ci(ci_h):
+        i, gi, ci = split(ci_h, CI_HANDLE)
+        del instances[i][gi][2][ci]
+        return 0
+
+    def destroy_gi(gi_h):
+        i, gi, _ = split(gi_h, GI_HANDLE)
+        if instances[i][gi][2]:
+            return 19   # NVML_ERROR_IN_USE: compute instances remain
+        del instances[i][gi]
+        return 0
+
+    def max_mig(h, n):
+        n._obj.value = 7 if gpu(h)["mig"] else 0
+        return 0
+
+    def mig_handle(h, k, out):
+        i = h.value - 1
+        devs = sorted((gi, ci) for gi, (_, _, cis) in
+                      instances.get(i, {}).items() for ci in cis)
+        if k >= len(devs):
+            return NVML_ERROR_NOT_FOUND
+        gi, ci = devs[k]
+        out._obj.value = MIG_HANDLE + (i << 8 | gi << 4 | ci)
+        return 0
+
+    def mig_gi(mig_h, ref):
+        ref._obj.value = split(mig_h, MIG_HANDLE)[1]
+        return 0
+
+    def mig_ci(mig_h, ref):
+        ref._obj.value = split(mig_h, MIG_HANDLE)[2]
+        return 0
+
     table = {
         "nvmlInit_v2": init, "nvmlShutdown": lambda: 0,
         "nvmlErrorString": error_string,
@@ -279,11 +437,30 @@ def stub_nvml(gpus, init_rc=0, mig_rc=None, pci_rc=0, events=(),
         "nvmlDeviceRegisterEvents": register,
         "nvmlEventSetWait_v2": wait,
         "nvmlEventSetFree": lambda event_set: 0,
+        "nvmlDeviceGetComputeRunningProcesses_v3": running,
+        "nvmlDeviceGetComputeMode": get_mode,
+        "nvmlDeviceGetGpuInstanceProfileInfo": profile,
+        "nvmlDeviceGetGpuInstancePossiblePlacements_v2": placements,
+        "nvmlDeviceCreateGpuInstanceWithPlacement": create_gi,
+        "nvmlGpuInstanceGetInfo": gi_info,
+        "nvmlGpuInstanceGetComputeInstanceProfileInfo": ci_profile,
+        "nvmlGpuInstanceCreateComputeInstance": create_ci,
+        "nvmlComputeInstanceGetInfo_v2": ci_info,
+        "nvmlDeviceGetGpuInstances": gpu_instances,
+        "nvmlDeviceGetGpuInstanceById": gi_by_id,
+        "nvmlGpuInstanceGetComputeInstanceById": ci_by_id,
+        "nvmlComputeInstanceDestroy": destroy_ci,
+        "nvmlGpuInstanceDestroy": destroy_gi,
+        "nvmlDeviceGetMaxMigDeviceCount": max_mig,
+        "nvmlDeviceGetMigDeviceHandleByIndex": mig_handle,
+        "nvmlDeviceGetGpuInstanceId": mig_gi,
+        "nvmlDeviceGetComputeInstanceId": mig_ci,
     }
     assert set(table) == set(gpuinfo.NVML_SYMBOLS)
     lib = _recording(table)
     lib.compute_modes = compute_modes
     lib.registered = registered
+    lib.instances = instances
     return lib
 
 
@@ -490,6 +667,84 @@ class TestNvlinkClique:
         del lib.nvmlDeviceGetUUID
         with pytest.raises(AttributeError):
             gpuinfo.NativeBackend(lib=lib)
+
+
+def mig_minors_file(tmp_path, gpu_minor):
+    """/proc/driver/nvidia-caps/mig-minors as the driver writes it, for
+    one GPU: config, monitor, then every GI and CI access file."""
+    lines = ["config 1", "monitor 2"]
+    for gi in range(15):
+        lines.append(f"gpu{gpu_minor}/gi{gi}/access "
+                     f"{gpuinfo.mig_caps_minor(gpu_minor, gi)}")
+        lines += [f"gpu{gpu_minor}/gi{gi}/ci{ci}/access "
+                  f"{gpuinfo.mig_caps_minor(gpu_minor, gi, ci)}"
+                  for ci in range(8)]
+    path = tmp_path / "mig-minors"
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+class TestNativeMig:
+    """NVML's MIG calls through NativeBackend, against the fake backend's
+    H100 80GB table (the port's MIG model on the CPU)."""
+
+    def backend(self, tmp_path, mig=1):
+        lib = stub_nvml([h100(0, mig=mig, minor=3)])
+        return gpuinfo.NativeBackend(
+            lib=lib, mig_caps_path=mig_minors_file(tmp_path, 3)), lib
+
+    def test_profiles_named_as_nvidia_smi_and_match_fake_table(self,
+                                                               tmp_path):
+        native, _ = self.backend(tmp_path)
+        got = {p.name: (p.slices, p.memory_slices, p.starts)
+               for p in native.mig_profiles(0)}
+        fake = gpuinfo.FakeBackend([gpuinfo.Gpu(
+            **{**gpuinfo.default_fake_gpus(1)[0].__dict__,
+               "mig_mode": True})])
+        want = {p.name: (p.slices, p.memory_slices, p.starts)
+                for p in fake.mig_profiles(0)}
+        assert {k: v for k, v in got.items() if k != "1g.10gb+me"} == want
+        assert got["1g.10gb+me"] == want["1g.10gb"]
+
+    def test_create_list_destroy(self, tmp_path):
+        native, lib = self.backend(tmp_path)
+        dev = native.create_mig_device(0, "3g.40gb", 4)
+        assert (dev.profile, dev.start, dev.size, dev.gi, dev.ci) == (
+            "3g.40gb", 4, 4, 1, 0)
+        assert dev.uuid.startswith("MIG-")
+        assert dev.caps == (gpuinfo.mig_caps_minor(3, 1),
+                            gpuinfo.mig_caps_minor(3, 1, 0))
+        assert native.mig_devices(0) == [dev]
+        with pytest.raises(gpuinfo.NvmlError, match="CreateGpuInstance"):
+            native.create_mig_device(0, "1g.10gb", 5)   # slices overlap
+        other = native.create_mig_device(0, "2g.20gb", 0)
+        assert [d.start for d in native.mig_devices(0)] == [0, 4]
+        native.destroy_mig_device(0, dev.gi, None)
+        native.destroy_mig_device(0, dev.gi, None)   # idempotent
+        assert native.mig_devices(0) == [other]
+        assert lib.instances == {0: {other.gi: [1, 0, {0: 1}]}}
+
+    def test_mig_off_answers_no_profiles(self, tmp_path):
+        native, _ = self.backend(tmp_path, mig=0)
+        assert native.mig_profiles(0) == []
+        assert native.mig_devices(0) == []
+        with pytest.raises(ValueError, match="no MIG profile"):
+            native.create_mig_device(0, "3g.40gb", 0)
+
+    def test_compute_mode_and_processes(self, tmp_path):
+        lib = stub_nvml([h100(0)], procs=(41, 42))
+        native = gpuinfo.NativeBackend(lib=lib)
+        assert native.compute_mode(0) == gpuinfo.NVML_COMPUTEMODE_DEFAULT
+        native.set_exclusive_mode(0, True)
+        assert native.compute_mode(0) == \
+            gpuinfo.NVML_COMPUTEMODE_EXCLUSIVE_PROCESS
+        assert native.running_processes(0) == [41, 42]
+        for sym in ("nvmlDeviceGetComputeMode",
+                    "nvmlDeviceGetComputeRunningProcesses_v3"):
+            delattr(lib, sym)
+        bare = gpuinfo.NativeBackend(lib=lib)
+        assert bare.compute_mode(0) is None
+        assert bare.running_processes(0) is None
 
 
 class TestHealthEvents:

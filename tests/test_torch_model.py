@@ -261,33 +261,20 @@ class TestNoCpuFallback:
 
 
 class TestImportIsolation:
-    MODULES = ("tpu_dra_torch.workloads.model", "tpu_dra_torch.entry",
-               "tpu_dra_torch.bench", "chip_smoke",
-               "tpu_dra_torch.gpuplugin.device_state",
-               "tpu_dra_torch.cdi.handler",
-               "tpu_dra_torch.topology.meshexport",
-               "tpu_dra_torch.workloads.meshbuild",
-               "tpu_dra_torch.native.gpuinfo",
-               "tpu_dra_torch.kubeletplugin.wire",
-               "tpu_dra_torch.kubeletplugin.pipeline",
-               "tpu_dra_torch.kubeletplugin.aio_server",
-               "tpu_dra_torch.kubeletplugin.server",
-               "tpu_dra_torch.gpuplugin.health",
-               "tpu_dra_torch.gpuplugin.driver",
-               "tpu_dra_torch.gpuplugin.main",
-               "tpu_dra_torch.infra.flock", "tpu_dra_torch.infra.workqueue",
-               "tpu_dra_torch.infra.debug", "tpu_dra_torch.infra.flags",
-               "tpu_dra_torch.k8s", "tpu_dra_torch.k8s.client",
-               "tpu_dra_torch.k8s.fake", "tpu_dra_torch.k8s.resources")
-
     def test_port_imports_neither_jax_nor_reference(self):
+        """Every module of the package, as pkgutil walks it, and
+        chip_smoke: none may bring jax, jaxlib or tpu_dra into
+        sys.modules."""
         code = (
-            "import importlib, sys\n"
-            f"for m in {self.MODULES!r}: importlib.import_module(m)\n"
+            "import importlib, pkgutil, sys\n"
+            "import tpu_dra_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(\n"
+            "    tpu_dra_torch.__path__, 'tpu_dra_torch.')]\n"
+            "for m in names + ['chip_smoke']: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpu_dra'))\n"
-            "print(bad)\n"
-            "sys.exit(1 if bad else 0)\n")
+            "print(len(names), bad)\n"
+            "sys.exit(1 if bad or len(names) < 40 else 0)\n")
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                               env=env, capture_output=True, text=True,

@@ -19,7 +19,7 @@ scheme in ``tpu_dra_torch.api.scheme``.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from tpu_dra_torch.infra import featuregates
 from tpu_dra_torch.infra.quantity import Quantity
@@ -115,6 +115,28 @@ class MpsPerDevicePinnedMemoryLimit:
             except ValueError as e:
                 raise ValidationError(
                     f"defaultPerDevicePinnedMemoryLimit[{key}]: {e}") from e
+
+    def normalize(self, uuids: List[str], indices: Dict[str, int],
+                  default_limit: Optional[str]) -> Dict[str, int]:
+        """{uuid: bytes} for the claim's GPUs: index keys become UUIDs,
+        "default" (else the config-level default) fills every GPU not
+        named, and a key naming a GPU outside the claim is refused."""
+        resolved: Dict[str, int] = {}
+        default = self.limits.get("default", default_limit)
+        if default is not None:
+            for uuid in uuids:
+                resolved[uuid] = Quantity(default).value
+        index_to_uuid = {str(i): u for u, i in indices.items()}
+        for key, raw in self.limits.items():
+            if key == "default":
+                continue
+            uuid = index_to_uuid.get(key, key)
+            if uuid not in uuids:
+                raise ValidationError(
+                    f"defaultPerDevicePinnedMemoryLimit: device {key!r} is "
+                    "not part of this claim")
+            resolved[uuid] = Quantity(raw).value
+        return resolved
 
 
 @dataclass
@@ -297,10 +319,27 @@ class GpuConfig(_SharingConfigBase):
 
 @dataclass
 class MigDeviceConfig(_SharingConfigBase):
-    """Per-claim config for a MIG device of a GPU. The MIG profile is chosen
-    by the scheduler through device selection; this config carries only
-    sharing settings for it."""
+    """Per-claim config for a MIG device of a GPU. The MIG profile and
+    placement are chosen by the scheduler through device selection; this
+    config carries only sharing settings for it. A MIG device's compute
+    instance is time-sliced among its processes by the driver, with no
+    setting of its own, so the only strategy it takes is TimeSlicing
+    without a timeSlicingConfig, and nothing is implied by default."""
     KIND = MIG_DEVICE_CONFIG_KIND
+
+    def normalize(self):
+        pass
+
+    def validate(self):
+        if self.sharing is None:
+            return
+        self.sharing.validate()
+        if not self.sharing.is_time_slicing() \
+                or self.sharing.time_slicing_config is not None:
+            raise ValidationError(
+                "a MIG device takes only the TimeSlicing strategy, with no "
+                "timeSlicingConfig: the driver time-slices its compute "
+                "instance, and MPS on a MIG device is not supported")
 
 
 @dataclass

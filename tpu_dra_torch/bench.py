@@ -5,22 +5,31 @@ bench_mfu, bench_long_context, bench_claim_to_ready and their helpers).
 bench_mfu, bench_long_context and profile_train_step are device
 measurements: they run on a CUDA device or raise. bench_claim_to_ready
 times the kubelet plugin over its sockets on any discovery backend.
+bench_shared_claim runs one claim's tenants (train-step processes,
+``claim-child`` below) at once, with the default config or MPS.
 
     python -m tpu_dra_torch.bench
-    # one JSON line each: mfu, long_ctx (S=8192), long_ctx_xl (S=16384),
-    # profile (flagship), profile_xl (S=16384) and claim_to_ready (the
-    # node's GPUs through NVML)
+    # one JSON line each: shared_claim and mps (one claim, two flagship
+    # tenants), mfu, long_ctx (S=8192), long_ctx_xl (S=16384), profile
+    # (flagship), profile_xl (S=16384) and claim_to_ready (the node's
+    # GPUs through NVML)
+    python -m tpu_dra_torch.bench claim-child [--steps N] [--wait-go] ...
+    # one tenant of the claim whose CDI env is this process's environment
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import math
 import os
 import shutil
 import statistics
+import subprocess
+import sys
 import tempfile
+import threading
 import time
 import uuid
 
@@ -37,6 +46,8 @@ FLAGSHIP = ModelConfig(vocab=32768, d_model=2048, n_heads=16, n_layers=8,
 FLAGSHIP_BATCH = 8
 LONG_CONTEXT_BATCH = 1
 TOP_KERNELS = 15
+
+log = logging.getLogger("tpu_dra_torch.bench")
 
 
 def _sync(device: torch.device) -> None:
@@ -289,19 +300,26 @@ class _BenchDriver:
     handler and checkpoint journal over a FakeCluster) plus a
     kubelet-acting client on the framed socket, and on the gRPC socket
     where ``grpc`` imports. Everything lives in a fresh directory under
-    `scratch` (the process's temporary directory by default)."""
+    `scratch` (the process's temporary directory by default). With
+    `mps_binary` (the argv of ``nvidia-cuda-mps-control`` or a stand-in)
+    the state has an MpsManager, and an MpsNodeSim plays kubelet for its
+    daemon Deployments; their directories sit under a short temporary
+    path, since the daemon's pipe sockets must fit in 107 bytes."""
 
-    def __init__(self, backend, scratch=None):
+    def __init__(self, backend, scratch=None, mps_binary=None):
         from tpu_dra_torch.api.types import GPU_DRIVER_NAME
         from tpu_dra_torch.cdi.handler import CDIHandler
         from tpu_dra_torch.gpuplugin.checkpoint import CheckpointManager
         from tpu_dra_torch.gpuplugin.device_state import DeviceState
         from tpu_dra_torch.gpuplugin.driver import GpuDriver
-        from tpu_dra_torch.gpuplugin.sharing import TimeSlicingManager
+        from tpu_dra_torch.gpuplugin.sharing import (
+            MpsManager, TimeSlicingManager,
+        )
         from tpu_dra_torch.k8s import FakeCluster
         from tpu_dra_torch.kubeletplugin.server import (
             framed_stubs, kubelet_stubs,
         )
+        from tpu_dra_torch.testing import MpsNodeSim
 
         self.backend = backend
         self.cluster = FakeCluster()
@@ -309,11 +327,20 @@ class _BenchDriver:
         self.cdi_dir = os.path.join(self.tmp, "cdi")
         self.cdi = CDIHandler(self.cdi_dir,
                               driver_root=os.path.join(self.tmp, "drv"))
+        self.mps_root = self.mps_sim = mps_manager = None
+        if mps_binary is not None:
+            self.mps_root = tempfile.mkdtemp(prefix="mps-")
+            mps_manager = MpsManager(backend, self.cluster,
+                                     node_name=BENCH_NODE,
+                                     namespace=MPS_NAMESPACE,
+                                     root_dir=self.mps_root)
+            self.mps_sim = MpsNodeSim(self.cluster, MPS_NAMESPACE,
+                                      binary=mps_binary).start()
         self.state = DeviceState(
             backend=backend, cdi=self.cdi,
             checkpoints=CheckpointManager(os.path.join(self.tmp, "p")),
             driver_name=GPU_DRIVER_NAME, node_name=BENCH_NODE,
-            ts_manager=TimeSlicingManager(backend))
+            ts_manager=TimeSlicingManager(backend), mps_manager=mps_manager)
         self.grpc_unavailable = grpc_unavailable()
         self.driver = GpuDriver(state=self.state, client=self.cluster,
                                 driver_name=GPU_DRIVER_NAME,
@@ -446,11 +473,24 @@ class _BenchDriver:
             self.unprepare(objs)
         return lat / n_claims
 
+    def release_prepared(self):
+        """Unprepare every claim still prepared (a run that failed
+        midway), so that no daemon, MIG instance or compute mode it set
+        outlives the bench. Errors are logged: the run's own is raised."""
+        for uid in self.state.prepared_claim_uids():
+            err = self.state.unprepare(uid)
+            if err:
+                log.warning("unprepare of %s after a failed run: %s", uid,
+                            err)
+
     def close(self):
         if self.channel is not None:
             self.channel.close()
         self.framed_client.close()
         self.driver.shutdown()
+        if self.mps_sim is not None:
+            self.mps_sim.stop()
+            shutil.rmtree(self.mps_root, ignore_errors=True)
         shutil.rmtree(self.tmp, ignore_errors=True)
 
 
@@ -476,7 +516,8 @@ def bench_claim_to_ready(backend, n_cycles: int = 100, warmup: int = 15,
     the time slice: nvidia-smi needs root), the per-claim cost of a batch
     of up to 4 claims in one RPC (None on a one-GPU node: exclusive
     claims need distinct GPUs), and the MIG analog of the reference's
-    subslice key (None: MIG is not ported). The reference's key names;
+    subslice key: a claim of the first MIG device, None with the reason
+    where no GPU is in MIG mode. The reference's key names;
     n_gpus and visible_gpus stand for its n_chips and visible_chips."""
     from tpu_dra_torch.api.types import API_VERSION, GPU_DRIVER_NAME
     from tpu_dra_torch.infra import featuregates
@@ -512,6 +553,14 @@ def bench_claim_to_ready(backend, n_cycles: int = 100, warmup: int = 15,
             p50_ts, ts_unavailable = None, str(e)
         finally:
             featuregates.Features.restore_overrides(gates_before)
+        # The subslice key's analog: a MIG device's claim (its instance
+        # created and destroyed each cycle), where a GPU is in MIG mode.
+        mig = sorted(name for name, dev in bd.state.allocatable.items()
+                     if dev.mig is not None)
+        p50_mig, mig_unavailable = None, "no GPU of this node is in MIG mode"
+        if mig:
+            p50_mig, mig_unavailable = bd.config_p50(
+                "mig", n_config, devices=mig[:1]), None
         batch_n = min(4, len(gpus))
         n_batch_cycles = max(5, n_cycles // 5)
         one_gpu = [f"gpu-{gpus[0]}"]
@@ -549,9 +598,8 @@ def bench_claim_to_ready(backend, n_cycles: int = 100, warmup: int = 15,
         "claim_to_ready_warmup_cycles": warmup,
         "claim_to_ready_p50_timeslice_ms": p50_ts,
         "claim_to_ready_timeslice_unavailable": ts_unavailable,
-        "claim_to_ready_p50_subslice_ms": None,
-        "claim_to_ready_subslice_unavailable": "MIG devices are not "
-                                               "ported yet",
+        "claim_to_ready_p50_subslice_ms": p50_mig,
+        "claim_to_ready_subslice_unavailable": mig_unavailable,
         "claim_to_ready_p50_1chip_ms": p50_one,
         "claim_to_ready_transport": "framed",
         "claim_to_ready_p50_1chip_grpc_ms": p50_one_grpc,
@@ -589,18 +637,425 @@ def bench_claim_to_ready(backend, n_cycles: int = 100, warmup: int = 15,
     return out
 
 
-if __name__ == "__main__":
-    print(json.dumps({"bench_mfu": bench_mfu(steps=5)}), flush=True)
-    print(json.dumps({"long_ctx": bench_long_context(seq=8192)}), flush=True)
-    print(json.dumps({"long_ctx_xl": bench_long_context(
-        steps=3, seq=16384, prefix="long_ctx_xl")}), flush=True)
-    print(json.dumps({"profile": profile_train_step()}), flush=True)
-    print(json.dumps({"profile_xl": profile_train_step(
-        steps=2, cfg=long_context_config(16384),
-        batch=LONG_CONTEXT_BATCH)}), flush=True)
+# ---------------------------------------------------------------------------
+# Shared claims: one claim, several train-step tenants at once
+# ---------------------------------------------------------------------------
+
+MPS_NAMESPACE = "gpu-dra-driver"
+SHARED_STEPS = 10
+CLAIM_CHILD = "claim-child"
+GO = "go"
+N_TENANTS = 2
+# Each tenant's timed window must overlap every other's for at least this
+# share of its own length, or the tenants did not share the device. CPU
+# tenants (the CPU tier's) share no device: each has cores of its own, so
+# their windows differ by those cores' speed, and only half is asked.
+MIN_OVERLAP = 0.9
+MIN_OVERLAP_CPU = 0.5
+TENANT_TIMEOUT_S = 900.0
+
+
+def claim_child(argv) -> int:
+    """A tenant of a claim (``python -m tpu_dra_torch.bench claim-child``):
+    plan_from_env -> devices_from_env -> launch_workload("train") on this
+    process's environment, the flagship at full width unless ``--config``
+    (ModelConfig fields as JSON, dtype by name) says otherwise.
+    ``--warm N`` untimed steps come first; with ``--wait-go``
+    it then prints ``{"ready": pid}`` and waits for a "go" line on stdin,
+    so that several tenants time their steps together. The launch counts
+    are zeroed just before the ``--steps N`` timed steps. Prints one JSON
+    line: the workload's record (losses, step times, host-clock window),
+    the UUID of the device it ran on, the claim's UUIDs, the launch
+    counts and, on a card, the allocator's peak and mem_get_info."""
+    import argparse
+
+    from tpu_dra_torch.topology.meshexport import plan_from_env
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import meshbuild
+
+    ap = argparse.ArgumentParser(prog=CLAIM_CHILD)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--warm", type=int, default=0)
+    ap.add_argument("--wait-go", action="store_true")
+    ap.add_argument("--device-type", default="cuda")
+    ap.add_argument("--config", default=None)
+    args = ap.parse_args(argv)
+    env = dict(os.environ)
+    plan = plan_from_env(env)
+    devices = meshbuild.devices_from_env(env, args.device_type)
+    cfg = FLAGSHIP
+    if args.config:
+        fields = json.loads(args.config)
+        fields["dtype"] = getattr(torch, fields.get("dtype", "bfloat16"))
+        cfg = ModelConfig(**fields)
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab,
+                                              (FLAGSHIP_BATCH, cfg.max_seq))
+
+    def barrier():
+        if args.wait_go:
+            print(json.dumps({"ready": os.getpid()}), flush=True)
+            line = sys.stdin.readline().strip()
+            if line != GO:
+                raise RuntimeError(f"tenant waited for {GO!r}, read {line!r}")
+        fk.reset_launches()
+
+    res = meshbuild.launch_workload("train", plan, devices, cfg=cfg,
+                                    steps=args.steps, tokens=tokens,
+                                    warm_steps=args.warm, barrier=barrier)
+    device = torch.device(res["device"])
+    out = {**res, "pid": os.getpid(),
+           "claim_uuids": env.get("CUDA_VISIBLE_DEVICES", "").split(","),
+           "uuid": None, "max_memory_allocated": None, "mem_get_info": None,
+           "plan": {"coords": plan.coords, "topology": plan.fabric_dims,
+                    "generation": plan.generation},
+           "launches": fk.launches(), "kernel_launches": fk.kernel_launches()}
+    if device.type == "cuda":
+        out["uuid"] = str(torch.cuda.get_device_properties(device).uuid)
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+        out["mem_get_info"] = list(torch.cuda.mem_get_info(device))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def runtime_env(edits: dict) -> tuple:
+    """A claim's CDI env as a host process must see it: a container
+    runtime would bind each mount's hostPath at its containerPath, so an
+    env value under a containerPath is rewritten to the hostPath.
+    Returns (env, [(name, container value, host value)])."""
+    env = dict(edits["env"])
+    rewritten = []
+    for mount in edits.get("mounts", []):
+        cpath, hpath = mount["containerPath"], mount["hostPath"]
+        if cpath == hpath:
+            continue
+        for key, value in env.items():
+            if value == cpath or value.startswith(cpath + "/"):
+                env[key] = hpath + value[len(cpath):]
+                rewritten.append((key, value, env[key]))
+    return env, rewritten
+
+
+def mps_clients(pipe_dir: str, control=None) -> dict:
+    """Server pid -> client pids, as the MPS control daemon whose pipe
+    directory is `pipe_dir` answers get_server_list and then
+    get_client_list for each server."""
+    from tpu_dra_torch.gpuplugin.sharing import ENV_MPS_PIPE, MPS_CONTROL
+
+    control = list(control or [MPS_CONTROL])
+    env = {**os.environ, ENV_MPS_PIPE: pipe_dir}
+
+    def ask(command: str) -> list:
+        proc = subprocess.run(control, input=command + "\n", env=env,
+                              capture_output=True, text=True, timeout=30)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{command!r} to the MPS control daemon: "
+                               f"exit {proc.returncode} {proc.stderr!r}")
+        return [int(t) for t in proc.stdout.split() if t.isdigit()]
+
+    return {pid: ask(f"get_client_list {pid}")
+            for pid in ask("get_server_list")}
+
+
+def _run_tenants(argv, env, n, cwd, pipe_dir=None, control=None) -> tuple:
+    """`n` tenants of one claim at once: each runs `argv` (a claim child
+    with --wait-go) under `env`; once every one has taken its warm step
+    and is waiting, all get "go" together. With `pipe_dir`, the MPS
+    control daemon is asked for its clients until the tenants exit.
+    Returns (each tenant's record, the most MPS clients seen at once)."""
+    errs = [tempfile.TemporaryFile(mode="w+") for _ in range(n)]
+    procs = [subprocess.Popen(argv, env=env, cwd=cwd, stdin=subprocess.PIPE,
+                              stdout=subprocess.PIPE, stderr=err, text=True)
+             for err in errs]
+    killer = threading.Timer(TENANT_TIMEOUT_S,
+                             lambda: [p.kill() for p in procs])
+    killer.start()
+
+    def failed(i, what):
+        errs[i].seek(0)
+        return RuntimeError(f"tenant {i} (pid {procs[i].pid}) {what}; "
+                            f"exit {procs[i].poll()}:\n{errs[i].read()[-4000:]}")
+
+    try:
+        for i, p in enumerate(procs):
+            line = p.stdout.readline()
+            while line and not line.startswith('{"ready"'):
+                line = p.stdout.readline()
+            if not line:
+                raise failed(i, "did not get ready")
+        for p in procs:
+            p.stdin.write(GO + "\n")
+            p.stdin.flush()
+        clients = 0
+        while pipe_dir is not None and any(p.poll() is None for p in procs):
+            seen = mps_clients(pipe_dir, control)
+            clients = max(clients, sum(len(c) for c in seen.values()))
+            time.sleep(0.05)
+        out = []
+        for i, p in enumerate(procs):
+            lines = p.stdout.read().strip().splitlines()
+            if p.wait() != 0 or not lines:
+                raise failed(i, "failed")
+            out.append(json.loads(lines[-1]))
+        return out, clients
+    finally:
+        killer.cancel()
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for err in errs:
+            err.close()
+
+
+def _tenant_reading(rec: dict) -> dict:
+    median = statistics.median(rec["step_times_s"])
+    return {"pid": rec["pid"], "uuid": rec["uuid"],
+            "median_step_s": median,
+            "tokens_per_s": rec["batch"] * (rec["seq"] - 1) / median,
+            "step_times_s": rec["step_times_s"], "window": rec["window"],
+            "losses": rec["losses"],
+            "max_memory_allocated": rec["max_memory_allocated"],
+            "mem_get_info": rec["mem_get_info"],
+            "n_layers": rec["n_layers"], "steps": rec["steps"],
+            "launches": rec["launches"],
+            "kernel_launches": rec["kernel_launches"]}
+
+
+def _check_tenants(recs, claim_uuid, device_type) -> list:
+    """Every tenant trained to finite losses on the claim's device, and
+    each one's timed window overlaps every other's for MIN_OVERLAP of
+    its own length (MIN_OVERLAP_CPU on the CPU). Returns the overlap
+    shares."""
+    from tpu_dra_torch.workloads.meshbuild import normalize_uuid
+
+    min_overlap = MIN_OVERLAP if device_type == "cuda" else MIN_OVERLAP_CPU
+
+    for rec in recs:
+        if not all(math.isfinite(x) for x in rec["losses"]):
+            raise RuntimeError(f"tenant {rec['pid']}: non-finite losses "
+                               f"{rec['losses']}")
+        seen = rec["uuid"] if device_type == "cuda" else rec["claim_uuids"][0]
+        if normalize_uuid(seen) != normalize_uuid(claim_uuid):
+            raise RuntimeError(f"tenant {rec['pid']} ran on {seen}, the "
+                               f"claim holds {claim_uuid}")
+    shares = []
+    for a in recs:
+        (s0, e0) = a["window"]
+        for b in recs:
+            if b is a:
+                continue
+            (s1, e1) = b["window"]
+            share = max(0.0, min(e0, e1) - max(s0, s1)) / (e0 - s0)
+            shares.append(share)
+            if share < min_overlap:
+                raise RuntimeError(
+                    f"tenant {a['pid']}'s window {a['window']} overlaps "
+                    f"tenant {b['pid']}'s {b['window']} for {share:.3f} of "
+                    f"its length, under {min_overlap}: they did not share "
+                    "the device")
+    return shares
+
+
+def bench_shared_claim(backend, *, config=None, child_argv=None,
+                       device_type="cuda", gpu_index=None, solo=None,
+                       mps_binary=None, scratch=None) -> dict:
+    """One ResourceClaim of one GPU (`gpu_index`, the backend's first by
+    default) prepared over the plugin's framed socket and consumed by
+    N_TENANTS train-step processes at once, each a claim child
+    (`child_argv`, default ``python -m tpu_dra_torch.bench claim-child``)
+    under the claim's CDI env as a runtime applies it (runtime_env), one
+    warm step, then SHARED_STEPS timed steps started together. `config`
+    is the claim's opaque GpuConfig parameters (the default config
+    without). `solo` is a solo tenant's record; without
+    one, a solo tenant runs on the claim first. Tenants on the CPU
+    (`device_type="cpu"`, the CPU tier) stand in for a card's.
+
+    An MPS config runs the claim's control daemon through an MpsNodeSim
+    (`mps_binary`, default the host's nvidia-cuda-mps-control) and has
+    three outcomes: "a", the binary is not on PATH (nothing runs); "b",
+    the prepare is refused where NVML cannot set the GPU's compute mode,
+    and no Deployment, daemon process, claim spec, checkpoint entry or
+    exclusive compute mode may remain; "c", the tenants run and the
+    daemon must list all of them as clients. No process may hold a
+    context on the GPU when an MPS claim is prepared.
+
+    Raises on a failed check. Returns the readings: each tenant's median
+    step time and tokens/s, their sum against the solo tenant's, the
+    windows' overlap, the prepare and unprepare times."""
+    from tpu_dra_torch.api.types import API_VERSION, GPU_DRIVER_NAME
+    from tpu_dra_torch.gpuplugin.sharing import MPS_CONTROL
+    from tpu_dra_torch.infra import featuregates
+    from tpu_dra_torch.k8s import DEPLOYMENTS
+    from tpu_dra_torch.native.gpuinfo import NVML_COMPUTEMODE_DEFAULT
+
+    mps = ((config or {}).get("sharing") or {}).get("strategy") == "MPS"
+    out = {"config": config or "default", "n_tenants": N_TENANTS,
+           "steps": SHARED_STEPS, "backend": backend.kind}
+    if mps and mps_binary is None:
+        if shutil.which(MPS_CONTROL) is None:
+            return {**out, "ran": False, "outcome": "a",
+                    "reason": f"{MPS_CONTROL} is not on PATH"}
+        mps_binary = [MPS_CONTROL]
+    gpu = backend.get_gpu(gpu_index if gpu_index is not None
+                          else backend.gpus()[0].index)
+    argv = (list(child_argv or [sys.executable, "-m", "tpu_dra_torch.bench",
+                                CLAIM_CHILD])
+            + ["--device-type", device_type, "--steps", str(SHARED_STEPS),
+               "--warm", "1", "--wait-go"])
+    cwd = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    configs = None
+    if config is not None:
+        configs = [{"source": "FromClaim", "requests": [], "opaque": {
+            "driver": GPU_DRIVER_NAME,
+            "parameters": {"apiVersion": API_VERSION, "kind": "GpuConfig",
+                           **config}}}]
+    gates_before = featuregates.Features.overrides_snapshot()
+    if mps:
+        featuregates.Features.set_from_string("MultiprocessSupport=true")
+    bd = _BenchDriver(backend, scratch=scratch,
+                      mps_binary=mps_binary if mps else None)
+    try:
+        obj = _make_claim(bd.cluster, [gpu.index], "shared-claim",
+                          configs=configs)
+        uid = obj["metadata"]["uid"]
+        if mps:
+            # A context outlives its process by a moment: wait for the
+            # solo tenant's to go.
+            deadline = time.monotonic() + 10.0
+            while (procs := backend.running_processes(gpu.index)) \
+                    and time.monotonic() < deadline:
+                time.sleep(0.1)
+            out["processes_at_prepare"] = procs
+            if procs:
+                raise RuntimeError(
+                    f"processes {procs} hold a context on GPU {gpu.index}: "
+                    "under EXCLUSIVE_PROCESS the MPS server could not open "
+                    "its own")
+        t0 = time.perf_counter()
+        try:
+            res = bd.prepare(obj)
+        except RuntimeError as e:
+            if not (mps and "nvmlDeviceSetComputeMode" in str(e)):
+                raise
+            left = {
+                "deployments": [d["metadata"]["name"] for d in
+                                bd.cluster.list(DEPLOYMENTS, MPS_NAMESPACE)],
+                "daemon_processes": sorted(bd.mps_sim.processes),
+                "claim_spec": bd.cdi.claim_spec_exists(uid),
+                "checkpoint_entry": uid in bd.state.prepared_claim_uids(),
+                "compute_mode": backend.compute_mode(gpu.index)}
+            if any(left[k] for k in ("deployments", "daemon_processes",
+                                     "claim_spec", "checkpoint_entry")) \
+                    or left["compute_mode"] not in (NVML_COMPUTEMODE_DEFAULT,
+                                                    None):
+                raise RuntimeError(f"the refused MPS prepare left {left}")
+            return {**out, "ran": False, "outcome": "b", "error": str(e),
+                    "left": left}
+        out["prepare_ms"] = (time.perf_counter() - t0) * 1e3
+        edits = bd.cdi.container_edits(res.devices[0].cdi_device_ids)
+        env, rewritten = runtime_env(edits)
+        out["env_rewritten"] = rewritten
+        pipe_dir = None
+        if mps:
+            from tpu_dra_torch.gpuplugin.sharing import ENV_MPS_PIPE
+
+            pipe_dir = env[ENV_MPS_PIPE]
+            out["daemon_env"] = bd.mps_sim.env(bd.state.checkpoint_snapshot()
+                                               .claims[uid].devices[0]
+                                               ["mps_deployment"])
+        child_env = {**os.environ, **env}
+        if solo is None:
+            (solo,), _ = _run_tenants(argv, child_env, 1, cwd)
+        peak = solo["max_memory_allocated"]
+        if peak is not None and N_TENANTS * peak > gpu.memory_bytes:
+            raise RuntimeError(f"{N_TENANTS} tenants of {peak} bytes each "
+                               f"exceed the GPU's {gpu.memory_bytes}")
+        recs, clients = _run_tenants(argv, child_env, N_TENANTS, cwd,
+                                     pipe_dir=pipe_dir, control=mps_binary)
+        out["overlap_shares"] = _check_tenants(recs, gpu.uuid, device_type)
+        if mps and clients < N_TENANTS:
+            raise RuntimeError(
+                f"the MPS control daemon listed {clients} clients while "
+                f"{N_TENANTS} tenants ran: a tenant opened its own context")
+        out["mps_clients"] = clients if mps else None
+        t0 = time.perf_counter()
+        bd.unprepare([obj])
+        out["unprepare_ms"] = (time.perf_counter() - t0) * 1e3
+        left = {"claim_spec": bd.cdi.claim_spec_exists(uid),
+                "checkpoint_entry": uid in bd.state.prepared_claim_uids()}
+        if mps:
+            left["deployments"] = bd.cluster.list(DEPLOYMENTS, MPS_NAMESPACE)
+            # The node sim reaps the daemon on its next tick.
+            left["daemon_alive"] = not bd.cluster.wait_for(
+                lambda: not bd.mps_sim.processes, 30)
+            left["compute_mode"] = backend.compute_mode(gpu.index)
+        if left["claim_spec"] or left["checkpoint_entry"] \
+                or left.get("deployments") or left.get("daemon_alive") \
+                or left.get("compute_mode") not in (None,
+                                                    NVML_COMPUTEMODE_DEFAULT):
+            raise RuntimeError(f"unprepare left {left}")
+    finally:
+        bd.release_prepared()
+        bd.close()
+        featuregates.Features.restore_overrides(gates_before)
+    tenants = [_tenant_reading(r) for r in recs]
+    solo_r = _tenant_reading(solo)
+    agg = sum(t["tokens_per_s"] for t in tenants)
+    return {**out, "ran": True, "outcome": "c" if mps else None,
+            "claim_uuid": gpu.uuid, "env": env, "solo": solo,
+            "solo_median_step_s": solo_r["median_step_s"],
+            "solo_tokens_per_s": solo_r["tokens_per_s"],
+            "tenants": tenants,
+            "step_x_solo": [t["median_step_s"] / solo_r["median_step_s"]
+                            for t in tenants],
+            "aggregate_tokens_per_s": agg,
+            "aggregate_x_solo": agg / solo_r["tokens_per_s"]}
+
+
+def mps_shared_config(solo_peak_bytes: int) -> dict:
+    """The MPS tenants' GpuConfig: the reference demo's 50% active
+    threads (demo/specs/tpu-test-multiprocess.yaml) and a pinned device
+    memory limit of 1.5x the solo tenant's peak, in whole GiB."""
+    gib = math.ceil(1.5 * solo_peak_bytes / (1 << 30))
+    return {"sharing": {"strategy": "MPS", "mpsConfig": {
+        "defaultActiveThreadPercentage": 50,
+        "defaultPinnedDeviceMemoryLimit": f"{gib}Gi"}}}
+
+
+def shared_claim_line(res: dict) -> dict:
+    """bench_shared_claim's readings without the solo tenant's record."""
+    return {k: v for k, v in res.items() if k != "solo"}
+
+
+def main(argv) -> int:
+    if argv[:1] == [CLAIM_CHILD]:
+        return claim_child(argv[1:])
     nvml = gpuinfo.get_backend()
     try:
+        # First, while this process holds no context on the card: under
+        # EXCLUSIVE_PROCESS an MPS server cannot open its own beside one.
+        shared = bench_shared_claim(nvml)
+        print(json.dumps({"shared_claim": shared_claim_line(shared)}),
+              flush=True)
+        mps = bench_shared_claim(
+            nvml, solo=shared["solo"],
+            config=mps_shared_config(shared["solo"]["max_memory_allocated"]))
+        print(json.dumps({"mps": shared_claim_line(mps)}), flush=True)
+        print(json.dumps({"bench_mfu": bench_mfu(steps=5)}), flush=True)
+        print(json.dumps({"long_ctx": bench_long_context(seq=8192)}),
+              flush=True)
+        print(json.dumps({"long_ctx_xl": bench_long_context(
+            steps=3, seq=16384, prefix="long_ctx_xl")}), flush=True)
+        print(json.dumps({"profile": profile_train_step()}), flush=True)
+        print(json.dumps({"profile_xl": profile_train_step(
+            steps=2, cfg=long_context_config(16384),
+            batch=LONG_CONTEXT_BATCH)}), flush=True)
         print(json.dumps({"claim_to_ready": bench_claim_to_ready(nvml)}),
               flush=True)
     finally:
         nvml.close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

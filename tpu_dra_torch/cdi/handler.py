@@ -13,8 +13,11 @@ container runtime to apply:
 - one transient per-claim spec (class ``claim``) with the claim-scoped
   env: the GPUs' UUIDs in ``CUDA_VISIBLE_DEVICES`` and
   ``NVIDIA_VISIBLE_DEVICES`` (a UUID names the right device whatever
-  index order the container sees), the fabric coordinates
-  (``topology.meshexport``) and the sharing strategy.
+  index order the container sees; a MIG device's "MIG-" UUID stands for
+  its GPU's), the fabric coordinates (``topology.meshexport``) and the
+  sharing strategy; and the claim-scoped device nodes and mounts: a MIG
+  device's ``nvidia-caps`` access files (``mig_device_nodes``), the VFIO
+  nodes of a passed-through GPU, the MPS pipe directory.
 
 Claim specs are rendered through a per-shape template cache whose output
 is byte-identical to the direct serialization, and every spec is written
@@ -45,6 +48,8 @@ CONTROL_DEVICE_NODES = ("/dev/nvidiactl", "/dev/nvidia-uvm",
 # host keeps them (relative to the driver root).
 DRIVER_LIBRARIES = ("libcuda.so.1", "libnvidia-ml.so.1",
                     "libnvidia-ptxjitcompiler.so.1")
+# Where the driver exposes the MIG access files (nvidia-cap<minor>).
+MIG_CAPS_DIR = "/dev/nvidia-caps"
 DRIVER_LIBRARY_DIRS = ("usr/lib/x86_64-linux-gnu", "usr/lib64", "usr/lib",
                        "lib/x86_64-linux-gnu", "lib64")
 
@@ -111,6 +116,15 @@ class CDIHandler:
     def _device_node(self, path: str) -> Dict[str, str]:
         return {"path": path,
                 "hostPath": os.path.join(self._dev_root, path.lstrip("/"))}
+
+    def mig_device_nodes(self, gpu: Gpu,
+                         caps: Sequence[int]) -> List[Dict[str, str]]:
+        """The device nodes of a MIG device: the nvidia-caps access files
+        of its GPU instance and compute instance (`caps`, their minors),
+        /dev/nvidiactl and the parent GPU's /dev/nvidiaN."""
+        return [self._device_node(f"{MIG_CAPS_DIR}/nvidia-cap{m}")
+                for m in caps] + [self._device_node("/dev/nvidiactl"),
+                                  self._device_node(gpu.dev_path)]
 
     def create_standard_device_spec_file(self, gpus: List[Gpu]) -> str:
         """Per-node spec: one CDI device per GPU with its /dev/nvidiaN
@@ -334,12 +348,16 @@ def _atomic_write_json(path: str, doc: Dict) -> None:
     vfs.replace(tmp, path)
 
 
-def visible_gpus_env(gpus: List[Gpu]) -> Dict[str, str]:
+def visible_gpus_env(gpus: List[Gpu],
+                     uuids_by_index: Optional[Dict[int, str]] = None
+                     ) -> Dict[str, str]:
     """The GPU selection env of a claim: the GPUs' UUIDs in index order
-    for CUDA and the container toolkit, and their node indices, which
+    for CUDA and the container toolkit (a GPU's entry in `uuids_by_index`,
+    a MIG device's UUID, in its place), and their node indices, which
     key the exported coordinates (meshexport)."""
     ordered = sorted(gpus, key=lambda g: g.index)
-    uuids = ",".join(g.uuid for g in ordered)
+    named = uuids_by_index or {}
+    uuids = ",".join(named.get(g.index, g.uuid) for g in ordered)
     return {
         ENV_CUDA_VISIBLE: uuids,
         ENV_NVIDIA_VISIBLE: uuids,

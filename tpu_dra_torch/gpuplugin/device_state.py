@@ -13,10 +13,26 @@ the spec writes. A member that fails anywhere unwinds alone. Unprepare
 reverses it with one group commit; quarantine keeps a flapping GPU out of
 the published inventory across restarts.
 
-Not in this slice: MPS sharing and MIG devices, each refused with a
-"not yet ported" error, and the VFIO rebind of passthrough claims. A
-PassthroughConfig sets exclusive compute mode only, as the reference
-does without a passthrough manager, and the GPU stays on its driver.
+Each kind of claim and what it changes on the node:
+
+- GpuConfig: time-slicing sets the GPUs' time slice (not hazardous:
+  reconciled at startup); MPS sets the GPUs to EXCLUSIVE_PROCESS and
+  starts the claim's MPS control-daemon Deployment (``MpsManager``), and
+  the claim gets its pipe directory and limits.
+- MigDeviceConfig on a ``mig`` device: the GPU instance at the allocated
+  placement and its full-size compute instance are created under the
+  GPU's lock, and the claim env names the MIG device's UUID; a placement
+  whose memory slices overlap an instance another claim holds, or whose
+  GPU a whole-GPU claim holds (and the reverse), is refused.
+- PassthroughConfig: exclusive compute mode, and with a
+  ``PassthroughManager`` the GPU's IOMMU group rebound to vfio-pci (the
+  claim gets only its claim device, with the VFIO nodes); a passthrough
+  claim owns its whole group, in both directions.
+
+MPS, MIG and passthrough are hazardous: their intent record is durable
+before they run. At startup a claim still PrepareStarted (a crash
+mid-prepare) is rolled back, every MIG instance no claim holds is
+destroyed and every MPS Deployment no claim holds is stopped.
 """
 
 from __future__ import annotations
@@ -38,7 +54,12 @@ from tpu_dra_torch.gpuplugin.checkpoint import (
     Checkpoint, CheckpointManager, PREPARE_COMPLETED, PREPARE_STARTED,
     PreparedClaim,
 )
-from tpu_dra_torch.gpuplugin.sharing import TimeSlicingManager
+from tpu_dra_torch.gpuplugin.passthrough import (
+    PassthroughManager, sysfs_address,
+)
+from tpu_dra_torch.gpuplugin.sharing import (
+    MpsManager, TimeSlicingManager, mps_deployment_name,
+)
 from tpu_dra_torch.infra import featuregates, vfs
 from tpu_dra_torch.infra.faults import FAULTS
 from tpu_dra_torch.infra.metrics import DefaultRegistry
@@ -68,6 +89,8 @@ class PrepareError(Exception):
 
 
 def _config_compatible(cfg: object, dev_type: str) -> bool:
+    if isinstance(cfg, apitypes.MigDeviceConfig):
+        return dev_type == deviceinfo.DEVICE_TYPE_MIG
     if isinstance(cfg, (apitypes.GpuConfig, apitypes.PassthroughConfig)):
         return dev_type == deviceinfo.DEVICE_TYPE_GPU
     return False
@@ -120,6 +143,9 @@ class DeviceState:
                  checkpoints: CheckpointManager, driver_name: str,
                  node_name: str,
                  ts_manager: Optional[TimeSlicingManager] = None,
+                 mps_manager: Optional[MpsManager] = None,
+                 pt_manager: Optional[PassthroughManager] = None,
+                 include_mig: bool = True,
                  quarantine_threshold: int = 3,
                  quarantine_window_s: float = 60.0,
                  quarantine_ttl_s: float = 0.0):
@@ -129,12 +155,15 @@ class DeviceState:
         self._driver_name = driver_name
         self._node_name = node_name
         self._ts_manager = ts_manager
+        self._mps_manager = mps_manager
+        self._pt_manager = pt_manager
         self._lock = threading.Lock()
         gpus = backend.gpus()
         # Publish-time fabric validation: duplicate or out-of-bounds
         # coordinates mean the inventory lies about the NVLink domain.
         topology_mesh.validate_gpus(gpus)
-        self.allocatable = deviceinfo.enumerate_allocatable(gpus)
+        self.allocatable = deviceinfo.enumerate_allocatable(
+            gpus, include_mig=include_mig, mig_profiles=self._mig_profiles)
         self._unhealthy_uuids: set = set()  # GUARDED_BY: _lock
         # Quarantine ladder: a GPU whose unhealthy TRANSITIONS reach
         # `quarantine_threshold` within `quarantine_window_s` is
@@ -153,8 +182,9 @@ class DeviceState:
         self.last_batch_breakdown: Dict[str, float] = {}
         # Disjoint-GPU parallel apply: members touching disjoint GPU sets
         # apply concurrently; members sharing a GPU serialize on its
-        # lock. Passthrough and unknown config kinds additionally
-        # serialize on _hazard_lock.
+        # lock (MIG creates included). Passthrough and unknown config
+        # kinds additionally serialize on _hazard_lock: an IOMMU-group
+        # rebind spans beyond the claim's own GPUs.
         self._gpu_locks: Dict[int, threading.Lock] = {
             g.index: threading.Lock() for g in gpus}
         self._hazard_lock = threading.Lock()
@@ -185,6 +215,9 @@ class DeviceState:
         # Orphan time-slice reconciliation: time-slicing prepares skip the
         # intent store too; reset every GPU no checkpointed claim holds to
         # the driver default (once per process start).
+        self._rollback_started()
+        self._reconcile_mig(gpus)
+        self._reconcile_mps(gpus)
         if self._ts_manager is not None:
             held = {record.get("gpu_index")
                     for prepared in self._checkpoint.claims.values()
@@ -199,6 +232,101 @@ class DeviceState:
                     log.warning("startup time-slice reset failed for "
                                 "GPU %d (continuing)", g.index,
                                 exc_info=True)
+
+    def _mig_profiles(self, index: int):
+        """The GPU-instance profiles of a GPU in MIG mode; none (logged)
+        where the backend cannot read them, so the GPU is still served
+        whole."""
+        try:
+            return self._backend.mig_profiles(index)
+        except Exception:  # noqa: BLE001 — advertise the GPU whole
+            log.warning("MIG profiles of GPU %d unreadable; no MIG devices "
+                        "advertised for it", index, exc_info=True)
+            return []
+
+    def _rollback_started(self) -> None:
+        """Roll back every claim the checkpoint holds PrepareStarted: a
+        crash after its intent record left side effects (a Deployment, a
+        MIG instance, a rebind) that no claim will own. An unwind that
+        fails keeps its record, so unprepare can retry it."""
+        started = [(uid, c) for uid, c in self._checkpoint.claims.items()
+                   if c.state == PREPARE_STARTED]
+        rolled = []
+        for uid, prepared in started:
+            try:
+                self._unprepare_devices(uid, prepared)
+            except Exception:  # noqa: BLE001 — one claim must not
+                # crash-loop the plugin
+                log.warning("startup rollback of claim %s failed; kept "
+                            "for unprepare", uid, exc_info=True)
+                continue
+            self._cdi.delete_claim_spec_file(uid)
+            self._checkpoint.claims.pop(uid, None)
+            rolled.append(uid)
+        if rolled:
+            log.info("rolled back claims interrupted mid-prepare: %s",
+                     rolled)
+            self._ckpt_mgr.store(self._checkpoint)
+
+    def _held_mig_slices(self) -> Dict[int, set]:
+        """GPU index -> memory slices of the MIG devices claims hold."""
+        held: Dict[int, set] = {}
+        for prepared in self._checkpoint.claims.values():
+            for record in prepared.devices:
+                mig = record.get("mig")
+                if mig:
+                    held.setdefault(record["gpu_index"], set()).update(
+                        range(mig["start"], mig["start"] + mig["size"]))
+        return held
+
+    def _reconcile_mig(self, gpus: List[Gpu]) -> None:
+        """Destroy every MIG instance on this node that no checkpointed
+        claim holds (a crash between its create and the claim's record,
+        or a claim rolled back above)."""
+        held = self._held_mig_slices()
+        for g in gpus:
+            if not g.mig_mode:
+                continue
+            try:
+                for d in self._backend.mig_devices(g.index):
+                    if d.start in held.get(g.index, ()):
+                        continue
+                    log.info("destroying MIG instance gi=%d (%s at %d) on "
+                             "GPU %d: no claim holds it", d.gi, d.profile,
+                             d.start, g.index)
+                    self._backend.destroy_mig_device(g.index, d.gi, None)
+            except Exception:  # noqa: BLE001 — one bad GPU must not
+                # crash-loop the plugin and take the node's GPUs.
+                log.warning("startup MIG reconciliation failed for GPU %d "
+                            "(continuing)", g.index, exc_info=True)
+
+    def _reconcile_mps(self, gpus: List[Gpu]) -> None:
+        """Stop every MPS Deployment of this node that no checkpointed
+        claim holds, and clear exclusive mode on its GPUs that no claim
+        holds."""
+        if self._mps_manager is None:
+            return
+        held_gpus = {record.get("gpu_index")
+                     for prepared in self._checkpoint.claims.values()
+                     for record in prepared.devices}
+        try:
+            leaked = {uid: uuids for uid, uuids in
+                      self._mps_manager.claim_deployments().items()
+                      if uid not in self._checkpoint.claims}
+        except Exception:  # noqa: BLE001 — the API server may be away;
+            log.warning("startup MPS reconciliation could not list "
+                        "Deployments", exc_info=True)
+            return
+        for uid, uuids in sorted(leaked.items()):
+            free = [g for g in gpus
+                    if g.uuid in uuids and g.index not in held_gpus]
+            log.info("stopping the MPS daemon of claim %s: no claim holds "
+                     "it", uid)
+            try:
+                self._mps_manager.stop(uid, free)
+            except Exception:  # noqa: BLE001 — retried next start
+                log.warning("stopping the leaked MPS daemon of claim %s "
+                            "failed", uid, exc_info=True)
 
     @property
     def backend(self) -> GpuInfoBackend:
@@ -302,8 +430,13 @@ class DeviceState:
                             attributes={"claim_uid": uid}),
                         hazardous=any(self._config_hazard(c)
                                       for c in configs),
+                        # Passthrough (an IOMMU-group rebind yanks the
+                        # group's other GPUs) and unknown kinds serialize
+                        # on the hazard lock; MPS Deployments and MIG
+                        # instances are per claim, under GPU locks.
                         serialize=any(
-                            not isinstance(c, apitypes.GpuConfig)
+                            not isinstance(c, (apitypes.GpuConfig,
+                                               apitypes.MigDeviceConfig))
                             for c in configs),
                         slow_apply=any(
                             not isinstance(c, apitypes.GpuConfig)
@@ -624,8 +757,8 @@ class DeviceState:
             if sharing.is_time_slicing():
                 # GPU-level and reconciled at startup.
                 return False
-            return True
-        return True  # Passthrough and any unknown config kind
+            return True  # MPS: exclusive mode and a Deployment
+        return True  # MIG instances, passthrough and any unknown kind
 
     def _build_records(self, uid: str,
                        config_results: List[_ConfigResult]) -> List[Dict]:
@@ -645,7 +778,7 @@ class DeviceState:
                            if is_passthrough else
                            [self._cdi.get_standard_device(dev.gpu.uuid),
                             self._cdi.get_claim_device(uid)])
-                records.append({
+                record = {
                     "type": dev.type,
                     "device": dev.name,
                     "request": result.get("request", ""),
@@ -654,40 +787,86 @@ class DeviceState:
                     "pool": self._node_name,
                     "config": cr.config.to_dict(),
                     "cdi_ids": cdi_ids,
-                })
+                }
+                if dev.type == deviceinfo.DEVICE_TYPE_MIG:
+                    # The placement, known before the instance exists:
+                    # what reconciliation matches a live instance by. The
+                    # instance's ids and UUID join it once created.
+                    record["mig"] = {"profile": dev.mig.profile,
+                                     "start": dev.mig.start,
+                                     "size": dev.mig.size}
+                sharing = getattr(cr.config, "sharing", None)
+                if sharing is not None and sharing.is_mps():
+                    record["mps_deployment"] = mps_deployment_name(uid)
+                records.append(record)
+        migs = [r["gpu_index"] for r in records if "mig" in r]
+        if len(migs) != len(set(migs)):
+            raise PrepareError("a claim takes at most one MIG device of "
+                               "each GPU")
         return records
 
     def _apply_devices(self, b: _BatchClaim) -> None:
-        """The side-effect half of prepare: sharing setup, passthrough
-        exclusive mode, and the claim CDI spec — serialized here and
-        written by the batch's writer task (the commit barrier awaits
-        it)."""
+        """The side-effect half of prepare: sharing setup, the guards,
+        MIG instances, passthrough exclusive mode and rebind, and the
+        claim CDI spec — serialized here and written by the batch's
+        writer task (the commit barrier awaits it)."""
         claim, config_results, timings = b.claim, b.config_results, b.timings
         uid = claim["metadata"]["uid"]
 
         claim_gpus: Dict[int, Gpu] = {}
         claim_env: Dict[str, str] = {}
+        claim_mounts: List[Dict] = []
+        claim_nodes: List[Dict] = []
+        mig_uuids: Dict[int, str] = {}
 
         for cr in config_results:
             group_gpus = self._gpus_for_results(cr.results)
             with TRACER.span("prepare.sharing", parent=b.span) as t_sh:
-                sharing_env = self._apply_sharing_config(cr, group_gpus)
+                edits = self._apply_sharing_config(uid, cr, group_gpus)
             timings["sharing"] = (timings.get("sharing", 0.0)
                                   + t_sh.duration_s)
-            claim_env.update(sharing_env)
+            claim_env.update(edits.get("env", {}))
+            claim_mounts.extend(edits.get("mounts", []))
             with TRACER.span("prepare.guards", parent=b.span) as t_gd:
                 for result in cr.results:
                     dev = self.allocatable[result["device"]]
-                    claim_gpus[dev.gpu.index] = dev.gpu
-                    if isinstance(cr.config, apitypes.PassthroughConfig):
-                        self._backend.set_exclusive_mode(dev.gpu.index,
-                                                         True)
+                    gpu = dev.gpu
+                    claim_gpus[gpu.index] = gpu
+                    self._assert_mig_exclusive(dev, uid)
+                    if dev.type == deviceinfo.DEVICE_TYPE_MIG:
+                        mig = self._create_mig(b, dev)
+                        mig_uuids[gpu.index] = mig.uuid
+                        if mig.caps:
+                            claim_nodes.extend(n for n in
+                                               self._cdi.mig_device_nodes(
+                                                   gpu, mig.caps)
+                                               if n not in claim_nodes)
+                    elif isinstance(cr.config, apitypes.PassthroughConfig):
+                        if self._pt_manager is not None:
+                            self._assert_group_exclusive(gpu, uid,
+                                                         passthrough=True)
+                        self._backend.set_exclusive_mode(gpu.index, True)
                         claim_env[ENV_PASSTHROUGH] = "true"
+                        if self._pt_manager is not None:
+                            # The GPU leaves its driver with its whole
+                            # IOMMU group; the guard above made that safe.
+                            group = self._pt_manager.configure(
+                                gpu, sibling_dev_paths=self._group_dev_paths(
+                                    gpu))
+                            claim_nodes.extend(
+                                n for n in
+                                self._pt_manager.cdi_device_nodes(group)
+                                if n not in claim_nodes)
+                    elif self._pt_manager is not None:
+                        # Reverse guard: no claim lands on a GPU whose
+                        # group a passthrough claim holds on vfio-pci.
+                        self._assert_group_exclusive(gpu, uid,
+                                                     passthrough=False)
             timings["guards"] = (timings.get("guards", 0.0)
                                  + t_gd.duration_s)
 
         gpus = [claim_gpus[i] for i in sorted(claim_gpus)]
-        claim_env.update(visible_gpus_env(gpus))
+        claim_env.update(visible_gpus_env(gpus, mig_uuids))
         # Allocation -> mesh handoff: the GPUs' fabric coordinates and
         # declared topology next to their UUIDs, so the workload's mesh
         # builder lays ranks over the same allocation.
@@ -698,12 +877,104 @@ class DeviceState:
             if tp:
                 claim_env[ENV_TRACEPARENT] = tp
         with TRACER.span("prepare.cdi_write", parent=b.span) as t_cdi:
-            path, text = self._cdi.serialize_claim_spec(uid, claim_env)
+            path, text = self._cdi.serialize_claim_spec(
+                uid, claim_env, mounts=claim_mounts or None,
+                device_nodes=claim_nodes or None)
             if self._cdi_pool is not None and vfs.installed() is None:
                 b.cdi_spec = (path, text)
             else:
                 self._cdi.write_claim_spec(path, text)
         timings["cdi_write"] = t_cdi.duration_s
+
+    def _create_mig(self, b: _BatchClaim, dev):
+        """Create the MIG device of `dev`'s placement (under its GPU's
+        lock) and put its instance ids and UUID into the claim's record,
+        which the terminal commit persists."""
+        p = dev.mig
+        mig = self._backend.create_mig_device(dev.gpu.index, p.profile,
+                                              p.start)
+        for i, record in enumerate(b.records):
+            if record["device"] == dev.name:
+                b.records[i] = {**record, "mig": {
+                    **record["mig"], "gi": mig.gi, "ci": mig.ci,
+                    "uuid": mig.uuid}}
+        return mig
+
+    def _assert_mig_exclusive(self, dev, claim_uid: str) -> None:
+        """A MIG device and its GPU exclude each other across claims: a
+        MIG prepare is refused where another claim holds the GPU whole or
+        a MIG device whose memory slices overlap its placement, and a
+        whole-GPU prepare where another claim holds a MIG device of the
+        GPU. Every member's record is in the checkpoint before any apply
+        begins, so of two racing conflicting claims at least one sees the
+        other's (kubelet's retry breaks a tie where both refuse)."""
+        is_mig = dev.type == deviceinfo.DEVICE_TYPE_MIG
+        want = set(dev.mig.slices) if is_mig else None
+        for uid, prepared in list(self._checkpoint.claims.items()):
+            if uid == claim_uid:
+                continue
+            for record in prepared.devices:
+                if record.get("gpu_index") != dev.gpu.index:
+                    continue
+                mig = record.get("mig")
+                if is_mig and mig is None:
+                    raise PrepareError(
+                        f"GPU {dev.gpu.index} is held whole by claim {uid}; "
+                        f"MIG device {dev.name} cannot be created on it")
+                if not is_mig and mig is not None:
+                    raise PrepareError(
+                        f"GPU {dev.gpu.index} holds MIG device "
+                        f"{record['device']} of claim {uid}; it cannot be "
+                        "claimed whole")
+                if is_mig and want & set(range(
+                        mig["start"], mig["start"] + mig["size"])):
+                    raise PrepareError(
+                        f"MIG device {dev.name} overlaps the memory slices "
+                        f"of {record['device']} held by claim {uid}")
+
+    def _group_gpu_indices(self, gpu: Gpu) -> List[int]:
+        """Indices of every GPU in `gpu`'s IOMMU group (itself included);
+        just [gpu.index] where the group is unknown."""
+        group = self._pt_manager.group_of(gpu)
+        if group is None:
+            return [gpu.index]
+        addrs = set(self._pt_manager.group_devices(group))
+        return [g.index for g in self._backend.gpus()
+                if sysfs_address(g.pci_bus_id) in addrs] or [gpu.index]
+
+    def _group_dev_paths(self, gpu: Gpu) -> Dict[str, str]:
+        """Sysfs address -> device node of the other GPUs in `gpu`'s
+        IOMMU group."""
+        group = self._pt_manager.group_of(gpu)
+        if group is None:
+            return {}
+        addrs = set(self._pt_manager.group_devices(group))
+        return {sysfs_address(g.pci_bus_id): g.dev_path
+                for g in self._backend.gpus()
+                if sysfs_address(g.pci_bus_id) in addrs
+                and g.index != gpu.index}
+
+    def _assert_group_exclusive(self, gpu: Gpu, claim_uid: str, *,
+                                passthrough: bool) -> None:
+        """VFIO IOMMU-group exclusivity: a passthrough claim owns its
+        whole group, so a passthrough prepare is refused where any other
+        claim holds a GPU of the group, and any prepare where a
+        passthrough claim holds one (its /dev/nvidiaN is gone while the
+        group sits on vfio-pci)."""
+        group = set(self._group_gpu_indices(gpu))
+        for uid, prepared in list(self._checkpoint.claims.items()):
+            if uid == claim_uid:
+                continue
+            for record in prepared.devices:
+                if record.get("gpu_index") not in group:
+                    continue
+                other_is_pt = (record.get("config") or {}).get(
+                    "kind") == apitypes.PASSTHROUGH_CONFIG_KIND
+                if passthrough or other_is_pt:
+                    raise PrepareError(
+                        f"GPU {gpu.index} shares an IOMMU group with GPU "
+                        f"{record['gpu_index']} held by claim {uid}; VFIO "
+                        "passthrough takes the whole group")
 
     def _submit_spec_writes(self, todo: List[_BatchClaim]) -> None:
         """ONE writer task for every member's pending spec. Members that
@@ -769,17 +1040,14 @@ class DeviceState:
                 # claim configs are appended after class configs.
                 chosen = (rank, cfg, source)
             if chosen is None:
-                cfg = apitypes.GpuConfig.default()
+                cfg = (apitypes.MigDeviceConfig()
+                       if dev_type == deviceinfo.DEVICE_TYPE_MIG
+                       else apitypes.GpuConfig.default())
                 source = "default"
             else:
                 _, cfg, source = chosen
             cfg.normalize()
             cfg.validate()
-            sharing = getattr(cfg, "sharing", None)
-            if sharing is not None and sharing.is_mps():
-                raise PrepareError(
-                    "MPS sharing is not yet ported (its control daemon "
-                    "waits for the native helpers); nothing was prepared")
             for cr in out:
                 if cr.config.to_dict() == cfg.to_dict() and cr.source == source:
                     cr.results.append(result)
@@ -804,33 +1072,41 @@ class DeviceState:
                 cfg = apischeme.StrictDecoder.decode(opaque.get("parameters", {}))
             except apischeme.DecodeError as e:
                 raise PrepareError(f"invalid opaque config: {e}") from e
-            if isinstance(cfg, apitypes.MigDeviceConfig):
-                raise PrepareError(
-                    "MigDeviceConfig: MIG devices are not yet ported "
-                    "(the MIG device model waits); nothing was prepared")
             decoded.append((entry.get("source", ""),
                             list(entry.get("requests") or []), cfg))
         return decoded
 
     # -- sharing -------------------------------------------------------------
 
-    def _apply_sharing_config(self, cr: _ConfigResult,
-                              gpus: List[Gpu]) -> Dict[str, str]:
-        """The claim env a config's sharing strategy contributes, after
-        applying it. The default config has no sharing and reaches no
-        setter."""
+    def _apply_sharing_config(self, claim_uid: str, cr: _ConfigResult,
+                              gpus: List[Gpu]) -> Dict:
+        """The claim CDI edits ({env, mounts}) a config's sharing strategy
+        contributes, after applying it. The default config has no sharing
+        and reaches no setter; a MIG device's time-slicing is the
+        driver's and sets nothing."""
         sharing = getattr(cr.config, "sharing", None)
         if sharing is None:
             return {}
         if sharing.is_time_slicing():
             if not featuregates.enabled(featuregates.TimeSlicingSettings):
                 return {}
+            env = {"env": {ENV_SHARING_STRATEGY: "time-slicing"}}
+            if isinstance(cr.config, apitypes.MigDeviceConfig):
+                return env
             if self._ts_manager is None:
                 raise PrepareError("time-slicing requested but manager disabled")
             self._ts_manager.set_timeslice(
                 gpus, sharing.time_slicing_config
                 or apitypes.TimeSlicingConfig())
-            return {ENV_SHARING_STRATEGY: "time-slicing"}
+            return env
+        if sharing.is_mps():
+            if self._mps_manager is None:
+                raise PrepareError("MPS requested but manager disabled")
+            daemon = self._mps_manager.start(
+                claim_uid, gpus, sharing.mps_config or apitypes.MpsConfig())
+            edits = daemon.cdi_edits()
+            edits["env"][ENV_SHARING_STRATEGY] = "mps"
+            return edits
         return {}
 
     # ------------------------------------------------------------------
@@ -921,6 +1197,7 @@ class DeviceState:
         gpus: Dict[int, Gpu] = {}
         strategies = set()
         passthrough_gpus = []
+        migs = []   # (GPU index, GPU-instance id) this claim created
         for record in prepared.devices:
             try:
                 gpu = self._backend.get_gpu(record["gpu_index"])
@@ -928,6 +1205,10 @@ class DeviceState:
                 continue  # GPU vanished; nothing to reset
             gpus[gpu.index] = gpu
             cfg = record.get("config") or {}
+            if record.get("mig"):
+                if record["mig"].get("gi") is not None:
+                    migs.append((gpu.index, record["mig"]["gi"]))
+                continue   # its time-slicing set nothing on the GPU
             sharing = cfg.get("sharing") or {}
             if sharing.get("strategy"):
                 strategies.add(sharing["strategy"])
@@ -939,10 +1220,19 @@ class DeviceState:
                 stack.enter_context(self._hazard_lock)
             for idx in sorted(gpus):
                 stack.enter_context(self._gpu_locks[idx])
+            if apitypes.MpsStrategy in strategies and self._mps_manager:
+                self._mps_manager.stop(claim_uid, gpu_list)
             if apitypes.TimeSlicingStrategy in strategies \
                     and self._ts_manager:
                 self._ts_manager.reset(gpu_list)
+            for index, gi in migs:
+                self._backend.destroy_mig_device(index, gi, None)
             for gpu in passthrough_gpus:
+                if self._pt_manager is not None:
+                    # Back to the nvidia driver before the exclusive mode
+                    # clears; unconfigure is idempotent, so a claim that
+                    # crashed half-prepared unwinds too.
+                    self._pt_manager.unconfigure(gpu)
                 self._backend.set_exclusive_mode(gpu.index, False)
 
     # ------------------------------------------------------------------

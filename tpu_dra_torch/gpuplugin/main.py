@@ -12,9 +12,13 @@ NodeUnprepareResources on ``dra.sock`` (gRPC, kubelet's protocol) and
 ``dra-fast.sock`` (framed), and registers with kubelet's plugin watcher
 after its first ResourceSlice publish. SIGTERM or SIGINT drains it.
 
-Not copied: the reference's flags for the parts not ported yet (the
-multiprocess coordinator's namespace and image: MPS; the tpuctl path:
-``NativeBackend``'s setters do its work).
+With MultiprocessSupport on, MPS claims get a control-daemon Deployment
+in ``--namespace`` (image ``--mps-image``, directories under
+``--mps-root-dir``); with PassthroughSupport on, passthrough claims are
+rebound to vfio-pci through the sysfs under ``--sysfs-root``, and the
+plugin refuses to start where vfio_pci or the IOMMU is missing. Not
+copied: the reference's tpuctl path (``NativeBackend``'s setters do its
+work).
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from tpu_dra_torch.cdi.handler import CDIHandler
 from tpu_dra_torch.gpuplugin.checkpoint import CheckpointManager
 from tpu_dra_torch.gpuplugin.device_state import DeviceState
 from tpu_dra_torch.gpuplugin.driver import GpuDriver
-from tpu_dra_torch.gpuplugin.sharing import TimeSlicingManager
+from tpu_dra_torch.gpuplugin.passthrough import PassthroughManager, PciSysfs
+from tpu_dra_torch.gpuplugin.sharing import MpsManager, TimeSlicingManager
 from tpu_dra_torch.infra import debug, featuregates, trace
 from tpu_dra_torch.infra.flags import (
     Flag, FlagSet, apply_feature_gates, feature_gate_flag, logging_flags,
@@ -43,6 +48,8 @@ def flags() -> FlagSet:
     return FlagSet("gpu-kubelet-plugin", [
         Flag("node-name", "NODE_NAME", required=True,
              help="name of the node this plugin runs on"),
+        Flag("namespace", "NAMESPACE", default="gpu-dra-driver",
+             help="driver namespace (MPS daemon Deployments land here)"),
         Flag("cdi-root", "CDI_ROOT", default="/var/run/cdi",
              help="directory for CDI spec files"),
         Flag("plugin-dir", "PLUGIN_DIR",
@@ -60,6 +67,17 @@ def flags() -> FlagSet:
         Flag("additional-xids-to-ignore", "ADDITIONAL_XIDS_TO_IGNORE",
              default="", help="comma-separated XIDs the health monitor "
                               "skips, beside its default list"),
+        Flag("mps-image", "MPS_IMAGE", default="gpu-dra-driver:latest",
+             help="image of the per-claim MPS control-daemon Deployments "
+                  "(one that holds nvidia-cuda-mps-control)"),
+        Flag("mps-root-dir", "MPS_ROOT_DIR", default="",
+             help="host directory of the claims' MPS pipe and log "
+                  "directories (default: <plugin-dir>/mps)"),
+        Flag("mps-ready-timeout", "MPS_READY_TIMEOUT", default=30.0,
+             type=float, help="seconds an MPS daemon has to become ready"),
+        Flag("sysfs-root", "SYSFS_ROOT", default="/",
+             help="root the passthrough rebind finds sysfs, /dev and "
+                  "/proc under"),
         feature_gate_flag(),
         *logging_flags(),
     ])
@@ -84,11 +102,24 @@ def main(argv=None) -> int:
     ts_manager = None
     if featuregates.enabled(featuregates.TimeSlicingSettings):
         ts_manager = TimeSlicingManager(backend)
+    mps_manager = None
+    if featuregates.enabled(featuregates.MultiprocessSupport):
+        mps_manager = MpsManager(
+            backend, client, node_name=ns.node_name, namespace=ns.namespace,
+            root_dir=ns.mps_root_dir or f"{ns.plugin_dir}/mps",
+            image=ns.mps_image, ready_timeout=ns.mps_ready_timeout)
+    pt_manager = None
+    if featuregates.enabled(featuregates.PassthroughSupport):
+        pt_manager = PassthroughManager(PciSysfs(ns.sysfs_root))
+        # A node that advertises passthrough without vfio or an IOMMU
+        # would fail every passthrough claim at prepare: fail fast.
+        pt_manager.prechecks()
     state = DeviceState(
         backend=backend, cdi=cdi,
         checkpoints=CheckpointManager(ns.plugin_dir),
         driver_name=GPU_DRIVER_NAME, node_name=ns.node_name,
-        ts_manager=ts_manager)
+        ts_manager=ts_manager, mps_manager=mps_manager,
+        pt_manager=pt_manager)
 
     xids = [int(c) for c in ns.additional_xids_to_ignore.split(",") if c]
     driver = GpuDriver(

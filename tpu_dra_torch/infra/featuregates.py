@@ -9,8 +9,10 @@ values and env plumbing round-trip identically.
 Only the gates the port reads are registered; a gate joins with the
 module that consults it:
 - TimeSlicingSettings  (GPU time-slice config)
-- MultiprocessSupport  (MPS sharing; the config decodes, the manager refuses)
-- PassthroughSupport   (VFIO passthrough; the config decodes, prepare refuses)
+- MultiprocessSupport  (MPS sharing: the MPS strategy validates, and the
+  plugin runs a control-daemon Deployment per MPS claim)
+- PassthroughSupport   (VFIO passthrough: PassthroughConfig validates, and
+  the plugin rebinds a passthrough claim's IOMMU group to vfio-pci)
 - NVMLDeviceHealthCheck (the kubelet plugin's NVML health monitor; on by
   default, beta, as the reference's TPUDeviceHealthCheck)
 """

@@ -8,5 +8,5 @@ from tpu_dra_torch.k8s.client import (  # noqa: F401
 )
 from tpu_dra_torch.k8s.fake import FakeCluster  # noqa: F401
 from tpu_dra_torch.k8s.resources import (  # noqa: F401
-    NODES, RESOURCECLAIMS, RESOURCESLICES, new_object_meta,
+    DEPLOYMENTS, NODES, RESOURCECLAIMS, RESOURCESLICES, new_object_meta,
 )

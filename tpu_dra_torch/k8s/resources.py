@@ -1,6 +1,7 @@
 """Well-known GVR coordinates + object helpers (counterpart of
 tpu_dra/k8s/resources.py, cut to the kinds the kubelet plugin reads
-and writes: ResourceClaims, ResourceSlices and Nodes)."""
+and writes: ResourceClaims, ResourceSlices, Nodes, and the Deployments
+of the per-claim MPS control daemons)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from typing import Dict, Optional
 from tpu_dra_torch.k8s.client import GVR
 
 NODES = GVR("", "v1", "nodes", namespaced=False)
+DEPLOYMENTS = GVR("apps", "v1", "deployments")
 RESOURCECLAIMS = GVR("resource.k8s.io", "v1", "resourceclaims")
 RESOURCESLICES = GVR("resource.k8s.io", "v1", "resourceslices", namespaced=False)
 

@@ -77,16 +77,18 @@ def mesh_from_plan(plan: MeshPlan, devices: Sequence,
 
 
 def normalize_uuid(uuid) -> str:
-    """A GPU UUID as NVML ("GPU-8c6b...") and torch ("8c6b...") print it,
-    reduced to one form for comparison."""
+    """A GPU or MIG-device UUID as NVML ("GPU-8c6b...", "MIG-1f2e...")
+    and torch ("8c6b...") print it, reduced to one form for comparison:
+    CUDA reports a MIG device's own UUID as the device's."""
     text = str(uuid).strip().lower()
-    return text[4:] if text.startswith("gpu-") else text
+    return text[4:] if text.startswith(("gpu-", "mig-")) else text
 
 
 def devices_from_env(env: Dict[str, str], device_type: str = "cuda"
                      ) -> List[torch.device]:
     """The claim's GPUs as this process's devices, in the env's order
-    (node-index order, the plan's arrival order). With
+    (node-index order, the plan's arrival order); a MIG device's "MIG-"
+    UUID names it in its GPU's place. With
     ``CUDA_VISIBLE_DEVICES`` applied before CUDA initialised, the
     process's i-th CUDA device is the env's i-th UUID; each is checked
     against the device's own UUID. ``device_type="cpu"`` stands one CPU
@@ -123,12 +125,16 @@ def devices_from_env(env: Dict[str, str], device_type: str = "cuda"
 
 def _run_train(plan: MeshPlan, devices: Sequence, *, cfg=None,
                steps: int = 3, params=None, tokens=None,
-               lr: float = 1e-3) -> Dict:
+               lr: float = 1e-3, warm_steps: int = 0,
+               barrier: Optional[Callable[[], None]] = None) -> Dict:
     """`steps` SGD steps of the TransformerLM (the flagship config by
     default; weights from seed 0 and tokens of the flagship batch from
     numpy RandomState(0) unless `params` and `tokens` are given) on the
-    plan's rank-0 device. Returns every step's loss and wall time (each
-    step ends in a loss fetch, which synchronizes the device)."""
+    plan's rank-0 device, after `warm_steps` untimed ones and then
+    `barrier()` (a tenant of a shared claim waits there for the others).
+    Returns every timed step's loss and wall time (each step ends in a
+    loss fetch, which synchronizes the device) and the host-clock window
+    (time.time() at the first step's start and the last one's end)."""
     from tpu_dra_torch import bench
     from tpu_dra_torch.workloads.model import (
         TransformerLM, init_params, make_train_step,
@@ -144,13 +150,19 @@ def _run_train(plan: MeshPlan, devices: Sequence, *, cfg=None,
             0, cfg.vocab, (bench.FLAGSHIP_BATCH, cfg.max_seq))
     tokens = torch.as_tensor(tokens, dtype=torch.long, device=device)
     step = make_train_step(model, lr=lr)
+    for _ in range(warm_steps):
+        float(step(tokens))
+    if barrier is not None:
+        barrier()
     losses, times = [], []
+    window_start = time.time()
     for _ in range(steps):
         t0 = time.perf_counter()
         losses.append(float(step(tokens)))
         times.append(time.perf_counter() - t0)
     return {"workload": "train", "losses": losses, "loss": losses[-1],
             "step_times_s": times, "steps": steps, "device": str(device),
+            "window": [window_start, time.time()],
             "n_devices": plan.n_devices, "n_layers": cfg.n_layers,
             "batch": int(tokens.shape[0]), "seq": int(tokens.shape[1])}
 
