@@ -117,7 +117,33 @@ Phases, each printing one JSON line ({"phase": ...}):
                   at S=16384 (long_ctx_xl), each with the launch counts
                   zeroed just before and read just after, checked as in
                   main;
-10. parity      — a reduced TransformerLM on the card, two seeds, the
+10. remat       — long_ctx_xl (S=16384) at remat "dots" and "full"
+                  (bench_long_context(remat=...)), beside long_ctx_xl's
+                  own "none" run: step time, peak memory, and the launch
+                  counts, the forward (1 + recomputed) x n_layers x step
+                  calls (each block's forward runs again in the
+                  backward), the backward n_layers x step calls;
+11. moe         — tpu_dra_torch.bench.bench_moe: the MoE LM at the
+                  flagship's widths (MoEModelConfig's defaults: 8
+                  experts, an MoE FFN every second block), step time,
+                  tokens/s, peak memory, launch counts as in main;
+12. ring_local  — an N=4 ring emulated in one process at long_ctx_xl's
+                  attention shape (B1 S16384 H16 D128 bf16, s_local 4096,
+                  rope off) through the ring's own per-step partial and
+                  merge, forward and backward (diagonal steps causal,
+                  past steps non-causal, nonzero dlse from the merge),
+                  held against one causal flash_attention_with_lse over
+                  the whole S within TOL_REL, with its launch counts and
+                  both times;
+13. mesh_workloads — every registered workload through
+                  meshbuild.launch_workload on the plan of a claim of the
+                  node's GPUs, each starting a world-1 NCCL group: records
+                  and launch counts, "train" the flagship as the DP x TP
+                  step at a (1, 1) grid (n_layers x steps launches of
+                  each Hopper kernel); psum: bench_psum over the same
+                  env (0.0 with its skip_reason on one GPU, the local
+                  memory-bandwidth proxy against the card's 3.35 TB/s);
+14. parity      — a reduced TransformerLM on the card, two seeds, the
                   kernel path against the same path on the kernels' plain
                   versions and against plain attention: logits and every
                   gradient leaf; parity_fp32 the kernel path of an fp32
@@ -217,6 +243,10 @@ MODEL_PATH_KERNELS = ("flash_fwd_sm90", "flash_bwd_sm90")
 # main path's).
 CLAIM_STEPS = 3
 CLAIM_TIMING_CYCLES = 50
+# Timed steps of mesh_workloads' "train" (after one warm step).
+MESH_TRAIN_STEPS = 3
+# Ranks of the ring emulated by ring_local.
+RING_N = 4
 CLAIM_CHILD = "claim-child"
 NODE = "node-0"   # the node name the claim_path plugin publishes for
 
@@ -680,22 +710,27 @@ def phase_times_fp32(peak_flops: float, peak_bytes: float) -> dict:
                         inner=3, **LONG_CHECK)
 
 
-def check_path_launches(where: str, want: int, counts=None) -> dict:
+def check_path_launches(where: str, want: int, counts=None,
+                        forward_runs: int = 1) -> dict:
     """The launch counts since the last reset on a bf16 model path (or
     `counts`, (per wrapper, per kernel) as another process read them):
-    the forward and the backward wrapper `want` times each (n_layers x
-    step calls), every forward through flash_fwd_sm90, every backward
-    through flash_bwd_sm90 and none through the mma.sync kernels.
-    Returns the per-kernel counts."""
+    the backward wrapper `want` times (n_layers x step calls) and the
+    forward wrapper `forward_runs` x `want` times (2 where remat
+    recomputes each block's forward in the backward), every forward
+    through flash_fwd_sm90, every backward through flash_bwd_sm90 and
+    none through the mma.sync kernels. Returns the per-kernel counts."""
     from tpu_dra_torch.workloads import _flash_kernels as fk
 
     per_wrapper, per_kernel = counts or (fk.launches(), fk.kernel_launches())
-    for name in ("flash_fwd", "flash_bwd"):
+    expected = {"flash_fwd": forward_runs * want, "flash_bwd": want}
+    for name, n_want in expected.items():
         n = per_wrapper[name]
-        check(n == want, f"{name} launched {n} times in {where}, want "
-                         f"n_layers x steps = {want}")
+        check(n == n_want, f"{name} launched {n} times in {where}, want "
+                           f"{n_want} (n_layers x steps = {want})")
+    kernel_want = {MODEL_PATH_KERNELS[0]: forward_runs * want,
+                   MODEL_PATH_KERNELS[1]: want}
     for name, n in per_kernel.items():
-        expect = want if name in MODEL_PATH_KERNELS else 0
+        expect = kernel_want.get(name, 0)
         check(n == expect, f"kernel {name} launched {n} times in {where}, "
                            f"want {expect}")
     return per_kernel
@@ -1255,10 +1290,10 @@ def phase_main_path() -> tuple[dict, dict]:
     return res, counts
 
 
-def phase_long_context() -> dict:
+def phase_long_context() -> tuple[dict, dict]:
     """bench_long_context at S=8192 and at S=16384, as bench.py's TPU
     phase calls it, each with the launch counts zeroed just before and
-    read just after. Returns the S=16384 run's counts."""
+    read just after. Returns the S=16384 run's counts and its reading."""
     from tpu_dra_torch import bench
     from tpu_dra_torch.workloads import _flash_kernels as fk
 
@@ -1273,7 +1308,186 @@ def phase_long_context() -> dict:
         check(math.isfinite(res["loss"]), f"non-finite {prefix} loss")
         counts = check_path_launches(prefix,
                                      res["n_layers"] * res["step_calls"])
-    return counts
+    return counts, {**res, "kernel_launches": counts}
+
+
+def phase_remat(xl_none: dict) -> dict:
+    """long_ctx_xl (S=16384) at remat "dots" and "full", each with the
+    launch counts zeroed just before and read just after: the backward
+    n_layers x steps times and the forward twice that (each block's
+    forward runs again in the backward). The "none" reading is
+    long_ctx's own run at S=16384 (`xl_none`). Returns the three."""
+    from tpu_dra_torch import bench
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+
+    out = {"none": xl_none}
+    for remat in ("dots", "full"):
+        fk.reset_launches()
+        res = bench.bench_long_context(steps=3, seq=XL_S,
+                                       prefix="long_ctx_xl", remat=remat)
+        _free()
+        counts = check_path_launches(
+            f"long_ctx_xl remat={remat}", res["n_layers"] * res["step_calls"],
+            forward_runs=res["forward_runs"])
+        check(math.isfinite(res["loss"]), f"non-finite remat={remat} loss")
+        out[remat] = {**res, "kernel_launches": counts}
+    emit("remat", seq=XL_S, readings={
+        remat: {"step_s": r["long_ctx_xl_step_s"],
+                "tokens_per_s": r["long_ctx_xl_tokens_per_s"],
+                "peak_memory_bytes": r["peak_memory_bytes"],
+                "forward_runs": r["forward_runs"],
+                "kernel_launches": r["kernel_launches"],
+                "step_calls": r["step_calls"], "loss": r["loss"]}
+        for remat, r in out.items()})
+    return out
+
+
+def phase_moe() -> dict:
+    """bench.bench_moe: the MoE LM at the flagship's widths on the card,
+    launch counts zeroed just before and read just after (every block's
+    attention through the Hopper kernels)."""
+    from tpu_dra_torch import bench
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+
+    fk.reset_launches()
+    res = bench.bench_moe(steps=3)
+    _free()
+    counts = check_path_launches("moe", res["n_layers"] * res["step_calls"])
+    emit("moe", kernel_launches=counts, **res)
+    return res
+
+
+def phase_ring_local() -> dict:
+    """An N=RING_N ring emulated in one process at long_ctx_xl's attention
+    shape (B1 S16384 H16 D128 bf16, rope off): each rank's steps in turn
+    through the distributed ring's own step_partial and merge, forward
+    and backward, launch counts zeroed just before and read just after
+    (the diagonal blocks causal, the past ones non-causal, all with the
+    merge's nonzero dlse); held against one causal
+    flash_attention_with_lse over the whole S, out, dq, dk and dv within
+    TOL_REL; both timed (CUDA events, forward + backward)."""
+    import torch
+
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads.flashattention import (
+        flash_attention_with_lse,
+    )
+    from tpu_dra_torch.workloads.ringattention import (
+        DIAGONAL, FUTURE, PAST, ring_attention_local,
+    )
+
+    b, h, d = XL_ATTN["b"], XL_ATTN["h"], XL_ATTN["d"]
+    q, k, v, dout, _ = _inputs(b, XL_S, h, d, seed=500)
+    q, k, v = (x.detach().contiguous().requires_grad_() for x in (q, k, v))
+    cases: dict = {}
+    fk.reset_launches()
+    out = ring_attention_local(q, k, v, RING_N, causal=True, impl="flash",
+                               partial_counts=cases)
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    counts = fk.kernel_launches()
+    steps = cases.get(DIAGONAL, 0) + cases.get(PAST, 0)
+    want = {name: steps if name in MODEL_PATH_KERNELS else 0
+            for name in counts}
+    check(counts == want, f"ring launches {counts}, want {want}")
+    ref, _ = flash_attention_with_lse(q, k, v, causal=True)
+    ref_grads = torch.autograd.grad(ref, (q, k, v), dout)
+    diffs = {}
+    for name, got, want_t in zip(("out", "dq", "dk", "dv"),
+                                 (out, *grads), (ref, *ref_grads)):
+        diff = Diff()
+        diff.add(got.detach(), want_t.detach())
+        diffs[name] = diff
+    finite = all(bool(torch.isfinite(x).all()) for x in (out, *grads))
+
+    def run(fn):
+        def call():
+            o = fn()
+            torch.autograd.grad(o, (q, k, v), dout)
+        return call
+
+    ring_ms = time_ms(run(lambda: ring_attention_local(
+        q, k, v, RING_N, causal=True, impl="flash")), reps=3, inner=1)
+    full_ms = time_ms(run(lambda: flash_attention_with_lse(
+        q, k, v, causal=True)[0]), reps=3, inner=1)
+    res = {"n": RING_N, "shape": dict(b=b, s=XL_S, h=h, d=d,
+                                      s_local=XL_S // RING_N),
+           "steps_by_case": {"future": cases.get(FUTURE, 0),
+                             "diagonal": cases.get(DIAGONAL, 0),
+                             "past": cases.get(PAST, 0)},
+           "kernel_launches": counts, "finite": finite,
+           **{f"{n}_rel": dd.rel for n, dd in diffs.items()},
+           **{f"{n}_abs": dd.abs for n, dd in diffs.items()},
+           "tol_rel": TOL_REL, "ring_fwd_bwd_ms": ring_ms,
+           "unsharded_fwd_bwd_ms": full_ms}
+    emit("ring_local", **res)
+    check(finite, "non-finite ring output or gradient")
+    for name, dd in diffs.items():
+        check(dd.rel <= TOL_REL, f"ring {name} rel {dd.rel} > {TOL_REL}")
+    del q, k, v, dout, out, grads, ref, ref_grads
+    _free()
+    return res
+
+
+def phase_mesh_workloads() -> dict:
+    """Every registered workload through meshbuild.launch_workload on the
+    plan of a claim of this node's GPUs (its NVML inventory's env), each
+    starting its own world-1 NCCL group (a failed start raises), launch
+    counts zeroed just before each: "train" the flagship as the DP x TP
+    step at a (1, 1) grid, n_layers x steps launches of flash_fwd_sm90
+    and flash_bwd_sm90 over its timed steps; then bench_psum over the
+    same env: 0.0 with its skip_reason on one GPU, and the local
+    memory-bandwidth proxy against the card's rate."""
+    from tpu_dra_torch import bench
+    from tpu_dra_torch.native import gpuinfo
+    from tpu_dra_torch.topology.meshexport import plan_from_env
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import meshbuild
+
+    backend = gpuinfo.NativeBackend()
+    try:
+        env = bench.node_env(backend)
+    finally:
+        backend.close()
+    plan = plan_from_env(env)
+    devices = meshbuild.devices_from_env(env, "cuda")
+    records = {}
+    for name, kw in meshbuild.default_runs(
+            {}, {"steps": MESH_TRAIN_STEPS, "warm_steps": 1,
+                 "barrier": fk.reset_launches}):
+        fk.reset_launches()
+        rec = meshbuild.launch_workload(name, plan, devices, **kw)
+        _free()
+        rec = {k: v for k, v in rec.items() if k != "window"}
+        rec["launches"] = fk.launches()
+        rec["kernel_launches"] = fk.kernel_launches()
+        emit("mesh_workload", name=name, plan_devices=plan.n_devices, **rec)
+        records[name] = rec
+    train = records["train"]
+    check(all(math.isfinite(x) for x in train["losses"]),
+          f"non-finite mesh train loss {train['losses']}")
+    check(train["grid"] == [1, 1], f"train grid {train['grid']}")
+    check_path_launches("mesh_workloads train",
+                        train["n_layers"] * train["steps"],
+                        (train["launches"], train["kernel_launches"]))
+    for name in ("ringattention", "ulysses", "sp_train"):
+        check(sum(records[name]["kernel_launches"].values()) > 0,
+              f"{name} launched no kernel on the card")
+    psum = bench.bench_psum(env)
+    peak_bytes = gpuinfo.PEAK_HBM_BYTES_PER_S[H100_SXM]
+    proxy = psum.get("local_hbm_proxy_gbps")
+    emit("psum", **psum, card_hbm_gbps=peak_bytes / 1e9,
+         hbm_proxy_share=None if proxy is None else proxy * 1e9 / peak_bytes,
+         nvidia_smi=gpuinfo.nvidia_smi())
+    if plan.n_devices == 1:
+        check(psum["algo_gbps"] == 0.0 and psum["bus_gbps"] == 0.0
+              and psum.get("skip_reason"),
+              f"one-GPU psum record {psum}")
+        check(psum["local_hbm_proxy_gbps"] > 0,
+              f"no memory-bandwidth proxy: {psum}")
+    return {"records": records, "psum": psum,
+            "median_train_step_s": statistics.median(
+                train["step_times_s"])}
 
 
 @contextlib.contextmanager
@@ -1427,7 +1641,11 @@ def main() -> int:
     phase_claim_path()
     _, counts = phase_main_path()
     _free()
-    counts_xl = phase_long_context()
+    counts_xl, xl_none = phase_long_context()
+    phase_remat(xl_none)
+    phase_moe()
+    phase_ring_local()
+    phase_mesh_workloads()
     phase_model_parity()
     phase_model_parity_fp32()
 

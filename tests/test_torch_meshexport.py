@@ -376,7 +376,7 @@ class TestLaunch:
     def test_unknown_workload_refused(self):
         plan = me.plan_from_coords({(0, 0): (0, 0, 0)}, None, "hopper")
         with pytest.raises(me.MeshBuildError, match="unknown workload"):
-            mb.launch_workload("allreduce", plan, [torch.device("cpu")])
+            mb.launch_workload("allgather", plan, [torch.device("cpu")])
 
     def test_workload_launch_fault_site_fires(self):
         plan = me.plan_from_coords({(0, 0): (0, 0, 0)}, None, "hopper")

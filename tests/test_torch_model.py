@@ -190,9 +190,26 @@ class TestParamsAndConfig:
 
     @pytest.mark.parametrize("remat", ["dots", "full"])
     def test_remat_not_ported_yet(self, remat):
-        cfg = tm.ModelConfig(**SMALL, remat=remat)
+        """The policies the port once refused now build and recompute the
+        same fp32 function: loss and every gradient leaf as "none"'s
+        within 1e-6 relative (recomputation repeats the same ops)."""
+        runs = {}
+        for policy in ("none", remat):
+            cfg = tm.ModelConfig(**SMALL, remat=policy, dtype=torch.float32)
+            params = tm.init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+            model = tm.TransformerLM(cfg, params)
+            loss = tm.loss_fn(model, torch.from_numpy(_tokens()))
+            runs[policy] = (float(loss.detach()), torch.autograd.grad(
+                loss, list(model.parameters())))
+        assert abs(runs[remat][0] - runs["none"][0]) <= 1e-6 * runs["none"][0]
+        for got, want in zip(runs[remat][1], runs["none"][1]):
+            assert _rel(got.numpy(), want.numpy()) <= 1e-6
+
+    def test_unknown_remat_refused(self):
+        cfg = tm.ModelConfig(**SMALL, remat="everything")
         params = tm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="remat"):
             tm.TransformerLM(cfg, params)
 
 

@@ -1,18 +1,27 @@
-"""Train-step throughput of the flagship model on one NVIDIA GPU, and
-claim-to-ready of the kubelet plugin (counterpart of bench.py's
-bench_mfu, bench_long_context, bench_claim_to_ready and their helpers).
+"""Train-step throughput of the flagship model on one NVIDIA GPU, the
+workload library's data plane, and claim-to-ready of the kubelet plugin
+(counterpart of bench.py's bench_mfu, bench_long_context, bench_psum,
+bench_mesh_dataplane, bench_claim_to_ready and their helpers).
 
-bench_mfu, bench_long_context and profile_train_step are device
-measurements: they run on a CUDA device or raise. bench_claim_to_ready
-times the kubelet plugin over its sockets on any discovery backend.
+bench_mfu, bench_long_context, bench_moe and profile_train_step are
+device measurements: they run on a CUDA device or raise. bench_psum
+times the all-reduce over a claim's GPUs, and bench_mesh_dataplane runs
+every workload of meshbuild on an 8-GPU fake claim over gloo CPU ranks.
+bench_claim_to_ready times the kubelet plugin over its sockets on any
+discovery backend.
 bench_shared_claim runs one claim's tenants (train-step processes,
 ``claim-child`` below) at once, with the default config or MPS.
 
     python -m tpu_dra_torch.bench
     # one JSON line each: shared_claim and mps (one claim, two flagship
-    # tenants), mfu, long_ctx (S=8192), long_ctx_xl (S=16384), profile
-    # (flagship), profile_xl (S=16384) and claim_to_ready (the node's
-    # GPUs through NVML)
+    # tenants), mfu, long_ctx (S=8192), long_ctx_xl (S=16384) and at
+    # remat "dots" and "full", moe (the MoE LM), psum (the node's GPUs),
+    # profile (flagship), profile_xl (S=16384), claim_to_ready (the
+    # node's GPUs through NVML) and mesh_dataplane (every workload on an
+    # 8-GPU fake claim, over gloo CPU ranks)
+    python -m tpu_dra_torch.bench mesh
+    # one JSON line: every workload over every GPU of the node, one NCCL
+    # rank per GPU (bench_mesh_gpus)
     python -m tpu_dra_torch.bench claim-child [--steps N] [--wait-go] ...
     # one tenant of the claim whose CDI env is this process's environment
 """
@@ -44,6 +53,9 @@ from tpu_dra_torch.workloads.model import (
 FLAGSHIP = ModelConfig(vocab=32768, d_model=2048, n_heads=16, n_layers=8,
                        d_ff=8192, max_seq=1024)
 FLAGSHIP_BATCH = 8
+# Attention forwards per block per step under each remat policy: the
+# recomputed block runs its forward again in the backward.
+FORWARD_RUNS = {"none": 1, "dots": 2, "full": 2}
 LONG_CONTEXT_BATCH = 1
 TOP_KERNELS = 15
 
@@ -57,12 +69,20 @@ def _sync(device: torch.device) -> None:
 
 def _setup(cfg: ModelConfig, batch: int, device: torch.device):
     """(model, tokens, step): weights from seed 0, tokens from numpy
-    RandomState(0), as the reference's bench draws them."""
-    model = TransformerLM(
-        cfg, init_params(cfg, torch.Generator().manual_seed(0), device))
+    RandomState(0), as the reference's bench draws them. An
+    MoEModelConfig builds the MoE LM, its weights drawn on the device."""
+    from tpu_dra_torch.workloads import moe_model
+
     tokens = torch.as_tensor(
         np.random.RandomState(0).randint(0, cfg.vocab, (batch, cfg.max_seq)),
         dtype=torch.long, device=device)
+    if isinstance(cfg, moe_model.MoEModelConfig):
+        gen = torch.Generator(device=device).manual_seed(0)
+        model = moe_model.MoETransformerLM(
+            cfg, moe_model.init_params(cfg, gen, device))
+        return model, tokens, moe_model.make_train_step(model)
+    model = TransformerLM(
+        cfg, init_params(cfg, torch.Generator().manual_seed(0), device))
     return model, tokens, make_train_step(model)
 
 
@@ -149,7 +169,8 @@ def long_context_config(seq: int) -> ModelConfig:
 
 
 def bench_long_context(steps: int = 4, seq: int = 8192,
-                       prefix: str = "long_ctx", device="cuda") -> dict:
+                       prefix: str = "long_ctx", device="cuda",
+                       remat: str = "none") -> dict:
     """Long-context train step of the flagship model on one card, batch 1
     (counterpart of bench.py:bench_long_context): attention goes through
     the same three kernels at every S, where the reference moves to its
@@ -158,9 +179,13 @@ def bench_long_context(steps: int = 4, seq: int = 8192,
     trained tokens per step, and _mfu against the card's dense bf16 peak,
     None for a card the peak table does not know) plus the final loss,
     the step calls made, the depth, the peak of allocated device memory
-    and the card's name and power limit."""
+    and the card's name and power limit. `remat` is the model's
+    rematerialization policy ("none", "dots", "full"); the record names
+    it and how many times each block's attention forward runs per step
+    (``forward_runs``: 2 under recomputation, which the kernels' launch
+    through ctypes puts outside any checkpoint policy)."""
     device = _require_card(device)
-    cfg = long_context_config(seq)
+    cfg = dataclasses.replace(long_context_config(seq), remat=remat)
     torch.cuda.reset_peak_memory_stats(device)
     step_s, loss_v, model, calls = _train_step_rate(cfg, LONG_CONTEXT_BATCH,
                                                     steps, device)
@@ -178,6 +203,8 @@ def bench_long_context(steps: int = 4, seq: int = 8192,
         f"{prefix}_step_s": step_s,
         f"{prefix}_tokens_per_s": tokens_per_step / step_s,
         f"{prefix}_mfu": None if peak is None else step_tflops / peak,
+        "remat": remat,
+        "forward_runs": FORWARD_RUNS[remat],
         "loss": loss_v,
         "step_calls": calls,
         "n_layers": cfg.n_layers,
@@ -185,6 +212,230 @@ def bench_long_context(steps: int = 4, seq: int = 8192,
         "device_name": name,
         "power_limit": gpuinfo.power_limit(device.index or 0),
     }
+
+
+def moe_config():
+    """The MoE LM at the flagship's widths with MoEModelConfig's
+    defaults (8 experts, an MoE FFN every second block, capacity factor
+    1.25, aux weight 1e-2)."""
+    from tpu_dra_torch.workloads.moe_model import MoEModelConfig
+
+    return MoEModelConfig(**{f.name: getattr(FLAGSHIP, f.name)
+                             for f in dataclasses.fields(FLAGSHIP)})
+
+
+def bench_moe(steps: int = 3, device="cuda") -> dict:
+    """Train-step throughput of the MoE LM (moe_config(), batch 8 as the
+    flagship's) on one card: step time, tokens/s, the allocator's peak,
+    the parameter count and the final loss (LM loss plus the weighted
+    router aux)."""
+    device = _require_card(device)
+    cfg = moe_config()
+    torch.cuda.reset_peak_memory_stats(device)
+    step_s, loss_v, model, calls = _train_step_rate(cfg, FLAGSHIP_BATCH,
+                                                    steps, device)
+    if not math.isfinite(loss_v):
+        raise RuntimeError(f"non-finite MoE loss: {loss_v}")
+    tokens_per_step = FLAGSHIP_BATCH * (cfg.max_seq - 1)
+    return {
+        "moe_step_s": step_s,
+        "moe_tokens_per_s": tokens_per_step / step_s,
+        "moe_model_params": int(sum(p.numel() for p in model.parameters())),
+        "n_experts": cfg.n_experts,
+        "moe_blocks": sum(cfg.is_moe_block(i) for i in range(cfg.n_layers)),
+        "loss": loss_v,
+        "step_calls": calls,
+        "n_layers": cfg.n_layers,
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(device),
+        "device_name": torch.cuda.get_device_name(device),
+        "power_limit": gpuinfo.power_limit(device.index or 0),
+    }
+
+
+# ---------------------------------------------------------------------------
+# The all-reduce probe and the workload data plane
+# ---------------------------------------------------------------------------
+
+def bench_psum(env: dict, allocated_gpus: "int | None" = None,
+               device_type: str = "cuda") -> dict:
+    """The all-reduce over the GPUs a claim's env names (counterpart of
+    bench.py:bench_psum): each UUID of its CUDA_VISIBLE_DEVICES resolved
+    against this process's devices; coverage is measured against the
+    GPUs the claim allocated. One GPU has no collective to measure: both
+    rates read 0.0 with a skip_reason, and local_hbm_proxy_gbps keeps a
+    memory-bandwidth trend. No resolved GPU is an error, not a subset."""
+    from tpu_dra_torch.topology.meshexport import plan_from_env
+    from tpu_dra_torch.workloads import meshbuild
+    from tpu_dra_torch.workloads.allreduce import (
+        allreduce_bandwidth, local_hbm_bandwidth,
+    )
+
+    want = [u.strip() for u in env.get("CUDA_VISIBLE_DEVICES", "").split(",")
+            if u.strip()]
+    if device_type == "cpu":
+        seen = {meshbuild.normalize_uuid(u): torch.device("cpu")
+                for u in want}
+    else:
+        _require_card(device_type)
+        seen = {meshbuild.normalize_uuid(
+            torch.cuda.get_device_properties(i).uuid): torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())}
+    missing = [u for u in want if meshbuild.normalize_uuid(u) not in seen]
+    resolved = [seen[meshbuild.normalize_uuid(u)] for u in want
+                if meshbuild.normalize_uuid(u) in seen]
+    if not resolved:
+        raise RuntimeError(f"no claimed GPU resolved to a device (claimed="
+                           f"{want}, visible={sorted(seen)})")
+    allocated = allocated_gpus if allocated_gpus is not None else len(want)
+    payload = (64 << 20) if device_type == "cuda" else (4 << 20)
+    if len(resolved) == 1:
+        r = allreduce_bandwidth(nbytes_per_device=payload)
+        local = local_hbm_bandwidth(nbytes=payload, device=resolved[0])
+        r["local_hbm_proxy_gbps"] = round(local["hbm_proxy_gbps"], 1)
+        r["skip_reason"] = (
+            f"single device visible (claim allocated {allocated} "
+            f"GPU{'s' if allocated != 1 else ''}): no NVLink collective "
+            "to measure")
+    else:
+        plan = plan_from_env(env)
+        r = meshbuild.launch_workload("allreduce", plan, resolved,
+                                      nbytes_per_device=payload, iters=10)
+    r["platform"] = "gpu" if device_type == "cuda" else "cpu"
+    r["coverage"] = f"{len(resolved)}/{allocated}"
+    if missing:
+        r["coverage_error"] = f"claimed GPUs {missing} not visible as devices"
+    return r
+
+
+def claim_env(n_gpus: int = 8) -> dict:
+    """The CDI env of a claim of all `n_gpus` GPUs of a FakeBackend node
+    (an HGX H100 board), prepared by DeviceState and read back through
+    the CDI handler as a container runtime would; nothing is left on
+    disk."""
+    from tpu_dra_torch.api.types import GPU_DRIVER_NAME
+    from tpu_dra_torch.cdi.handler import CDIHandler
+    from tpu_dra_torch.gpuplugin.checkpoint import CheckpointManager
+    from tpu_dra_torch.gpuplugin.device_state import DeviceState
+
+    root = tempfile.mkdtemp(prefix="claim_env_")
+    cdi = CDIHandler(os.path.join(root, "cdi"))
+    state = DeviceState(
+        backend=gpuinfo.FakeBackend(gpuinfo.default_fake_gpus(n_gpus)),
+        cdi=cdi, checkpoints=CheckpointManager(os.path.join(root, "plugin")),
+        driver_name=GPU_DRIVER_NAME, node_name=BENCH_NODE)
+    try:
+        res = state.prepare({
+            "metadata": {"uid": "dataplane", "name": "dataplane",
+                         "namespace": "default"},
+            "status": {"allocation": {"devices": {"results": [
+                {"request": "gpu", "driver": GPU_DRIVER_NAME,
+                 "pool": BENCH_NODE, "device": f"gpu-{i}"}
+                for i in range(n_gpus)], "config": []}}}})
+        if res.error:
+            raise RuntimeError(f"prepare failed: {res.error}")
+        env = cdi.container_edits(
+            [i for d in res.devices for i in d.cdi_device_ids])["env"]
+        state.unprepare("dataplane")
+        return env
+    finally:
+        state.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def node_env(backend) -> dict:
+    """The env of a claim of every GPU `backend` lists, as the device
+    plane exports it (the UUIDs, indices and NVLink coordinates)."""
+    from tpu_dra_torch.topology.meshexport import (
+        ENV_CUDA_VISIBLE, ENV_VISIBLE_INDICES, export_topology_env,
+    )
+
+    gpus = backend.gpus()
+    env = dict(export_topology_env(gpus))
+    env[ENV_CUDA_VISIBLE] = ",".join(g.uuid for g in gpus)
+    env[ENV_VISIBLE_INDICES] = ",".join(str(g.index) for g in gpus)
+    return env
+
+
+def bench_mesh_gpus(train_steps: int = 3) -> dict:
+    """Every registered workload over every GPU of this node, one NCCL
+    rank per GPU (meshbuild.launch_workloads on the plan of a claim of
+    them all): the all-reduce at 64 MiB per rank (10 iterations), the
+    others at their default sizes, "train" the flagship as the DP x TP
+    step over train_grid(n) for `train_steps` timed steps after one warm
+    step; then bench_psum over the same env. Returns rank 0's records
+    and the train step's median and global tokens/s."""
+    from tpu_dra_torch.topology.meshexport import plan_from_env
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import meshbuild
+
+    fk.build()   # once, before the ranks load the libraries
+    nvml = gpuinfo.NativeBackend()
+    try:
+        env = node_env(nvml)
+    finally:
+        nvml.close()
+    plan = plan_from_env(env)
+    devices = meshbuild.devices_from_env(env, "cuda")
+    runs = meshbuild.default_runs(
+        {"nbytes_per_device": 64 << 20, "iters": 10},
+        {"steps": train_steps, "warm_steps": 1})
+    recs = meshbuild.launch_workloads(runs, plan, devices)
+    train = recs["train"]
+    step_s = statistics.median(train["step_times_s"])
+    return {"n_gpus": plan.n_devices, "records": recs,
+            "train_median_step_s": step_s,
+            "train_tokens_per_s": train["batch"] * (train["seq"] - 1)
+            / step_s,
+            "psum": bench_psum(env),
+            "device_name": torch.cuda.get_device_name(0),
+            "power_limit": gpuinfo.power_limit(0)}
+
+
+# The "train" workload's config on the data plane's CPU ranks (the CPU
+# dryrun's model, __graft_entry__._dryrun_body).
+DATAPLANE_TRAIN = ModelConfig(vocab=64, d_model=32, n_heads=2, n_layers=2,
+                              d_ff=64, max_seq=16, dtype=torch.float32)
+
+
+def bench_mesh_dataplane(n_gpus: int = 8) -> dict:
+    """Every registered workload on the plan of an `n_gpus`-GPU
+    FakeBackend claim, over one spawned gloo CPU rank per GPU
+    (counterpart of bench.py:bench_mesh_dataplane, whose data plane runs
+    on a CPU mesh in a subprocess): the all-reduce first (4 MiB per
+    rank, 6 iterations), then the rest at their default sizes, "train"
+    at DATAPLANE_TRAIN. Host-clock readings of CPU collectives: a check
+    that every workload runs on the claim's plan, not a device rate."""
+    from tpu_dra_torch.infra.metrics import PSUM_BW
+    from tpu_dra_torch.topology.meshexport import plan_from_env
+    from tpu_dra_torch.workloads import meshbuild
+
+    env = claim_env(n_gpus)
+    plan = plan_from_env(env)
+    devices = meshbuild.devices_from_env(env, "cpu")
+    out = {"psum_mesh_allocated_gpus": plan.n_devices,
+           "psum_mesh_contiguous": plan.contiguous,
+           "psum_mesh_hop_mean": round(plan.hop_mean, 3),
+           "psum_mesh_modeled_nvlink_gbps": round(
+               plan.modeled_nvlink_gbps, 3),
+           "psum_mesh_coverage": f"{len(devices)}/{plan.n_devices}"}
+    data = meshbuild.train_grid(plan.n_devices)[0]
+    runs = meshbuild.default_runs(
+        {"nbytes_per_device": 4 << 20, "iters": 6},
+        {"cfg": DATAPLANE_TRAIN, "steps": 2,
+         "tokens": np.random.RandomState(0).randint(
+             0, DATAPLANE_TRAIN.vocab, (2 * data, DATAPLANE_TRAIN.max_seq))})
+    recs = meshbuild.launch_workloads(runs, plan, devices)
+    psum = recs.pop("allreduce")
+    out["psum_mesh_devices"] = psum["n_devices"]
+    out["psum_mesh_algo_gbps"] = psum["algo_gbps"]
+    out["psum_mesh_bus_gbps"] = psum["bus_gbps"]
+    if psum["algo_gbps"] > 0:
+        PSUM_BW.observe(psum["algo_gbps"])
+    for name, rec in recs.items():
+        for k, v in rec.items():
+            if k not in ("window", "step_times_s", "losses", "coords"):
+                out[f"mesh_workload_{name}_{k}"] = v
+    return out
 
 
 def _category(kernel: str) -> str:
@@ -1030,6 +1281,9 @@ def shared_claim_line(res: dict) -> dict:
 def main(argv) -> int:
     if argv[:1] == [CLAIM_CHILD]:
         return claim_child(argv[1:])
+    if argv[:1] == ["mesh"]:
+        print(json.dumps({"mesh_gpus": bench_mesh_gpus()}), flush=True)
+        return 0
     nvml = gpuinfo.get_backend()
     try:
         # First, while this process holds no context on the card: under
@@ -1046,11 +1300,19 @@ def main(argv) -> int:
               flush=True)
         print(json.dumps({"long_ctx_xl": bench_long_context(
             steps=3, seq=16384, prefix="long_ctx_xl")}), flush=True)
+        for remat in ("dots", "full"):
+            print(json.dumps({f"long_ctx_xl_{remat}": bench_long_context(
+                steps=3, seq=16384, prefix="long_ctx_xl", remat=remat)}),
+                flush=True)
+        print(json.dumps({"moe": bench_moe()}), flush=True)
+        print(json.dumps({"psum": bench_psum(node_env(nvml))}), flush=True)
         print(json.dumps({"profile": profile_train_step()}), flush=True)
         print(json.dumps({"profile_xl": profile_train_step(
             steps=2, cfg=long_context_config(16384),
             batch=LONG_CONTEXT_BATCH)}), flush=True)
         print(json.dumps({"claim_to_ready": bench_claim_to_ready(nvml)}),
+              flush=True)
+        print(json.dumps({"mesh_dataplane": bench_mesh_dataplane()}),
               flush=True)
     finally:
         nvml.close()

@@ -236,3 +236,12 @@ MESH_BUILDS = DefaultRegistry.counter(
     "builds but the modeled hop cost is above the block's floor), "
     "refused (rank/topology mismatch, duplicate or out-of-bounds "
     "coordinates — the loud-refusal contract)")
+
+# Workload data plane (workloads/meshbuild): measured all-reduce bandwidth.
+PSUM_BW = DefaultRegistry.histogram(
+    "tpu_dra_psum_bandwidth_gbps",
+    "measured all-reduce algorithm bandwidth (GB/s) per collective run "
+    "on a driver-allocated mesh (the bench's psum phase and any "
+    "launch_workload('allreduce') caller)",
+    buckets=(0.1, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 200.0,
+             400.0, 800.0))

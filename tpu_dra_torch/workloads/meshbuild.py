@@ -11,10 +11,14 @@ the ``torch.device``s of the process that reads it
 (``launch_workload``). Every launch passes the ``workload.launch``
 admission seam and every plan the ``mesh.build`` one.
 
-Registered workloads: ``"train"``, the flagship TransformerLM train step
-on the plan's rank-0 device. The multi-GPU workloads (all-reduce, ring
-attention, Ulysses, MoE, pipeline, sequence-parallel training) and a
-``DeviceMesh`` over a process group come with the multi-GPU slice.
+Registered workloads: the reference's six (``"allreduce"``,
+``"ringattention"``, ``"ulysses"``, ``"moe"``, ``"pipeline"``,
+``"sp_train"``, with its records' keys and default sizes) and
+``"train"``, the flagship TransformerLM's DP x TP step. Each runs as
+SPMD code, one process per device, over a ``torch.distributed`` group
+(``_dist``): ``launch_workload`` runs this rank's part when a group is
+up and otherwise starts one, in-process at world 1 and over spawned
+ranks for more devices.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 from tpu_dra_torch.topology.meshexport import (
     ENV_CUDA_VISIBLE, MeshBuildError, MeshPlan, admit_launch,
 )
+from tpu_dra_torch.workloads import _dist
 
 
 def ordered_devices(plan: MeshPlan, devices: Sequence) -> List:
@@ -47,7 +52,7 @@ def ordered_devices(plan: MeshPlan, devices: Sequence) -> List:
 @dataclass(frozen=True)
 class DeviceGrid:
     """The plan-ordered devices laid out as an N-D array with its axis
-    names (what a ``DeviceMesh`` is built from)."""
+    names (what a ``_dist.Mesh`` is built from)."""
     devices: np.ndarray
     axis_names: tuple
 
@@ -119,37 +124,217 @@ def devices_from_env(env: Dict[str, str], device_type: str = "cuda"
     return out
 
 
+
+
 # ---------------------------------------------------------------------------
-# Workloads
+# Workloads: each runs as this rank's part over a process group whose
+# ranks are the plan's devices in rank order (launch_workload starts one
+# when none is up). Small, measured runs; shapes scale with the plan.
 # ---------------------------------------------------------------------------
+
+def process_mesh(plan: MeshPlan, devices: Sequence,
+                 axis_names: Sequence[str] = ("x",),
+                 shape: Optional[Sequence[int]] = None) -> _dist.Mesh:
+    """This rank's _dist.Mesh over mesh_from_plan's grid (collective:
+    every rank of the group builds it)."""
+    return _dist.Mesh.from_grid(mesh_from_plan(plan, devices, axis_names,
+                                               shape))
+
+
+def _timed(fn: Callable, device, iters: int = 2) -> float:
+    """Mean wall seconds per call after one warm call; every call ends in
+    a device synchronize and a barrier over the group, so the time is
+    that of the slowest rank."""
+    fn()
+    _dist.barrier(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        _dist.barrier(device)
+    return (time.perf_counter() - t0) / iters
+
+
+def _randn(seed: int, shape, device, dtype=torch.float32) -> torch.Tensor:
+    """numpy RandomState(seed) normals, as the reference draws them."""
+    return torch.as_tensor(np.random.RandomState(seed).standard_normal(shape),
+                           dtype=dtype, device=device)
+
+
+def _attention_inputs(n: int, heads: int, device, s_local: int = 8,
+                      b: int = 2, d: int = 16):
+    shape = (b, n * s_local, heads, d)
+    return [_randn(i, shape, device) for i in range(3)], shape
+
+
+def _rate_record(wall_s: float, flops: float, **extra) -> Dict:
+    return {"wall_ms": round(wall_s * 1e3, 3),
+            "gflops_per_s": round(flops / wall_s / 1e9, 3), **extra}
+
+
+def _run_allreduce(plan: MeshPlan, devices: Sequence, **kw) -> Dict:
+    from tpu_dra_torch.infra.metrics import PSUM_BW
+    from tpu_dra_torch.workloads.allreduce import allreduce_bandwidth
+
+    mesh = process_mesh(plan, devices)
+    r = allreduce_bandwidth(
+        nbytes_per_device=int(kw.get("nbytes_per_device", 1 << 18)),
+        iters=int(kw.get("iters", 4)), warmup=2, group=mesh.group("x"),
+        device=mesh.device)
+    if r["algo_gbps"] > 0:
+        PSUM_BW.observe(r["algo_gbps"])
+    return {"algo_gbps": round(r["algo_gbps"], 3),
+            "bus_gbps": round(r["bus_gbps"], 3),
+            "n_devices": int(r["n_devices"])}
+
+
+# The reference's attention workloads run at s_local 8 and a head dim of
+# 4 (sp_train); on a card they run at the least the kernels take: the
+# flash ring's s_local 128 (ring_flash_ok) and head dim 16.
+_RING_S_LOCAL = {"cpu": 8, "cuda": 128}
+_SP_HEAD_DIM = {"cpu": 4, "cuda": 16}
+
+
+@torch.no_grad()
+def _run_ringattention(plan: MeshPlan, devices: Sequence, **kw) -> Dict:
+    from tpu_dra_torch.workloads.ringattention import make_ring_attention
+
+    mesh = process_mesh(plan, devices, axis_names=("seq",))
+    n = plan.n_devices
+    qkv, (b, s, h, d) = _attention_inputs(
+        n, 2, mesh.device, _RING_S_LOCAL[mesh.device.type])
+    q, k, v = (_dist.shard(x, mesh, "seq", 1) for x in qkv)
+    fn = make_ring_attention(mesh, axis_name="seq")
+    wall_s = _timed(lambda: fn(q, k, v), mesh.device,
+                    iters=int(kw.get("iters", 2)))
+    # qk^T + att@v, forward
+    return _rate_record(wall_s, 4.0 * b * s * s * h * d, seq=s)
+
+
+@torch.no_grad()
+def _run_ulysses(plan: MeshPlan, devices: Sequence, **kw) -> Dict:
+    from tpu_dra_torch.workloads.ulysses import make_ulysses_attention
+
+    mesh = process_mesh(plan, devices, axis_names=("seq",))
+    n = plan.n_devices
+    # H % axis_size == 0
+    qkv, (b, s, h, d) = _attention_inputs(n, n, mesh.device)
+    q, k, v = (_dist.shard(x, mesh, "seq", 1) for x in qkv)
+    fn = make_ulysses_attention(mesh, axis_name="seq")
+    wall_s = _timed(lambda: fn(q, k, v), mesh.device,
+                    iters=int(kw.get("iters", 2)))
+    return _rate_record(wall_s, 4.0 * b * s * s * h * d, seq=s)
+
+
+@torch.no_grad()
+def _run_moe(plan: MeshPlan, devices: Sequence, **kw) -> Dict:
+    from tpu_dra_torch.workloads.moe import (
+        init_moe_params, make_expert_parallel_ffn, shard_moe_params,
+    )
+
+    mesh = process_mesh(plan, devices, axis_names=("expert",))
+    n = plan.n_devices
+    d_model, d_ff = 16, 32
+    params = shard_moe_params(init_moe_params(
+        torch.Generator().manual_seed(1), d_model, d_ff, n,
+        device=mesh.device), mesh)
+    x = _randn(3, (2, 16, d_model), mesh.device)
+    fn = make_expert_parallel_ffn(mesh)
+    wall_s = _timed(lambda: fn(params, x), mesh.device,
+                    iters=int(kw.get("iters", 2)))
+    tokens = x.shape[0] * x.shape[1]
+    # up + down matmuls, forward
+    return _rate_record(wall_s, 2.0 * tokens * d_model * d_ff * 2,
+                        tokens_per_s=round(tokens / wall_s, 1))
+
+
+def _run_pipeline(plan: MeshPlan, devices: Sequence, **kw) -> Dict:
+    from tpu_dra_torch.workloads.pipeline import (
+        init_stage_params, make_pipeline_forward, shard_stage_params,
+    )
+
+    mesh = process_mesh(plan, devices, axis_names=("stage",))
+    n = plan.n_devices
+    d = 16
+    weights = shard_stage_params(init_stage_params(
+        torch.Generator().manual_seed(2), n, d).to(mesh.device), mesh)
+    mbs = _randn(4, (6, 2, d), mesh.device)
+    fn = make_pipeline_forward(mesh)
+    wall_s = _timed(lambda: fn(weights, mbs), mesh.device,
+                    iters=int(kw.get("iters", 2)))
+    return {"wall_ms": round(wall_s * 1e3, 3),
+            "microbatches_per_s": round(mbs.shape[0] / wall_s, 1),
+            "stages": n}
+
+
+def _run_sp_train(plan: MeshPlan, devices: Sequence, **kw) -> Dict:
+    from tpu_dra_torch.workloads.model import (
+        ModelConfig, TransformerLM, init_params,
+    )
+    from tpu_dra_torch.workloads.sp_train import make_sp_train_step
+
+    mesh = process_mesh(plan, devices, axis_names=("seq",))
+    n = plan.n_devices
+    d_head = _SP_HEAD_DIM[mesh.device.type]
+    cfg = ModelConfig(vocab=64, d_model=n * d_head, n_heads=n, n_layers=2,
+                      d_ff=64, max_seq=n * 8, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(11), mesh.device)
+    tokens = torch.as_tensor(
+        np.random.RandomState(12).randint(0, cfg.vocab, (2, cfg.max_seq)),
+        dtype=torch.long, device=mesh.device)
+    step = make_sp_train_step(TransformerLM(cfg, params, mesh), mesh)
+    wall_s = _timed(lambda: step(tokens), mesh.device,
+                    iters=int(kw.get("iters", 2)))
+    tokens_per_step = tokens.shape[0] * (cfg.max_seq - 1)
+    return {"wall_ms": round(wall_s * 1e3, 3),
+            "tokens_per_s": round(tokens_per_step / wall_s, 1),
+            "seq": cfg.max_seq}
+
+
+def train_grid(n: int) -> tuple:
+    """The ('data', 'model') grid "train" lays over n devices: TP over
+    pairs, DP across the rest (__graft_entry__._dryrun_body's layout)."""
+    model_axis = 2 if n % 2 == 0 else 1
+    return (n // model_axis, model_axis)
+
 
 def _run_train(plan: MeshPlan, devices: Sequence, *, cfg=None,
                steps: int = 3, params=None, tokens=None,
                lr: float = 1e-3, warm_steps: int = 0,
-               barrier: Optional[Callable[[], None]] = None) -> Dict:
+               barrier: Optional[Callable[[], None]] = None,
+               keep_params: bool = False) -> Dict:
     """`steps` SGD steps of the TransformerLM (the flagship config by
     default; weights from seed 0 and tokens of the flagship batch from
-    numpy RandomState(0) unless `params` and `tokens` are given) on the
-    plan's rank-0 device, after `warm_steps` untimed ones and then
-    `barrier()` (a tenant of a shared claim waits there for the others).
-    Returns every timed step's loss and wall time (each step ends in a
-    loss fetch, which synchronizes the device) and the host-clock window
-    (time.time() at the first step's start and the last one's end)."""
+    numpy RandomState(0) unless `params`, the full tree, and `tokens`,
+    the global batch, are given) as the DP x TP step over the plan's
+    ('data', 'model') grid (train_grid; (1, 1) on one device), after
+    `warm_steps` untimed ones and then `barrier()` (a tenant of a shared
+    claim waits there for the others). This rank
+    trains on its 'data' block of the batch with its 'model' shard of
+    the weights. Returns every timed step's global loss and wall time
+    (each step ends in a loss fetch, which synchronizes the device), the
+    host-clock window (time.time() at the first step's start and the
+    last one's end), this rank's place and share, and with
+    `keep_params` its parameter shards after the steps (numpy)."""
     from tpu_dra_torch import bench
     from tpu_dra_torch.workloads.model import (
-        TransformerLM, init_params, make_train_step,
+        TransformerLM, build_train_step, init_params, local_params,
+        shard_params, tree_map,
     )
 
-    device = ordered_devices(plan, devices)[0]
+    grid = train_grid(plan.n_devices)
+    mesh = process_mesh(plan, devices, ("data", "model"), grid)
+    device = mesh.device
     cfg = cfg or bench.FLAGSHIP
     if params is None:
         params = init_params(cfg, torch.Generator().manual_seed(0), device)
-    model = TransformerLM(cfg, params)
+    local = tree_map(lambda x: x.to(device), shard_params(params, mesh, cfg))
+    del params
+    model = TransformerLM(cfg, local, mesh)
     if tokens is None:
         tokens = np.random.RandomState(0).randint(
             0, cfg.vocab, (bench.FLAGSHIP_BATCH, cfg.max_seq))
     tokens = torch.as_tensor(tokens, dtype=torch.long, device=device)
-    step = make_train_step(model, lr=lr)
+    step = build_train_step(model, lr=lr)
     for _ in range(warm_steps):
         float(step(tokens))
     if barrier is not None:
@@ -160,25 +345,77 @@ def _run_train(plan: MeshPlan, devices: Sequence, *, cfg=None,
         t0 = time.perf_counter()
         losses.append(float(step(tokens)))
         times.append(time.perf_counter() - t0)
-    return {"workload": "train", "losses": losses, "loss": losses[-1],
-            "step_times_s": times, "steps": steps, "device": str(device),
-            "window": [window_start, time.time()],
-            "n_devices": plan.n_devices, "n_layers": cfg.n_layers,
-            "batch": int(tokens.shape[0]), "seq": int(tokens.shape[1])}
+    rec = {"workload": "train", "losses": losses, "loss": losses[-1],
+           "step_times_s": times, "steps": steps, "device": str(device),
+           "window": [window_start, time.time()],
+           "n_devices": plan.n_devices, "n_layers": cfg.n_layers,
+           "batch": int(tokens.shape[0]), "seq": int(tokens.shape[1]),
+           "rank": mesh.rank, "grid": list(grid), "coords": mesh.coords,
+           "local_batch": int(tokens.shape[0]) // grid[0],
+           "local_param_elems": sum(p.numel() for p in model.parameters())}
+    if keep_params:
+        rec["params"] = local_params(model)
+    return rec
 
 
 WORKLOADS: Dict[str, Callable] = {
+    "allreduce": _run_allreduce,
+    "ringattention": _run_ringattention,
+    "ulysses": _run_ulysses,
+    "moe": _run_moe,
+    "pipeline": _run_pipeline,
+    "sp_train": _run_sp_train,
     "train": _run_train,
 }
+
+
+def default_runs(allreduce_kw: Dict, train_kw: Dict) -> List[tuple]:
+    """Every registered workload once, in WORKLOADS' order (the
+    all-reduce first, "train" last), as launch_workloads takes them: the
+    all-reduce with `allreduce_kw`, "train" with `train_kw`, the others
+    at their default sizes."""
+    kws = {"allreduce": allreduce_kw, "train": train_kw}
+    return [(name, dict(kws.get(name, {}))) for name in WORKLOADS]
+
+
+def _rank_part(name: str, plan: MeshPlan, devices: Sequence, kw: Dict):
+    return WORKLOADS[name](plan, devices, **kw)
+
+
+def launch_workloads(runs: Sequence, plan: MeshPlan,
+                     devices: Sequence) -> Dict[str, Dict]:
+    """Run each (name, kwargs) of `runs` in turn on the allocation's
+    devices and return {name: rank 0's record}. Unknown names refuse; the
+    workload.launch admission seam runs first for each. If a process
+    group is up, this is this rank's part. If none is, one is started
+    for the runs and stopped after: in this process at world 1, else one
+    spawned process per plan device (rank r pinned to the plan's r-th
+    device)."""
+    runs = [(name, dict(kw)) for name, kw in runs]
+    for name, _ in runs:
+        if name not in WORKLOADS:
+            raise MeshBuildError(
+                f"unknown workload {name!r} (known: {sorted(WORKLOADS)})")
+        admit_launch(name)
+    if _dist.is_up():
+        return {name: _rank_part(name, plan, devices, kw)
+                for name, kw in runs}
+    devs = ordered_devices(plan, devices)
+    if len(devs) == 1:
+        _dist.start_local_group(devs[0])
+        try:
+            return {name: _rank_part(name, plan, devices, kw)
+                    for name, kw in runs}
+        finally:
+            _dist.stop_group()
+    with _dist.RankPool(devs) as pool:
+        return {name: pool.run(_rank_part, name, plan, devices, kw)[0]
+                for name, kw in runs}
 
 
 def launch_workload(name: str, plan: MeshPlan, devices: Sequence,
                     **kw) -> Dict:
     """Run workload `name` on the allocation's devices and return its
-    record. Unknown names refuse; the workload.launch admission seam
-    runs first."""
-    if name not in WORKLOADS:
-        raise MeshBuildError(
-            f"unknown workload {name!r} (known: {sorted(WORKLOADS)})")
-    admit_launch(name)
-    return WORKLOADS[name](plan, devices, **kw)
+    record ({wall_ms, bandwidth or rate, ...}; rank 0's when the plan
+    has several devices); see launch_workloads."""
+    return launch_workloads([(name, kw)], plan, devices)[name]
