@@ -9,7 +9,9 @@ Phases, each printing one JSON line ({"phase": ...}):
                   and compute capability, expected (9, 0)) and nvcc's
                   version;
 2. build        — compiles the five flash-attention kernels from
-                  tpu_dra_torch/workloads/csrc with nvcc for sm_90a;
+                  tpu_dra_torch/workloads/csrc with nvcc for sm_90a and,
+                  beside them, the native domain daemon from
+                  tpu_dra_torch/native/src with c++;
    Then, before this process opens a CUDA context (under
    EXCLUSIVE_PROCESS an MPS server could not open its own beside it), on
    the GPU torch calls cuda:0 as NVML lists it:
@@ -108,6 +110,26 @@ Phases, each printing one JSON line ({"phase": ...}):
                   NativeBackend (claim_to_ready: p50/p10/p95 and the
                   breakdown) and one health-monitor wait that must end
                   with no event and no wedge (health);
+   compute_domain — the compute-domain stack: the native domain daemon
+                  READY by its own --check (cd_daemon); a two-node
+                  ComputeDomain of simulated nodes (fake GPUs) through
+                  the controller, two CD kubelet plugins and two real
+                  daemons over a FakeCluster, cd_convergence_s from CD
+                  creation to both channel claims prepared (host clock;
+                  cd_convergence); then a one-node domain on this host: a
+                  GpuDriver over NVML prepares a claim of the GPU torch
+                  calls cuda:0 over its framed socket, the CD plugin (its
+                  clique read through NVML) a channel claim on the same
+                  node, and a claim child whose environment is the two
+                  CDI envs merged plans with plan_from_env, starts its
+                  node's NCCL group of the domain (world 1) at the env's
+                  MASTER_ADDR:MASTER_PORT and runs the flagship train
+                  step at full width for CLAIM_STEPS steps: finite
+                  losses, the claim's UUID, rank 0 of 1 at that address,
+                  n_layers x steps launches of flash_fwd_sm90 and
+                  flash_bwd_sm90 and none of the mma.sync kernels; the
+                  domain torn down with no node label, stamped DaemonSet
+                  or template left (compute_domain);
 8. main         — the flagship TransformerLM train step through
                   tpu_dra_torch.bench.bench_mfu, with the kernels' launch
                   counts zeroed just before and read just after: every
@@ -157,8 +179,9 @@ backward and its time), the nvidia-smi name/power-limit line, and last
 "device": {...}}. Any failed check raises, so the script exits non-zero
 without that last line; it refuses to run without a CUDA device.
 `python3 chip_smoke.py claim-child [--steps N] [--warm N] [--wait-go]`
-is the claim child (claim_path, shared_claim, mps, mig): it reads its
-own environment as a claim's CDI env and prints one JSON line.
+is the claim child (claim_path, compute_domain, shared_claim, mps, mig):
+it reads its own environment as a claim's CDI env (in compute_domain,
+merged with a channel claim's) and prints one JSON line.
 """
 
 from __future__ import annotations
@@ -281,12 +304,34 @@ def phase_probe() -> dict:
 
 
 def phase_build() -> None:
+    """The kernels (one nvcc per source, started together) and, beside
+    them on a thread, the native domain daemon (c++)."""
+    import threading
+
+    from tpu_dra_torch.cddaemon import binary
     from tpu_dra_torch.workloads import _flash_kernels as fk
 
+    daemon = {}
+
+    def build_daemon():
+        t = time.perf_counter()
+        try:
+            daemon["path"] = binary.build()
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            daemon["error"] = e
+        daemon["seconds"] = time.perf_counter() - t
+
     t0 = time.perf_counter()
+    thread = threading.Thread(target=build_daemon)
+    thread.start()
     libs = fk.build()
+    thread.join()
     seconds = time.perf_counter() - t0
-    emit("build", seconds=seconds, libs=[str(p) for p in libs.values()])
+    if "error" in daemon:
+        raise daemon["error"]
+    emit("build", seconds=seconds, libs=[str(p) for p in libs.values()],
+         daemon=os.path.relpath(daemon["path"], ROOT),
+         daemon_build_s=daemon["seconds"])
 
 
 def _inputs(b, s, h, d, seed, dtype=None, zero_dlse=False):
@@ -1071,12 +1116,185 @@ def phase_claim_path() -> dict:
         shutil.rmtree(scratch, ignore_errors=True)
 
 
+def _daemon_check(scratch: str) -> dict:
+    """Start one instance of the native domain daemon (built from this
+    checkout's source by phase_build) on a free port and run its own
+    --check against it until it answers READY. Returns the answer."""
+    from tpu_dra_torch.cddaemon import binary
+    from tpu_dra_torch.testing import free_port
+
+    daemon = binary.build()
+    port = free_port()
+    work = os.path.join(scratch, "daemon-check")
+    os.makedirs(work)
+    cfg = os.path.join(work, "daemon.cfg")
+    with open(cfg, "w") as f:
+        f.write(f"node_ip=127.0.0.1\nport={port}\n"
+                f"nodes_config={os.path.join(work, 'nodes.cfg')}\n"
+                f"clique_id=\nworker_index=0\n")
+    proc = subprocess.Popen([daemon, "--config", cfg],
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
+    try:
+        answer, deadline = None, time.monotonic() + 10
+        while time.monotonic() < deadline:
+            probe = subprocess.run([daemon, "--check", "--port", str(port)],
+                                   capture_output=True, text=True,
+                                   timeout=10)
+            if probe.returncode == 0:
+                answer = probe.stdout.strip()
+                break
+            time.sleep(0.05)
+        check(answer is not None and answer.startswith("READY"),
+              f"the domain daemon never answered READY on port {port}")
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10)
+    return {"binary": os.path.relpath(daemon, ROOT), "check": answer}
+
+
+def phase_compute_domain() -> dict:
+    """The compute-domain stack: (a) the native domain daemon built and
+    READY by its own --check; (b) a two-node ComputeDomain of simulated
+    nodes through the controller, two CD kubelet plugins and two real
+    daemons over a FakeCluster, from creation to both channel claims
+    prepared (cd_convergence_s, host time); (c) a one-node domain on
+    this host — a GpuDriver over NVML prepares a claim of the GPU torch
+    calls cuda:0 over its framed socket, the CD plugin (its clique read
+    through NVML) prepares a channel claim on the same node, and the two
+    CDI envs, merged, are the environment of a claim child that plans
+    with plan_from_env, starts the node's NCCL group of the domain (world
+    1) at the env's MASTER_ADDR:MASTER_PORT and runs the flagship train
+    step at full width for CLAIM_STEPS steps (launch counts zeroed just
+    before); (d) the domain torn down: no node label, stamped DaemonSet
+    or template left. Returns the readings."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from tpu_dra_torch import bench
+    from tpu_dra_torch.api.types import GPU_DRIVER_NAME
+    from tpu_dra_torch.cdi.handler import CDIHandler
+    from tpu_dra_torch.gpuplugin.checkpoint import CheckpointManager
+    from tpu_dra_torch.gpuplugin.device_state import DeviceState
+    from tpu_dra_torch.gpuplugin.driver import GpuDriver
+    from tpu_dra_torch.k8s import RESOURCECLAIMS
+    from tpu_dra_torch.kubeletplugin.server import framed_stubs
+    from tpu_dra_torch.native import gpuinfo
+    from tpu_dra_torch.testing import DomainSim
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads.meshbuild import normalize_uuid
+
+    scratch = tempfile.mkdtemp(prefix="cd_", dir=fk.BUILD_DIR.parent)
+    backend = gpuinfo.NativeBackend()
+    driver = None
+    try:
+        daemon = _daemon_check(scratch)
+        emit("cd_daemon", **daemon)
+        two = bench.bench_cd_convergence()
+        emit("cd_convergence", cd_convergence_s=two["cd_convergence_s"],
+             clock="host", host=os.uname().nodename, envs=two["envs"])
+        t0 = time.perf_counter()
+        with DomainSim({NODE: backend}, namespace="smoke",
+                       root=os.path.join(scratch, "domain")) as sim:
+            cd = sim.create_cd("card-cd")
+            prov = sim.prepare_channels(cd)
+            check(prov["ok"], f"the card's domain did not converge: "
+                              f"{prov['error']}")
+            channel_env = prov["envs"][NODE]
+            converge_s = time.perf_counter() - t0
+            node = sim.nodes[0]
+            cuda0 = normalize_uuid(torch.cuda.get_device_properties(0).uuid)
+            gpu = next(g for g in backend.gpus()
+                       if normalize_uuid(g.uuid) == cuda0)
+            plugin_dir = os.path.join(scratch, "gpu-plugin")
+            cdi = CDIHandler(os.path.join(scratch, "cdi"))
+            state = DeviceState(backend=backend, cdi=cdi,
+                                checkpoints=CheckpointManager(plugin_dir),
+                                driver_name=GPU_DRIVER_NAME, node_name=NODE)
+            driver = GpuDriver(state=state, client=sim.cluster,
+                               driver_name=GPU_DRIVER_NAME, node_name=NODE,
+                               plugin_dir=plugin_dir,
+                               kubelet_grpc=bench.grpc_unavailable() is None)
+            driver.start(publish_wait=30.0)
+            claim = sim.cluster.create(RESOURCECLAIMS, {
+                "apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+                "metadata": {"name": "cd-gpu", "namespace": "smoke"},
+                "spec": {"devices": {"requests": [{"name": "gpu"}]}},
+                "status": {"allocation": {"devices": {"results": [{
+                    "request": "gpu", "driver": GPU_DRIVER_NAME,
+                    "pool": NODE, "device": f"gpu-{gpu.index}"}],
+                    "config": []}}}})
+            client, prepare, unprepare = framed_stubs(
+                driver.server.fast_socket, timeout_s=60)
+            try:
+                entry, _, undo = _kubelet_cycle(prepare, unprepare, claim)
+                gpu_env = cdi.container_edits(
+                    list(entry.devices[0].cdi_device_ids))["env"]
+                merged = {**gpu_env, **channel_env}
+                proc = subprocess.run(
+                    [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                     CLAIM_CHILD, "--steps", str(CLAIM_STEPS)],
+                    env={**os.environ, **merged}, cwd=ROOT,
+                    capture_output=True, text=True, timeout=900)
+                check(proc.returncode == 0,
+                      f"domain claim child exited {proc.returncode}:\n"
+                      f"{proc.stdout}\n{proc.stderr[-4000:]}")
+                child = json.loads(proc.stdout.strip().splitlines()[-1])
+                undo()
+            finally:
+                client.close()
+            check(all(math.isfinite(x) for x in child["losses"]),
+                  f"non-finite domain-child loss {child['losses']}")
+            check(normalize_uuid(child["uuid"]) == normalize_uuid(gpu.uuid),
+                  f"the domain child ran on {child['uuid']}, the claim "
+                  f"holds {gpu.uuid}")
+            rendezvous = (f"{channel_env['MASTER_ADDR']}:"
+                          f"{channel_env['MASTER_PORT']}")
+            place = child["domain"]
+            check(place["rendezvous"] == rendezvous
+                  and (place["rank"], place["world"], place["psum"])
+                  == (0, 1, 1.0) and child["n_devices"] == 1,
+                  f"the child took {place} on a plan of "
+                  f"{child['n_devices']}; the env names {rendezvous}")
+            counts = check_path_launches(
+                "the compute-domain child", child["n_layers"] * child["steps"],
+                (child["launches"], child["kernel_launches"]))
+            left = sim.teardown(cd, prov["claims"])
+            check(left["cd_deleted"] and not left["labeled_nodes"]
+                  and not left["daemonsets"] and not left["templates"]
+                  and not left["unprepare_errors"],
+                  f"the domain's teardown left {left}")
+            check(node.daemon is None, "a domain daemon still runs")
+        res = {"daemon": daemon,
+               "cd_convergence_s": two["cd_convergence_s"],
+               "card_domain_s": converge_s, "clique_id": node.clique_id,
+               "channel_env": channel_env,
+               "merged_keys": sorted(merged),
+               "rendezvous": rendezvous,
+               "median_step_s": statistics.median(child["step_times_s"]),
+               "losses": child["losses"], "steps": child["steps"],
+               "n_layers": child["n_layers"], "kernel_launches": counts,
+               "teardown": left, "nvidia_smi": gpuinfo.nvidia_smi()}
+        emit("compute_domain", **res)
+        return res
+    finally:
+        if driver is not None:
+            driver.shutdown(drain=False)
+        backend.close()
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
 def claim_child(argv) -> int:
-    """The claim child (claim_path, shared_claim, mps and mig):
+    """The claim child (claim_path, compute_domain, shared_claim, mps
+    and mig):
     tpu_dra_torch.bench.claim_child on this process's environment, read
     as a claim's CDI env: plan_from_env -> devices_from_env ->
     launch_workload("train") at the flagship's full width, the launch
-    counts zeroed just before the timed steps; with --wait-go it takes
+    counts zeroed just before the timed steps; where the env also holds a
+    ComputeDomain channel claim's (NODE_RANK), the group starts at its
+    MASTER_ADDR:MASTER_PORT; with --wait-go it takes
     its warm step and waits for the parent's "go" on stdin. Prints one
     JSON line: losses, step times, the host-clock window, the UUID of the
     device it ran on, the depth and steps, the launch counts and the
@@ -1639,6 +1857,7 @@ def main() -> int:
                      peak_bytes)
     _free()
     phase_claim_path()
+    phase_compute_domain()
     _, counts = phase_main_path()
     _free()
     counts_xl, xl_none = phase_long_context()

@@ -39,6 +39,7 @@ NAME_MAP = (
     ('"driver": "tpu.dev"', '"driver": "gpu.dev"'),  # DRA driver name
     ("TpuConfig", "GpuConfig"),                # opaque config kind
     ("TPUDeviceHealthCheck", "NVMLDeviceHealthCheck"),  # health gate
+    ("SliceDaemonsWithDNSNames", "DomainDaemonsWithDNSNames"),  # CD gate
     ("/dev/accel", "/dev/nvidia"),             # device node (minor = index)
     ("TPU_CHIP_COORDS", "GPU_COORDS"),
     ("TPU_CHIP_", "GPU_"),                     # TPU_CHIP_<i>_UUID

@@ -628,8 +628,9 @@ class TestCheckpointFormat:
 
 def test_port_registers_only_the_gates_it_reads():
     assert port_gates.Features.known() == [
-        "MultiprocessSupport", "NVMLDeviceHealthCheck", "PassthroughSupport",
-        "TimeSlicingSettings"]
+        "DomainDaemonsWithDNSNames", "MultiprocessSupport",
+        "NVMLDeviceHealthCheck", "PassthroughSupport",
+        "TimeSlicingSettings", "TopologyAwareScheduling"]
     ref_known = to_port(list(ref_gates.Features.known()))
     assert set(port_gates.Features.known()) <= set(ref_known)
     # Each gate's default is the reference's (the health check on).
@@ -638,4 +639,4 @@ def test_port_registers_only_the_gates_it_reads():
         == port_gates.Features.snapshot()
     assert port_gates.Features.enabled(port_gates.NVMLDeviceHealthCheck)
     with pytest.raises(ValueError, match="unknown feature gate"):
-        port_gates.Features.set_from_string("TopologyAwareScheduling=true")
+        port_gates.Features.set_from_map({"NoSuchGate": True})

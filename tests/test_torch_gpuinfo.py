@@ -419,9 +419,14 @@ def stub_nvml(gpus, init_rc=0, mig_rc=None, pci_rc=0, events=(),
         ref._obj.value = split(mig_h, MIG_HANDLE)[2]
         return 0
 
+    def driver_version(buf, length):
+        buf.value = b"570.158.01"
+        return 0
+
     table = {
         "nvmlInit_v2": init, "nvmlShutdown": lambda: 0,
         "nvmlErrorString": error_string,
+        "nvmlSystemGetDriverVersion": driver_version,
         "nvmlDeviceGetCount_v2": count,
         "nvmlDeviceGetHandleByIndex_v2": handle,
         "nvmlDeviceGetUUID": uuid, "nvmlDeviceGetName": name,
@@ -661,6 +666,15 @@ class TestNvlinkClique:
         assert backend.health_registration() == {0: "not_supported",
                                                  1: "not_supported"}
         assert backend.wait_health_event(0.01) is None
+        assert backend.driver_version() == "unknown"
+
+    def test_driver_version(self):
+        """nvmlSystemGetDriverVersion's string: the compute-domain
+        daemon's DNS-names gate reads it."""
+        backend = gpuinfo.NativeBackend(lib=stub_nvml([h100(0)]))
+        assert backend.driver_version() == "570.158.01"
+        assert gpuinfo.FakeBackend().driver_version() == \
+            gpuinfo.FAKE_DRIVER_VERSION
 
     def test_a_required_symbol_missing_raises(self):
         lib = stub_nvml([h100(0)])

@@ -217,14 +217,16 @@ def test_unknown_workload_and_admission_fault_refused(envs):
 
 
 def test_dryrun_multichip_four_ranks():
-    """Every section of the reference's _dryrun_body but its compute-domain
-    psum probe, on four gloo ranks: each reading finite, each shape
-    right."""
+    """Every section of the reference's _dryrun_body, its compute-domain
+    psum probe too, on four gloo ranks: each reading finite, each shape
+    right, the probe's sum 1 + 2 + 3 + 4 over the domain's rendezvous."""
     from tpu_dra_torch import entry
 
     out = entry.dryrun_multichip(4)
     assert set(out) == {"dp_tp_loss", "ring", "ulysses", "sp_train_loss",
-                        "ep_ffn_aux", "moe_lm_loss", "pipeline"}
+                        "ep_ffn_aux", "moe_lm_loss", "pipeline", "cd_psum"}
+    assert out["cd_psum"]["ok"]
+    assert out["cd_psum"]["value"] == out["cd_psum"]["expected"] == 10.0
     assert all(np.isfinite(out[k]) for k in ("dp_tp_loss", "sp_train_loss",
                                              "ep_ffn_aux", "moe_lm_loss"))
     assert out["ring"] == [2, 8, 2, 16] and out["ulysses"] == [2, 8, 4, 16]

@@ -1,3 +1,4 @@
 """API group ``resource.gpu.dev/v1beta1`` of the GPU driver (counterpart
-of tpu_dra.api): opaque per-claim config kinds, sharing types and
-strict/non-strict decoders."""
+of tpu_dra.api): opaque per-claim config kinds, sharing types, the
+compute-domain kinds (the ComputeDomain CRD, its manifest in ``crd``)
+and strict/non-strict decoders."""

@@ -50,7 +50,9 @@ class Scheme:
 
 
 _scheme = Scheme()
-for _cls in (t.GpuConfig, t.MigDeviceConfig, t.PassthroughConfig):
+for _cls in (t.GpuConfig, t.MigDeviceConfig, t.PassthroughConfig,
+             t.ComputeDomainChannelConfig, t.ComputeDomainDaemonConfig,
+             t.ComputeDomain):
     _scheme.add_known_type(t.API_VERSION, _cls.KIND, _cls)
 
 

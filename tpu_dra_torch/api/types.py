@@ -10,9 +10,17 @@ The TPU reference's kinds map back onto their GPU originals:
   MPS control daemon's knobs (active-thread percentage, pinned device
   memory limits).
 
-The compute-domain kinds and the ComputeDomain CRD come with the
-multi-node slice. Every type implements ``normalize()``/``validate()``
-and ``from_dict(strict=...)``/``to_dict()``, and is registered with the
+The compute-domain kinds keep the reference's shape:
+``ComputeDomainChannelConfig`` and ``ComputeDomainDaemonConfig`` carry
+the domain UID (and allocation mode) from the controller-stamped
+ResourceClaimTemplates into the node-side prepare, and the
+``ComputeDomain`` CRD's per-node ``sliceID`` becomes ``cliqueID``, the
+NVLink clique (the fabric's cluster UUID and clique id): nodes with one
+cliqueID share an NVLink domain, and an empty cliqueID marks a member
+that reaches its peers over the network only.
+
+Every type implements ``normalize()``/``validate()`` and
+``from_dict(strict=...)``/``to_dict()``, and is registered with the
 scheme in ``tpu_dra_torch.api.scheme``.
 """
 
@@ -28,12 +36,34 @@ GROUP = "resource.gpu.dev"
 VERSION = "v1beta1"
 API_VERSION = f"{GROUP}/{VERSION}"
 
-# The DRA driver name (the reference's tpu.dev).
+# The DRA driver names (the reference's tpu.dev and
+# compute-domain.tpu.dev).
 GPU_DRIVER_NAME = "gpu.dev"
+COMPUTE_DOMAIN_DRIVER_NAME = "compute-domain.gpu.dev"
+
+# ComputeDomain orchestration constants shared by the controller, the
+# domain daemon and the CD kubelet plugin: the node label that summons a
+# domain's daemon pod, the CD finalizer and the two device classes.
+COMPUTE_DOMAIN_LABEL_KEY = "resource.gpu.dev/computeDomain"
+COMPUTE_DOMAIN_FINALIZER = "resource.gpu.dev/computeDomain"
+DEVICE_CLASS_DAEMON = "compute-domain-daemon.gpu.dev"
+DEVICE_CLASS_CHANNEL = "compute-domain-default-channel.gpu.dev"
 
 GPU_CONFIG_KIND = "GpuConfig"
 MIG_DEVICE_CONFIG_KIND = "MigDeviceConfig"
 PASSTHROUGH_CONFIG_KIND = "PassthroughConfig"
+COMPUTE_DOMAIN_CHANNEL_CONFIG_KIND = "ComputeDomainChannelConfig"
+COMPUTE_DOMAIN_DAEMON_CONFIG_KIND = "ComputeDomainDaemonConfig"
+COMPUTE_DOMAIN_KIND = "ComputeDomain"
+
+COMPUTE_DOMAIN_STATUS_READY = "Ready"
+COMPUTE_DOMAIN_STATUS_NOT_READY = "NotReady"
+# A domain that WAS Ready and lost a member (node death, daemon crash):
+# its workloads read a regression with status.statusReason, not a domain
+# that never started. Recovery republishes Ready.
+COMPUTE_DOMAIN_STATUS_DEGRADED = "Degraded"
+ALLOCATION_MODE_SINGLE = "Single"
+ALLOCATION_MODE_ALL = "All"
 
 # Sharing strategies.
 TimeSlicingStrategy = "TimeSlicing"
@@ -363,6 +393,221 @@ class PassthroughConfig(_ConfigBase):
         if not featuregates.enabled(featuregates.PassthroughSupport):
             raise ValidationError(
                 "PassthroughConfig requires the PassthroughSupport feature gate")
+
+
+@dataclass
+class ComputeDomainChannelConfig(_ConfigBase):
+    """Carried by the workload ResourceClaimTemplate the controller stamps
+    per ComputeDomain."""
+    KIND = COMPUTE_DOMAIN_CHANNEL_CONFIG_KIND
+    domain_id: str = ""
+    allocation_mode: str = ALLOCATION_MODE_SINGLE
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any], strict: bool = True):
+        _unknown_fields(data, {"apiVersion", "kind", "domainID", "allocationMode"},
+                        strict, self_path(cls))
+        return cls(domain_id=data.get("domainID", ""),
+                   allocation_mode=data.get("allocationMode", ALLOCATION_MODE_SINGLE))
+
+    def to_dict(self) -> Dict[str, Any]:
+        out = self.type_meta()
+        out["domainID"] = self.domain_id
+        out["allocationMode"] = self.allocation_mode
+        return out
+
+    def normalize(self):
+        if not self.allocation_mode:
+            self.allocation_mode = ALLOCATION_MODE_SINGLE
+
+    def validate(self):
+        if not self.domain_id:
+            raise ValidationError("domainID must be set")
+        if self.allocation_mode not in (ALLOCATION_MODE_SINGLE, ALLOCATION_MODE_ALL):
+            raise ValidationError(
+                f"allocationMode must be Single or All, got {self.allocation_mode!r}")
+
+
+@dataclass
+class ComputeDomainDaemonConfig(_ConfigBase):
+    """Carried by the daemon ResourceClaimTemplate."""
+    KIND = COMPUTE_DOMAIN_DAEMON_CONFIG_KIND
+    domain_id: str = ""
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any], strict: bool = True):
+        _unknown_fields(data, {"apiVersion", "kind", "domainID"}, strict, self_path(cls))
+        return cls(domain_id=data.get("domainID", ""))
+
+    def to_dict(self) -> Dict[str, Any]:
+        out = self.type_meta()
+        out["domainID"] = self.domain_id
+        return out
+
+    def normalize(self):
+        pass
+
+    def validate(self):
+        if not self.domain_id:
+            raise ValidationError("domainID must be set")
+
+
+# ---------------------------------------------------------------------------
+# ComputeDomain CRD
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ComputeDomainResourceClaimTemplate:
+    name: str = ""
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any], strict: bool, path: str):
+        _unknown_fields(data, {"name"}, strict, path)
+        return cls(name=data.get("name", ""))
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"name": self.name}
+
+
+@dataclass
+class ComputeDomainChannelSpec:
+    resource_claim_template: ComputeDomainResourceClaimTemplate = field(
+        default_factory=ComputeDomainResourceClaimTemplate)
+    allocation_mode: str = ALLOCATION_MODE_SINGLE
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any], strict: bool, path: str = "spec.channel"):
+        _unknown_fields(data, {"resourceClaimTemplate", "allocationMode"}, strict, path)
+        rct = ComputeDomainResourceClaimTemplate.from_dict(
+            data.get("resourceClaimTemplate", {}), strict, f"{path}.resourceClaimTemplate")
+        return cls(resource_claim_template=rct,
+                   allocation_mode=data.get("allocationMode", ALLOCATION_MODE_SINGLE))
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"resourceClaimTemplate": self.resource_claim_template.to_dict(),
+                "allocationMode": self.allocation_mode}
+
+
+@dataclass
+class ComputeDomainSpec:
+    """Spec is immutable after creation (CEL ``self == oldSelf`` in the
+    CRD manifest, tpu_dra_torch.api.crd).
+
+    ``numNodes`` only drives the global Ready status: daemons start
+    eagerly and workload pods release as soon as their local daemon is
+    ready."""
+    num_nodes: int = 0
+    channel: Optional[ComputeDomainChannelSpec] = None
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any], strict: bool, path: str = "spec"):
+        _unknown_fields(data, {"numNodes", "channel"}, strict, path)
+        channel = None
+        if data.get("channel") is not None:
+            channel = ComputeDomainChannelSpec.from_dict(data["channel"], strict)
+        return cls(num_nodes=data.get("numNodes", 0), channel=channel)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"numNodes": self.num_nodes,
+                "channel": self.channel.to_dict() if self.channel else None}
+
+
+@dataclass
+class ComputeDomainNode:
+    """One node registered into the domain. ``clique_id`` is the NVLink
+    clique of its GPUs; (clique_id, index) is unique, and the index pins
+    the node's stable DNS name within its clique. An empty clique_id
+    marks a member that reaches its peers over the network only."""
+    name: str = ""
+    ip_address: str = ""
+    clique_id: str = ""
+    index: int = 0
+    status: str = COMPUTE_DOMAIN_STATUS_NOT_READY
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any], strict: bool, path: str):
+        _unknown_fields(data, {"name", "ipAddress", "cliqueID", "index", "status"},
+                        strict, path)
+        return cls(name=data.get("name", ""), ip_address=data.get("ipAddress", ""),
+                   clique_id=data.get("cliqueID", ""), index=data.get("index", 0),
+                   status=data.get("status", COMPUTE_DOMAIN_STATUS_NOT_READY))
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"name": self.name, "ipAddress": self.ip_address,
+                "cliqueID": self.clique_id, "index": self.index, "status": self.status}
+
+
+@dataclass
+class ComputeDomainStatus:
+    status: str = COMPUTE_DOMAIN_STATUS_NOT_READY
+    nodes: List[ComputeDomainNode] = field(default_factory=list)
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any], strict: bool, path: str = "status"):
+        _unknown_fields(data, {"status", "nodes"}, strict, path)
+        raw_nodes = data.get("nodes") or []
+        _require_type(raw_nodes, list, f"{path}.nodes")
+        nodes = [ComputeDomainNode.from_dict(n, strict, f"{path}.nodes[{i}]")
+                 for i, n in enumerate(raw_nodes)]
+        return cls(status=data.get("status", COMPUTE_DOMAIN_STATUS_NOT_READY), nodes=nodes)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"status": self.status, "nodes": [n.to_dict() for n in self.nodes]}
+
+
+@dataclass
+class ComputeDomain(_ConfigBase):
+    """The ComputeDomain CR: prepares a set of nodes to run one
+    multi-node workload over NVLink and the network."""
+    KIND = COMPUTE_DOMAIN_KIND
+    metadata: Dict[str, Any] = field(default_factory=dict)
+    spec: ComputeDomainSpec = field(default_factory=ComputeDomainSpec)
+    status: ComputeDomainStatus = field(default_factory=ComputeDomainStatus)
+
+    @classmethod
+    def from_dict(cls, data: Dict[str, Any], strict: bool = True):
+        _unknown_fields(data, {"apiVersion", "kind", "metadata", "spec", "status"},
+                        strict, self_path(cls))
+        metadata = data.get("metadata") or {}
+        _require_type(metadata, dict, "metadata")
+        spec = ComputeDomainSpec.from_dict(data.get("spec") or {}, strict)
+        status = ComputeDomainStatus.from_dict(data.get("status") or {}, strict)
+        return cls(metadata=dict(metadata), spec=spec, status=status)
+
+    def to_dict(self) -> Dict[str, Any]:
+        out = self.type_meta()
+        out["metadata"] = self.metadata
+        out["spec"] = self.spec.to_dict()
+        out["status"] = self.status.to_dict()
+        return out
+
+    def normalize(self):
+        if self.spec.channel is not None and not self.spec.channel.allocation_mode:
+            self.spec.channel.allocation_mode = ALLOCATION_MODE_SINGLE
+
+    def validate(self):
+        if self.spec.num_nodes < 0:
+            raise ValidationError("spec.numNodes must be >= 0")
+        if self.spec.channel is None:
+            raise ValidationError("spec.channel must be set")
+        if not self.spec.channel.resource_claim_template.name:
+            raise ValidationError("spec.channel.resourceClaimTemplate.name must be set")
+        if self.spec.channel.allocation_mode not in (
+                ALLOCATION_MODE_SINGLE, ALLOCATION_MODE_ALL):
+            raise ValidationError(
+                "spec.channel.allocationMode must be Single or All")
+
+    @property
+    def uid(self) -> str:
+        return self.metadata.get("uid", "")
+
+    @property
+    def name(self) -> str:
+        return self.metadata.get("name", "")
+
+    @property
+    def namespace(self) -> str:
+        return self.metadata.get("namespace", "")
 
 
 def self_path(cls) -> str:

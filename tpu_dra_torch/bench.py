@@ -11,6 +11,10 @@ bench_claim_to_ready times the kubelet plugin over its sockets on any
 discovery backend.
 bench_shared_claim runs one claim's tenants (train-step processes,
 ``claim-child`` below) at once, with the default config or MPS.
+bench_cd_convergence times a two-node ComputeDomain from creation to both
+channel claims prepared (host time, the controller, CD plugins and native
+domain daemons over the fake API server); bench_cd_gpus runs the node's
+GPUs as the ranks of a two-node domain.
 
     python -m tpu_dra_torch.bench
     # one JSON line each: shared_claim and mps (one claim, two flagship
@@ -22,6 +26,11 @@ bench_shared_claim runs one claim's tenants (train-step processes,
     python -m tpu_dra_torch.bench mesh
     # one JSON line: every workload over every GPU of the node, one NCCL
     # rank per GPU (bench_mesh_gpus)
+    python -m tpu_dra_torch.bench cd
+    # one JSON line: the node's GPUs split over two simulated nodes of a
+    # ComputeDomain, one NCCL rank per GPU meeting at the domain's
+    # MASTER_ADDR: the all-reduce's sum, the all-reduce and the flagship
+    # DP x TP step (bench_cd_gpus)
     python -m tpu_dra_torch.bench claim-child [--steps N] [--wait-go] ...
     # one tenant of the claim whose CDI env is this process's environment
 """
@@ -911,6 +920,9 @@ def claim_child(argv) -> int:
     plan_from_env -> devices_from_env -> launch_workload("train") on this
     process's environment, the flagship at full width unless ``--config``
     (ModelConfig fields as JSON, dtype by name) says otherwise.
+    Where the env also holds a ComputeDomain channel claim's (NODE_RANK),
+    the claim's GPUs are this node's ranks of the domain, whose group
+    starts at the env's MASTER_ADDR:MASTER_PORT.
     ``--warm N`` untimed steps come first; with ``--wait-go``
     it then prints ``{"ready": pid}`` and waits for a "go" line on stdin,
     so that several tenants time their steps together. The launch counts
@@ -932,6 +944,7 @@ def claim_child(argv) -> int:
     ap.add_argument("--config", default=None)
     args = ap.parse_args(argv)
     env = dict(os.environ)
+    domain = env if "NODE_RANK" in env else None
     plan = plan_from_env(env)
     devices = meshbuild.devices_from_env(env, args.device_type)
     cfg = FLAGSHIP
@@ -950,9 +963,10 @@ def claim_child(argv) -> int:
                 raise RuntimeError(f"tenant waited for {GO!r}, read {line!r}")
         fk.reset_launches()
 
-    res = meshbuild.launch_workload("train", plan, devices, cfg=cfg,
-                                    steps=args.steps, tokens=tokens,
-                                    warm_steps=args.warm, barrier=barrier)
+    res = meshbuild.launch_workload("train", plan, devices, domain=domain,
+                                    cfg=cfg, steps=args.steps,
+                                    tokens=tokens, warm_steps=args.warm,
+                                    barrier=barrier)
     device = torch.device(res["device"])
     out = {**res, "pid": os.getpid(),
            "claim_uuids": env.get("CUDA_VISIBLE_DEVICES", "").split(","),
@@ -1278,12 +1292,130 @@ def shared_claim_line(res: dict) -> dict:
     return {k: v for k, v in res.items() if k != "solo"}
 
 
+# ---------------------------------------------------------------------------
+# Compute domains
+# ---------------------------------------------------------------------------
+
+def bench_cd_convergence() -> dict:
+    """A two-node ComputeDomain from creation to both workload channel
+    claims prepared (counterpart of bench.py:bench_cd_convergence): the
+    controller, two CD kubelet plugins and two native domain daemons
+    converging over the fake API server, simulated nodes with fake GPUs
+    (testing.provision_two_node_cd). Host time. Raises if the domain does
+    not converge or its teardown leaves anything behind."""
+    from tpu_dra_torch.testing import provision_two_node_cd
+
+    prov = provision_two_node_cd(namespace="bench")
+    if not prov["ok"]:
+        raise RuntimeError(f"the compute domain did not converge: "
+                           f"{prov['error']}")
+    left = prov["teardown"]
+    if (not left["cd_deleted"] or left["labeled_nodes"]
+            or left["daemonsets"] or left["templates"]
+            or left["unprepare_errors"]):
+        raise RuntimeError(f"the domain's teardown left {left}")
+    return {"cd_convergence_s": prov["elapsed_s"],
+            "envs": prov["envs"]}
+
+
+def bench_cd_gpus(backend=None, device_type: str = "cuda",
+                  allreduce_kw=None, train_kw=None) -> dict:
+    """The node's GPUs as the ranks of a two-node ComputeDomain: two
+    simulated nodes (each a FakeBackend of half the GPUs `backend` lists
+    — NVML by default — with their UUIDs and NVLink places) provisioned
+    through the compute-domain stack; each node's claim env (its GPUs, as
+    node_env exports them) merged with its channel claim's. While the
+    domain is up, each node runs its own launcher process (run_nodes)
+    that holds only its env: launch_workloads(domain=) over its plan
+    (plan_from_env) starts one rank per GPU (NCCL; gloo CPU ranks with
+    device_type "cpu"), and the ranks of both nodes meet at the env's
+    MASTER_ADDR:MASTER_PORT as the ranks their NODE_RANKs make them,
+    checked by the psum of rank + 1 (n(n+1)/2). On that group: the
+    all-reduce (64 MiB per rank, 10 iterations, unless `allreduce_kw`)
+    and "train", the flagship DP x TP step over train_grid(n) (3 timed
+    steps after one warm step, unless `train_kw`). Then the domain is
+    torn down."""
+    from tpu_dra_torch.testing import DomainSim, run_nodes
+    from tpu_dra_torch.topology.meshexport import plan_from_env
+    from tpu_dra_torch.workloads import meshbuild
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+
+    if backend is None:
+        _require_card(device_type)
+        fk.build()   # once, before the ranks load the libraries
+        nvml = gpuinfo.NativeBackend()
+        try:
+            gpus = nvml.gpus()
+        finally:
+            nvml.close()
+    else:
+        gpus = backend.gpus()
+    if len(gpus) < 2 or len(gpus) % 2:
+        raise RuntimeError(f"{len(gpus)} GPUs cannot be split over two "
+                           "nodes")
+    half = len(gpus) // 2
+    backends = {"node-a": gpuinfo.FakeBackend(gpus[:half]),
+                "node-b": gpuinfo.FakeBackend(gpus[half:])}
+    if device_type == "cpu":
+        by_uuid = None
+    else:
+        by_uuid = {meshbuild.normalize_uuid(
+            torch.cuda.get_device_properties(i).uuid):
+            torch.device("cuda", i)
+            for i in range(torch.cuda.device_count())}
+    runs = [("allreduce", allreduce_kw or {"nbytes_per_device": 64 << 20,
+                                           "iters": 10}),
+            ("train", train_kw or {"steps": 3, "warm_steps": 1})]
+    with DomainSim(backends, namespace="bench") as sim:
+        cd = sim.create_cd("bench-cd")
+        prov = sim.prepare_channels(cd)
+        if not prov["ok"]:
+            raise RuntimeError(f"the compute domain did not converge: "
+                               f"{prov['error']}")
+        envs = sorted(({**node_env(backends[name]), **prov["envs"][name]}
+                       for name in backends),
+                      key=lambda e: int(e["NODE_RANK"]))
+        nodes = []
+        for env in envs:
+            uuids = env["CUDA_VISIBLE_DEVICES"].split(",")
+            devices = ([torch.device("cpu")] * len(uuids) if by_uuid is None
+                       else [by_uuid[meshbuild.normalize_uuid(u)]
+                             for u in uuids])
+            nodes.append((runs, plan_from_env(env), devices, env))
+        node_recs = run_nodes(meshbuild.launch_workloads, nodes)
+        left = sim.teardown(cd, prov["claims"])
+    train = node_recs[0]["train"]
+    n = train["domain"]["world"]
+    expect = n * (n + 1) / 2.0
+    sums = [recs["train"]["domain"]["psum"] for recs in node_recs]
+    step_s = statistics.median(train["step_times_s"])
+    out = {"n_gpus": n, "nodes": {name: [g.uuid for g in b.gpus()]
+                                  for name, b in backends.items()},
+           "cd_convergence_s": prov["elapsed_s"], "teardown": left,
+           "rendezvous": train["domain"]["rendezvous"],
+           "node_ranks": [e["NODE_RANK"] for e in envs],
+           "psum": {"values": sums, "expected": expect,
+                    "ok": all(abs(v - expect) < 1e-3 for v in sums)},
+           "records": node_recs[0], "train_grid": train["grid"],
+           "train_median_step_s": step_s,
+           "train_tokens_per_s": train["batch"] * (train["seq"] - 1)
+           / step_s}
+    if device_type == "cuda":
+        out["device_name"] = torch.cuda.get_device_name(0)
+        out["power_limit"] = gpuinfo.power_limit(0)
+    return out
+
+
 def main(argv) -> int:
     if argv[:1] == [CLAIM_CHILD]:
         return claim_child(argv[1:])
     if argv[:1] == ["mesh"]:
         print(json.dumps({"mesh_gpus": bench_mesh_gpus()}), flush=True)
         return 0
+    if argv[:1] == ["cd"]:
+        res = bench_cd_gpus()
+        print(json.dumps({"cd_gpus": res}), flush=True)
+        return 0 if res["psum"]["ok"] else 1
     nvml = gpuinfo.get_backend()
     try:
         # First, while this process holds no context on the card: under

@@ -134,17 +134,74 @@ def _dryrun_rank() -> dict:
     return out
 
 
+def _psum_node(env: dict, n: int) -> list:
+    """One node of _cd_psum_probe: `n` gloo CPU ranks of the domain whose
+    channel-claim env `env` is, each reading psum_of_ranks."""
+    from tpu_dra_torch.workloads._dist import RankPool, psum_of_ranks
+
+    with RankPool([torch.device("cpu")] * n, domain=env) as pool:
+        return pool.run(psum_of_ranks)
+
+
+def _cd_psum_probe(n_devices: int) -> dict:
+    """The counterpart of __graft_entry__._cd_psum_probe: provision a
+    2-node ComputeDomain through the port's stack (controller, CD kubelet
+    plugins and native domain daemons over the fake API server,
+    testing.DomainSim), read each node's prepared channel-claim env and,
+    while the domain is up, start one process per node (run_nodes) that
+    holds only its own env and starts its share of `n_devices` gloo CPU
+    ranks; they meet at the env's MASTER_ADDR:MASTER_PORT, each as the
+    rank its node's NODE_RANK makes it (_dist.domain_rank). Their
+    all-reduce of rank + 1 must sum to n(n+1)/2. Returns the reading
+    with "ok"."""
+    from tpu_dra_torch.testing import DomainSim, run_nodes
+
+    with DomainSim(dict.fromkeys(("node-a", "node-b")),
+                   namespace="dryrun") as sim:
+        cd = sim.create_cd()
+        prov = sim.prepare_channels(cd)
+        if not prov["ok"]:
+            return {"ok": False, "error": prov["error"]}
+        envs = sorted(prov["envs"].values(),
+                      key=lambda e: int(e["NODE_RANK"]))
+        worker_ids = [int(e["GPU_WORKER_ID"]) for e in envs]
+        if worker_ids != list(range(len(envs))):
+            return {"ok": False,
+                    "error": f"non-contiguous worker ids {worker_ids}"}
+        n_workers = len(envs)
+        per_worker = n_devices // n_workers
+        n_total = n_workers * per_worker
+        got = [v for node in run_nodes(
+            _psum_node, [(env, per_worker) for env in envs]) for v in node]
+        sim.teardown(cd, prov["claims"])
+    expect = n_total * (n_total + 1) / 2.0
+    return {
+        "ok": all(abs(g - expect) < 1e-3 for g in got),
+        "psum_devices": n_total, "psum_workers": n_workers,
+        "gpus_per_worker": per_worker,
+        "value": got[0], "expected": expect,
+        "convergence_s": prov["elapsed_s"],
+        "worker_hostnames": envs[0].get("GPU_WORKER_HOSTNAMES", ""),
+        "coordinator": envs[0].get("GPU_COORDINATOR_ADDRESS", ""),
+        "rendezvous": f"{envs[0]['MASTER_ADDR']}:{envs[0]['MASTER_PORT']}",
+    }
+
+
 def dryrun_multichip(n_devices: int) -> dict:
     """The counterpart of __graft_entry__.dryrun_multichip: every section
     of its _dryrun_body — the DP x TP train step, ring attention,
     Ulysses, the sequence-parallel train step, the expert-parallel FFN,
     the MoE LM's step and the pipeline — on `n_devices` spawned gloo CPU
-    ranks, each section checked finite and of its shape. It validates
-    the layouts and their collectives, not a device's speed. Left out:
-    the reference's _cd_psum_probe, a psum over a mesh built from a
-    multi-node ComputeDomain claim, which belongs to the compute-domain
-    slice of the port. Returns rank 0's readings."""
+    ranks, each section checked finite and of its shape; then the
+    compute-domain psum (_cd_psum_probe, reading "cd_psum"), which must
+    sum right. It validates the layouts and their collectives, not a
+    device's speed. Returns rank 0's readings."""
     from tpu_dra_torch.workloads._dist import RankPool
 
     with RankPool([torch.device("cpu")] * n_devices) as pool:
-        return pool.run(_dryrun_rank)[0]
+        out = pool.run(_dryrun_rank)[0]
+    record = _cd_psum_probe(n_devices)
+    if not record["ok"]:
+        raise RuntimeError(f"compute-domain psum probe failed: {record}")
+    out["cd_psum"] = record
+    return out

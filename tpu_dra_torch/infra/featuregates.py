@@ -15,6 +15,11 @@ module that consults it:
   the plugin rebinds a passthrough claim's IOMMU group to vfio-pci)
 - NVMLDeviceHealthCheck (the kubelet plugin's NVML health monitor; on by
   default, beta, as the reference's TPUDeviceHealthCheck)
+- DomainDaemonsWithDNSNames (the compute-domain daemon's stable per-clique
+  DNS names; on by default, beta, as the reference's
+  SliceDaemonsWithDNSNames)
+- TopologyAwareScheduling (the compute-domain controller's NVLink
+  placement summary in status.topology)
 """
 
 from __future__ import annotations
@@ -52,6 +57,8 @@ TimeSlicingSettings = "TimeSlicingSettings"
 MultiprocessSupport = "MultiprocessSupport"
 PassthroughSupport = "PassthroughSupport"
 NVMLDeviceHealthCheck = "NVMLDeviceHealthCheck"
+DomainDaemonsWithDNSNames = "DomainDaemonsWithDNSNames"
+TopologyAwareScheduling = "TopologyAwareScheduling"
 
 _DEFAULT_FEATURES: Dict[str, VersionedSpecs] = {
     TimeSlicingSettings: VersionedSpecs((
@@ -65,6 +72,12 @@ _DEFAULT_FEATURES: Dict[str, VersionedSpecs] = {
     )),
     NVMLDeviceHealthCheck: VersionedSpecs((
         ("0.1.0", FeatureSpec(default=True, pre_release=BETA)),
+    )),
+    DomainDaemonsWithDNSNames: VersionedSpecs((
+        ("0.1.0", FeatureSpec(default=True, pre_release=BETA)),
+    )),
+    TopologyAwareScheduling: VersionedSpecs((
+        ("0.1.0", FeatureSpec(default=False, pre_release=ALPHA)),
     )),
 }
 

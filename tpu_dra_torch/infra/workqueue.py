@@ -8,16 +8,21 @@ of retried (supersede). Rate limiting combines per-item exponential
 backoff with a global token bucket (``default_prep_unprep_rate_limiter``).
 One consumer thread (``run``/``run_in_thread``) processes the items.
 
+The compute-domain stack adds the controller's and the domain daemon's
+rate limiters (``default_controller_rate_limiter``,
+``default_cd_daemon_rate_limiter``, with ``JitterRateLimiter``) and the
+``after`` enqueue for time-based re-evaluation.
+
 Not copied: the reference's worker pools and their per-key
-serialization, the ``dedupe`` enqueue, the queue-depth gauges, the
-model checker's scheduling hooks and the controller and daemon rate
-limiters. They come with the slices that run them.
+serialization, the ``dedupe`` enqueue, the queue-depth gauges and the
+model checker's scheduling hooks.
 """
 
 from __future__ import annotations
 
 import heapq
 import itertools
+import random
 import threading
 import time
 from dataclasses import dataclass, field
@@ -95,11 +100,43 @@ class MaxOfRateLimiter(RateLimiter):
             l.forget(item_id)
 
 
+class JitterRateLimiter(RateLimiter):
+    """Wrap an inner limiter with +/- factor/2 relative jitter."""
+
+    def __init__(self, inner: RateLimiter, factor: float):
+        if factor >= 1.0:
+            raise ValueError("jitter factor must be < 1.0")
+        self._inner = inner
+        self._factor = factor
+
+    def when(self, item_id: int) -> float:
+        d = self._inner.when(item_id)
+        return max(0.0, d + d * self._factor * (random.random() - 0.5))
+
+    def forget(self, item_id: int) -> None:
+        self._inner.forget(item_id)
+
+
 def default_prep_unprep_rate_limiter() -> RateLimiter:
     """250ms–3s per-item expo + global 5/s bucket with burst 10."""
     return MaxOfRateLimiter(
         ExponentialFailureRateLimiter(0.250, 3.0),
         BucketRateLimiter(qps=5, burst=10),
+    )
+
+
+def default_cd_daemon_rate_limiter() -> RateLimiter:
+    """5ms–6s expo with 0.5 relative jitter (the domain daemon's retries
+    and the CD plugin's readiness ladder)."""
+    return JitterRateLimiter(ExponentialFailureRateLimiter(0.005, 6.0), 0.5)
+
+
+def default_controller_rate_limiter() -> RateLimiter:
+    """client-go's default controller limiter: 5ms–1000s expo + 10/s
+    bucket with burst 100."""
+    return MaxOfRateLimiter(
+        ExponentialFailureRateLimiter(0.005, 1000.0),
+        BucketRateLimiter(qps=10, burst=100),
     )
 
 
@@ -136,7 +173,10 @@ class WorkQueue:
     # -- producers ----------------------------------------------------------
 
     def enqueue(self, obj: Any, callback: Callable[[Any], None],
-                key: str = "") -> None:
+                key: str = "", after: Optional[float] = None) -> None:
+        """after: explicit delay in seconds, overriding the rate limiter —
+        for time-based re-evaluation (settle windows) rather than failure
+        backoff."""
         if _FLIGHTREC.enabled:
             # Queue events are flight-recorder evidence: a wedge dump
             # shows what was queued when. Recorded outside _cond.
@@ -145,11 +185,12 @@ class WorkQueue:
             item = WorkItem(key=key, obj=obj, callback=callback)
             if key:
                 self._active_ops[key] = item
-            self._push_locked(item)
+            self._push_locked(item, after=after)
             self._cond.notify()
 
-    def _push_locked(self, item: WorkItem) -> None:
-        delay = self._rl.when(item.item_id)
+    def _push_locked(self, item: WorkItem,
+                     after: Optional[float] = None) -> None:
+        delay = self._rl.when(item.item_id) if after is None else after
         heapq.heappush(self._heap, (time.monotonic() + delay, next(self._seq), item))
 
     # -- consumer -----------------------------------------------------------

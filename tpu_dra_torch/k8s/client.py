@@ -1,15 +1,14 @@
 """Kubernetes REST client over stdlib HTTP (counterpart of
-tpu_dra/k8s/client.py, cut to the verbs the kubelet plugin uses).
+tpu_dra/k8s/client.py).
 
-Objects are plain dicts ("unstructured"). Supports get, list (with
-label selectors), create, update and delete, with in-cluster
-service-account config discovery. ``RetryingApiClient`` wraps
-any ApiClient (HTTP or fake) with jittered-backoff retry on transient
-errors.
-
-Not copied: the status subresource, merge-patch, watch streams (the
-reference's chunked-JSON watch and the retrying wrapper's resume), field
-selectors and list-with-RV. They come with the slices that use them.
+Objects are plain dicts ("unstructured"). Supports CRUD with the status
+subresource, JSON merge-patch, list with label selectors (and the
+collection's resourceVersion), and the streaming watch (chunked JSON
+lines) with a single-term field selector, with in-cluster
+service-account config discovery. ``RetryingApiClient`` wraps any
+ApiClient (HTTP or fake) with jittered-backoff retry on transient errors
+and a watch that reconnects, resuming from the last seen
+resourceVersion.
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ from __future__ import annotations
 import json
 import os
 import random
+import socket
 import ssl
 import sys
 import threading
@@ -25,7 +25,7 @@ import urllib.error
 import urllib.parse
 import urllib.request
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Generator, List, Optional, Tuple
 
 from tpu_dra_torch.infra.faults import FAULTS, FaultInjected
 
@@ -136,6 +136,49 @@ def json_deepcopy(obj):
     return obj
 
 
+def parse_field_selector(selector: str) -> Tuple[Tuple[str, ...], str]:
+    """Parse a single-term equality field selector ('spec.nodeName=n5',
+    'metadata.name=x') into ((path, segments...), value). Only one
+    ``path=value`` term is supported — exactly the shape the node-scoped
+    consumers (kubelet pod watches, nodesim) use, and the shape the fake
+    apiserver can index watch registration by. Anything else (set
+    operators, conjunctions) raises ValueError loudly rather than
+    silently matching everything."""
+    if not selector or "=" not in selector or "!=" in selector \
+            or "," in selector:
+        raise ValueError(f"unsupported field selector {selector!r}: only "
+                         "a single 'path=value' equality term is indexed")
+    path, _, value = selector.partition("=")
+    path = path.strip()
+    if not path or not value:
+        raise ValueError(f"unsupported field selector {selector!r}")
+    return tuple(path.split(".")), value.strip()
+
+
+def field_path_value(obj: Dict, path: Tuple[str, ...]) -> Optional[str]:
+    """The object's value at a dotted field path, as a string, or None
+    when absent/non-scalar. Shared by the fake apiserver's emit-side
+    topic extraction and client-side field filtering so both sides of a
+    field-selector watch agree on what a field 'is'."""
+    cur = obj
+    for seg in path:
+        if not isinstance(cur, dict):
+            return None
+        cur = cur.get(seg)
+        if cur is None:
+            return None
+    if isinstance(cur, (dict, list)):
+        return None
+    return cur if isinstance(cur, str) else str(cur)
+
+
+def field_selector_matches(selector: Optional[str], obj: Dict) -> bool:
+    if not selector:
+        return True
+    path, want = parse_field_selector(selector)
+    return field_path_value(obj, path) == want
+
+
 class ApiClient:
     """Abstract client surface shared by HttpApiClient and FakeCluster."""
 
@@ -146,13 +189,41 @@ class ApiClient:
              label_selector: Optional[str] = None) -> List[Dict]:
         raise NotImplementedError
 
+    def list_with_rv(self, gvr: GVR, namespace: Optional[str] = None,
+                     label_selector: Optional[str] = None
+                     ) -> Tuple[List[Dict], str]:
+        """(items, collection resourceVersion). Default: no RV — watch then
+        starts from 'now' (pre-RV behavior)."""
+        return self.list(gvr, namespace, label_selector), ""
+
     def create(self, gvr: GVR, obj: Dict, namespace: Optional[str] = None) -> Dict:
         raise NotImplementedError
 
     def update(self, gvr: GVR, obj: Dict, namespace: Optional[str] = None) -> Dict:
         raise NotImplementedError
 
+    def update_status(self, gvr: GVR, obj: Dict, namespace: Optional[str] = None) -> Dict:
+        raise NotImplementedError
+
+    def patch(self, gvr: GVR, name: str, patch: Dict,
+              namespace: Optional[str] = None) -> Dict:
+        """JSON merge-patch (RFC 7386)."""
+        raise NotImplementedError
+
     def delete(self, gvr: GVR, name: str, namespace: Optional[str] = None) -> None:
+        raise NotImplementedError
+
+    def watch(self, gvr: GVR, namespace: Optional[str] = None,
+              label_selector: Optional[str] = None,
+              resource_version: Optional[str] = None,
+              stop: Optional[threading.Event] = None,
+              field_selector: Optional[str] = None,
+              ) -> Generator[Tuple[str, Dict], None, None]:
+        """Yield (event_type, object): ADDED/MODIFIED/DELETED/BOOKMARK.
+
+        ``field_selector`` is a single equality term ('spec.nodeName=n5');
+        servers that index watch registration by field (the fake) use it
+        to skip fan-out entirely for non-matching events."""
         raise NotImplementedError
 
 
@@ -257,11 +328,137 @@ class HttpApiClient(ApiClient):
         ns = namespace or meta.get("namespace")
         return self._request("PUT", gvr.path(ns, meta["name"]), body=obj)
 
+    def update_status(self, gvr, obj, namespace=None):
+        meta = obj.get("metadata", {})
+        ns = namespace or meta.get("namespace")
+        return self._request("PUT", gvr.path(ns, meta["name"], "status"), body=obj)
+
+    def patch(self, gvr, name, patch, namespace=None):
+        return self._request("PATCH", gvr.path(namespace, name), body=patch,
+                             content_type="application/merge-patch+json")
+
     def delete(self, gvr, name, namespace=None):
         try:
             self._request("DELETE", gvr.path(namespace, name))
         except NotFoundError:
             pass
+
+    def list_with_rv(self, gvr, namespace=None, label_selector=None):
+        """(items, resourceVersion) — the List response's collection RV, for
+        gap-free list+watch resumption."""
+        query = {}
+        if label_selector:
+            query["labelSelector"] = label_selector
+        out = self._request("GET", gvr.path(namespace), query=query or None)
+        rv = (out.get("metadata") or {}).get("resourceVersion", "")
+        return out.get("items", []), rv
+
+    def watch(self, gvr, namespace=None, label_selector=None,
+              resource_version=None, stop=None, field_selector=None):
+        """Streaming watch over a raw socket with our own HTTP/chunked
+        parser: connection establishment uses the full client timeout; the
+        stream is read with a 1s socket timeout so `stop` is noticed
+        promptly, and because ALL partial data lives in our own buffer a
+        timed-out read can never desync the chunked framing (which it can
+        inside http.client's buffered decoder)."""
+        query = {"watch": "true", "allowWatchBookmarks": "true"}
+        if label_selector:
+            query["labelSelector"] = label_selector
+        if field_selector:
+            query["fieldSelector"] = field_selector
+        if resource_version:
+            query["resourceVersion"] = resource_version
+        parsed = urllib.parse.urlsplit(self._base)
+        path = gvr.path(namespace) + "?" + urllib.parse.urlencode(query)
+        port = parsed.port or (443 if parsed.scheme == "https" else 80)
+        sock = socket.create_connection((parsed.hostname, port),
+                                        timeout=self._timeout)
+        try:
+            if parsed.scheme == "https" and self._ssl is not None:
+                sock = self._ssl.wrap_socket(
+                    sock, server_hostname=parsed.hostname)
+            auth = (f"Authorization: Bearer {self._token}\r\n"
+                    if self._token else "")
+            sock.sendall(
+                f"GET {path} HTTP/1.1\r\n"
+                f"Host: {parsed.hostname}:{port}\r\n"
+                f"Accept: application/json\r\n{auth}"
+                f"Connection: close\r\n\r\n".encode())
+
+            buf = b""
+            # Headers arrive within the establishment timeout.
+            while b"\r\n\r\n" not in buf:
+                chunk = sock.recv(65536)
+                if not chunk:
+                    raise ApiError(0, "watch connection closed during headers")
+                buf += chunk
+            head, _, buf = buf.partition(b"\r\n\r\n")
+            status_line = head.split(b"\r\n", 1)[0].decode()
+            status = int(status_line.split()[1])
+            if status != 200:
+                raise ApiError(status, f"watch failed: {status_line}")
+            chunked = b"transfer-encoding: chunked" in head.lower()
+
+            sock.settimeout(1.0)
+            line_buf = b""  # de-chunked JSON-lines payload
+
+            def feed(data: bytes):
+                nonlocal line_buf
+                line_buf += data
+
+            chunk_state = {"need": None}  # bytes left in current chunk
+
+            def dechunk():
+                """Consume complete chunked frames from buf into line_buf."""
+                nonlocal buf
+                while True:
+                    if chunk_state["need"] is None:
+                        if b"\r\n" not in buf:
+                            return
+                        size_line, _, rest = buf.partition(b"\r\n")
+                        try:
+                            size = int(size_line.split(b";")[0].strip()
+                                       or b"0", 16)
+                        except ValueError:
+                            raise ApiError(0, "bad chunk framing")
+                        buf = rest
+                        if size == 0:
+                            chunk_state["need"] = -1  # EOF marker
+                            return
+                        chunk_state["need"] = size
+                    elif chunk_state["need"] == -1:
+                        return
+                    else:
+                        need = chunk_state["need"]
+                        if len(buf) < need + 2:  # data + trailing CRLF
+                            return
+                        feed(buf[:need])
+                        buf = buf[need + 2:]
+                        chunk_state["need"] = None
+
+            while stop is None or not stop.is_set():
+                if chunked:
+                    dechunk()
+                else:
+                    feed(buf)
+                    buf = b""
+                while b"\n" in line_buf:
+                    line, _, line_buf = line_buf.partition(b"\n")
+                    if not line.strip():
+                        continue
+                    evt = json.loads(line)
+                    yield evt.get("type", ""), evt.get("object", {})
+                if chunk_state["need"] == -1:
+                    return  # server ended the stream
+                try:
+                    data = sock.recv(65536)
+                except socket.timeout:
+                    continue
+                if not data:
+                    return
+                buf += data
+        finally:
+            sock.close()
 
 
 # ---------------------------------------------------------------------------
@@ -286,18 +483,35 @@ def is_transient(err: Exception) -> bool:
     return isinstance(err, (OSError, TimeoutError))
 
 
+class _WatchDropped(Exception):
+    """Internal: the watch stream died mid-flight; reconnect from the
+    last seen resourceVersion."""
+
+
 class RetryingApiClient(ApiClient):
-    """Decorates any ApiClient with the retry layer every reconcile loop
-    needs: every verb retries transient errors (TRANSIENT_STATUSES,
-    socket errors) with jittered exponential backoff, up to
-    `max_attempts`.
+    """Decorates any ApiClient with the reliability layer every reconcile
+    loop needs (the client-go rest retry + reflector resume analog):
+
+    - every verb retries transient errors (TRANSIENT_STATUSES, socket
+      errors) with jittered exponential backoff, up to `max_attempts`;
+    - ``watch`` reconnects on stream death, resuming from the last seen
+      object resourceVersion so no events are lost across the gap. A
+      server-side ERROR event (410 Gone above all) is passed through and
+      ends the stream: resuming past it would hide a history hole, so
+      the informer must relist (informer.py treats ERROR as fatal).
+      Resume requires an RV to resume FROM: if the stream dies before
+      any RV is known (none passed, none delivered), the wrapper ends
+      the stream instead of silently reconnecting from "now" — a
+      from-now reconnect would swallow whatever happened during the
+      outage with no signal to the consumer.
 
     Mutating verbs are retried too: an ambiguous first attempt (request
     landed, response lost) then surfaces as AlreadyExists/Conflict on
     the retry — exactly what reconcile callers already tolerate.
 
-    Consults the fault site ``k8s.api.request`` per attempt, inside the
-    retry loop.
+    Consults fault sites ``k8s.api.request`` (per attempt, inside the
+    retry loop) and ``k8s.watch.drop`` (per delivered event), so chaos
+    schedules exercise this exact code path rather than a test double.
     """
 
     def __init__(self, inner: ApiClient, *, max_attempts: int = 5,
@@ -352,11 +566,72 @@ class RetryingApiClient(ApiClient):
         return self._call("list", self._inner.list, gvr, namespace,
                           label_selector)
 
+    def list_with_rv(self, gvr, namespace=None, label_selector=None):
+        return self._call("list", self._inner.list_with_rv, gvr, namespace,
+                          label_selector)
+
     def create(self, gvr, obj, namespace=None):
         return self._call("create", self._inner.create, gvr, obj, namespace)
 
     def update(self, gvr, obj, namespace=None):
         return self._call("update", self._inner.update, gvr, obj, namespace)
 
+    def update_status(self, gvr, obj, namespace=None):
+        return self._call("update", self._inner.update_status, gvr, obj,
+                          namespace)
+
+    def patch(self, gvr, name, patch, namespace=None):
+        return self._call("patch", self._inner.patch, gvr, name, patch,
+                          namespace)
+
     def delete(self, gvr, name, namespace=None):
         return self._call("delete", self._inner.delete, gvr, name, namespace)
+
+    # -- watch --------------------------------------------------------------
+
+    def watch(self, gvr, namespace=None, label_selector=None,
+              resource_version=None, stop=None, field_selector=None):
+        rv = resource_version
+        failures = 0
+        while stop is None or not stop.is_set():
+            gen = None
+            try:
+                FAULTS.check("k8s.api.request", verb="watch")
+                gen = self._inner.watch(
+                    gvr, namespace=namespace, label_selector=label_selector,
+                    resource_version=rv, stop=stop,
+                    field_selector=field_selector)
+                for event_type, obj in gen:
+                    if FAULTS.fires("k8s.watch.drop"):
+                        raise _WatchDropped()
+                    if event_type == "ERROR":
+                        # 410 Gone (or any server stream error): resuming
+                        # from rv would skip the trimmed gap. Surface it;
+                        # the informer relists.
+                        yield event_type, obj
+                        return
+                    failures = 0
+                    new_rv = (obj.get("metadata") or {}).get(
+                        "resourceVersion")
+                    if new_rv:
+                        rv = new_rv
+                    yield event_type, obj
+                # Clean server close (idle timeout): reconnect from the
+                # last seen RV — the entire point of this wrapper.
+            except Exception as e:  # noqa: BLE001 — classified below
+                if not isinstance(e, _WatchDropped) and not is_transient(e):
+                    raise
+            finally:
+                if gen is not None:
+                    gen.close()
+            if rv is None:
+                # Nothing to resume from: reconnecting would start at
+                # "now" and hide the gap. End the stream; the consumer's
+                # relist path (the pre-wrapper contract) takes over.
+                return
+            failures += 1
+            delay = self._backoff(min(failures - 1, self._max_attempts - 1))
+            if stop is not None:
+                stop.wait(delay)  # shutdown must not ride out the backoff
+            else:
+                self._sleep(delay)

@@ -1,7 +1,8 @@
 """Well-known GVR coordinates + object helpers (counterpart of
-tpu_dra/k8s/resources.py, cut to the kinds the kubelet plugin reads
-and writes: ResourceClaims, ResourceSlices, Nodes, and the Deployments
-of the per-claim MPS control daemons)."""
+tpu_dra/k8s/resources.py, cut to the kinds the port reads and writes:
+ResourceClaims, their templates and ResourceSlices; Nodes, Pods and the
+Deployments of the per-claim MPS control daemons; and the compute-domain
+stack's DaemonSets and resource.gpu.dev ComputeDomains)."""
 
 from __future__ import annotations
 
@@ -10,15 +11,21 @@ from typing import Dict, Optional
 
 from tpu_dra_torch.k8s.client import GVR
 
+PODS = GVR("", "v1", "pods")
 NODES = GVR("", "v1", "nodes", namespaced=False)
+DAEMONSETS = GVR("apps", "v1", "daemonsets")
 DEPLOYMENTS = GVR("apps", "v1", "deployments")
 RESOURCECLAIMS = GVR("resource.k8s.io", "v1", "resourceclaims")
+RESOURCECLAIMTEMPLATES = GVR("resource.k8s.io", "v1", "resourceclaimtemplates")
 RESOURCESLICES = GVR("resource.k8s.io", "v1", "resourceslices", namespaced=False)
+
+COMPUTEDOMAINS = GVR("resource.gpu.dev", "v1beta1", "computedomains")
 
 
 def new_object_meta(name: str, namespace: Optional[str] = None,
                     labels: Optional[Dict[str, str]] = None,
-                    annotations: Optional[Dict[str, str]] = None) -> Dict:
+                    annotations: Optional[Dict[str, str]] = None,
+                    owner: Optional[Dict] = None) -> Dict:
     meta: Dict = {"name": name}
     if namespace:
         meta["namespace"] = namespace
@@ -26,7 +33,22 @@ def new_object_meta(name: str, namespace: Optional[str] = None,
         meta["labels"] = dict(labels)
     if annotations:
         meta["annotations"] = dict(annotations)
+    if owner:
+        meta["ownerReferences"] = [owner]
     return meta
+
+
+def owner_reference(obj: Dict, controller: bool = True,
+                    block_owner_deletion: bool = True) -> Dict:
+    meta = obj["metadata"]
+    return {
+        "apiVersion": obj.get("apiVersion", ""),
+        "kind": obj.get("kind", ""),
+        "name": meta["name"],
+        "uid": meta.get("uid", ""),
+        "controller": controller,
+        "blockOwnerDeletion": block_owner_deletion,
+    }
 
 
 def now_rfc3339() -> str:

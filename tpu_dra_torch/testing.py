@@ -19,6 +19,17 @@
   ``kernel_pci_sysfs`` applies the kernel's bind and unbind semantics to
   that tree at the moment each file is written, so a rebind takes only
   where the exact files were written, with no thread and no wait.
+- The multi-node ComputeDomain harness (counterpart of the reference
+  harness's FakeNode and provision_multi_node_cd): ``FakeNode`` is one
+  node's CD kubelet plugin plus, once the node is labeled, a domain
+  daemon wrapping the real native binary (``cddaemon.binary.build``);
+  ``DomainSim`` runs the controller and the nodes over one FakeCluster
+  and plays the scheduler, kubelet and the DaemonSet for a domain's
+  channel claims; ``provision_multi_node_cd`` provisions an N-node
+  domain through it and returns each node's channel-claim env;
+  ``run_nodes`` runs one launcher process per simulated node.
+  Simulated nodes discover fake GPUs (a FakeBackend passed to each node
+  explicitly); a node given a NativeBackend discovers the host's GPUs.
 
 This module imports only the standard library at module level, so that
 ``python tpu_dra_torch/testing.py`` runs as the stand-in.
@@ -352,3 +363,443 @@ def kernel_pci_sysfs(root: str, host_driver: str = "nvidia",
 
 if __name__ == "__main__":
     sys.exit(mps_control_standin(sys.argv[1:]))
+
+
+# ---------------------------------------------------------------------------
+# ComputeDomain harness
+# ---------------------------------------------------------------------------
+
+CD_CDI_VENDOR = "k8s.compute-domain.gpu.dev"
+CD_DRIVER_NAMESPACE = "gpu-dra-driver"
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def reserve_port() -> socket.socket:
+    """A socket bound with SO_REUSEADDR to a free port, not listening:
+    while it is open the kernel gives that port to no other bind and no
+    outgoing connection, and a server that binds it with SO_REUSEADDR
+    (a torch TCPStore does) still can."""
+    s = socket.socket()
+    s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    s.bind(("", 0))
+    return s
+
+
+def _node_main(fn, args, conn) -> None:
+    import pickle
+    import traceback
+
+    os.setsid()   # run_nodes can then stop the node with its ranks
+    try:
+        out = ("ok", fn(*args))
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        out = ("err", traceback.format_exc())
+    conn.send_bytes(pickle.dumps(out))
+
+
+def run_nodes(fn, node_args: Sequence[tuple],
+              timeout_s: float = 600.0) -> List:
+    """fn(*args) for every args of `node_args` at once, each in a spawned
+    process of its own (as each node of a domain runs its own launcher;
+    fn and its arguments pickle by reference or value). Returns the
+    results in order. A node that raises or does not answer within
+    `timeout_s` ends the others (each node's process group, its ranks
+    with it), and this raises with its traceback."""
+    import multiprocessing
+    import multiprocessing.connection
+    import pickle
+    import signal
+
+    ctx = multiprocessing.get_context("spawn")
+    procs, conns = [], []
+    ok = False
+    try:
+        for args in node_args:
+            parent, child = ctx.Pipe(duplex=False)
+            # Not daemonic: a node's launcher spawns its ranks.
+            proc = ctx.Process(target=_node_main, args=(fn, args, child))
+            proc.start()
+            child.close()
+            procs.append(proc)
+            conns.append(parent)
+        out: Dict[int, object] = {}
+        pending = dict(enumerate(conns))
+        while pending:
+            ready = multiprocessing.connection.wait(list(pending.values()),
+                                                    timeout_s)
+            if not ready:
+                raise TimeoutError(f"nodes {sorted(pending)} did not "
+                                   f"answer within {timeout_s} s")
+            for i, conn in list(pending.items()):
+                if conn not in ready:
+                    continue
+                try:
+                    status, value = pickle.loads(conn.recv_bytes())
+                except EOFError:
+                    status, value = "err", "the node's process ended"
+                if status == "err":
+                    raise RuntimeError(f"node {i} failed:\n{value}")
+                out[i] = value
+                del pending[i]
+        ok = True
+        return [out[i] for i in range(len(conns))]
+    finally:
+        for proc in procs:
+            proc.join(timeout=30 if ok else 0)
+            if proc.is_alive():
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except ProcessLookupError:   # not yet its own group
+                    proc.kill()
+                proc.join(timeout=10)
+        for conn in conns:
+            conn.close()
+
+
+def read_claim_env(cdi, claim_uid: str) -> Dict[str, str]:
+    """The workload container's env view of a prepared claim, parsed from
+    the WRITTEN CDI spec (the same file kubelet's runtime consumes)."""
+    spec = cdi.read_spec(cdi.claim_spec_path(claim_uid))
+    return dict(e.split("=", 1)
+                for e in spec["devices"][0]["containerEdits"]["env"])
+
+
+class FakeNode:
+    """One 'node': a CD kubelet plugin plus (once labeled) a domain daemon.
+
+    `backend` is the node's GPU discovery: a FakeBackend of an 8-GPU HGX
+    node (one node-local NVLink clique) unless given; its clique identity
+    (cddaemon.main.discover_clique_id) is the plugin's and the daemon's.
+    The daemon is the native one built from this checkout's source, on
+    localhost (its pod IP). `coordinator_port` is the plugin's
+    --coordinator-port."""
+
+    POD_IP = "127.0.0.1"
+
+    def __init__(self, cluster, name: str, tmp_path, *, backend=None,
+                 coordinator_port: Optional[int] = None):
+        from tpu_dra_torch.api import types as apitypes
+        from tpu_dra_torch.cddaemon import binary
+        from tpu_dra_torch.cddaemon.main import discover_clique_id
+        from tpu_dra_torch.cdi.handler import CDIHandler
+        from tpu_dra_torch.cdplugin.computedomain import (
+            COORDINATOR_PORT, ComputeDomainManager,
+        )
+        from tpu_dra_torch.cdplugin.device_state import DeviceState
+        from tpu_dra_torch.cdplugin.driver import CDDriver
+        from tpu_dra_torch.gpuplugin.checkpoint import CheckpointManager
+        from tpu_dra_torch.k8s import NODES
+        from tpu_dra_torch.native import gpuinfo
+
+        self.cluster = cluster
+        self.name = name
+        self.tmp = os.path.join(str(tmp_path), name)
+        self.backend = backend if backend is not None else \
+            gpuinfo.FakeBackend()
+        self.clique_id = discover_clique_id(self.backend)
+        self._daemon_bin = binary.build()
+        cluster.create(NODES, {"apiVersion": "v1", "kind": "Node",
+                               "metadata": {"name": name}})
+        plugin_dir = os.path.join(self.tmp, "plugin")
+        self.cd_manager = ComputeDomainManager(
+            cluster, node_name=name, driver_plugin_dir=plugin_dir,
+            coordinator_port=coordinator_port or COORDINATOR_PORT)
+        self.cd_manager.start()
+        self.cdi = CDIHandler(os.path.join(self.tmp, "cdi"),
+                              vendor=CD_CDI_VENDOR)
+        self.checkpoints = CheckpointManager(plugin_dir)
+        self.state = DeviceState(
+            cd_manager=self.cd_manager, cdi=self.cdi,
+            checkpoints=self.checkpoints,
+            driver_name=apitypes.COMPUTE_DOMAIN_DRIVER_NAME,
+            node_name=name, clique_id=self.clique_id)
+        self.driver = CDDriver(
+            state=self.state, client=cluster,
+            driver_name=apitypes.COMPUTE_DOMAIN_DRIVER_NAME, node_name=name,
+            clique_id=self.clique_id, plugin_dir=plugin_dir,
+            retry_timeout=20.0)
+        self.driver.start()
+        self.daemon = None
+
+    def wait_labeled(self, cd_uid: str, timeout: float = 20.0) -> bool:
+        from tpu_dra_torch.api import types as apitypes
+        from tpu_dra_torch.k8s import NODES
+
+        return self.cluster.wait_for(
+            lambda: (self.cluster.get(NODES, self.name)["metadata"]
+                     .get("labels") or {}).get(
+                apitypes.COMPUTE_DOMAIN_LABEL_KEY) == cd_uid,
+            timeout=timeout)
+
+    def start_daemon(self, cd) -> None:
+        """The DaemonSet-pod analog, started when the node is labeled:
+        a DaemonRunner over the real native daemon on a free port."""
+        from tpu_dra_torch.cddaemon.main import DaemonRunner
+        from tpu_dra_torch.cddaemon.main import flags as daemon_flags
+
+        ns = daemon_flags().parse([
+            "--cd-uid", cd["metadata"]["uid"],
+            "--cd-name", cd["metadata"]["name"],
+            "--cd-namespace", cd["metadata"]["namespace"],
+            "--node-name", self.name, "--pod-ip", self.POD_IP,
+            "--port", str(free_port()),
+            "--work-dir", os.path.join(self.tmp, "daemon"),
+            "--hosts-file", os.path.join(self.tmp, "hosts"),
+            "--daemon-binary", self._daemon_bin,
+        ])
+        self.daemon = DaemonRunner(self.cluster, ns, backend=self.backend)
+        self.daemon.start()
+
+    def stop_daemon(self) -> None:
+        if self.daemon is not None:
+            self.daemon.stop()
+            self.daemon = None
+
+    def stop(self) -> None:
+        self.stop_daemon()
+        self.driver.shutdown()
+        self.cd_manager.stop()
+        self.checkpoints.close()
+
+
+def channel_claim(cluster, cd: Dict, node: str, namespace: str) -> Dict:
+    """A workload claim of the domain's channel-0 on `node`, allocated as
+    the scheduler would from the CD's workload ResourceClaimTemplate."""
+    from tpu_dra_torch.api import types as apitypes
+    from tpu_dra_torch.k8s import RESOURCECLAIMS
+
+    return cluster.create(RESOURCECLAIMS, {
+        "apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+        "metadata": {"name": f"w-{node}", "namespace": namespace},
+        "spec": {"devices": {"requests": [{"name": "r0"}]}},
+        "status": {"allocation": {"devices": {
+            "results": [{
+                "request": "r0",
+                "driver": apitypes.COMPUTE_DOMAIN_DRIVER_NAME,
+                "pool": node, "device": "channel-0"}],
+            "config": [{"requests": ["r0"], "opaque": {
+                "driver": apitypes.COMPUTE_DOMAIN_DRIVER_NAME,
+                "parameters": apitypes.ComputeDomainChannelConfig(
+                    domain_id=cd["metadata"]["uid"]).to_dict()}}]}}},
+    })
+
+
+class DomainSim:
+    """The compute-domain stack over one FakeCluster: the controller and
+    one FakeNode per entry of `nodes` ({name: backend or None}). Plays
+    the scheduler (channel claims), kubelet (the CD plugin's prepare and
+    unprepare) and the DaemonSet (a daemon on each node once labeled).
+    Use as a context manager; `root` (a temporary dir by default) holds
+    every node's sockets and state. The CD plugins' coordinator port, the
+    workload env's MASTER_PORT, is a free one that the sim holds
+    (reserve_port) until it closes, so that nothing else takes it before
+    the domain's TCPStore binds it."""
+
+    # How long prepare_channels waits for a node's label and its claims.
+    JOIN_TIMEOUT_S = 60.0
+
+    def __init__(self, nodes: Dict[str, object], *,
+                 namespace: str = "cdtest", root: Optional[str] = None):
+        import tempfile
+
+        from tpu_dra_torch.cdcontroller import Controller
+        from tpu_dra_torch.k8s import FakeCluster
+
+        self.namespace = namespace
+        self._port_hold = reserve_port()
+        self.coordinator_port = self._port_hold.getsockname()[1]
+        self._own_root = root is None
+        self.root = root or tempfile.mkdtemp(prefix="gpu-dra-cd-")
+        self.cluster = FakeCluster()
+        self.controller = Controller(self.cluster,
+                                     namespace=CD_DRIVER_NAMESPACE,
+                                     image="harness", gc_interval=3600.0)
+        self.controller.start()
+        self.nodes: List[FakeNode] = []
+        try:
+            for name, backend in nodes.items():
+                self.nodes.append(FakeNode(
+                    self.cluster, name, self.root, backend=backend,
+                    coordinator_port=self.coordinator_port))
+        except BaseException:
+            self.close()
+            raise
+
+    def __enter__(self) -> "DomainSim":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def create_cd(self, name: str = "harness-cd") -> Dict:
+        """A ComputeDomain of every node of the sim (numNodes)."""
+        from tpu_dra_torch.api import types as apitypes
+        from tpu_dra_torch.k8s import COMPUTEDOMAINS
+
+        return self.cluster.create(COMPUTEDOMAINS, {
+            "apiVersion": apitypes.API_VERSION, "kind": "ComputeDomain",
+            "metadata": {"name": name, "namespace": self.namespace},
+            "spec": {"numNodes": len(self.nodes),
+                     "channel": {"resourceClaimTemplate": {
+                         "name": f"{name}-rct"}}},
+        })
+
+    def prepare_channels(self, cd: Dict) -> Dict:
+        """One channel claim per node, prepared on every node at once
+        while a daemon starts on each node as it is labeled. Returns
+        {"ok", "error", "elapsed_s" (CD creation -> every claim prepared,
+        from the CD's own creation), "envs" {node: claim env},
+        "claims" {node: claim}}."""
+        import threading
+        import time
+
+        from tpu_dra_torch.kubeletplugin.server import Claim
+
+        t0 = time.perf_counter()
+        results: Dict[str, object] = {}
+        envs: Dict[str, Dict[str, str]] = {}
+        claims = {n.name: channel_claim(self.cluster, cd, n.name,
+                                        self.namespace) for n in self.nodes}
+
+        def kubelet(node):
+            claim = claims[node.name]
+            c = Claim(uid=claim["metadata"]["uid"],
+                      name=claim["metadata"]["name"],
+                      namespace=self.namespace)
+            results[node.name] = node.driver.prepare_claims([c])[c.uid]
+            if not results[node.name].error:
+                envs[node.name] = read_claim_env(node.cdi, c.uid)
+
+        threads = [threading.Thread(target=kubelet, args=(n,),
+                                    name=f"kubelet-{n.name}")
+                   for n in self.nodes]
+        for t in threads:
+            t.start()
+        failure = None
+        for node in self.nodes:
+            if not node.wait_labeled(cd["metadata"]["uid"],
+                                     timeout=self.JOIN_TIMEOUT_S):
+                failure = f"{node.name} never labeled"
+                break
+            node.start_daemon(cd)
+        for t in threads:
+            t.join(timeout=self.JOIN_TIMEOUT_S)
+        elapsed = time.perf_counter() - t0
+        if failure is None and any(t.is_alive() for t in threads):
+            failure = "kubelet prepare threads timed out"
+        if failure is None:
+            errors = [f"{n}: {r.error}" for n, r in results.items()
+                      if r.error]
+            if errors or len(envs) != len(self.nodes):
+                failure = "; ".join(errors) or "prepare incomplete"
+        if failure:
+            # Drain the prepare retry loops before the caller tears the
+            # state dirs out from under them.
+            for t in threads:
+                t.join()
+        return {"ok": failure is None, "error": failure,
+                "elapsed_s": elapsed, "envs": envs, "claims": claims}
+
+    def teardown(self, cd: Dict, claims: Dict[str, Dict]) -> Dict:
+        """Unprepare each node's claim, stop the daemons, delete the CD
+        and wait until it is gone. Returns what is left of it: the nodes
+        still labeled for it, the stamped DaemonSets and the templates
+        carrying its label, and the unprepare errors."""
+        from tpu_dra_torch.api import types as apitypes
+        from tpu_dra_torch.k8s import (
+            COMPUTEDOMAINS, DAEMONSETS, NODES, RESOURCECLAIMTEMPLATES,
+        )
+        from tpu_dra_torch.k8s.client import NotFoundError
+        from tpu_dra_torch.kubeletplugin.server import Claim
+
+        errors = {}
+        for node in self.nodes:
+            claim = claims.get(node.name)
+            if claim is None:
+                continue
+            c = Claim(uid=claim["metadata"]["uid"],
+                      name=claim["metadata"]["name"],
+                      namespace=self.namespace)
+            err = node.driver.unprepare_claims([c])[c.uid]
+            if err:
+                errors[node.name] = err
+        for node in self.nodes:
+            node.stop_daemon()
+        meta = cd["metadata"]
+        self.cluster.delete(COMPUTEDOMAINS, meta["name"], meta["namespace"])
+
+        def gone():
+            try:
+                self.cluster.get(COMPUTEDOMAINS, meta["name"],
+                                 meta["namespace"])
+                return False
+            except NotFoundError:
+                return True
+
+        deleted = self.cluster.wait_for(gone, timeout=20.0)
+        key = apitypes.COMPUTE_DOMAIN_LABEL_KEY
+        selector = f"{key}={meta['uid']}"
+        return {
+            "cd_deleted": deleted,
+            "labeled_nodes": sorted(
+                n["metadata"]["name"] for n in self.cluster.list(NODES)
+                if (n["metadata"].get("labels") or {}).get(key)
+                == meta["uid"]),
+            "daemonsets": [d["metadata"]["name"] for d in self.cluster.list(
+                DAEMONSETS, label_selector=selector)],
+            "templates": [t["metadata"]["name"] for t in self.cluster.list(
+                RESOURCECLAIMTEMPLATES, label_selector=selector)],
+            "unprepare_errors": errors,
+        }
+
+    def close(self) -> None:
+        import shutil
+
+        for node in self.nodes:
+            try:
+                node.stop()
+            except Exception:  # noqa: BLE001 — stop every node regardless
+                log.warning("stopping %s", node.name, exc_info=True)
+        self.nodes = []
+        self.controller.stop()
+        self._port_hold.close()
+        if self._own_root:
+            shutil.rmtree(self.root, ignore_errors=True)
+
+
+def provision_multi_node_cd(n_nodes: int = 2, namespace: str = "cdtest",
+                            node_names: Optional[Sequence[str]] = None
+                            ) -> Dict:
+    """Provision an N-node ComputeDomain through the full CD stack —
+    controller + CD kubelet plugins + real native domain daemons
+    converging over the fake API server, simulated nodes of 8 fake GPUs
+    each — and prepare one workload channel claim per node; then tear it
+    down.
+
+    Returns {"ok", "error", "elapsed_s", "envs", "teardown"}: elapsed_s
+    is CD creation -> all claims prepared, envs maps node name -> the
+    prepared claim's CDI env (the workload container's view:
+    GPU_WORKER_ID, GPU_WORKER_HOSTNAMES, MASTER_ADDR, MASTER_PORT,
+    NODE_RANK, NNODES, ...), teardown is DomainSim.teardown's report
+    (when the domain converged)."""
+    if node_names is None:
+        node_names = tuple(f"node-{i:02d}" for i in range(n_nodes))
+    with DomainSim(dict.fromkeys(node_names), namespace=namespace) as sim:
+        cd = sim.create_cd()
+        res = sim.prepare_channels(cd)
+        if res["ok"]:
+            res["teardown"] = sim.teardown(cd, res["claims"])
+        res.pop("claims")
+        return res
+
+
+def provision_two_node_cd(namespace: str = "cdtest") -> Dict:
+    """The 2-node domain of bench.bench_cd_convergence
+    (provision_multi_node_cd)."""
+    return provision_multi_node_cd(namespace=namespace,
+                                   node_names=("node-a", "node-b"))

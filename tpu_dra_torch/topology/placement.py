@@ -1,9 +1,11 @@
-"""Contiguity and the ResourceSlice topology view (the part of
-tpu_dra/topology/placement.py that meshexport needs).
+"""Contiguity, the ResourceSlice topology view and the ComputeDomain
+member summary (the parts of tpu_dra/topology/placement.py that
+meshexport and the compute-domain controller need).
 
 ``is_contiguous_block`` says whether a coordinate set is one cuboid of a
 block; ``node_topology_from_slices`` builds one node's fabric view from
-its published GPU devices. Placement scoring comes with the scheduler.
+its published GPU devices; ``domain_topology`` summarises a domain's
+member set by NVLink clique. Placement scoring comes with the scheduler.
 """
 
 from __future__ import annotations
@@ -93,3 +95,23 @@ def node_topology_from_slices(slices: List[Dict]) -> Optional[NodeTopology]:
         topo.name_of[local] = name
         topo.driver_of[name] = driver
     return topo
+
+
+def domain_topology(members: List[Dict]) -> Dict:
+    """ComputeDomain member-set NVLink summary from ``cd.status.nodes``
+    entries (each carries the daemon-registered ``cliqueID``/``index``):
+    how many NVLink cliques the domain spans and whether it is
+    clique-aligned (one clique, contiguous worker indices).
+
+    A member with an empty cliqueID reaches its peers over the network
+    only: it belongs to no clique, and a domain that holds one is not
+    aligned. (The reference counts its empty slice id as one slice; here
+    that would read two HGX nodes without a fabric manager as one NVLink
+    domain.)"""
+    clique_ids = sorted({n.get("cliqueID", "") for n in members} - {""})
+    loose = any(not n.get("cliqueID", "") for n in members)
+    aligned = False
+    if len(clique_ids) == 1 and not loose:
+        idx = sorted(n.get("index", 0) for n in members)
+        aligned = idx == list(range(idx[0], idx[0] + len(idx)))
+    return {"cliques": len(clique_ids), "cliqueAligned": aligned}

@@ -10,7 +10,12 @@ over a ``torch.distributed`` process group:
 - ``start_group`` starts this process's group (``nccl`` for CUDA devices,
   ``gloo`` for CPU ones) on a store the caller names: an in-process
   ``HashStore`` at world 1, a ``FileStore`` in a private temporary
-  directory for spawned ranks. Nothing listens on a port. One all-reduce
+  directory for spawned ranks, or — for the ranks of a ComputeDomain —
+  a ``TCPStore`` at the rendezvous its channel claim's env names
+  (``MASTER_ADDR``/``MASTER_PORT``; ``domain_rank`` derives RANK and
+  WORLD_SIZE from the env's ``NODE_RANK``/``NNODES`` and the node's
+  GPUs, and ``start_domain_group`` starts the group there and checks
+  with ``psum_of_ranks`` that the ranks met as themselves). One all-reduce
   of a one-element tensor checks the group before anything runs on it.
 - ``Mesh`` is this rank's view of a device grid (``meshbuild.DeviceGrid``,
   laid out in the plan's rank order): rank r sits at grid position r in
@@ -88,7 +93,87 @@ def start_local_group(device) -> None:
     start_group(0, 1, device, dist.HashStore())
 
 
+def domain_rank(env: Dict[str, str], local_index: int,
+                n_local: int) -> tuple:
+    """(RANK, WORLD_SIZE) of the `local_index`-th of the `n_local` GPUs
+    of a node whose ComputeDomain channel-claim env is `env`: the node's
+    NODE_RANK places its GPUs' ranks after those of the nodes before it,
+    and the domain's NNODES nodes each hold `n_local` GPUs (a node knows
+    only its own count; start_domain_group holds the nodes to one)."""
+    try:
+        node_rank, n_nodes = int(env["NODE_RANK"]), int(env["NNODES"])
+    except (KeyError, ValueError) as e:
+        raise ValueError("the env names no parseable NODE_RANK and NNODES "
+                         "of a ComputeDomain channel claim") from e
+    if not 0 <= local_index < n_local or not 0 <= node_rank < n_nodes:
+        raise ValueError(f"GPU {local_index} of {n_local} on node "
+                         f"{node_rank} of {n_nodes}")
+    return node_rank * n_local + local_index, n_nodes * n_local
+
+
+# This process's place in a ComputeDomain's group while one is up.
+_DOMAIN: Optional[Dict] = None
+
+
+def start_domain_group(env: Dict[str, str], device, local_index: int = 0,
+                       n_local: int = 1) -> Dict:
+    """Start this process's group as the rank domain_rank gives it, on the
+    domain's rendezvous: a TCPStore at MASTER_ADDR:MASTER_PORT, served by
+    rank 0 and joined by the others. Rank 0 publishes its world size and
+    every other rank refuses to join a different one (its node holds
+    another GPU count). Once the group is up, psum_of_ranks must read
+    n(n+1)/2. Returns this rank's place (domain_place() until the group
+    stops): rank, world, node_rank, rendezvous and the psum."""
+    global _DOMAIN
+    rank, world = domain_rank(env, local_index, n_local)
+    try:
+        addr, port = env["MASTER_ADDR"], int(env["MASTER_PORT"])
+    except (KeyError, ValueError) as e:
+        raise ValueError("the env names no MASTER_ADDR and MASTER_PORT of "
+                         "a ComputeDomain channel claim") from e
+    store = dist.TCPStore(addr, port, world, is_master=rank == 0,
+                          timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S),
+                          wait_for_workers=False)
+    if rank == 0:
+        store.set("domain/world", str(world))
+    else:
+        served = int(store.get("domain/world"))
+        if served != world:
+            raise RuntimeError(
+                f"rank {rank}: this node's {n_local} GPUs make a world of "
+                f"{world}, rank 0's node serves one of {served}")
+    start_group(rank, world, device, store)
+    psum = psum_of_ranks()
+    if psum != world * (world + 1) / 2:
+        stop_group()
+        raise RuntimeError(f"the domain's ranks summed {psum}, not "
+                           f"{world * (world + 1) / 2}: two took one rank")
+    _DOMAIN = {"rank": rank, "world": world,
+               "node_rank": int(env["NODE_RANK"]),
+               "rendezvous": f"{addr}:{port}", "psum": psum}
+    return dict(_DOMAIN)
+
+
+def domain_place() -> Optional[Dict]:
+    """What start_domain_group returned, while its group is up; else
+    None."""
+    return None if _DOMAIN is None else dict(_DOMAIN)
+
+
+def psum_of_ranks() -> float:
+    """Every rank of the default group contributes rank + 1 and reads the
+    group's sum, n(n+1)/2: a check that the ranks met as the ranks they
+    take themselves for."""
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend() == "nccl" else torch.device("cpu"))
+    x = torch.tensor([float(dist.get_rank() + 1)], device=device)
+    dist.all_reduce(x)
+    return float(x[0])
+
+
 def stop_group() -> None:
+    global _DOMAIN
+    _DOMAIN = None
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -306,10 +391,14 @@ def _recv(conn):
 
 
 def _pool_worker(rank: int, world: int, store_path: str, device: str,
-                 conn) -> None:
+                 conn, domain=None) -> None:
     torch.set_num_threads(1)
     try:
-        start_group(rank, world, device, dist.FileStore(store_path, world))
+        if domain is None:
+            start_group(rank, world, device,
+                        dist.FileStore(store_path, world))
+        else:
+            start_domain_group(domain, device, rank, world)
     except Exception:  # noqa: BLE001 — reported to the parent
         _send(conn, ("err", traceback.format_exc()))
         return
@@ -334,9 +423,16 @@ class RankPool:
     to run module-level functions: ``run(fn, *args)`` calls fn on every
     rank at once and returns the ranks' results in rank order. A rank
     that raises, or a run past `timeout_s`, ends the pool and raises
-    with the rank's traceback. Use as a context manager."""
+    with the rank's traceback. Use as a context manager.
 
-    def __init__(self, devices: Sequence, timeout_s: float = 600.0):
+    With `domain` (the ComputeDomain channel-claim env of the node whose
+    GPUs `devices` are) the pool's ranks are that node's: pool rank i
+    takes the domain rank of the node's i-th GPU (start_domain_group)
+    and meets the other nodes' ranks at the env's TCPStore instead of a
+    private FileStore."""
+
+    def __init__(self, devices: Sequence, timeout_s: float = 600.0,
+                 domain: Optional[Dict[str, str]] = None):
         self.devices = [str(torch.device(d)) for d in devices]
         self.timeout_s = timeout_s
         self._dir = tempfile.mkdtemp(prefix="rankpool_")
@@ -349,7 +445,7 @@ class RankPool:
                 proc = ctx.Process(
                     target=_pool_worker, daemon=True,
                     args=(rank, world, os.path.join(self._dir, "store"),
-                          device, child))
+                          device, child, domain))
                 proc.start()
                 child.close()
                 self._procs.append(proc)

@@ -18,11 +18,14 @@ Registered workloads: the reference's six (``"allreduce"``,
 SPMD code, one process per device, over a ``torch.distributed`` group
 (``_dist``): ``launch_workload`` runs this rank's part when a group is
 up and otherwise starts one, in-process at world 1 and over spawned
-ranks for more devices.
+ranks for more devices. With ``domain`` (this node's ComputeDomain
+channel-claim env) the node's GPUs are its ranks of the domain's world
+and meet the other nodes' at the domain's rendezvous.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
@@ -379,18 +382,50 @@ def default_runs(allreduce_kw: Dict, train_kw: Dict) -> List[tuple]:
 
 
 def _rank_part(name: str, plan: MeshPlan, devices: Sequence, kw: Dict):
-    return WORKLOADS[name](plan, devices, **kw)
+    rec = WORKLOADS[name](plan, devices, **kw)
+    place = _dist.domain_place()
+    return rec if place is None else {**rec, "domain": place}
 
 
-def launch_workloads(runs: Sequence, plan: MeshPlan,
-                     devices: Sequence) -> Dict[str, Dict]:
+def _domain_world(plan: MeshPlan, devices: Sequence, env: Dict[str, str]
+                  ) -> tuple:
+    """(plan, devices) of a ComputeDomain's world as the node whose plan,
+    devices (arrival order) and channel-claim env these are sees it: each
+    of the env's NNODES nodes holds this node's plan, and node k's ranks
+    are k*n .. k*n + n - 1 in that plan's order (_dist.domain_rank). The
+    other nodes' devices are None here: no process of this node runs
+    them. The nodes share no NVLink fabric, so the ring hops and the
+    modeled bandwidth stay the node's own."""
+    node_rank, _ = _dist.domain_rank(env, 0, 1)
+    n_nodes, n = int(env["NNODES"]), plan.n_devices
+    world = dataclasses.replace(
+        plan, coords=plan.coords * n_nodes,
+        gpu_keys=tuple((k, g) for k in range(n_nodes)
+                       for _, g in plan.gpu_keys),
+        order=tuple(k * n + i for k in range(n_nodes) for i in plan.order),
+        contiguous=plan.contiguous and n_nodes == 1,
+        hops=plan.hops * n_nodes, n_workers=n_nodes)
+    slots = [None] * (n * n_nodes)
+    slots[node_rank * n:(node_rank + 1) * n] = list(devices)
+    return world, slots
+
+
+def launch_workloads(runs: Sequence, plan: MeshPlan, devices: Sequence,
+                     domain: Optional[Dict[str, str]] = None
+                     ) -> Dict[str, Dict]:
     """Run each (name, kwargs) of `runs` in turn on the allocation's
     devices and return {name: rank 0's record}. Unknown names refuse; the
     workload.launch admission seam runs first for each. If a process
     group is up, this is this rank's part. If none is, one is started
-    for the runs and stopped after: in this process at world 1, else one
-    spawned process per plan device (rank r pinned to the plan's r-th
-    device)."""
+    for the runs and stopped after: in this process for one device, else
+    one spawned process per plan device (rank r pinned to the plan's
+    r-th device). With `domain` (this node's ComputeDomain channel-claim
+    env) `plan` and `devices` are this node's: its GPUs become the ranks
+    NODE_RANK*n .. NODE_RANK*n + n - 1 of a world of NNODES*n, which
+    every node of the domain starts the same way and which meets at the
+    env's rendezvous (_dist.start_domain_group); the workloads run over
+    that world (_domain_world), and the record, this node's first
+    rank's, carries its place under "domain"."""
     runs = [(name, dict(kw)) for name, kw in runs]
     for name, _ in runs:
         if name not in WORKLOADS:
@@ -401,21 +436,27 @@ def launch_workloads(runs: Sequence, plan: MeshPlan,
         return {name: _rank_part(name, plan, devices, kw)
                 for name, kw in runs}
     devs = ordered_devices(plan, devices)
+    if domain is not None:
+        plan, devices = _domain_world(plan, devices, domain)
     if len(devs) == 1:
-        _dist.start_local_group(devs[0])
+        if domain is None:
+            _dist.start_local_group(devs[0])
+        else:
+            _dist.start_domain_group(domain, devs[0])
         try:
             return {name: _rank_part(name, plan, devices, kw)
                     for name, kw in runs}
         finally:
             _dist.stop_group()
-    with _dist.RankPool(devs) as pool:
+    with _dist.RankPool(devs, domain=domain) as pool:
         return {name: pool.run(_rank_part, name, plan, devices, kw)[0]
                 for name, kw in runs}
 
 
 def launch_workload(name: str, plan: MeshPlan, devices: Sequence,
+                    domain: Optional[Dict[str, str]] = None,
                     **kw) -> Dict:
     """Run workload `name` on the allocation's devices and return its
     record ({wall_ms, bandwidth or rate, ...}; rank 0's when the plan
     has several devices); see launch_workloads."""
-    return launch_workloads([(name, kw)], plan, devices)[name]
+    return launch_workloads([(name, kw)], plan, devices, domain)[name]
