@@ -130,6 +130,33 @@ Phases, each printing one JSON line ({"phase": ...}):
                   flash_bwd_sm90 and none of the mma.sync kernels; the
                   domain torn down with no node label, stamped DaemonSet
                   or template left (compute_domain);
+   cluster      — the cluster tier: a SimCluster whose one node is this
+                  host (its kubelet plugins read NVML), the driver
+                  installed from manifests.all_manifests() (Python
+                  dicts; the webhook with a self-signed cert where
+                  cryptography or openssl can make one, and a claim with
+                  an unknown GpuConfig field then denied at admission;
+                  else "webhook": "off: <why>"); the plugin pod's
+                  ResourceSlice with the card's UUID; the exclusive-GPU
+                  demo (one pod, one claim from a template, `python -m
+                  tpu_dra_torch.bench claim-child --steps CLAIM_STEPS`)
+                  scheduled onto the node, its claim prepared by the
+                  plugin subprocess over dra.sock (cluster_env: which of
+                  yaml, grpc, cryptography, openssl the machine has):
+                  Succeeded, the claim and the child on the card's UUID,
+                  finite losses, n_layers x steps launches of
+                  flash_fwd_sm90 and flash_bwd_sm90 and none of the
+                  mma.sync kernels; after the pod's deletion no claim,
+                  claim spec or checkpoint entry left; pod create ->
+                  Running and -> Succeeded (host clock) and the child's
+                  median step beside claim_path's, and the phase's own
+                  seconds (cluster);
+   hot_restart  — tpu_dra_torch.bench.bench_hot_restart on NVML: client
+                  threads on RetryingFramedClient prepare and unprepare
+                  while the plugin restarts twice on its dirs: 0 failed
+                  RPCs, 0 leaked claims, a reconnect per restart or more;
+                  drain seconds, the RPCs' p50/p99 and the phase's
+                  seconds (hot_restart);
 8. main         — the flagship TransformerLM train step through
                   tpu_dra_torch.bench.bench_mfu, with the kernels' launch
                   counts zeroed just before and read just after: every
@@ -266,6 +293,12 @@ MODEL_PATH_KERNELS = ("flash_fwd_sm90", "flash_bwd_sm90")
 # main path's).
 CLAIM_STEPS = 3
 CLAIM_TIMING_CYCLES = 50
+# cluster: how long the demo pod may stay Pending (scheduling, prepare).
+POD_START_TIMEOUT_S = 180
+# hot_restart: client threads, seconds of load and plugin restarts.
+HOT_RESTART_WORKERS = 4
+HOT_RESTART_S = 6.0
+HOT_RESTARTS = 2
 # Timed steps of mesh_workloads' "train" (after one warm step).
 MESH_TRAIN_STEPS = 3
 # Ranks of the ring emulated by ring_local.
@@ -1286,6 +1319,248 @@ def phase_compute_domain() -> dict:
         shutil.rmtree(scratch, ignore_errors=True)
 
 
+def _cluster_env() -> dict:
+    """What the cluster tier can use on this machine: PyYAML (only the
+    chart's render needs it), grpc (kubelet's transport; NodeSim falls
+    back to the framed socket), and cryptography or the openssl CLI (the
+    webhook's serving cert)."""
+    import importlib.util
+    import shutil
+
+    return {m: importlib.util.find_spec(m) is not None
+            for m in ("yaml", "grpc", "cryptography")} | {
+        "openssl": shutil.which("openssl")}
+
+
+def _wait(pred, timeout: float, interval: float = 0.05):
+    """pred() until it returns something truthy (returned), or None at
+    the timeout; an exception in pred counts as not yet."""
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        try:
+            got = pred()
+        except Exception:  # noqa: BLE001 — an API read racing a write
+            got = None
+        if got:
+            return got
+        time.sleep(interval)
+    return None
+
+
+def _webhook_denies(cluster, ns: str) -> str:
+    """Once the webhook pod reads Ready, a claim whose GpuConfig carries
+    an unknown field must be refused at admission. Returns the denial."""
+    from tpu_dra_torch.api.types import API_VERSION, GPU_DRIVER_NAME
+    from tpu_dra_torch.k8s import PODS, RESOURCECLAIMS
+    from tpu_dra_torch.k8s.client import ApiError
+
+    def ready():
+        return any(c.get("type") == "Ready" and c.get("status") == "True"
+                   for p in cluster.api.list(PODS, namespace=ns)
+                   if p["metadata"]["name"].startswith("gpu-dra-driver-webhook")
+                   for c in (p.get("status") or {}).get("conditions") or [])
+
+    check(_wait(ready, 120, 0.2), "the webhook pod never read Ready")
+    bad = {"apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+           "metadata": {"name": "bad-config", "namespace": "default"},
+           "spec": {"devices": {
+               "requests": [{"name": "gpu", "exactly": {
+                   "deviceClassName": "gpu.dev"}}],
+               "config": [{"requests": ["gpu"], "opaque": {
+                   "driver": GPU_DRIVER_NAME,
+                   "parameters": {"apiVersion": API_VERSION,
+                                  "kind": "GpuConfig", "bogus": 1}}}]}}}
+    try:
+        cluster.api.create(RESOURCECLAIMS, bad, namespace="default")
+    except ApiError as e:
+        check("denied" in str(e), f"admission failed, not denied: {e}")
+        return str(e)
+    raise RuntimeError("chip_smoke check failed: the webhook admitted a "
+                       "GpuConfig with an unknown field")
+
+
+def phase_cluster(claim_path_child: dict) -> dict:
+    """The cluster tier on the card: a SimCluster whose one node, n0, is
+    this host (its plugins read NVML); the driver installed from
+    manifests.all_manifests() (Python dicts); the plugin pod's
+    ResourceSlice holding the card's UUID; then the exclusive-GPU demo,
+    one pod whose claim comes from a template and whose container runs
+    `python -m tpu_dra_torch.bench claim-child --steps CLAIM_STEPS`.
+    The scheduler allocates the claim, NodeSim prepares it over the
+    plugin's dra.sock and runs the container with the claim's CDI env.
+    Checks: Succeeded, the claim on the card's UUID and the child on the
+    same, finite losses, n_layers x steps launches of each Hopper kernel
+    and none of the mma.sync ones; after the pod's deletion the claim is
+    gone, no claim spec is left in the node's CDI root and, once the
+    plugin has stopped, no claim in its checkpoint. Reads pod create ->
+    Running and -> Succeeded (host clock) and the child's median step
+    beside claim_path's child's."""
+    import shutil
+
+    from tpu_dra_torch.api.types import GPU_DRIVER_NAME
+    from tpu_dra_torch.cdi.handler import CDIHandler
+    from tpu_dra_torch.deploy import demos, manifests
+    from tpu_dra_torch.gpuplugin.checkpoint import CheckpointManager
+    from tpu_dra_torch.k8s import PODS, RESOURCECLAIMS, RESOURCESLICES
+    from tpu_dra_torch.native import gpuinfo
+    from tpu_dra_torch.simcluster import SimCluster
+    from tpu_dra_torch.simcluster.cluster import short_workdir
+    from tpu_dra_torch.workloads.meshbuild import normalize_uuid
+
+    t_phase = time.perf_counter()
+    env = _cluster_env()
+    emit("cluster_env", **env)
+    backend = gpuinfo.NativeBackend()
+    try:
+        gpu = next(r for r in _nvml_inventory(backend) if r["cuda"] == 0)
+    finally:
+        backend.close()
+    try:
+        secret, ca_bundle = manifests.webhook_tls_secret()
+        webhook = "on"
+    except Exception as e:  # noqa: BLE001 — no cryptography, no openssl
+        secret, ca_bundle, webhook = None, "", f"off: {e}"
+    docs = manifests.all_manifests(ca_bundle=ca_bundle)
+    if secret is None:
+        docs = [d for d in docs if "webhook" not in d["metadata"]["name"]]
+    else:
+        docs.insert(1, secret)
+    work = short_workdir()
+    cluster = SimCluster(work, num_nodes=1, card_node=True)
+    ns = manifests.DEFAULT_NAMESPACE
+    try:
+        t0 = time.perf_counter()
+        cluster.start()
+        n_docs = cluster.install(docs)
+
+        def card_slice():
+            for sl in cluster.api.list(RESOURCESLICES):
+                if sl["spec"].get("driver") != GPU_DRIVER_NAME:
+                    continue
+                for d in sl["spec"].get("devices") or []:
+                    uuid = d["attributes"].get("uuid", {}).get("string")
+                    if normalize_uuid(uuid or "") == normalize_uuid(
+                            gpu["uuid"]):
+                        return d["name"]
+            return None
+
+        device = _wait(card_slice, 180, 0.1)
+        check(device is not None,
+              "the plugin pod never published the card's UUID")
+        slice_s = time.perf_counter() - t0
+        denial = _webhook_denies(cluster, ns) if secret else None
+        demo = demos.test1_exclusive_per_pod(
+            demos.claim_child_command(CLAIM_STEPS), pods=1)
+        pod_doc = demo[-1]
+        pns = pod_doc["metadata"]["namespace"]
+        cluster.install(demo[:-1])
+        t_create = time.perf_counter()
+        cluster.install([pod_doc])
+        phases = {}
+
+        def phase():
+            p = cluster.api.get(PODS, "pod0", pns)
+            ph = (p.get("status") or {}).get("phase", "Pending")
+            if ph not in phases:
+                phases[ph] = time.perf_counter() - t_create
+            return p if ph in ("Succeeded", "Failed") else None
+
+        started = _wait(lambda: phase() or set(phases) - {"Pending"},
+                        POD_START_TIMEOUT_S, 0.05)
+        check(started, "the demo pod stayed Pending: "
+              f"{cluster.api.get(PODS, 'pod0', pns).get('status')}")
+        pod = _wait(phase, 900, 0.05)
+        check(pod is not None, f"the demo pod never ended: {phases}")
+        log_text = cluster.pod_log(pod, "ctr")
+        check(pod["status"]["phase"] == "Succeeded",
+              f"the demo pod {pod['status']['phase']}:\n{log_text[-4000:]}")
+        check("Running" in phases, f"the pod was never seen Running: "
+                                   f"{phases}")
+        claim_name = pod["status"]["resourceClaimStatuses"][0][
+            "resourceClaimName"]
+        claim = cluster.api.get(RESOURCECLAIMS, claim_name, pns)
+        results = claim["status"]["allocation"]["devices"]["results"]
+        check([(r["driver"], r["pool"], r["device"]) for r in results]
+              == [(GPU_DRIVER_NAME, "n0", device)],
+              f"the claim is allocated to {results}, want {device} on n0")
+        child = json.loads(log_text.strip().splitlines()[-1])
+        check(all(math.isfinite(x) for x in child["losses"]),
+              f"non-finite cluster-pod loss {child['losses']}")
+        check(normalize_uuid(child["uuid"]) == normalize_uuid(gpu["uuid"]),
+              f"the pod ran on {child['uuid']}, the claim holds "
+              f"{gpu['uuid']}")
+        counts = check_path_launches(
+            "the cluster pod", child["n_layers"] * child["steps"],
+            (child["launches"], child["kernel_launches"]))
+        cluster.api.delete(PODS, "pod0", pns)
+        check(_wait(lambda: not cluster.api.list(RESOURCECLAIMS,
+                                                 namespace=pns), 60, 0.1),
+              "the template claim outlived its pod")
+        cdi_root = os.path.join(cluster.node_dir("n0"), "fs", "var", "run",
+                                "cdi")
+        left = CDIHandler(cdi_root).list_claim_uids()
+        check(left == [], f"claim specs left in the CDI root: {left}")
+    finally:
+        cluster.stop()
+    plugin_dir = os.path.join(cluster.node_dir("n0"), "fs", "var", "lib",
+                              "kubelet", "plugins", GPU_DRIVER_NAME)
+    on_disk = CheckpointManager(plugin_dir)
+    reloaded = on_disk.load()
+    on_disk.close()
+    shutil.rmtree(work, ignore_errors=True)
+    check(reloaded is None or not reloaded.claims,
+          "the plugin's checkpoint still holds the claim")
+    res = {"objects_installed": n_docs, "slice_s": slice_s,
+           "webhook": webhook, "webhook_denial": denial,
+           "transport": "grpc" if env["grpc"] else "framed",
+           "gpu": gpu["uuid"], "device": device,
+           "pod_running_s": phases["Running"],
+           "pod_succeeded_s": phases["Succeeded"],
+           "child_median_step_ms": statistics.median(
+               child["step_times_s"]) * 1e3,
+           "claim_path_child_median_step_ms": statistics.median(
+               claim_path_child["step_times_s"]) * 1e3,
+           "losses": child["losses"], "kernel_launches": counts,
+           "phase_s": time.perf_counter() - t_phase,
+           "nvidia_smi": gpuinfo.nvidia_smi()}
+    emit("cluster", **res)
+    return res
+
+
+def phase_hot_restart() -> dict:
+    """bench_hot_restart on the card's NativeBackend: HOT_RESTART_WORKERS
+    client threads on RetryingFramedClient prepare and unprepare claims
+    of the GPU torch calls cuda:0 for HOT_RESTART_S seconds while the
+    plugin restarts HOT_RESTARTS times on the same dirs. Checks 0 failed
+    RPCs, 0 leaked claims, at least one reconnect per restart; reads the
+    drain seconds and the RPCs' p50 and p99."""
+    from tpu_dra_torch import bench
+    from tpu_dra_torch.native import gpuinfo
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+
+    t_phase = time.perf_counter()
+    backend = gpuinfo.NativeBackend()
+    try:
+        res = bench.bench_hot_restart(
+            backend, duration_s=HOT_RESTART_S, workers=HOT_RESTART_WORKERS,
+            gpus_per_worker=1, n_restarts=HOT_RESTARTS,
+            scratch=fk.BUILD_DIR.parent)
+    finally:
+        backend.close()
+    check(res["hot_restart_failed_rpcs"] == 0,
+          f"hot restart: {res['hot_restart_failed_rpcs']} failed RPCs "
+          f"({res.get('hot_restart_first_error')})")
+    check(res["hot_restart_leaked_claims"] == 0,
+          f"hot restart leaked {res['hot_restart_leaked_claims']} claims")
+    per_restart = res["hot_restart_reconnects_per_restart"]
+    check(len(per_restart) == HOT_RESTARTS and min(per_restart) >= 1,
+          f"hot restart: reconnects per restart {per_restart} for "
+          f"{HOT_RESTARTS} restarts (at least 1 each)")
+    emit("hot_restart", **res, phase_s=time.perf_counter() - t_phase,
+         nvidia_smi=gpuinfo.nvidia_smi())
+    return res
+
+
 def claim_child(argv) -> int:
     """The claim child (claim_path, compute_domain, shared_claim, mps
     and mig):
@@ -1856,8 +2131,10 @@ def main() -> int:
     phase_times_fp32(gpuinfo.PEAK_TF32_TFLOPS[H100_SXM] * 1e12 / 3,
                      peak_bytes)
     _free()
-    phase_claim_path()
+    claim = phase_claim_path()
     phase_compute_domain()
+    phase_cluster(claim["claim_path"]["child"])
+    phase_hot_restart()
     _, counts = phase_main_path()
     _free()
     counts_xl, xl_none = phase_long_context()

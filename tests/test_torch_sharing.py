@@ -388,3 +388,99 @@ class TestRestart:
         assert n.backend.exclusive == {2: True, 3: False}
         assert n.state.unprepare("u1") is None and n.clean("u1")
 
+
+
+class NoPolicyBackend(RefusingBackend):
+    """A GPU that supports neither a time-slice policy nor a settable
+    compute mode, as nvidia-smi and NVML answer on a virtualised host."""
+
+    def set_timeslice(self, index, level):
+        raise gpuinfo.NvmlError(
+            f"nvidia-smi compute-policy --set-timeslice={level} on GPU "
+            f"{index}", gpuinfo.NVML_ERROR_NOT_SUPPORTED,
+            "Failed to set timeslice policy: Not Supported")
+
+
+class UntypedRefusalBackend(NoPolicyBackend):
+    """A time-slice refusal that carries the words but not the code."""
+
+    def set_timeslice(self, index, level):
+        raise RuntimeError(f"set-timeslice={level} on GPU {index}: "
+                           "Not Supported")
+
+
+class UnreadableModeBackend(NoPolicyBackend):
+    """A GPU without the policy whose compute mode NVML cannot report."""
+
+    def compute_mode(self, index):
+        self.get_gpu(index)
+        return None
+
+
+class TestTimeSliceWithoutPolicy:
+    """With TimeSlicingSettings on, a claim's default config normalizes
+    to time-slicing at the Default interval: on a GPU without the policy
+    that reads compute mode DEFAULT that is the state it is in, so the
+    claim prepares; an explicit interval, a refusal without NVML's
+    NOT_SUPPORTED code, or a compute mode that cannot be read still fails
+    the prepare."""
+
+    def _state(self, tmp_path, backend=None):
+        port_gates.Features.set_from_string("TimeSlicingSettings=true")
+        backend = backend or NoPolicyBackend()
+        return DeviceState(
+            backend=backend, cdi=CDIHandler(str(tmp_path / "cdi")),
+            checkpoints=CheckpointManager(str(tmp_path / "p")),
+            driver_name=port_types.GPU_DRIVER_NAME, node_name="n",
+            ts_manager=sharing.TimeSlicingManager(backend))
+
+    def _claim(self, uid, config=None):
+        cfg = [] if config is None else [{
+            "requests": ["gpu"], "source": "FromClaim", "opaque": {
+                "driver": port_types.GPU_DRIVER_NAME,
+                "parameters": config}}]
+        return {"metadata": {"uid": uid, "name": uid, "namespace": "d"},
+                "status": {"allocation": {"devices": {"results": [{
+                    "request": "gpu", "driver": port_types.GPU_DRIVER_NAME,
+                    "pool": "n", "device": "gpu-0"}], "config": cfg}}}}
+
+    def test_default_claim_prepares(self, tmp_path):
+        state = self._state(tmp_path)
+        res = state.prepare(self._claim("a"))
+        assert not res.error, res.error
+        assert state.unprepare("a") is None
+
+    def test_explicit_interval_still_fails(self, tmp_path):
+        state = self._state(tmp_path)
+        res = state.prepare(self._claim("b", {
+            "apiVersion": port_types.API_VERSION, "kind": "GpuConfig",
+            "sharing": {"strategy": "TimeSlicing",
+                        "timeSlicingConfig": {"interval": "Long"}}}))
+        assert "Not Supported" in res.error
+        assert state.prepared_claim_uids() == []
+
+    def test_untyped_refusal_fails(self, tmp_path):
+        state = self._state(tmp_path, UntypedRefusalBackend())
+        res = state.prepare(self._claim("c"))
+        assert "Not Supported" in res.error
+
+    def test_unreadable_compute_mode_fails(self, tmp_path):
+        state = self._state(tmp_path, UnreadableModeBackend())
+        res = state.prepare(self._claim("d"))
+        assert "nvmlDeviceSetComputeMode" in res.error
+
+
+@pytest.mark.parametrize("rc,typed", [(3, True), (1, False)])
+def test_smi_set_timeslice_exit_code(tmp_path, rc, typed):
+    """nvidia-smi's exit code 3 (operation not available on the device)
+    is NVML's NOT_SUPPORTED; any other failure stays untyped."""
+    smi = tmp_path / "nvidia-smi"
+    smi.write_text("#!/bin/sh\necho 'Failed to set timeslice' >&2\n"
+                   f"exit {rc}\n")
+    smi.chmod(0o755)
+    with pytest.raises(RuntimeError) as info:
+        gpuinfo.smi_set_timeslice(str(smi), 0, 2)
+    assert isinstance(info.value, gpuinfo.NvmlError) == typed
+    if typed:
+        assert info.value.code == gpuinfo.NVML_ERROR_NOT_SUPPORTED
+    assert "Failed to set timeslice" in str(info.value)

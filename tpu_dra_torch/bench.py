@@ -567,41 +567,52 @@ class _BenchDriver:
     path, since the daemon's pipe sockets must fit in 107 bytes."""
 
     def __init__(self, backend, scratch=None, mps_binary=None):
-        from tpu_dra_torch.api.types import GPU_DRIVER_NAME
-        from tpu_dra_torch.cdi.handler import CDIHandler
-        from tpu_dra_torch.gpuplugin.checkpoint import CheckpointManager
-        from tpu_dra_torch.gpuplugin.device_state import DeviceState
-        from tpu_dra_torch.gpuplugin.driver import GpuDriver
-        from tpu_dra_torch.gpuplugin.sharing import (
-            MpsManager, TimeSlicingManager,
-        )
+        from tpu_dra_torch.gpuplugin.sharing import MpsManager
         from tpu_dra_torch.k8s import FakeCluster
-        from tpu_dra_torch.kubeletplugin.server import (
-            framed_stubs, kubelet_stubs,
-        )
         from tpu_dra_torch.testing import MpsNodeSim
 
         self.backend = backend
         self.cluster = FakeCluster()
         self.tmp = tempfile.mkdtemp(prefix="ctr-", dir=scratch)
         self.cdi_dir = os.path.join(self.tmp, "cdi")
-        self.cdi = CDIHandler(self.cdi_dir,
-                              driver_root=os.path.join(self.tmp, "drv"))
-        self.mps_root = self.mps_sim = mps_manager = None
+        self.mps_root = self.mps_sim = self._mps_manager = None
         if mps_binary is not None:
             self.mps_root = tempfile.mkdtemp(prefix="mps-")
-            mps_manager = MpsManager(backend, self.cluster,
-                                     node_name=BENCH_NODE,
-                                     namespace=MPS_NAMESPACE,
-                                     root_dir=self.mps_root)
+            self._mps_manager = MpsManager(backend, self.cluster,
+                                           node_name=BENCH_NODE,
+                                           namespace=MPS_NAMESPACE,
+                                           root_dir=self.mps_root)
             self.mps_sim = MpsNodeSim(self.cluster, MPS_NAMESPACE,
                                       binary=mps_binary).start()
+        self.grpc_unavailable = grpc_unavailable()
+        self._start()
+        if not self.driver.first_published.is_set():
+            raise RuntimeError("the plugin's first ResourceSlice publish "
+                               "did not land")
+        self.gpus = [g.index for g in backend.gpus()]
+
+    def _start(self):
+        """One plugin incarnation over the node's dirs: CDI handler,
+        DeviceState over the checkpoint journal (recovering what it
+        holds), GpuDriver, and the kubelet-acting clients."""
+        from tpu_dra_torch.api.types import GPU_DRIVER_NAME
+        from tpu_dra_torch.cdi.handler import CDIHandler
+        from tpu_dra_torch.gpuplugin.checkpoint import CheckpointManager
+        from tpu_dra_torch.gpuplugin.device_state import DeviceState
+        from tpu_dra_torch.gpuplugin.driver import GpuDriver
+        from tpu_dra_torch.gpuplugin.sharing import TimeSlicingManager
+        from tpu_dra_torch.kubeletplugin.server import (
+            framed_stubs, kubelet_stubs,
+        )
+
+        self.cdi = CDIHandler(self.cdi_dir,
+                              driver_root=os.path.join(self.tmp, "drv"))
         self.state = DeviceState(
-            backend=backend, cdi=self.cdi,
+            backend=self.backend, cdi=self.cdi,
             checkpoints=CheckpointManager(os.path.join(self.tmp, "p")),
             driver_name=GPU_DRIVER_NAME, node_name=BENCH_NODE,
-            ts_manager=TimeSlicingManager(backend), mps_manager=mps_manager)
-        self.grpc_unavailable = grpc_unavailable()
+            ts_manager=TimeSlicingManager(self.backend),
+            mps_manager=self._mps_manager)
         self.driver = GpuDriver(state=self.state, client=self.cluster,
                                 driver_name=GPU_DRIVER_NAME,
                                 node_name=BENCH_NODE,
@@ -609,9 +620,6 @@ class _BenchDriver:
                                 registry_dir=os.path.join(self.tmp, "r"),
                                 kubelet_grpc=self.grpc_unavailable is None)
         self.driver.start()
-        if not self.driver.first_published.is_set():
-            raise RuntimeError("the plugin's first ResourceSlice publish "
-                               "did not land")
         self.channel = None
         self._prepare_grpc = self._unprepare_grpc = None
         if self.grpc_unavailable is None:
@@ -619,7 +627,6 @@ class _BenchDriver:
                 kubelet_stubs(self.driver.server.dra_socket)
         self.framed_client, self._prepare_framed, self._unprepare_framed = \
             framed_stubs(self.driver.server.fast_socket, timeout_s=60.0)
-        self.gpus = [g.index for g in backend.gpus()]
 
     def stubs(self, transport=None):
         """(prepare, unprepare) callables for `transport` ("grpc", else
@@ -732,6 +739,20 @@ class _BenchDriver:
             # leaked prepared claims would dirty every later phase.
             self.unprepare(objs)
         return lat / n_claims
+
+    def hot_restart(self):
+        """Hot plugin restart on the SAME plugin and checkpoint dirs:
+        drain the pipeline, run the journal barrier, take the old
+        incarnation's sockets down, then bring up a fresh
+        CheckpointManager/DeviceState/GpuDriver whose recovery replays
+        the journal. Returns (drain_s, recovered_claims). Clients on
+        RetryingFramedClient mask the socket gap."""
+        if self.channel is not None:
+            self.channel.close()
+        self.framed_client.close()
+        drain_s = self.driver.shutdown(drain=True)
+        self._start()
+        return drain_s, len(self.state.prepared_claim_uids())
 
     def release_prepared(self):
         """Unprepare every claim still prepared (a run that failed
@@ -898,6 +919,125 @@ def bench_claim_to_ready(backend, n_cycles: int = 100, warmup: int = 15,
 
 
 # ---------------------------------------------------------------------------
+# Hot restart: the plugin restarted under load, masked by the client
+# ---------------------------------------------------------------------------
+
+def bench_hot_restart(backend, duration_s: float = 12.0,
+                      workers: int = 6, gpus_per_worker: int = 2,
+                      n_restarts: int = 2, scratch=None) -> dict:
+    """Hot plugin restart under sustained load: `workers` client threads
+    on RetryingFramedClient prepare and unprepare their own claims
+    flat-out while the kubelet plugin (a GpuDriver over `backend`) is
+    restarted `n_restarts` times,
+    spread evenly through `duration_s`: drain window (in-flight RPCs
+    finish, new admissions refused), journal barrier, sockets down, a
+    fresh driver recovering from the checkpoint journal on the SAME
+    dirs. Worker w claims GPUs w*gpus_per_worker.. of the backend, modulo
+    its GPU count (whole-GPU claims may share a GPU). The contract: ZERO
+    failed RPCs, at least one reconnect per restart, zero leaked
+    claims. Returns the reference's hot_restart_* keys."""
+    from tpu_dra_torch.kubeletplugin import wire
+    from tpu_dra_torch.kubeletplugin.server import (
+        RPC_RECONNECTS, RetryingFramedClient,
+    )
+
+    bd = _BenchDriver(backend, scratch=scratch)
+    fast_socket = bd.driver.server.fast_socket
+    stop = threading.Event()
+    lat_ms: list = []
+    errors: list = []
+    lat_lock = threading.Lock()
+    reconnects0 = RPC_RECONNECTS.value()
+
+    def worker(w):
+        mine = [bd.gpus[(w * gpus_per_worker + j) % len(bd.gpus)]
+                for j in range(gpus_per_worker)]
+        reqs = []
+        for j, g in enumerate(mine):
+            obj = _make_claim(bd.cluster, [g], f"restart-{w}-{j}")
+            claim = bd._request([obj])
+            reqs.append((obj["metadata"]["uid"],
+                         wire.NodePrepareResourcesRequest(claims=claim),
+                         wire.NodeUnprepareResourcesRequest(claims=claim)))
+        my_lats, my_errors = [], []
+        client = RetryingFramedClient(fast_socket)
+        try:
+            i = 0
+            while not stop.is_set():
+                uid, req, ureq = reqs[i % len(reqs)]
+                i += 1
+                t0 = time.perf_counter()
+                resp = client.prepare(req)
+                my_lats.append((time.perf_counter() - t0) * 1e3)
+                res = resp.claims.get(uid)
+                if res is None or res.error:
+                    my_errors.append(res.error if res else "no entry")
+                t0 = time.perf_counter()
+                uresp = client.unprepare(ureq)
+                my_lats.append((time.perf_counter() - t0) * 1e3)
+                ures = uresp.claims.get(uid)
+                if ures is None or ures.error:
+                    my_errors.append(ures.error if ures else "no entry")
+        except Exception as e:  # noqa: BLE001 — every escape IS a
+            my_errors.append(repr(e))  # failed RPC the contract counts
+        finally:
+            client.close()
+        with lat_lock:
+            lat_ms.extend(my_lats)
+            errors.extend(my_errors)
+
+    drain_s: list = []
+    recovered: list = []
+    try:
+        threads = [threading.Thread(target=worker, args=(w,))
+                   for w in range(workers)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        # Reconnects counted from one restart's start to the next's (the
+        # last: to the end of the run), so each restart is seen to be
+        # masked by at least one redial of its own.
+        marks = []
+        for _ in range(n_restarts):
+            time.sleep(duration_s / (n_restarts + 1))
+            marks.append(RPC_RECONNECTS.value())
+            d, r = bd.hot_restart()
+            drain_s.append(d)
+            recovered.append(r)
+        time.sleep(duration_s / (n_restarts + 1))
+        stop.set()
+        for t in threads:
+            t.join(60)
+        wall_s = time.perf_counter() - t0
+        marks.append(RPC_RECONNECTS.value())
+        leaked = bd.state.prepared_claim_uids()
+    finally:
+        stop.set()
+        bd.close()
+
+    lat_ms.sort()
+    out = {
+        "hot_restart_restarts": n_restarts,
+        "hot_restart_duration_s": wall_s,
+        "hot_restart_workers": workers,
+        "hot_restart_rpcs": len(lat_ms),
+        "hot_restart_failed_rpcs": len(errors),
+        "hot_restart_reconnects": int(RPC_RECONNECTS.value() - reconnects0),
+        "hot_restart_reconnects_per_restart": [
+            int(b - a) for a, b in zip(marks, marks[1:])],
+        "hot_restart_drain_s_max": max(drain_s, default=0.0),
+        "hot_restart_drain_s": drain_s,
+        "hot_restart_recovered_claims": sum(recovered),
+        "hot_restart_leaked_claims": len(leaked),
+        "hot_restart_p50_ms": statistics.median(lat_ms) if lat_ms else None,
+        "hot_restart_p99_ms": _pctl(lat_ms, 0.99) if lat_ms else None,
+    }
+    if errors:
+        out["hot_restart_first_error"] = errors[0]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Shared claims: one claim, several train-step tenants at once
 # ---------------------------------------------------------------------------
 
@@ -913,6 +1053,26 @@ N_TENANTS = 2
 MIN_OVERLAP = 0.9
 MIN_OVERLAP_CPU = 0.5
 TENANT_TIMEOUT_S = 900.0
+
+
+class _TenantBarrier:
+    """claim_child's barrier before the timed steps: with `wait_go`,
+    print {"ready": pid} and wait for the parent's "go" line; then zero
+    the launch counts. A class, not a closure, so that the spawned ranks
+    of a multi-GPU claim receive it pickled."""
+
+    def __init__(self, wait_go: bool):
+        self.wait_go = wait_go
+
+    def __call__(self) -> None:
+        from tpu_dra_torch.workloads import _flash_kernels as fk
+
+        if self.wait_go:
+            print(json.dumps({"ready": os.getpid()}), flush=True)
+            line = sys.stdin.readline().strip()
+            if line != GO:
+                raise RuntimeError(f"tenant waited for {GO!r}, read {line!r}")
+        fk.reset_launches()
 
 
 def claim_child(argv) -> int:
@@ -955,18 +1115,10 @@ def claim_child(argv) -> int:
     tokens = np.random.RandomState(0).randint(0, cfg.vocab,
                                               (FLAGSHIP_BATCH, cfg.max_seq))
 
-    def barrier():
-        if args.wait_go:
-            print(json.dumps({"ready": os.getpid()}), flush=True)
-            line = sys.stdin.readline().strip()
-            if line != GO:
-                raise RuntimeError(f"tenant waited for {GO!r}, read {line!r}")
-        fk.reset_launches()
-
     res = meshbuild.launch_workload("train", plan, devices, domain=domain,
                                     cfg=cfg, steps=args.steps,
                                     tokens=tokens, warm_steps=args.warm,
-                                    barrier=barrier)
+                                    barrier=_TenantBarrier(args.wait_go))
     device = torch.device(res["device"])
     out = {**res, "pid": os.getpid(),
            "claim_uuids": env.get("CUDA_VISIBLE_DEVICES", "").split(","),

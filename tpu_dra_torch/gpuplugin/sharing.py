@@ -4,7 +4,10 @@ MultiprocessDaemon and MultiprocessManager in tpu_dra/tpuplugin/sharing.py).
 - ``TimeSlicingManager`` programs each GPU's compute time slice through
   the backend (``nvidia-smi compute-policy --set-timeslice`` on a real
   node) and drops exclusive compute mode, since time-slicing implies
-  shared access.
+  shared access. A GPU that supports neither setting (as on a
+  virtualised host) already runs at the driver's default time slice:
+  setting the default there is a no-op when the GPU reads compute mode
+  DEFAULT, while any other level, or a mode that cannot be read, fails.
 - ``MpsManager`` runs one MPS control daemon per claim as a Deployment
   (the reference's create -> assert ready -> CDI edits -> stop lifecycle).
   Its container runs ``nvidia-cuda-mps-control -f`` in the foreground, so
@@ -31,7 +34,10 @@ from tpu_dra_torch.k8s import DEPLOYMENTS, new_object_meta
 from tpu_dra_torch.k8s.client import (
     AlreadyExistsError, ApiClient, ConflictError, NotFoundError,
 )
-from tpu_dra_torch.native.gpuinfo import Gpu, GpuInfoBackend
+from tpu_dra_torch.native.gpuinfo import (
+    NVML_COMPUTEMODE_DEFAULT, NVML_ERROR_NOT_SUPPORTED, Gpu, GpuInfoBackend,
+    NvmlError,
+)
 
 log = logging.getLogger("tpu_dra_torch.sharing")
 
@@ -58,11 +64,28 @@ class TimeSlicingManager:
     def set_timeslice(self, gpus: List[Gpu],
                       config: apitypes.TimeSlicingConfig) -> None:
         level = config.level()
+        default = level == apitypes.TIME_SLICE_INTERVALS[
+            apitypes.DEFAULT_TIME_SLICE]
         for gpu in gpus:
-            self._backend.set_timeslice(gpu.index, level)
+            try:
+                self._backend.set_timeslice(gpu.index, level)
+            except NvmlError as e:
+                if not (default and e.code == NVML_ERROR_NOT_SUPPORTED):
+                    raise
+                log.info("GPU %d supports no time-slice policy: it runs "
+                         "at the default", gpu.index)
             # Time-slicing implies shared access: drop exclusive mode
             # (compute mode DEFAULT).
-            self._backend.set_exclusive_mode(gpu.index, False)
+            try:
+                self._backend.set_exclusive_mode(gpu.index, False)
+            except NvmlError as e:
+                # A GPU whose compute mode cannot be set is shared
+                # already only when it reads DEFAULT; a mode that cannot
+                # be read proves nothing, so the failure stands.
+                if (e.code != NVML_ERROR_NOT_SUPPORTED
+                        or self._backend.compute_mode(gpu.index)
+                        != NVML_COMPUTEMODE_DEFAULT):
+                    raise
 
     def reset(self, gpus: List[Gpu]) -> None:
         self.set_timeslice(gpus, apitypes.TimeSlicingConfig("Default"))

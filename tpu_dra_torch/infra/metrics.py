@@ -6,15 +6,17 @@ text exposition format, and ``MetricsServer``: /metrics, /healthz (with
 the kubelet plugin's self-probe) and the thread-stack dump at
 /debug/stacks. Only the instruments the port's modules register are
 here: the checkpoint journal's, the tracer's, the quarantine gauge, the
-kubelet plugin's prepare and RPC instruments (each in its own module)
-and the mesh-build counter below. The metric names are the reference's,
-so one dashboard reads both. The reference's control-plane instruments
-and its metric catalog come with the slices that use them.
+kubelet plugin's prepare and RPC instruments (each in its own module),
+the mesh-build counter and the control plane's (the sim scheduler's and
+its CEL cache's) below. The metric names are the reference's,
+so one dashboard reads both. The reference's metric catalog comes with
+the slice that uses it.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
 
@@ -245,3 +247,80 @@ PSUM_BW = DefaultRegistry.histogram(
     "launch_workload('allreduce') caller)",
     buckets=(0.1, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 200.0,
              400.0, 800.0))
+
+
+class Timer:
+    """Context manager observing elapsed seconds into a Histogram."""
+
+    def __init__(self, hist: "Histogram"):
+        self._hist = hist
+
+    def __enter__(self):
+        self._t0 = time.monotonic()
+        return self
+
+    def __exit__(self, *exc):
+        self._hist.observe(time.monotonic() - self._t0)
+
+
+# ---------------------------------------------------------------------------
+# Control plane (the sim scheduler and its CEL compile cache): defined
+# here because two layers share them (simcluster.cel compiles,
+# simcluster.scheduler evaluates and resyncs).
+# ---------------------------------------------------------------------------
+
+CEL_CACHE_HITS = DefaultRegistry.counter(
+    "tpu_dra_cel_cache_hits",
+    "CEL compile-cache lookups that found a cached program")
+CEL_CACHE_MISSES = DefaultRegistry.counter(
+    "tpu_dra_cel_cache_misses",
+    "CEL compile-cache lookups that found nothing (a compile follows)")
+CEL_COMPILES = DefaultRegistry.counter(
+    "tpu_dra_cel_compiles",
+    "CEL expressions actually tokenized+parsed; steady state this equals "
+    "the number of DISTINCT selector sources seen")
+SCHED_FULL_RELISTS = DefaultRegistry.counter(
+    "tpu_dra_sched_full_relists",
+    "scheduler-level full rescans: sync-mode reconcile_once calls plus "
+    "dirty-shard resyncs; steady-state event-driven target is 0")
+SCHED_WATCH_EVENTS = DefaultRegistry.counter(
+    "tpu_dra_sched_watch_events",
+    "watch events applied by the scheduler, labeled by resource")
+SCHED_PODS_BOUND = DefaultRegistry.counter(
+    "tpu_dra_sched_pods_bound",
+    "pods bound to a node by the sim scheduler")
+SCHED_CLAIMS_GCED = DefaultRegistry.counter(
+    "tpu_dra_sched_claims_gced",
+    "template-owned ResourceClaims garbage-collected after pod death, "
+    "labeled by path (event|sweep)")
+SCHED_SNAPSHOT_CONFLICTS = DefaultRegistry.counter(
+    "tpu_dra_sched_snapshot_conflicts_total",
+    "optimistic snapshot commits refused because the shard moved "
+    "underneath the scan (or the sched.snapshot_commit fault fired); "
+    "each conflict re-scans against a fresh snapshot, bounded before "
+    "backoff-requeue")
+SCHED_SHARD_RESYNCS = DefaultRegistry.counter(
+    "tpu_dra_sched_shard_resyncs_total",
+    "allocation-index shards rebuilt by the guarded resync fallback")
+SCHED_EVICTIONS = DefaultRegistry.counter(
+    "tpu_dra_sched_evictions_total",
+    "claims evicted because an allocated device disappeared from the "
+    "published inventory (GPU yanked by the health pipeline, node lost), "
+    "labeled by reason (device_lost|node_lost)")
+TOPO_ALLOCS = DefaultRegistry.counter(
+    "tpu_dra_topo_allocations",
+    "multi-GPU device picks, labeled by outcome: contiguous (topology-"
+    "scored block), fallback (node publishes no usable topology -> "
+    "first-fit), unplaceable (no contiguous block fits the free set; "
+    "the claim waits)")
+TOPO_SCORE_SECONDS = DefaultRegistry.histogram(
+    "tpu_dra_topo_score_seconds",
+    "wall seconds spent on the topology path per multi-GPU pick: "
+    "placement scan+score plus the free-block fragmentation observe",
+    buckets=(0.00005, 0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005,
+             0.01, 0.025, 0.05, 0.1, 0.5))
+TOPO_FREE_CUBOID = DefaultRegistry.histogram(
+    "tpu_dra_topo_free_cuboid_chips",
+    "largest free block (GPUs) remaining on the node after each "
+    "topology-scored placement — the fragmentation observable",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256))

@@ -150,6 +150,9 @@ class WorkItem:
     obj: Any
     callback: Callable[[Any], None]
     item_id: int = field(default_factory=itertools.count().__next__)
+    # Counted in WorkQueue._queued_keys while it waits (a first enqueue
+    # with a key; never a failure's retry).
+    counted: bool = False
 
 
 class WorkQueue:
@@ -168,23 +171,35 @@ class WorkQueue:
         self._seq = itertools.count()
         self._cond = threading.Condition(threading.Lock())
         self._active_ops: Dict[str, WorkItem] = {}
+        # key -> items of that key waiting in the heap (dedupe=True).
+        self._queued_keys: Dict[str, int] = {}
         self._shutdown = False
 
     # -- producers ----------------------------------------------------------
 
     def enqueue(self, obj: Any, callback: Callable[[Any], None],
-                key: str = "", after: Optional[float] = None) -> None:
+                key: str = "", after: Optional[float] = None,
+                dedupe: bool = False) -> None:
         """after: explicit delay in seconds, overriding the rate limiter —
         for time-based re-evaluation (settle windows) rather than failure
-        backoff."""
+        backoff.
+
+        dedupe=True: a key already waiting in the queue absorbs the
+        enqueue (the waiting item sees the latest state when it runs);
+        a key being processed enqueues normally, so a change racing the
+        reconcile is never lost."""
         if _FLIGHTREC.enabled:
             # Queue events are flight-recorder evidence: a wedge dump
             # shows what was queued when. Recorded outside _cond.
             _FLIGHTREC.record_wq("?", "add", key)
         with self._cond:
+            if dedupe and key and self._queued_keys.get(key, 0) > 0:
+                return
             item = WorkItem(key=key, obj=obj, callback=callback)
             if key:
                 self._active_ops[key] = item
+                item.counted = True
+                self._queued_keys[key] = self._queued_keys.get(key, 0) + 1
             self._push_locked(item, after=after)
             self._cond.notify()
 
@@ -220,7 +235,13 @@ class WorkQueue:
                     return None
                 now = time.monotonic()
                 if self._heap and self._heap[0][0] <= now:
-                    return heapq.heappop(self._heap)[2]
+                    item = heapq.heappop(self._heap)[2]
+                    if item.counted:
+                        item.counted = False
+                        n = self._queued_keys.pop(item.key) - 1
+                        if n:
+                            self._queued_keys[item.key] = n
+                    return item
                 if self._heap:
                     self._cond.wait(timeout=min(self._heap[0][0] - now, 0.5))
                 else:

@@ -29,7 +29,7 @@ import asyncio
 import struct
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Set
 
 from tpu_dra_torch.infra.metrics import DefaultRegistry
 
@@ -131,19 +131,30 @@ class FramedRpcServer:
         self._dispatch = dispatch
         self._pool = pool
         self._server: Optional[asyncio.AbstractServer] = None
+        # Open client connections (loop thread only).
+        self._writers: Set[asyncio.StreamWriter] = set()
 
     async def start(self) -> None:
         self._server = await asyncio.start_unix_server(
             self._serve_conn, path=self.path)
 
     async def stop(self) -> None:
+        """Stop listening and close every client connection: since
+        Python 3.12 wait_closed() waits for the connections too, and an
+        idle client (one between RPCs, or a kubelet that keeps its
+        connection) would hold a restart until the caller's timeout. The
+        driver drains in-flight RPCs before it stops the server; a
+        client that finds its connection closed redials."""
         if self._server is not None:
             self._server.close()
+            for writer in list(self._writers):
+                writer.close()
             await self._server.wait_closed()
 
     async def _serve_conn(self, reader: asyncio.StreamReader,
                           writer: asyncio.StreamWriter) -> None:
         loop = asyncio.get_running_loop()
+        self._writers.add(writer)
         try:
             while True:
                 header = await reader.readexactly(FRAME_HEADER.size)
@@ -180,6 +191,7 @@ class FramedRpcServer:
             pass  # drflow: swallow-ok[client closed the connection —
             # the disconnect IS the protocol's end-of-stream]
         finally:
+            self._writers.discard(writer)
             writer.close()
 
 

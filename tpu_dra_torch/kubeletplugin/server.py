@@ -19,9 +19,10 @@ gRPC leg. A server built with ``kubelet_grpc=False`` serves the framed
 socket alone and never imports it; one built with ``kubelet_grpc=True``
 (the default) refuses to start without it, naming the failed import.
 
-Not copied: ``RetryingFramedClient``, the client that masks a plugin
-hot restart, and its reconnect counter. They come with the hot-restart
-slice.
+``RetryingFramedClient`` is the framed client that masks a plugin hot
+restart (the drain refusal, the socket gap and the connect refusal are
+retried against a fresh connection), counted on
+``tpu_dra_rpc_reconnects_total``.
 """
 
 from __future__ import annotations
@@ -35,6 +36,8 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
 
+from tpu_dra_torch.infra.faults import FAULTS, FaultInjected
+from tpu_dra_torch.infra.metrics import DefaultRegistry
 from tpu_dra_torch.k8s import ApiClient, RESOURCESLICES
 from tpu_dra_torch.k8s.client import NotFoundError
 from tpu_dra_torch.kubeletplugin import aio_server, wire
@@ -392,6 +395,96 @@ def framed_stubs(fast_socket: str, timeout_s: float = 30.0):
     ``client.close()`` when done."""
     client = FramedClient(fast_socket, timeout_s=timeout_s)
     return client, client.prepare, client.unprepare
+
+
+RPC_RECONNECTS = DefaultRegistry.counter(
+    "tpu_dra_rpc_reconnects_total",
+    "framed-RPC client reconnect attempts while masking a plugin "
+    "restart (each one is a socket gap the retry loop absorbed instead "
+    "of failing the RPC)")
+
+
+# RetryingFramedClient's backoff doubles from `backoff_s` up to this.
+MAX_BACKOFF_S = 1.0
+
+
+class RetryingFramedClient:
+    """FramedClient wrapper that masks a plugin hot restart.
+
+    During the restart window a caller sees three failure shapes: a
+    ``PipelineDraining`` refusal surfaced as a framed METHOD_ERROR (the
+    old incarnation stopping admission), a socket error (socket unlinked
+    or connection reset between incarnations), or a connect refusal (the
+    new incarnation not listening yet). All three are retried against a
+    fresh connection with exponential backoff, bounded by a wall-clock
+    deadline: the zero-failed-RPC half of the hot-restart contract. Safe
+    because prepare and unprepare are idempotent on the server (the
+    checkpoint journal replays or dedupes a batch committed just before
+    the cut). Each redial checks the ``prepare.reconnect`` fault site;
+    a fired fault takes the same backoff as a refused dial.
+
+    Like FramedClient: NOT thread-safe, one per worker thread."""
+
+    def __init__(self, fast_socket: str, timeout_s: float = 30.0,
+                 max_elapsed_s: float = 30.0, backoff_s: float = 0.05):
+        self._fast_socket = fast_socket
+        self._timeout_s = timeout_s
+        self._max_elapsed_s = max_elapsed_s
+        self._backoff_s = backoff_s
+        self._client: Optional[FramedClient] = None
+        self.reconnects = 0
+
+    def _ensure(self) -> FramedClient:
+        if self._client is None:
+            FAULTS.check("prepare.reconnect", socket=self._fast_socket)
+            self._client = FramedClient(self._fast_socket,
+                                        timeout_s=self._timeout_s)
+        return self._client
+
+    @staticmethod
+    def _retryable(e: Exception) -> bool:
+        if isinstance(e, (OSError, FaultInjected)):
+            return True
+        # METHOD_ERROR carries the server exception's text: only the
+        # draining refusal is a restart-window artifact; any other
+        # server error is a real failure the caller must see.
+        return isinstance(e, FramedRpcError) and "draining" in str(e)
+
+    def _reconnect_backoff(self, delay: float) -> None:
+        if self._client is not None:
+            self._client.close()
+            self._client = None
+        self.reconnects += 1
+        RPC_RECONNECTS.inc()
+        time.sleep(delay)
+
+    def _call(self, fn_name: str, *args):
+        deadline = time.monotonic() + self._max_elapsed_s
+        delay = self._backoff_s
+        while True:
+            try:
+                return getattr(self._ensure(), fn_name)(*args)
+            except (FramedRpcError, FaultInjected, OSError) as e:
+                if not self._retryable(e) or time.monotonic() >= deadline:
+                    raise
+                self._reconnect_backoff(delay)
+                delay = min(delay * 2.0, MAX_BACKOFF_S)
+
+    def prepare(self, request: wire.NodePrepareResourcesRequest
+                ) -> wire.NodePrepareResourcesResponse:
+        return self._call("prepare", request)
+
+    def unprepare(self, request: wire.NodeUnprepareResourcesRequest
+                  ) -> wire.NodeUnprepareResourcesResponse:
+        return self._call("unprepare", request)
+
+    def ping(self) -> bool:
+        return self._call("ping")
+
+    def close(self) -> None:
+        if self._client is not None:
+            self._client.close()
+            self._client = None
 
 
 class DRAPluginServer:

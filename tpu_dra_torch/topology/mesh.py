@@ -56,6 +56,11 @@ class NvlinkFabric:
 
     dims: Tuple[int, int, int]
 
+    @property
+    def wrap(self) -> Tuple[bool, bool, bool]:
+        """No axis wraps: the switch has no ring to close."""
+        return (False, False, False)
+
     def all_coords(self) -> List[Coord]:
         return [(x, y, z)
                 for x in range(self.dims[0])
