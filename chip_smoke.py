@@ -157,6 +157,22 @@ Phases, each printing one JSON line ({"phase": ...}):
                   RPCs, 0 leaked claims, a reconnect per restart or more;
                   drain seconds, the RPCs' p50/p99 and the phase's
                   seconds (hot_restart);
+   ops          — the ops benches on the host (tpu_dra_torch.bench
+                  .ops_benches), one line each with its phase_s and the
+                  host's cpu_count: the MIG and MPS claim-to-ready on a
+                  fake inventory (ops_fake_inventory: no section failed,
+                  both keys present), sustained prepare/unprepare for
+                  OPS_SUSTAINED_S (ops_prepare_sustained: 0 RPC errors, 0
+                  leaked claims, a pipeline in-flight peak of at most
+                  OPS_INFLIGHT_MAX), scheduler churn (ops_sched_churn: 0
+                  full relists, CEL compiles <= distinct expressions, no
+                  leaked claim), topology (ops_topology: contiguity 1.0,
+                  nothing unplaced), failover (ops_sched_failover: p50
+                  <= OPS_FAILOVER_P50_GATE_MS) and the tracer's cost
+                  (ops_trace_overhead); rates, p99s and the coalescing
+                  ratio are read, not gated (the reference scales those
+                  gates to the host's cores); then the phase's seconds
+                  (ops);
 8. main         — the flagship TransformerLM train step through
                   tpu_dra_torch.bench.bench_mfu, with the kernels' launch
                   counts zeroed just before and read just after: every
@@ -300,6 +316,10 @@ HOT_RESTART_WORKERS = 4
 HOT_RESTART_S = 6.0
 HOT_RESTARTS = 2
 # Timed steps of mesh_workloads' "train" (after one warm step).
+# The ops phase: hack/perf.sh's own sustained duration and invariants.
+OPS_SUSTAINED_S = 25.0
+OPS_INFLIGHT_MAX = 16             # the pipeline's admission window
+OPS_FAILOVER_P50_GATE_MS = 2000.0
 MESH_TRAIN_STEPS = 3
 # Ranks of the ring emulated by ring_local.
 RING_N = 4
@@ -1561,6 +1581,63 @@ def phase_hot_restart() -> dict:
     return res
 
 
+def _check_ops(name: str, rec: dict) -> None:
+    """The invariants hack/perf.sh holds each ops bench to."""
+    if name == "fake_inventory":
+        errors = {k: v for k, v in rec.items() if k.endswith("_error")}
+        check(not errors, f"fake inventory: sections failed: {errors}")
+        for key in ("claim_to_ready_p50_subslice_fake_h100_ms",
+                    "claim_to_ready_p50_multiprocess_ms"):
+            check(rec.get(key) is not None, f"fake inventory: {key} is null")
+    elif name == "prepare_sustained":
+        check(rec["prepare_sustained_errors"] == 0,
+              f"sustained: {rec['prepare_sustained_errors']} RPC errors "
+              f"({rec.get('prepare_sustained_first_error')})")
+        check(rec["prepare_sustained_leaked_claims"] == 0,
+              f"sustained: {rec['prepare_sustained_leaked_claims']} claims "
+              "leaked")
+        check(rec["prepare_sustained_pipeline_inflight_peak"]
+              <= OPS_INFLIGHT_MAX,
+              f"sustained: pipeline in-flight peak "
+              f"{rec['prepare_sustained_pipeline_inflight_peak']} > "
+              f"{OPS_INFLIGHT_MAX}")
+    elif name == "sched_churn":
+        check(rec["sched_full_relists"] == 0,
+              f"churn: {rec['sched_full_relists']} full relists")
+        check(rec["sched_cel_compiles"] <= rec["sched_cel_distinct_exprs"],
+              f"churn: {rec['sched_cel_compiles']} CEL compiles for "
+              f"{rec['sched_cel_distinct_exprs']} expressions")
+        check("sched_churn_gc_leak" not in rec,
+              f"churn: {rec.get('sched_churn_gc_leak')} claims leaked")
+    elif name == "topology":
+        check(rec["topo_contiguity_ratio"] == 1.0,
+              f"topology: contiguity {rec['topo_contiguity_ratio']}")
+        check(rec["topo_unplaced_pods"] == 0,
+              f"topology: {rec['topo_unplaced_pods']} pods unplaced")
+    elif name == "sched_failover":
+        check(rec["sched_failover_to_alloc_p50_ms"]
+              <= OPS_FAILOVER_P50_GATE_MS,
+              f"failover p50 {rec['sched_failover_to_alloc_p50_ms']} ms > "
+              f"{OPS_FAILOVER_P50_GATE_MS}")
+
+
+def phase_ops() -> dict:
+    """tpu_dra_torch.bench.ops_benches on this host (no GPU): each
+    bench's record, checked by _check_ops, on a line of its own."""
+    from tpu_dra_torch import bench
+    from tpu_dra_torch.native import gpuinfo
+
+    t_phase = time.perf_counter()
+    res = {}
+    for name, rec in bench.ops_benches(sustained_s=OPS_SUSTAINED_S):
+        emit(f"ops_{name}", **rec)
+        _check_ops(name, rec)
+        res[name] = rec
+    emit("ops", benches=list(res), phase_s=time.perf_counter() - t_phase,
+         nvidia_smi=gpuinfo.nvidia_smi())
+    return res
+
+
 def claim_child(argv) -> int:
     """The claim child (claim_path, compute_domain, shared_claim, mps
     and mig):
@@ -2135,6 +2212,7 @@ def main() -> int:
     phase_compute_domain()
     phase_cluster(claim["claim_path"]["child"])
     phase_hot_restart()
+    phase_ops()
     _, counts = phase_main_path()
     _free()
     counts_xl, xl_none = phase_long_context()

@@ -131,6 +131,16 @@ def _named(tree):
     return out
 
 
+def test_rate_record_keeps_a_toy_rate_above_zero():
+    """The toy MoE step does 65,536 FLOPs; on a loaded host its wall time
+    passes 0.131 s, where a rate rounded to 3 decimals of GFLOP/s reads
+    0.0 and the record above would claim no work was done."""
+    rec = mb._rate_record(0.2, 65_536.0)
+    assert rec["gflops_per_s"] > 0
+    assert rec["gflops_per_s"] == pytest.approx(65_536.0 / 0.2 / 1e9,
+                                                rel=1e-12)
+
+
 def test_train_runs_on_every_device_of_the_plan(pool, envs):
     """The repair of "train": a 4-GPU claim trains on all four ranks as
     the DP x TP step over a (2, 2) grid, each rank on its own 'data'

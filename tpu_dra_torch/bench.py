@@ -15,6 +15,9 @@ bench_cd_convergence times a two-node ComputeDomain from creation to both
 channel claims prepared (host time, the controller, CD plugins and native
 domain daemons over the fake API server); bench_cd_gpus runs the node's
 GPUs as the ranks of a two-node domain.
+The ops benches (bench_fake_inventory_configs, bench_prepare_sustained,
+bench_sched_churn, bench_topology, bench_sched_failover,
+bench_trace_overhead) read the control plane on the host's clock.
 
     python -m tpu_dra_torch.bench
     # one JSON line each: shared_claim and mps (one claim, two flagship
@@ -31,6 +34,11 @@ GPUs as the ranks of a two-node domain.
     # ComputeDomain, one NCCL rank per GPU meeting at the domain's
     # MASTER_ADDR: the all-reduce's sum, the all-reduce and the flagship
     # DP x TP step (bench_cd_gpus)
+    python -m tpu_dra_torch.bench ops
+    # one JSON line each, on the host alone (no GPU needed): the MIG and
+    # MPS claim-to-ready on a fake inventory (fake_inventory), sustained
+    # prepare/unprepare (prepare_sustained), scheduler churn, topology
+    # and failover on fake GPU nodes, the tracer's cost (ops_benches)
     python -m tpu_dra_torch.bench claim-child [--steps N] [--wait-go] ...
     # one tenant of the claim whose CDI env is this process's environment
 """
@@ -560,28 +568,34 @@ class _BenchDriver:
     handler and checkpoint journal over a FakeCluster) plus a
     kubelet-acting client on the framed socket, and on the gRPC socket
     where ``grpc`` imports. Everything lives in a fresh directory under
-    `scratch` (the process's temporary directory by default). With
-    `mps_binary` (the argv of ``nvidia-cuda-mps-control`` or a stand-in)
-    the state has an MpsManager, and an MpsNodeSim plays kubelet for its
-    daemon Deployments; their directories sit under a short temporary
-    path, since the daemon's pipe sockets must fit in 107 bytes."""
+    `scratch` (the process's temporary directory by default); `cluster`
+    is the FakeCluster to publish into (a fresh one by default). With `mps_binary` (the argv of
+    ``nvidia-cuda-mps-control`` or a stand-in) the state has an
+    MpsManager, and an MpsNodeSim plays kubelet for its daemon
+    Deployments; their directories sit under a short temporary path,
+    since the daemon's pipe sockets must fit in 107 bytes. With
+    `multiprocess` alone the state has the MpsManager and no node sim:
+    the caller's cluster makes the daemon Deployments ready (the
+    reference's multiprocess bench driver)."""
 
-    def __init__(self, backend, scratch=None, mps_binary=None):
+    def __init__(self, backend, scratch=None, mps_binary=None,
+                 cluster=None, multiprocess=False):
         from tpu_dra_torch.gpuplugin.sharing import MpsManager
         from tpu_dra_torch.k8s import FakeCluster
         from tpu_dra_torch.testing import MpsNodeSim
 
         self.backend = backend
-        self.cluster = FakeCluster()
+        self.cluster = cluster if cluster is not None else FakeCluster()
         self.tmp = tempfile.mkdtemp(prefix="ctr-", dir=scratch)
         self.cdi_dir = os.path.join(self.tmp, "cdi")
         self.mps_root = self.mps_sim = self._mps_manager = None
-        if mps_binary is not None:
+        if mps_binary is not None or multiprocess:
             self.mps_root = tempfile.mkdtemp(prefix="mps-")
             self._mps_manager = MpsManager(backend, self.cluster,
                                            node_name=BENCH_NODE,
                                            namespace=MPS_NAMESPACE,
                                            root_dir=self.mps_root)
+        if mps_binary is not None:
             self.mps_sim = MpsNodeSim(self.cluster, MPS_NAMESPACE,
                                       binary=mps_binary).start()
         self.grpc_unavailable = grpc_unavailable()
@@ -771,6 +785,7 @@ class _BenchDriver:
         self.driver.shutdown()
         if self.mps_sim is not None:
             self.mps_sim.stop()
+        if self.mps_root is not None:
             shutil.rmtree(self.mps_root, ignore_errors=True)
         shutil.rmtree(self.tmp, ignore_errors=True)
 
@@ -1035,6 +1050,789 @@ def bench_hot_restart(backend, duration_s: float = 12.0,
     if errors:
         out["hot_restart_first_error"] = errors[0]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Ops benches: the node driver on a fake inventory and under load, the
+# scheduler's churn, topology and failover on fake GPU nodes, the tracer
+# ---------------------------------------------------------------------------
+
+def bench_fake_inventory_configs(n_cycles: int = 30,
+                                 warmup: int = 5) -> dict:
+    """BASELINE.json's MIG and MPS claim-to-ready configs, measured on a
+    fake inventory whatever the host (counterpart of
+    bench_fake_v5p_configs): the card's host has MIG off and refuses the
+    compute mode MPS needs, so the node driver's own prepare of these
+    configs is read on FakeBackend GPUs, beside a one-GPU p50 and a
+    4-claim batch on the same driver and a 64-claim batch on a 64-GPU
+    inventory. Each section is isolated: a failing one reports its
+    ``*_error`` key and the others still report.
+
+    - MIG (the reference's subslice): 4 fake H100s, GPU 0 in MIG mode;
+      a claim of the first MIG device ``state.allocatable`` lists, its
+      instance created and destroyed each cycle (as bench_claim_to_ready
+      picks it).
+    - MPS (the reference's multiprocess): a GpuConfig with the MPS
+      strategy. Prepare blocks on the claim's control-daemon Deployment;
+      a reactor marks the Deployment ready at create (a healthy kubelet
+      minus the pod's start), and ``MpsControlDaemon.assert_ready`` reads
+      only that field, so the number isolates the driver's prepare. The
+      ``sharing`` phase's median is reported beside it.
+
+    Key names are the reference's with ``fake_v5p`` read as
+    ``fake_h100`` and ``subslice`` standing for MIG; "chip" in a key
+    counts GPUs."""
+    from tpu_dra_torch.api.types import API_VERSION, GPU_DRIVER_NAME
+    from tpu_dra_torch.infra import featuregates
+    from tpu_dra_torch.k8s import DEPLOYMENTS, FakeCluster
+
+    cluster = FakeCluster()
+
+    def make_ready(verb, gvr, obj):
+        if verb == "create" and gvr.key == DEPLOYMENTS.key and obj:
+            obj.setdefault("status", {})["readyReplicas"] = 1
+        return obj
+
+    cluster.reactors.append(make_ready)
+    bd = bd64 = None
+    out: dict = {}
+    gates_before = featuregates.Features.overrides_snapshot()
+    try:
+        gpus = gpuinfo.default_fake_gpus(4, clique_id="bench")
+        gpus[0] = dataclasses.replace(gpus[0], mig_mode=True)
+        bd = _BenchDriver(gpuinfo.FakeBackend(gpus), cluster=cluster,
+                          multiprocess=True)
+        try:
+            mig = sorted(name for name, dev in bd.state.allocatable.items()
+                         if dev.mig is not None)[:1]
+            for i in range(warmup):
+                bd.cycle(f"warm-{i}", devices=mig)
+            out["claim_to_ready_p50_subslice_fake_h100_ms"] = \
+                bd.config_p50("mig", n_cycles, devices=mig)
+        except Exception as e:  # noqa: BLE001 — isolate the section
+            out["fake_h100_subslice_error"] = str(e)
+
+        try:
+            featuregates.Features.set_from_string("MultiprocessSupport=true")
+            mps_cfg = [{"source": "FromClaim", "requests": [], "opaque": {
+                "driver": GPU_DRIVER_NAME, "parameters": {
+                    "apiVersion": API_VERSION, "kind": "GpuConfig",
+                    "sharing": {"strategy": "MPS", "mpsConfig": {
+                        "defaultActiveThreadPercentage": 50,
+                        "defaultPinnedDeviceMemoryLimit": "8Gi"}},
+                }}}]
+            mps_breakdown: dict = {}
+            bd.cycle("mps-warm", configs=mps_cfg)
+            mps_lats = [bd.cycle(f"mps-{i}", configs=mps_cfg,
+                                 breakdown=mps_breakdown)
+                        for i in range(n_cycles)]
+            out["claim_to_ready_p50_multiprocess_ms"] = \
+                statistics.median(mps_lats)
+            # The Deployment interaction's share (create + assert_ready
+            # against the instant-ready fake): the driver-only MPS
+            # number is the p50 minus this.
+            out["multiprocess_sharing_phase_ms"] = statistics.median(
+                mps_breakdown.get("sharing", [0.0]))
+        except Exception as e:  # noqa: BLE001 — isolate the section
+            out["fake_h100_multiprocess_error"] = str(e)
+
+        try:
+            # A GPU out of MIG mode (the reference: its chip 0).
+            out["claim_to_ready_p50_1chip_fake_h100_ms"] = bd.config_p50(
+                "one", n_cycles, devices=[f"gpu-{bd.gpus[-1]}"])
+            batch_breakdown: dict = {}
+            bd.batch_cycle("bwarm", 4)
+            out["claim_to_ready_p50_batch_per_claim_fake_h100_ms"] = \
+                statistics.median(
+                    bd.batch_cycle(f"b{i}", 4, breakdown=batch_breakdown)
+                    for i in range(n_cycles))
+            out["claim_to_ready_batch_claims_fake_h100"] = 4
+            for k, vals in sorted(batch_breakdown.items()):
+                if k != "n_claims":
+                    out[f"prepare_batch_breakdown_{k}_fake_h100_ms"] = \
+                        statistics.median(vals)
+        except Exception as e:  # noqa: BLE001 — isolate the section
+            out["fake_h100_batch_error"] = str(e)
+
+        # One NodePrepareResources RPC carrying 64 exclusive one-GPU
+        # claims (a node-filling multi-claim pod) on its own driver.
+        try:
+            bd64 = _BenchDriver(gpuinfo.FakeBackend(
+                gpuinfo.default_fake_gpus(64, clique_id="bench64")))
+            bd64.batch_cycle("warm", 64)
+            b64_breakdown: dict = {}
+            out["claim_to_ready_p50_batch64_per_claim_ms"] = \
+                statistics.median(
+                    bd64.batch_cycle(f"b64-{i}", 64, breakdown=b64_breakdown)
+                    for i in range(max(10, n_cycles // 3)))
+            out["claim_to_ready_batch64_claims"] = 64
+            for k, vals in sorted(b64_breakdown.items()):
+                if k != "n_claims":
+                    out[f"prepare_batch64_breakdown_{k}_ms"] = \
+                        statistics.median(vals)
+        except Exception as e:  # noqa: BLE001 — isolate the section
+            out["fake_h100_batch64_error"] = str(e)
+        return out
+    finally:
+        featuregates.Features.restore_overrides(gates_before)
+        for d in (bd, bd64):
+            if d is not None:
+                d.close()
+
+
+def bench_prepare_sustained(duration_s: float = None, workers: int = None,
+                            gpus_per_worker: int = 4) -> dict:
+    """Sustained prepare/unprepare against one node driver (counterpart
+    of bench.py's bench_prepare_sustained): `workers` client threads,
+    each on its own framed connection (``FramedClient``, the ``wire``
+    codec) and its own `gpus_per_worker` GPUs of a fake inventory, drive
+    1/1/1/1/2/4-claim prepare -> unprepare RPCs flat out for
+    `duration_s` seconds: the claim churn an inference fleet puts
+    through a node, where p99 under load is the number. Claims are made
+    once and reused (kubelet's re-admit shape). A 500 Hz sampler reads
+    both in-flight gauges (the front end's and the pipeline's past
+    admission); the journal's appends over its group syncs is the
+    fdatasync coalescing. Defaults: TPU_DRA_BENCH_SUSTAINED_S (45 s) and
+    TPU_DRA_BENCH_SUSTAINED_WORKERS (8). Returns the reference's
+    prepare_sustained_* keys."""
+    from tpu_dra_torch.kubeletplugin import aio_server, wire
+    from tpu_dra_torch.kubeletplugin.pipeline import INFLIGHT_RPCS
+    from tpu_dra_torch.kubeletplugin.server import FramedClient
+
+    duration_s = duration_s if duration_s is not None else float(
+        os.environ.get("TPU_DRA_BENCH_SUSTAINED_S", "45"))
+    workers = workers if workers is not None else int(
+        os.environ.get("TPU_DRA_BENCH_SUSTAINED_WORKERS", "8"))
+    pattern = (1, 1, 1, 1, 2, 4)
+
+    bd = _BenchDriver(gpuinfo.FakeBackend(gpuinfo.default_fake_gpus(
+        workers * gpus_per_worker, clique_id="sustained")))
+    ck = bd.state._ckpt_mgr
+    stop = threading.Event()
+    single_ms: list = []    # one-claim prepare RPCs (claim-to-ready)
+    all_ms: list = []       # every RPC (prepare + unprepare, all sizes)
+    errors: list = []
+    lat_lock = threading.Lock()
+
+    def reqs_for(objs):
+        claims = _BenchDriver._request(objs)
+        return ([o["metadata"]["uid"] for o in objs],
+                wire.NodePrepareResourcesRequest(claims=claims),
+                wire.NodeUnprepareResourcesRequest(claims=claims))
+
+    def failures(resp, uids):
+        return [(resp.claims[u].error if u in resp.claims else "no entry")
+                for u in uids
+                if u not in resp.claims or resp.claims[u].error]
+
+    def worker(w):
+        mine = bd.gpus[w * gpus_per_worker:(w + 1) * gpus_per_worker]
+        objs = [_make_claim(bd.cluster, [g], f"sust-{w}-{g}") for g in mine]
+        work = {1: [reqs_for([o]) for o in objs],
+                2: [reqs_for(objs[:2])],
+                4: [reqs_for(objs[:4])]}
+        my_single, my_all, my_errors = [], [], []
+        client = FramedClient(bd.driver.server.fast_socket)
+        try:
+            i = 0
+            while not stop.is_set():
+                size = pattern[i % len(pattern)]
+                uids, req, ureq = work[size][i % len(work[size])]
+                i += 1
+                t0 = time.perf_counter()
+                resp = client.prepare(req)
+                lat = (time.perf_counter() - t0) * 1e3
+                my_all.append((lat, size))
+                if size == 1:
+                    my_single.append(lat)
+                my_errors.extend(failures(resp, uids))
+                t0 = time.perf_counter()
+                uresp = client.unprepare(ureq)
+                my_all.append(((time.perf_counter() - t0) * 1e3, size))
+                my_errors.extend(failures(uresp, uids))
+        except Exception as e:  # noqa: BLE001 — counted as an error
+            my_errors.append(repr(e))
+        finally:
+            client.close()
+        with lat_lock:
+            single_ms.extend(my_single)
+            all_ms.extend(my_all)
+            errors.extend(my_errors)
+
+    inflight_front: list = []
+    inflight_pipe: list = []
+
+    def sampler():
+        while not stop.wait(0.002):
+            inflight_front.append(aio_server.SUSTAINED_INFLIGHT.value())
+            inflight_pipe.append(INFLIGHT_RPCS.value())
+
+    lag_n0 = aio_server.RPC_LOOP_LAG.count
+    lag_sum0 = aio_server.RPC_LOOP_LAG.total
+    lag_buckets0 = aio_server.RPC_LOOP_LAG.bucket_counts()
+    appends0, syncs0 = ck.journal_appends, ck.journal_group_syncs
+    try:
+        threads = [threading.Thread(target=worker, args=(w,))
+                   for w in range(workers)]
+        sampler_t = threading.Thread(target=sampler, daemon=True)
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        sampler_t.start()
+        time.sleep(duration_s)
+        stop.set()
+        for t in threads:
+            t.join(60)
+        wall_s = time.perf_counter() - t0
+        sampler_t.join(2)
+        leaked = bd.state.prepared_claim_uids()
+    finally:
+        stop.set()
+        bd.close()
+
+    appends = ck.journal_appends - appends0
+    syncs = ck.journal_group_syncs - syncs0
+    lag_n = aio_server.RPC_LOOP_LAG.count - lag_n0
+    lag_sum = aio_server.RPC_LOOP_LAG.total - lag_sum0
+    lats = sorted(lat for lat, _ in all_ms)
+    single = sorted(single_ms)
+    claims_done = sum(size for _, size in all_ms) // 2  # prepare+unprepare
+    depth8 = (sum(1 for v in inflight_front if v >= 8)
+              / len(inflight_front)) if inflight_front else 0.0
+    out = {
+        "prepare_sustained_duration_s": wall_s,
+        "prepare_sustained_workers": workers,
+        "prepare_sustained_batch_mix": ",".join(map(str, pattern)),
+        "prepare_sustained_rpcs": len(lats),
+        "prepare_sustained_rpcs_per_s": len(lats) / wall_s,
+        "prepare_sustained_claims_per_s": claims_done / wall_s,
+        "prepare_sustained_p50_ms": (statistics.median(lats)
+                                     if lats else None),
+        "prepare_sustained_p99_ms": _pctl(lats, 0.99) if lats else None,
+        "prepare_sustained_single_p50_ms": (statistics.median(single)
+                                            if single else None),
+        "prepare_sustained_single_p99_ms": (_pctl(single, 0.99)
+                                            if single else None),
+        "prepare_sustained_errors": len(errors),
+        "prepare_sustained_leaked_claims": len(leaked),
+        "prepare_sustained_inflight_peak": int(max(inflight_front,
+                                                   default=0)),
+        "prepare_sustained_inflight_mean": (
+            statistics.mean(inflight_front) if inflight_front else None),
+        "prepare_sustained_pipeline_inflight_peak": int(
+            max(inflight_pipe, default=0)),
+        "prepare_sustained_depth8_pct": 100.0 * depth8,
+        "prepare_sustained_journal_appends": int(appends),
+        "prepare_sustained_journal_group_syncs": int(syncs),
+        "prepare_sustained_coalesce_ratio": (appends / syncs
+                                             if syncs else None),
+        "prepare_sustained_loop_lag_mean_ms": (lag_sum / lag_n * 1e3
+                                               if lag_n else None),
+        # Phase-scoped: other drivers of this process tick the same
+        # histogram while idle.
+        "prepare_sustained_loop_lag_p99_ms": 1e3 * (
+            aio_server.RPC_LOOP_LAG.percentile_since(lag_buckets0, 0.99)),
+    }
+    if errors:
+        out["prepare_sustained_first_error"] = errors[0]
+    return out
+
+
+def _start_bind_watcher(cluster, stop):
+    """Background watcher pushing (pod_name, t_bound) for every pod seen
+    gaining spec.nodeName (shared by bench_sched_churn and
+    bench_topology, so the binding rule cannot drift). The watch
+    registers on the thread's first next(), so it can miss the very
+    first bind: callers that fail on a missed event consult the
+    cluster on a queue timeout."""
+    import queue as queue_mod
+
+    from tpu_dra_torch.k8s import PODS
+
+    bound_q: "queue_mod.Queue" = queue_mod.Queue()
+    seen = set()
+
+    def watch_bindings():
+        for ev, obj in cluster.watch(PODS, namespace="default", stop=stop):
+            if ev in ("ADDED", "MODIFIED") and obj["spec"].get("nodeName"):
+                name = obj["metadata"]["name"]
+                if name not in seen:
+                    seen.add(name)
+                    bound_q.put((name, time.perf_counter()))
+
+    watcher = threading.Thread(target=watch_bindings, daemon=True)
+    watcher.start()
+    return bound_q, watcher
+
+
+def bench_sched_churn(n_nodes: int = None, n_pods: int = None,
+                      gpus_per_node: int = 4, window: int = None,
+                      workers: int = None) -> dict:
+    """Control-plane churn (counterpart of bench.py's bench_sched_churn):
+    `n_nodes` fake GPU nodes publishing ResourceSlices, `n_pods` pod
+    lifecycles (create -> template claim -> allocate -> bind -> delete
+    -> claim GC) through the event-driven Scheduler, `window` lifecycles
+    in flight. Defaults: TPU_DRA_BENCH_SCHED_NODES (100) and
+    TPU_DRA_BENCH_SCHED_PODS (500), 4 GPUs a node, a window of 64.
+    Reports pod create -> bound p50/p95, throughput, the scheduler's full
+    relists (0 in steady state), the CEL compiles against the distinct
+    selector sources (the compile cache: compiles <= distinct), and
+    ``sched_churn_gc_leak`` where a claim outlives its pod.
+
+    The port's scheduler runs one queue worker (its WorkQueue has no
+    per-key serialization, which a pool needs): ``sched_workers`` reads
+    1, and a `workers` other than 1 is ignored with a warning.
+    ``sched_churn_chips_per_node`` keeps the reference's name and counts
+    GPUs."""
+    import queue as queue_mod
+
+    from tpu_dra_torch.infra.metrics import (
+        CEL_CACHE_HITS, CEL_CACHE_MISSES, CEL_COMPILES, SCHED_FULL_RELISTS,
+        SCHED_SHARD_RESYNCS, SCHED_SNAPSHOT_CONFLICTS,
+    )
+    from tpu_dra_torch.k8s import PODS, RESOURCECLAIMS, FakeCluster
+    from tpu_dra_torch.simcluster.scheduler import Scheduler
+    from tpu_dra_torch.testing import (
+        DEFAULT_SCHED_SELECTOR, make_sched_pod, seed_sched_inventory,
+    )
+
+    if workers not in (None, 1):
+        log.warning("bench_sched_churn: the port's scheduler runs one "
+                    "worker; workers=%s ignored", workers)
+    n_nodes = n_nodes if n_nodes is not None else int(
+        os.environ.get("TPU_DRA_BENCH_SCHED_NODES", "100"))
+    n_pods = n_pods if n_pods is not None else int(
+        os.environ.get("TPU_DRA_BENCH_SCHED_PODS", "500"))
+    cluster = FakeCluster()
+    # Two selector expressions, so the CEL cache sees a conjunction per
+    # allocation; each must compile once across the whole churn.
+    exprs = [DEFAULT_SCHED_SELECTOR,
+             'device.attributes["gpu.dev"].architecture == "hopper"']
+    seed_sched_inventory(cluster, nodes=n_nodes, gpus_per_node=gpus_per_node,
+                         node_fmt="n{i:03d}", selector_exprs=exprs)
+    capacity = n_nodes * gpus_per_node
+    window = min(window or 64, max(1, capacity // 2), n_pods)
+
+    relists0 = SCHED_FULL_RELISTS.value()
+    conflicts0 = SCHED_SNAPSHOT_CONFLICTS.value()
+    resyncs0 = SCHED_SHARD_RESYNCS.value()
+    compiles0 = CEL_COMPILES.value()
+    hits0, misses0 = CEL_CACHE_HITS.value(), CEL_CACHE_MISSES.value()
+
+    # The sweep is pushed past the bench's horizon: the claim-GC drain
+    # below must prove the event path, not the periodic safety net.
+    sched = Scheduler(cluster, resync_interval=2.0, gc_sweep_interval=3600.0)
+    sched.start()
+    stop = threading.Event()
+    bound_q, _watcher = _start_bind_watcher(cluster, stop)
+    t_created: dict = {}
+    lat_ms = []
+
+    def make_pod(i):
+        name = f"churn-{i:05d}"
+        t_created[name] = time.perf_counter()
+        make_sched_pod(cluster, name)
+
+    try:
+        t0 = time.perf_counter()
+        created = 0
+        for _ in range(window):
+            make_pod(created)
+            created += 1
+        done = 0
+        while done < n_pods:
+            try:
+                name, t_bound = bound_q.get(timeout=60)
+            except queue_mod.Empty:
+                raise RuntimeError(
+                    f"churn: no pod bound in 60 s ({done} of {n_pods} done)")
+            lat_ms.append((t_bound - t_created.pop(name)) * 1e3)
+            done += 1
+            cluster.delete(PODS, name, "default")  # frees its GPUs
+            if created < n_pods:
+                make_pod(created)
+                created += 1
+        wall_s = time.perf_counter() - t0
+        # Drain: every template claim is GCed from its pod's delete event.
+        gc_ok = cluster.wait_for(
+            lambda: not cluster.list(RESOURCECLAIMS, namespace="default"),
+            timeout=15)
+    finally:
+        stop.set()
+        sched.stop()
+
+    lat_ms.sort()
+    hits = CEL_CACHE_HITS.value() - hits0
+    misses = CEL_CACHE_MISSES.value() - misses0
+    out = {
+        "sched_pod_to_allocated_p50_ms": statistics.median(lat_ms),
+        "sched_pod_to_allocated_p95_ms": _pctl(lat_ms, 0.95),
+        "sched_throughput_pods_per_s": n_pods / wall_s,
+        "sched_full_relists": int(SCHED_FULL_RELISTS.value() - relists0),
+        "sched_churn_nodes": n_nodes,
+        "sched_churn_pods": n_pods,
+        "sched_churn_chips_per_node": gpus_per_node,
+        "sched_churn_window": window,
+        "sched_workers": 1,
+        "sched_index_shards": sched._index.n_shards,
+        "sched_snapshot_conflicts": int(
+            SCHED_SNAPSHOT_CONFLICTS.value() - conflicts0),
+        "sched_shard_resyncs": int(SCHED_SHARD_RESYNCS.value() - resyncs0),
+        "sched_cel_compiles": int(CEL_COMPILES.value() - compiles0),
+        "sched_cel_distinct_exprs": len(set(exprs)),
+        "sched_cel_cache_hit_pct": (100.0 * hits / (hits + misses)
+                                    if hits + misses else None),
+    }
+    if not gc_ok:
+        out["sched_churn_gc_leak"] = len(
+            cluster.list(RESOURCECLAIMS, namespace="default"))
+    return out
+
+
+TOPO_NODES = 8          # HGX H100 nodes of the topology bench
+TOPO_GPUS_PER_NODE = 8
+
+
+def _largest_free_clique_block(topos, claims) -> int:
+    """The largest free contiguous block (GPUs) of any node's NVLink
+    clique: `topos` maps each node to its NodeTopology, `claims` are the
+    cluster's ResourceClaims."""
+    from tpu_dra_torch.simcluster.scheduler import claim_entries
+    from tpu_dra_torch.topology import placement
+
+    taken: dict = {}
+    for claim in claims:
+        for _driver, pool, dev in claim_entries(claim):
+            taken.setdefault(pool, set()).add(dev)
+    return max((placement.max_free_cuboid(topo.fabric, {
+        c for name, c in topo.coord_of.items()
+        if name not in taken.get(node, ())}) for node, topo in topos.items()),
+        default=0)
+
+
+def _spans_cliques(claims, pod: str, topos) -> bool:
+    """Whether `pod`'s allocated claim holds devices of more than one
+    node or NVLink clique."""
+    from tpu_dra_torch.simcluster.scheduler import claim_entries
+
+    for claim in claims:
+        if (claim["metadata"].get("annotations") or {}).get(
+                "sim/owner-pod") == pod:
+            return len({(pool, topos[pool].clique_id)
+                        for _driver, pool, _dev in claim_entries(claim)}) > 1
+    return False
+
+
+def bench_topology(n_pods: int = 120, seed: int = 7) -> dict:
+    """Fragmentation under churn (counterpart of bench.py's
+    bench_topology): alloc/free of mixed 1/2/4/8-GPU pods, seeded, through
+    the event-driven Scheduler with the TopologyAwareScheduling gate on,
+    at most 48 of the 64 GPUs held at once.
+
+    The inventory differs from the reference's one 64-chip 4x4x4 torus
+    node (no GPU node holds 64 devices): 64 GPUs as TOPO_NODES fake HGX
+    H100 nodes of TOPO_GPUS_PER_NODE GPUs, one NVLink clique per node
+    (``topo_mesh`` reads "8x(8x1x1)"). Reports:
+
+    - topo_contiguity_ratio: topology-scored picks over all multi-GPU
+      picks; a pick counts as contiguous when the placement scoring made
+      it and every device of it lies on one node in one clique (a placed
+      claim that spans cliques counts as a fallback);
+    - topo_place_p50_ms / p95: pod create -> bound;
+    - topo_score_mean_ms: the placement scan and score alone;
+    - topo_free_cuboid_p50_chips (the reference's name): the median,
+      over placements, of the largest free clique block left on any node
+      after the placement — the fragmentation observable.
+    """
+    import queue as queue_mod
+    import random
+
+    from tpu_dra_torch.infra import featuregates
+    from tpu_dra_torch.infra.metrics import TOPO_ALLOCS, TOPO_SCORE_SECONDS
+    from tpu_dra_torch.k8s import (
+        PODS, RESOURCECLAIMS, RESOURCESLICES, FakeCluster,
+    )
+    from tpu_dra_torch.simcluster.scheduler import Scheduler
+    from tpu_dra_torch.testing import make_sched_pod, seed_sched_inventory
+    from tpu_dra_torch.topology import placement
+
+    gates_before = featuregates.Features.overrides_snapshot()
+    featuregates.Features.set_from_string("TopologyAwareScheduling=true")
+    sched = None
+    stop = threading.Event()
+    rng = random.Random(seed)
+    sizes = (1, 1, 2, 2, 4, 4, 8)
+    lat_ms, free_blocks = [], []
+    live: dict = {}   # name -> GPUs
+    unplaced = split = 0
+    cap = TOPO_NODES * TOPO_GPUS_PER_NODE * 3 // 4
+    try:
+        cluster = FakeCluster()
+        seed_sched_inventory(cluster, nodes=TOPO_NODES,
+                             gpus_per_node=TOPO_GPUS_PER_NODE,
+                             node_fmt="hgx{i}", claim_counts=(2, 4, 8))
+        topos = {sl["spec"]["nodeName"]:
+                 placement.node_topology_from_slices([sl])
+                 for sl in cluster.list(RESOURCESLICES)}
+        labels = ("contiguous", "fallback", "unplaceable")
+        topo0 = {k: TOPO_ALLOCS.value(labels={"outcome": k}) for k in labels}
+        score_n0 = TOPO_SCORE_SECONDS.count
+        score_sum0 = TOPO_SCORE_SECONDS.total
+
+        sched = Scheduler(cluster, resync_interval=0.05,
+                          gc_sweep_interval=3600.0)
+        sched.start()
+        bound_q, _watcher = _start_bind_watcher(cluster, stop)
+
+        for i in range(n_pods):
+            n = rng.choice(sizes)
+            # Free enough before each create that a contiguous block for
+            # n plausibly exists (the cap keeps the walk fragmenting
+            # without deadlocking).
+            while sum(live.values()) + n > cap:
+                victim = rng.choice(sorted(live))
+                cluster.delete(PODS, victim, "default")
+                live.pop(victim)
+            name = f"topo-{i:04d}"
+            t0 = time.perf_counter()
+            make_sched_pod(cluster, name,
+                           template="tmpl" if n == 1 else f"tmpl{n}")
+            live[name] = n
+            try:
+                while True:
+                    bound, t1 = bound_q.get(timeout=15)
+                    if bound == name:
+                        break
+                lat_ms.append((t1 - t0) * 1e3)
+            except queue_mod.Empty:
+                # The very first bind can slip past the watch: consult
+                # the cluster before counting a wedge.
+                if cluster.get(PODS, name,
+                               "default")["spec"].get("nodeName"):
+                    lat_ms.append((time.perf_counter() - t0) * 1e3)
+                else:
+                    # A fragmentation wedge: count it, free the pod, keep
+                    # churning (nothing was allocated).
+                    unplaced += 1
+                    cluster.delete(PODS, name, "default")
+                    live.pop(name)
+                    continue
+            claims = cluster.list(RESOURCECLAIMS)
+            free_blocks.append(_largest_free_clique_block(topos, claims))
+            if n > 1:
+                split += _spans_cliques(claims, name, topos)
+        for name in sorted(live):
+            cluster.delete(PODS, name, "default")
+        cluster.wait_for(
+            lambda: not cluster.list(RESOURCECLAIMS, namespace="default"),
+            timeout=15)
+    finally:
+        stop.set()
+        if sched is not None:
+            sched.stop()
+        featuregates.Features.restore_overrides(gates_before)
+
+    delta = {k: TOPO_ALLOCS.value(labels={"outcome": k}) - topo0[k]
+             for k in topo0}
+    contig = delta["contiguous"] - split
+    fallback = delta["fallback"] + split
+    score_n = TOPO_SCORE_SECONDS.count - score_n0
+    score_ms = ((TOPO_SCORE_SECONDS.total - score_sum0) / score_n * 1e3
+                if score_n else None)
+    lat_ms.sort()
+    return {
+        "topo_contiguity_ratio": (contig / (contig + fallback)
+                                  if contig + fallback else None),
+        "topo_place_p50_ms": statistics.median(lat_ms),
+        "topo_place_p95_ms": _pctl(lat_ms, 0.95),
+        "topo_alloc_contiguous": int(contig),
+        "topo_alloc_fallback": int(fallback),
+        "topo_alloc_unplaceable_attempts": int(delta["unplaceable"]),
+        "topo_unplaced_pods": unplaced,
+        "topo_score_mean_ms": score_ms,
+        "topo_free_cuboid_p50_chips": (statistics.median_low(free_blocks)
+                                       if free_blocks else None),
+        "topo_churn_pods": len(lat_ms),
+        "topo_mesh": f"{TOPO_NODES}x({TOPO_GPUS_PER_NODE}x1x1)",
+    }
+
+
+def bench_sched_failover(n_failovers: int = None, n_nodes: int = 12,
+                         gpus_per_node: int = 2, window: int = 8) -> dict:
+    """Scheduler failover under churn (counterpart of bench.py's
+    bench_sched_failover): two Schedulers started standby behind
+    LeaderElectors over one fenced Lease (0.4 s lease, 0.1 s renew), pod
+    churn running throughout (`window` pods live). Each round kills the
+    acting leader cold (no lease release: the standby must wait out the
+    expiry) and times the kill -> the standby's first new allocation:
+    expiry, takeover CAS, the index's full resync, the first commit.
+    Rounds: TPU_DRA_BENCH_FAILOVER_N (5).
+
+    The standby's allocations are told by their fencing stamp (a
+    generation above the killed leader's). The reference counts any
+    claim allocated after the kill, which includes the dying leader's
+    own commits while its workers stop, so it can read less than the
+    lease it must wait out."""
+    from tpu_dra_torch.infra.leaderelect import (
+        FENCING_ANNOTATION, LeaderElector, install_fencing,
+    )
+    from tpu_dra_torch.k8s import PODS, RESOURCECLAIMS, FakeCluster
+    from tpu_dra_torch.simcluster.scheduler import Scheduler
+    from tpu_dra_torch.testing import make_sched_pod, seed_sched_inventory
+
+    n_failovers = n_failovers if n_failovers is not None else int(
+        os.environ.get("TPU_DRA_BENCH_FAILOVER_N", "5"))
+    lease_duration_s = 0.4
+
+    lat_ms = []
+    for round_i in range(n_failovers):
+        cluster = FakeCluster()
+        install_fencing(cluster)
+        seed_sched_inventory(cluster, nodes=n_nodes,
+                             gpus_per_node=gpus_per_node,
+                             node_fmt="n{i:03d}")
+        scheds, electors = [], []
+        for ident in ("sched-a", "sched-b"):
+            sched = Scheduler(cluster, gc_sweep_interval=3600.0)
+            sched.start(standby=True)
+
+            def on_started(gen, s=sched):
+                s.set_lease_generation(gen)
+                s.promote()
+
+            electors.append(LeaderElector(
+                cluster, ident, lease_duration_s=lease_duration_s,
+                renew_interval_s=0.1, on_started_leading=on_started,
+                seed=round_i))
+            scheds.append(sched)
+        stop = threading.Event()
+
+        def churn(round_i=round_i, cluster=cluster, stop=stop):
+            i = 0
+            while not stop.is_set():
+                pods = cluster.list(PODS, namespace="default")
+                for pod in pods:
+                    if pod["spec"].get("nodeName"):
+                        cluster.delete(PODS, pod["metadata"]["name"],
+                                       "default")
+                for _ in range(max(0, window - len(pods))):
+                    make_sched_pod(cluster, f"fo-{round_i}-{i:05d}")
+                    i += 1
+                stop.wait(0.005)
+
+        def allocated_uids(cluster=cluster, above=0):
+            """Allocated claims stamped with a generation above `above`."""
+            return {c["metadata"]["uid"]
+                    for c in cluster.list(RESOURCECLAIMS,
+                                          namespace="default")
+                    if (c.get("status") or {}).get("allocation")
+                    and int((c["metadata"].get("annotations") or {}).get(
+                        FENCING_ANNOTATION, 0)) > above}
+
+        churn_t = threading.Thread(target=churn, daemon=True)
+        try:
+            # The leader first, acting, then the standby.
+            electors[0].start()
+            deadline = time.monotonic() + 10.0
+            while not electors[0].is_leader \
+                    and time.monotonic() < deadline:
+                time.sleep(0.005)
+            electors[1].start()
+            churn_t.start()
+            deadline = time.monotonic() + 30.0
+            while not allocated_uids() and time.monotonic() < deadline:
+                time.sleep(0.005)
+            if not allocated_uids():
+                raise RuntimeError("leader never allocated under churn")
+            # Kill the leader cold: elector gone (no release), workers
+            # gone. The standby must see the expiry, take over, resync
+            # and commit.
+            killed = electors[0].generation
+            t_kill = time.perf_counter()
+            electors[0].stop()
+            scheds[0].stop()
+            deadline = time.monotonic() + 30.0
+            t_first = None
+            while time.monotonic() < deadline:
+                if allocated_uids(above=killed):
+                    t_first = time.perf_counter()
+                    break
+                time.sleep(0.002)
+            if t_first is None:
+                raise RuntimeError(
+                    "standby never allocated after leader kill")
+            lat_ms.append((t_first - t_kill) * 1e3)
+        finally:
+            stop.set()
+            if churn_t.is_alive():
+                churn_t.join(5)
+            for el in electors:
+                el.stop()
+            for sched in scheds:
+                sched.stop()
+
+    lat_ms.sort()
+    return {
+        "sched_failover_rounds": n_failovers,
+        "sched_failover_lease_duration_s": lease_duration_s,
+        "sched_failover_nodes": n_nodes,
+        "sched_failover_to_alloc_p50_ms": statistics.median(lat_ms),
+        "sched_failover_to_alloc_max_ms": max(lat_ms),
+    }
+
+
+def bench_trace_overhead(n_spans: int = 200_000) -> dict:
+    """Tracer cost (counterpart of bench.py's bench_trace_overhead): ns
+    per begin/end pair with emission on (ids, open-span tracking, ring
+    append) and off (timestamps only), and the spans/s the enabled path
+    delivers. The tracer's enabled state is restored."""
+    from tpu_dra_torch.infra.trace import TRACER
+
+    def spin(n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            span = TRACER.begin("bench.overhead", root=True)
+            span.end()
+        return time.perf_counter() - t0
+
+    was_enabled = TRACER.enabled
+    TRACER.set_enabled(True)
+    try:
+        spin(n_spans // 10)  # warm (allocator, ring steady state)
+        wall_on = spin(n_spans)
+        TRACER.set_enabled(False)
+        spin(n_spans // 10)
+        wall_off = spin(n_spans)
+    finally:
+        TRACER.set_enabled(was_enabled)
+    return {
+        "trace_overhead_ns_per_span": wall_on / n_spans * 1e9,
+        "trace_overhead_off_ns_per_span": wall_off / n_spans * 1e9,
+        "trace_spans_per_s": int(n_spans / wall_on),
+        "trace_overhead_spans": n_spans,
+    }
+
+
+def ops_benches(sustained_s: float = None):
+    """Yield (name, record) for each ops bench at its default size, as
+    each finishes; every record carries its ``phase_s`` and the host's
+    ``os.cpu_count()`` (the reference's rate gates scale with it).
+    `sustained_s` overrides bench_prepare_sustained's duration."""
+    runs = [
+        ("fake_inventory", bench_fake_inventory_configs),
+        ("prepare_sustained",
+         lambda: bench_prepare_sustained(duration_s=sustained_s)),
+        ("sched_churn", bench_sched_churn),
+        ("topology", bench_topology),
+        ("sched_failover", bench_sched_failover),
+        ("trace_overhead", bench_trace_overhead),
+    ]
+    for name, fn in runs:
+        t0 = time.perf_counter()
+        rec = fn()
+        rec["phase_s"] = time.perf_counter() - t0
+        rec["cpu_count"] = os.cpu_count()
+        yield name, rec
 
 
 # ---------------------------------------------------------------------------
@@ -1568,6 +2366,10 @@ def main(argv) -> int:
         res = bench_cd_gpus()
         print(json.dumps({"cd_gpus": res}), flush=True)
         return 0 if res["psum"]["ok"] else 1
+    if argv[:1] == ["ops"]:
+        for name, rec in ops_benches():
+            print(json.dumps({name: rec}), flush=True)
+        return 0
     nvml = gpuinfo.get_backend()
     try:
         # First, while this process holds no context on the card: under

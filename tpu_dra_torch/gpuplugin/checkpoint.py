@@ -331,16 +331,20 @@ class CheckpointManager:
     - Intent records (``PrepareStarted``, mid-prepare) write one side
       slot — a single cheap fdatasync on the claim-to-ready hot path.
       Terminal states (completed prepare, unprepare) write a side slot
-      (data only, NOT synced) and then the primary with fdatasync — the
-      primary is the terminal store's sole durability point, so the hot
-      path pays exactly one device sync per store. The unsynced side
-      write keeps recovery fresh: if a LATER primary overwrite tears,
-      load() falls back to the most recent durable slot (this side copy
-      if it reached the device, else the previous intent record) rather
-      than an older settled state; and load_or_init() rewrites a damaged
+      and then the primary with fdatasync. The side slot is synced too
+      when no synced side slot already covers the settled state the
+      primary is about to overwrite: after an intent store it does (the
+      intent record holds that state plus the mid-operation claim), so
+      the terminal store pays one device sync; after another terminal
+      store it does not (that store's side copy was left unsynced), so
+      this side copy is synced before the primary is overwritten. Without
+      that, two terminal stores in a row followed by a primary torn in a
+      power loss would leave no durable copy of the settled state, and
+      recovery would regress past live claims
+      (tests/test_torch_checkpoint.py). load_or_init() rewrites a damaged
       primary at the next start. A tear in the side slot itself loses
-      nothing — its envelope fails the checksum and the synced primary
-      holds the identical state.
+      nothing — its envelope fails the checksum and the primary holds
+      the previous settled state.
     """
 
     SLOT_PAD = 4096
@@ -429,6 +433,11 @@ class CheckpointManager:
             r = self._load_slot(p)
             self._slot_seqs[p] = (r[0] or 0) if isinstance(r, tuple) else 0
         self._seq = max(self._slot_seqs.values())
+        # True while a synced side slot holds a state at least as new as
+        # the primary's (store(): a terminal store syncs its side copy
+        # when this is False). Unknown at start: what is on disk may
+        # have come from a terminal store, so the first store syncs.
+        self._side_covers_primary = False
         # Mutation side (append/compact) is additionally serialized by
         # the CALLER's data lock (DeviceState._lock — the manager is a
         # single-logical-writer component); _journal_lock only protects
@@ -635,11 +644,12 @@ class CheckpointManager:
         # Ping-pong: overwrite the STALER side slot, so the fresher one
         # still holds the previous state if this write tears.
         side = min(self._side_paths, key=lambda p: self._slot_seqs[p])
-        # Intent stores sync the side slot (it is their durability point);
-        # terminal stores leave it as a data-only recovery copy and sync
-        # the primary below — one fdatasync either way (hot-path cost,
-        # SURVEY §3.2).
-        self._write_slot(side, envelope, sync=intent)
+        # Intent stores sync the side slot (it is their durability
+        # point); terminal stores sync it only when no synced side slot
+        # covers the settled state the primary write below overwrites
+        # (see the class docstring).
+        sync_side = intent or not self._side_covers_primary
+        self._write_slot(side, envelope, sync=sync_side)
         self._slot_seqs[side] = self._seq
         if not intent:
             # In place, like the sides: the PrepareCompleted store IS on
@@ -650,6 +660,7 @@ class CheckpointManager:
             # state for recovery.
             self._write_slot(self._path, envelope)
             self._slot_seqs[self._path] = self._seq
+        self._side_covers_primary = sync_side
         # Injection site for torn writes: the armed action scribbles on
         # the just-written slot files; the next load must recover from
         # the surviving slots (crash-consistency chaos).

@@ -7,8 +7,8 @@ the kubelet plugin's self-probe) and the thread-stack dump at
 /debug/stacks. Only the instruments the port's modules register are
 here: the checkpoint journal's, the tracer's, the quarantine gauge, the
 kubelet plugin's prepare and RPC instruments (each in its own module),
-the mesh-build counter and the control plane's (the sim scheduler's and
-its CEL cache's) below. The metric names are the reference's,
+the mesh-build counter and the control plane's (the sim scheduler's,
+its CEL cache's and the leader election's) below. The metric names are the reference's,
 so one dashboard reads both. The reference's metric catalog comes with
 the slice that uses it.
 """
@@ -124,6 +124,44 @@ class Histogram(_Metric):
                     self._counts[i] += 1
                     return
             self._counts[-1] += 1
+
+    @property
+    def count(self) -> int:
+        """Observations so far (the _count series, programmatically)."""
+        with self._lock:
+            return self._n
+
+    @property
+    def total(self) -> float:
+        """Sum of observed values (the _sum series, programmatically)."""
+        with self._lock:
+            return self._sum
+
+    def bucket_counts(self) -> Tuple[int, ...]:
+        """Raw per-bucket counts snapshot (finite buckets + overflow) —
+        the baseline handle for ``percentile_since``."""
+        with self._lock:
+            return tuple(self._counts)
+
+    def percentile_since(self, baseline: Tuple[int, ...], q: float,
+                         default: float = 0.0) -> float:
+        """Approximate percentile, from bucket upper bounds, of the
+        observations made after `baseline` (a ``bucket_counts()``
+        snapshot): the phase-scoped read of a histogram that already holds
+        a process lifetime. `default` when there is none, +Inf above the
+        largest finite bucket."""
+        with self._lock:
+            deltas = [c - b for c, b in zip(self._counts, baseline)]
+            n = sum(deltas)
+            if n == 0:
+                return default
+            target = q * n
+            cum = 0
+            for b, c in zip(self._buckets, deltas):
+                cum += c
+                if cum >= target:
+                    return b
+            return float("inf")
 
     def expose(self) -> List[str]:
         with self._lock:
@@ -324,3 +362,17 @@ TOPO_FREE_CUBOID = DefaultRegistry.histogram(
     "largest free block (GPUs) remaining on the node after each "
     "topology-scored placement — the fragmentation observable",
     buckets=(1, 2, 4, 8, 16, 32, 64, 128, 256))
+
+# -- HA control plane (active-standby leases + takeover): read by the
+# leader elector, the failover bench and the chip smoke's ops phase. ---------
+
+SCHED_LEADER = DefaultRegistry.gauge(
+    "tpu_dra_sched_leader",
+    "1 while this elector holds the scheduler lease, 0 while standby or "
+    "after stepping down/deposal, labeled by identity — the failover "
+    "dashboards' who-is-acting signal")
+SCHED_LEASE_TRANSITIONS = DefaultRegistry.counter(
+    "tpu_dra_sched_lease_transitions_total",
+    "lease acquisitions (first grab + every takeover) observed by the "
+    "electors of this process; each one bumps the fencing generation "
+    "that deposed-leader claim-status writes are refused against")

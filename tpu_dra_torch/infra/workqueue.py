@@ -11,11 +11,12 @@ One consumer thread (``run``/``run_in_thread``) processes the items.
 The compute-domain stack adds the controller's and the domain daemon's
 rate limiters (``default_controller_rate_limiter``,
 ``default_cd_daemon_rate_limiter``, with ``JitterRateLimiter``) and the
-``after`` enqueue for time-based re-evaluation.
+``after`` enqueue for time-based re-evaluation; the sim scheduler adds
+the ``dedupe`` enqueue (a waiting item of the same key absorbs it).
 
 Not copied: the reference's worker pools and their per-key
-serialization, the ``dedupe`` enqueue, the queue-depth gauges and the
-model checker's scheduling hooks.
+serialization, the queue-depth gauges and the model checker's
+scheduling hooks.
 """
 
 from __future__ import annotations

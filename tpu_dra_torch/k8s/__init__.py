@@ -10,6 +10,7 @@ from tpu_dra_torch.k8s.client import (  # noqa: F401
 from tpu_dra_torch.k8s.fake import FakeCluster  # noqa: F401
 from tpu_dra_torch.k8s.informer import Informer  # noqa: F401
 from tpu_dra_torch.k8s.resources import (  # noqa: F401
-    COMPUTEDOMAINS, DAEMONSETS, DEPLOYMENTS, DEVICECLASSES, NODES, PODS,
-    RESOURCECLAIMS, RESOURCECLAIMTEMPLATES, RESOURCESLICES, new_object_meta,
+    COMPUTEDOMAINS, DAEMONSETS, DEPLOYMENTS, DEVICECLASSES, LEASES, NODES,
+    PODS, RESOURCECLAIMS, RESOURCECLAIMTEMPLATES, RESOURCESLICES,
+    new_object_meta,
 )

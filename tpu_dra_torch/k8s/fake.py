@@ -8,12 +8,17 @@ bounded replay log, field-selector indexed registration and bookmark
 semantics, so the controllers' informers run against the apiserver's
 list+watch contract without a cluster.
 
-Not copied: generateName and the Lease helpers of the scheduler's leader
-election, which come with the simulated cluster.
+The Lease helpers (``lease_micro_time``, ``parse_lease_micro_time``,
+``new_lease``) serve the scheduler's leader election
+(infra/leaderelect.py): the store's resourceVersion conflict is the
+compare half of its compare-and-swap.
+
+Not copied: generateName.
 """
 
 from __future__ import annotations
 
+import datetime
 import itertools
 import os
 import queue
@@ -461,6 +466,57 @@ _STATUS_SUBRESOURCE = {
     "core/v1/pods",
     "core/v1/nodes",
 }
+
+
+# ---------------------------------------------------------------------------
+# coordination.k8s.io/v1 Lease (the HA scheduler's leader election)
+# ---------------------------------------------------------------------------
+# The Lease rides the generic store: what makes it usable for election
+# is that _update_impl's resourceVersion conflict gives electors a real
+# compare-and-swap — two standbys racing a takeover CAS the same RV and
+# exactly one wins. `spec.leaseTransitions` is the fencing generation a
+# leader stamps into its claim-status writes (infra/leaderelect.py).
+
+_LEASE_MICRO_FMT = "%Y-%m-%dT%H:%M:%S.%fZ"
+
+
+def lease_micro_time(t: float) -> str:
+    """RFC3339 MicroTime (the real Lease's acquireTime/renewTime type —
+    election math needs sub-second precision a 1s timestamp loses)."""
+    return datetime.datetime.fromtimestamp(
+        t, datetime.timezone.utc).strftime(_LEASE_MICRO_FMT)
+
+
+def parse_lease_micro_time(s: Optional[str]) -> float:
+    """Inverse of lease_micro_time; 0.0 for a missing/garbled stamp (an
+    unreadable renewTime reads as expired — safe for takeover, and the
+    holder's own next renew rewrites it)."""
+    if not s:
+        return 0.0
+    try:
+        return datetime.datetime.strptime(
+            s, _LEASE_MICRO_FMT).replace(
+                tzinfo=datetime.timezone.utc).timestamp()
+    except ValueError:
+        return 0.0
+
+
+def new_lease(name: str, namespace: str, holder: str,
+              lease_duration_s: float, now: float) -> Dict:
+    """A coordination.k8s.io/v1 Lease held by `holder` as of `now`."""
+    stamp = lease_micro_time(now)
+    return {
+        "apiVersion": "coordination.k8s.io/v1",
+        "kind": "Lease",
+        "metadata": {"name": name, "namespace": namespace},
+        "spec": {
+            "holderIdentity": holder,
+            "leaseDurationSeconds": lease_duration_s,
+            "acquireTime": stamp,
+            "renewTime": stamp,
+            "leaseTransitions": 1,
+        },
+    }
 
 
 def _merge_patch(target: Dict, patch: Dict) -> Dict:

@@ -1,8 +1,9 @@
 """Well-known GVR coordinates + object helpers (counterpart of
 tpu_dra/k8s/resources.py, cut to the kinds the port reads and writes:
 ResourceClaims, their templates and ResourceSlices; Nodes, Pods and the
-Deployments of the per-claim MPS control daemons; and the compute-domain
-stack's DaemonSets and resource.gpu.dev ComputeDomains; and the kinds
+Deployments of the per-claim MPS control daemons; the compute-domain
+stack's DaemonSets and resource.gpu.dev ComputeDomains; the Lease of the
+scheduler's leader election; and the kinds
 the deployment manifests carry, so that the fake API server can store a
 whole chart install)."""
 
@@ -24,6 +25,11 @@ RESOURCESLICES = GVR("resource.k8s.io", "v1", "resourceslices", namespaced=False
 DEVICECLASSES = GVR("resource.k8s.io", "v1", "deviceclasses", namespaced=False)
 
 COMPUTEDOMAINS = GVR("resource.gpu.dev", "v1beta1", "computedomains")
+
+# coordination.k8s.io Leases back the HA scheduler's leader election
+# (infra/leaderelect.py): the elector CASes holder/renew fields under
+# the apiserver's resourceVersion conflict semantics.
+LEASES = GVR("coordination.k8s.io", "v1", "leases")
 
 # Kinds the driver itself never reads but the deployment manifests carry.
 NAMESPACES = GVR("", "v1", "namespaces", namespaced=False)

@@ -35,8 +35,10 @@ TopologyAwareScheduling gate on, a multi-GPU request on a node that
 publishes coordinates takes the topology-scored pick
 (``topology.placement.best_placement``).
 
-HA mode's ``standby()``/``promote()`` are here; the lease elector that
-drives them is not part of the port yet.
+HA mode: ``start(standby=True)``, ``set_lease_generation`` and
+``promote()`` are driven by ``infra.leaderelect.LeaderElector``'s
+callbacks, and every claim-status write carries the leader's fencing
+generation (``FENCING_ANNOTATION``), which ``install_fencing`` checks.
 """
 
 from __future__ import annotations
@@ -52,6 +54,7 @@ from typing import Dict, Iterable, List, Optional, Set, Tuple
 
 from tpu_dra_torch.infra import featuregates
 from tpu_dra_torch.infra.faults import FAULTS, FaultInjected
+from tpu_dra_torch.infra.leaderelect import FENCING_ANNOTATION
 from tpu_dra_torch.infra.metrics import (
     SCHED_CLAIMS_GCED, SCHED_EVICTIONS, SCHED_FULL_RELISTS,
     SCHED_PODS_BOUND, SCHED_SHARD_RESYNCS, SCHED_SNAPSHOT_CONFLICTS,
@@ -75,10 +78,6 @@ from tpu_dra_torch.simcluster import cel
 from tpu_dra_torch.topology import placement
 
 log = logging.getLogger("simcluster.scheduler")
-
-# The acting leader's lease generation, stamped into every claim-status
-# write in HA mode (the reference's infra/leaderelect.FENCING_ANNOTATION).
-FENCING_ANNOTATION = "sim/sched-lease-generation"
 
 # A MIG device's name is its GPU's plus this infix and the placement
 # (gpu-3-mig-3g40gb-4 on gpu-3).

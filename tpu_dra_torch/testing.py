@@ -30,6 +30,11 @@
   ``run_nodes`` runs one launcher process per simulated node.
   Simulated nodes discover fake GPUs (a FakeBackend passed to each node
   explicitly); a node given a NativeBackend discovers the host's GPUs.
+- The scheduler's inventory (counterpart of the reference's
+  seed_sched_inventory and make_sched_pod): fake GPU nodes publishing
+  ResourceSlices with the plugin's attribute set, the ``gpu.dev``
+  DeviceClass, the ``tmpl``/``tmpl<n>`` claim templates and pods that
+  claim through them.
 
 This module imports only the standard library at module level, so that
 ``python tpu_dra_torch/testing.py`` runs as the stand-in.
@@ -803,3 +808,96 @@ def provision_two_node_cd(namespace: str = "cdtest") -> Dict:
     (provision_multi_node_cd)."""
     return provision_multi_node_cd(namespace=namespace,
                                    node_names=("node-a", "node-b"))
+
+
+# ---------------------------------------------------------------------------
+# Scheduler inventory (shared by the churn, topology and failover benches
+# and the scheduler's HA tests)
+# ---------------------------------------------------------------------------
+
+DEFAULT_SCHED_SELECTOR = ('device.driver == "gpu.dev" && '
+                          'device.attributes["gpu.dev"].type == "gpu"')
+
+
+def seed_sched_inventory(client, *, nodes: int, gpus_per_node: int,
+                         node_fmt: str = "n{i}",
+                         selector_exprs=None,
+                         namespace: str = "default",
+                         nodes_per_clique: int = 1,
+                         claim_counts=()) -> List[str]:
+    """Seed the scheduler's fixture in one place (counterpart of the
+    reference's seed_sched_inventory): DeviceClass ``gpu.dev`` (CEL
+    selectors), ResourceClaimTemplate ``tmpl``, and `nodes` Nodes each
+    publishing a ResourceSlice of `gpus_per_node` whole H100s with the
+    attribute set the kubelet plugin publishes from NVML (type, uuid,
+    productName, index, pciBusID, architecture, clique, workerIndex,
+    coordX/Y/Z, fabricTopology), so the scheduler's placement scoring
+    reads these slices as it reads a real node's. Returns the node
+    names. `nodes_per_clique` groups consecutive nodes into one NVLink
+    clique (a shared clique id, workerIndex 0..n-1; the reference's
+    hosts_per_slice); `claim_counts` also creates a ``tmpl<n>``
+    template requesting n GPUs for each n. `gpus_per_node` stands for the
+    reference's chips_per_node."""
+    import dataclasses
+
+    from tpu_dra_torch.api.types import GPU_DRIVER_NAME
+    from tpu_dra_torch.gpuplugin.deviceinfo import (
+        DEVICE_TYPE_GPU, AllocatableDevice,
+    )
+    from tpu_dra_torch.k8s.resources import (
+        DEVICECLASSES, NODES, RESOURCECLAIMTEMPLATES, RESOURCESLICES,
+    )
+    from tpu_dra_torch.kubeletplugin.server import build_resource_slice
+    from tpu_dra_torch.native.gpuinfo import default_fake_gpus
+
+    exprs = (list(selector_exprs) if selector_exprs
+             else [DEFAULT_SCHED_SELECTOR])
+    client.create(DEVICECLASSES, {
+        "apiVersion": "resource.k8s.io/v1", "kind": "DeviceClass",
+        "metadata": {"name": GPU_DRIVER_NAME},
+        "spec": {"selectors": [{"cel": {"expression": e}} for e in exprs]}})
+    for count in (None,) + tuple(claim_counts):
+        req = {"name": "gpu", "exactly": {"deviceClassName": GPU_DRIVER_NAME}}
+        if count is not None:
+            req["exactly"]["count"] = count
+        client.create(RESOURCECLAIMTEMPLATES, {
+            "apiVersion": "resource.k8s.io/v1",
+            "kind": "ResourceClaimTemplate",
+            "metadata": {"name": "tmpl" if count is None else f"tmpl{count}",
+                         "namespace": namespace},
+            "spec": {"spec": {"devices": {"requests": [req]}}},
+        }, namespace=namespace)
+    names = []
+    for i in range(nodes):
+        name = node_fmt.format(i=i)
+        names.append(name)
+        gpus = default_fake_gpus(gpus_per_node,
+                                 clique_id=f"nvl-{i // nodes_per_clique}",
+                                 worker_index=i % nodes_per_clique)
+        # One UUID per GPU of the fleet (the fake's are per node).
+        gpus = [dataclasses.replace(
+            g, uuid=f"GPU-{i:04x}{g.index:04x}-5eed-4000-8000-"
+                    f"{g.index:012x}") for g in gpus]
+        client.create(NODES, {"apiVersion": "v1", "kind": "Node",
+                              "metadata": {"name": name, "labels": {}}})
+        client.create(RESOURCESLICES, build_resource_slice(
+            GPU_DRIVER_NAME, name,
+            [AllocatableDevice(type=DEVICE_TYPE_GPU, gpu=g).to_resource_api()
+             for g in gpus]))
+    return names
+
+
+def make_sched_pod(client, name: str, namespace: str = "default",
+                   template: str = "tmpl"):
+    """A pod claiming GPUs through `template` (the fixture's pod shape;
+    multi-GPU templates are the ``tmpl<n>`` that seed_sched_inventory's
+    claim_counts creates)."""
+    from tpu_dra_torch.k8s.resources import PODS
+
+    return client.create(PODS, {
+        "apiVersion": "v1", "kind": "Pod",
+        "metadata": {"name": name, "namespace": namespace},
+        "spec": {"containers": [{"name": "c", "image": "x"}],
+                 "resourceClaims": [
+                     {"name": "t", "resourceClaimTemplateName": template}]},
+    }, namespace=namespace)

@@ -170,8 +170,11 @@ def _attention_inputs(n: int, heads: int, device, s_local: int = 8,
 
 
 def _rate_record(wall_s: float, flops: float, **extra) -> Dict:
+    """A workload's wall time and rate. The rate stays unrounded: a toy
+    step of a few kFLOPs over a loaded host's wall time is far below any
+    fixed number of decimals, and a rate rounded to 0 reads as no work."""
     return {"wall_ms": round(wall_s * 1e3, 3),
-            "gflops_per_s": round(flops / wall_s / 1e9, 3), **extra}
+            "gflops_per_s": flops / wall_s / 1e9, **extra}
 
 
 def _run_allreduce(plan: MeshPlan, devices: Sequence, **kw) -> Dict:
