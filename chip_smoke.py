@@ -172,7 +172,29 @@ Phases, each printing one JSON line ({"phase": ...}):
                   (ops_trace_overhead); rates, p99s and the coalescing
                   ratio are read, not gated (the reference scales those
                   gates to the host's cores); then the phase's seconds
-                  (ops);
+                  (ops); ops_sched_churn also reads the scheduler's pool
+                  of SCHED_WORKERS workers (sched_workers);
+   chaos        — the chaos tier on the host (tpu_dra_torch.simcluster
+                  .chaos.walk_matrix) at CHAOS_SEEDS seeds x CHAOS_EVENTS
+                  events (hack/chaos.sh runs the reference at 25 x 60),
+                  the port's lock witness installed across the whole
+                  matrix: every walk (plugin, scheduler at 4 workers,
+                  topology, node death, leader kill) with zero
+                  violations, the watch-flake scenario clean, and no
+                  lock-order cycle; per walk its schedules, events,
+                  injected counts per site, violations and the re-arm
+                  sites that never fired (read, not checked); then
+                  bench_chaos_recovery twice, on the fake node (the
+                  reference's number) and on the card through NVML with
+                  a claim of no sharing config: p50, p95 and crashes
+                  each, and the phase's seconds (chaos);
+   scale        — bench_sched_scale10k at SCALE_NODES nodes x SCALE_PODS
+                  pods with SCALE_WATCHERS hollow watchers, against a
+                  SCALE_BASELINE same-process baseline: 0 full relists,
+                  0 watcher overflows; the throughput ratio is read
+                  beside hack/perf.sh's 0.5 gate (the reference scales
+                  its rate gates to the host), with pods/s, the p50s
+                  and the phase's seconds (scale);
 8. main         — the flagship TransformerLM train step through
                   tpu_dra_torch.bench.bench_mfu, with the kernels' launch
                   counts zeroed just before and read just after: every
@@ -319,6 +341,19 @@ HOT_RESTARTS = 2
 # The ops phase: hack/perf.sh's own sustained duration and invariants.
 OPS_SUSTAINED_S = 25.0
 OPS_INFLIGHT_MAX = 16             # the pipeline's admission window
+SCHED_WORKERS = 4                 # the scheduler pool's default size
+# The chaos matrix and the scale-out bench, cut to fit the script's time
+# (the reference's hack/chaos.sh runs 25 seeds x 60 events; its
+# bench_sched_scale10k defaults to 10000 nodes x 100000 pods, 100
+# watchers, a 1000 x 5000 baseline).
+CHAOS_SEEDS = 5
+CHAOS_EVENTS = 40
+CHAOS_RECOVERY_CRASHES = 7
+SCALE_NODES = 1000
+SCALE_PODS = 10000
+SCALE_WATCHERS = 20
+SCALE_BASELINE = (100, 1000)      # nodes, pods
+SCALE_RATIO_GATE = 0.5            # hack/perf.sh's PERF_SCALE10K_RATIO
 OPS_FAILOVER_P50_GATE_MS = 2000.0
 MESH_TRAIN_STEPS = 3
 # Ranks of the ring emulated by ring_local.
@@ -1609,6 +1644,9 @@ def _check_ops(name: str, rec: dict) -> None:
               f"{rec['sched_cel_distinct_exprs']} expressions")
         check("sched_churn_gc_leak" not in rec,
               f"churn: {rec.get('sched_churn_gc_leak')} claims leaked")
+        check(rec.get("sched_workers") == SCHED_WORKERS,
+              f"churn: the scheduler ran {rec.get('sched_workers')} "
+              f"workers, not its pool of {SCHED_WORKERS}")
     elif name == "topology":
         check(rec["topo_contiguity_ratio"] == 1.0,
               f"topology: contiguity {rec['topo_contiguity_ratio']}")
@@ -1635,6 +1673,103 @@ def phase_ops() -> dict:
         res[name] = rec
     emit("ops", benches=list(res), phase_s=time.perf_counter() - t_phase,
          nvidia_smi=gpuinfo.nvidia_smi())
+    return res
+
+
+def _chaos_walk_line(rec: dict, rearm_sites) -> dict:
+    """One walk's record for the chaos line: its counts, its violations
+    and the re-arm sites that never fired across the seeds."""
+    injected = rec["injected"]
+    return {"schedules": rec["schedules"], "events": rec["events"],
+            "injected": injected, "violations": rec["violations"],
+            "unfired_sites": sorted(s for s in rearm_sites
+                                    if not injected.get(s))}
+
+
+def phase_chaos() -> dict:
+    """The chaos tier (tpu_dra_torch.simcluster.chaos) at CHAOS_SEEDS x
+    CHAOS_EVENTS with the port's lock witness installed across the whole
+    matrix (the harnesses' own installs nest in it, so the graph holds
+    every walk): zero violations in every walk and the watch-flake
+    scenario, no lock-order cycle. Then bench_chaos_recovery on the fake
+    node and on the card's NativeBackend."""
+    from tpu_dra_torch import bench
+    from tpu_dra_torch.infra import lockwitness
+    from tpu_dra_torch.native import gpuinfo
+    from tpu_dra_torch.simcluster import chaos
+
+    t_phase = time.perf_counter()
+    lockwitness.install()
+    try:
+        summary = chaos.walk_matrix(list(range(CHAOS_SEEDS)), CHAOS_EVENTS)
+        cycles = lockwitness.WITNESS.cycles()
+        edges = len(lockwitness.WITNESS.edges())
+    finally:
+        lockwitness.uninstall()
+    walks = {"plugin": _chaos_walk_line(summary,
+                                        chaos.REARM_SITES["plugin"])}
+    for walk in chaos.WALKS:
+        walks[walk] = _chaos_walk_line(summary[walk],
+                                       chaos.REARM_SITES[walk])
+    matrix_s = time.perf_counter() - t_phase
+    fake = bench.bench_chaos_recovery(CHAOS_RECOVERY_CRASHES)
+    backend = gpuinfo.NativeBackend()
+    try:
+        nvml = bench.bench_chaos_recovery(CHAOS_RECOVERY_CRASHES,
+                                          backend=backend)
+    finally:
+        backend.close()
+    res = {"cut": f"{CHAOS_SEEDS} seeds x {CHAOS_EVENTS} events "
+                  "(hack/chaos.sh: 25 x 60)",
+           "walks": walks,
+           "watch_flake_violations": summary["watch_flake_violations"],
+           "witness_cycles": cycles, "witness_edges": edges,
+           "matrix_s": matrix_s,
+           "recovery_fake": fake, "recovery_nvml": nvml,
+           "phase_s": time.perf_counter() - t_phase,
+           "nvidia_smi": gpuinfo.nvidia_smi()}
+    emit("chaos", **res)
+    for walk, rec in walks.items():
+        check(not rec["violations"],
+              f"chaos: {walk} walk violations: {rec['violations'][:5]}")
+    check(not summary["watch_flake_violations"],
+          f"chaos: watch flake: {summary['watch_flake_violations']}")
+    check(not cycles, f"chaos: lock-order cycles: {cycles}")
+    for name, rec in (("fake", fake), ("nvml", nvml)):
+        check(rec["chaos_recovery_crashes"] == CHAOS_RECOVERY_CRASHES
+              and rec["chaos_recovery_p50_ms"] > 0,
+              f"chaos: crash recovery on {name}: {rec}")
+    return res
+
+
+def phase_scale() -> dict:
+    """bench_sched_scale10k cut to SCALE_NODES x SCALE_PODS with
+    SCALE_WATCHERS hollow watchers and a SCALE_BASELINE baseline: no full
+    relist, no watcher overflow; the throughput ratio is read beside
+    hack/perf.sh's gate, not checked."""
+    from tpu_dra_torch import bench
+    from tpu_dra_torch.native import gpuinfo
+
+    t_phase = time.perf_counter()
+    rec = bench.bench_sched_scale10k(
+        n_nodes=SCALE_NODES, n_pods=SCALE_PODS, n_watchers=SCALE_WATCHERS,
+        baseline_nodes=SCALE_BASELINE[0], baseline_pods=SCALE_BASELINE[1])
+    res = {"cut": f"{SCALE_NODES} nodes x {SCALE_PODS} pods, "
+                  f"{SCALE_WATCHERS} watchers, baseline "
+                  f"{SCALE_BASELINE[0]} x {SCALE_BASELINE[1]} "
+                  "(reference default: 10000 x 100000, 100, "
+                  "1000 x 5000)",
+           **rec, "ratio_gate": SCALE_RATIO_GATE,
+           "phase_s": time.perf_counter() - t_phase,
+           "nvidia_smi": gpuinfo.nvidia_smi()}
+    emit("scale", **res)
+    check(rec["sched_scale10k_full_relists"] == 0,
+          f"scale: {rec['sched_scale10k_full_relists']} full relists")
+    check(rec["sched_scale10k_hollow_overflow_errors"] == 0,
+          f"scale: {rec['sched_scale10k_hollow_overflow_errors']} "
+          "watcher overflows")
+    check("sched_scale10k_churn_gc_leak" not in rec,
+          f"scale: {rec.get('sched_scale10k_churn_gc_leak')} claims leaked")
     return res
 
 
@@ -2213,6 +2348,8 @@ def main() -> int:
     phase_cluster(claim["claim_path"]["child"])
     phase_hot_restart()
     phase_ops()
+    phase_chaos()
+    phase_scale()
     _, counts = phase_main_path()
     _free()
     counts_xl, xl_none = phase_long_context()

@@ -4,13 +4,17 @@ watch, informer.Informer, ShardDispatcher) against the reference's
 
 The FakeCluster watch cases of tests/test_informer_scale.py, run on the
 port: field-selector-indexed registration, bookmark resume across
-compacted history and bounded watcher queues (its ShardDispatcher and
-scheduler cases test the simulated cluster's partitioned dispatch,
-which the port leaves out). Then one scripted series of creates,
-updates, deletes and two forced relists (one of them across a delete) on
-both packages' FakeClusters: the informers' handler event sequences must
-be equal, event for event; and the retrying client's watch across
-dropped streams.
+compacted history and bounded watcher queues; then its
+ShardDispatcher, partitioned-informer and scheduler shard-recovery cases
+(TestShardDispatcher, TestPartitionedInformer, TestSchedulerShardRecovery)
+on the port's informer.ShardDispatcher, Informer(partitions=...) and
+simcluster.scheduler.Scheduler, a view-shadow drift case, and the
+dispatcher's routing held equal to the reference's over the same keys
+(exact). Then one scripted series of creates, updates, deletes and two
+forced relists (one of them across a delete) on both packages'
+FakeClusters: the informers' handler event sequences must be equal,
+event for event; and the retrying client's watch across dropped
+streams.
 """
 
 import threading
@@ -18,11 +22,13 @@ import time
 
 import pytest
 
-from tpu_dra_torch.infra.faults import FAULTS
+from tpu_dra_torch.infra.faults import FAULTS, OneShot
 from tpu_dra_torch.k8s import FakeCluster, Informer, PODS
+from tpu_dra_torch.k8s import informer as informer_mod
 from tpu_dra_torch.k8s.client import (
     field_path_value, field_selector_matches, parse_field_selector,
 )
+from tpu_dra_torch.k8s.informer import ShardDispatcher
 
 
 @pytest.fixture(autouse=True)
@@ -455,3 +461,241 @@ def test_http_watch_and_informer_over_the_wire():
                 t.join(timeout=5)
     finally:
         server.stop()
+
+
+# ---------------------------------------------------------------------------
+# Partitioned dispatch (tests/test_informer_scale.py's ShardDispatcher,
+# partitioned-informer and scheduler shard-recovery cases, on the port)
+# ---------------------------------------------------------------------------
+
+class TestShardDispatcher:
+    def test_routing_matches_allocation_index(self):
+        """The alignment the scheduler's recovery depends on: informer
+        shard i IS allocation-index shard i for any pool."""
+        from tpu_dra_torch.simcluster.scheduler import AllocationIndex
+        index = AllocationIndex(n_shards=8)
+        for key in ("pool-a", "pool-b", "n17-slice", "x"):
+            assert ShardDispatcher.shard_of(key, 8) == index.shard_of(key)
+
+    def test_routing_matches_reference(self):
+        """The same keys route to the same shards as under the
+        reference's dispatcher (exact), at several shard counts."""
+        from tpu_dra.k8s.informer import ShardDispatcher as RefDispatcher
+        keys = ([f"n{i:03d}" for i in range(64)]
+                + ["default/churn-00017", "chaos-node", "", "gpu-7"])
+        for shards in (1, 3, 8, 16):
+            ref, port = RefDispatcher(shards), ShardDispatcher(shards)
+            assert [port.route(k) for k in keys] == \
+                [ref.route(k) for k in keys]
+
+    def test_per_key_order_preserved(self):
+        d = ShardDispatcher(4, cap=1024)
+        seen = {}
+        done = threading.Event()
+        total = 200
+
+        def mk(key, i):
+            def run():
+                seen.setdefault(key, []).append(i)
+                if sum(len(v) for v in seen.values()) == total:
+                    done.set()
+            return run
+
+        d.start()
+        try:
+            for i in range(total):
+                key = f"k{i % 5}"
+                assert d.offer(d.route(key), mk(key, i))
+            assert done.wait(5)
+        finally:
+            d.stop()
+        for key, order in seen.items():
+            assert order == sorted(order), f"{key} reordered: {order}"
+
+    def test_overflow_sheds_and_reports(self):
+        drops = []
+        d = ShardDispatcher(1, cap=2, on_overflow=lambda sid, why:
+                            drops.append((sid, why)))
+        # No workers: queue fills at cap, then sheds.
+        assert d.offer(0, lambda: None)
+        assert d.offer(0, lambda: None)
+        assert not d.offer(0, lambda: None)
+        assert drops == [(0, "full")]
+        assert d.overflows == 1
+        # Draining frees capacity again.
+        assert d.drain_one(0)
+        assert d.offer(0, lambda: None)
+        d.stop()
+
+    def test_injected_dispatch_fault_sheds_like_overflow(self):
+        drops = []
+        d = ShardDispatcher(2, cap=64, on_overflow=lambda sid, why:
+                            drops.append((sid, why)))
+        FAULTS.arm("sched.watch_shard_dispatch", OneShot())
+        try:
+            assert not d.offer(1, lambda: None)
+        finally:
+            FAULTS.disarm("sched.watch_shard_dispatch")
+        assert drops == [(1, "fault")]
+        assert d.offer(1, lambda: None)  # fault was one-shot
+        d.stop()
+
+    def test_flush_is_a_barrier(self):
+        d = ShardDispatcher(3, cap=64)
+        ran = []
+        d.start()
+        try:
+            for i in range(30):
+                d.offer(i % 3, lambda i=i: ran.append(i))
+            assert d.flush(timeout=5)
+            assert len(ran) == 30
+        finally:
+            d.stop()
+
+
+class TestPartitionedInformer:
+    def test_partitioned_dispatch_sync_and_events(self):
+        c = FakeCluster()
+        c.create(PODS, pod("pre", node="n1"))
+        adds, deletes = [], []
+        inf = Informer(c, PODS, namespace="default", partitions=4,
+                       partition_key=lambda o: o["spec"].get("nodeName"))
+        inf.on_add(lambda o: adds.append(o["metadata"]["name"]))
+        inf.on_delete(lambda o: deletes.append(o["metadata"]["name"]))
+        inf.start()
+        try:
+            assert inf.wait_for_sync()
+            # The flush barrier ran: initial adds are HANDLED at sync.
+            assert adds == ["pre"]
+            for i in range(20):
+                c.create(PODS, pod(f"live-{i}", node=f"n{i % 3}"))
+            assert c.wait_for(lambda: len(adds) == 21)
+            c.delete(PODS, "live-0", "default")
+            assert c.wait_for(lambda: deletes == ["live-0"])
+        finally:
+            inf.stop()
+
+    def test_shard_overflow_reports_to_consumer(self):
+        c = FakeCluster()
+        overflows = []
+        release = threading.Event()
+        inf = Informer(c, PODS, namespace="default", partitions=1,
+                       partition_key=lambda o: "one-pool",
+                       shard_queue_cap=2,
+                       on_shard_overflow=lambda sid, why:
+                       overflows.append((sid, why)))
+        inf.on_add(lambda o: release.wait(2))  # wedge the shard worker
+        inf.start()
+        try:
+            assert inf.wait_for_sync()
+            for i in range(8):  # one wedges, cap 2 buffers, rest shed
+                c.create(PODS, pod(f"p{i}", node="n1"))
+            assert c.wait_for(lambda: len(overflows) >= 1)
+            release.set()
+            assert overflows[0][0] == 0
+        finally:
+            release.set()
+            inf.stop()
+
+
+class TestSchedulerShardRecovery:
+    def test_overflow_dirties_exactly_the_matching_index_shard(self):
+        from tpu_dra_torch.simcluster.scheduler import Scheduler
+        c = FakeCluster()
+        s = Scheduler(c)
+        s.start()
+        try:
+            sid = 3 % s._index_shards
+            s._on_informer_shard_overflow(sid, "full")
+            assert s._index.dirty_shards() == [sid]
+        finally:
+            s.stop()
+
+    def test_faulted_recovery_degrades_to_whole_index_dirty(self):
+        from tpu_dra_torch.simcluster.scheduler import Scheduler
+        c = FakeCluster()
+        s = Scheduler(c)
+        s.start()
+        try:
+            FAULTS.arm("sched.informer_shard_relist", OneShot())
+            try:
+                s._on_informer_shard_overflow(0, "full")
+            finally:
+                FAULTS.disarm("sched.informer_shard_relist")
+            # Degradation: cannot trust the shard-scoped path — every
+            # shard is dirty so the guarded full resync rebuilds all.
+            assert len(s._index.dirty_shards()) == s._index_shards
+        finally:
+            s.stop()
+
+
+class TestMutationCacheAfterDelete:
+    def test_late_write_cannot_resurrect_a_deleted_object(self):
+        """A consumer's mutation-cache write of a state older than a
+        deletion the watch already delivered is refused (the object
+        stays gone, from the lister and the indexes); a recreated object
+        under the same name is accepted."""
+        c = FakeCluster()
+        inf = Informer(c, PODS, namespace="default")
+        inf.add_indexer("node", lambda o: [o["spec"].get("nodeName", "")])
+        inf.start()
+        try:
+            assert inf.wait_for_sync()
+            c.create(PODS, pod("p", node="n1"))
+            assert c.wait_for(lambda: inf.lister.get("p", "default"))
+            late = c.get(PODS, "p", "default")   # a write, landing late
+            c.delete(PODS, "p", "default")
+            assert c.wait_for(lambda: inf.lister.get("p", "default") is None)
+            inf.update_cache(late)
+            assert inf.lister.get("p", "default") is None
+            assert inf.get_by_index("node", "n1") == []
+            again = c.create(PODS, pod("p", node="n2"))
+            assert c.wait_for(
+                lambda: (inf.lister.get("p", "default") or {}).get(
+                    "spec", {}).get("nodeName") == "n2")
+            inf.update_cache(again)   # its own write: newer, accepted
+            assert inf.get_by_index("node", "n2")[0]["metadata"][
+                "name"] == "p"
+        finally:
+            inf.stop()
+
+
+class TestViewShadow:
+    def test_in_place_mutation_of_a_view_is_a_drift(self):
+        """A zero-copy informer hands out the cached objects themselves;
+        with the shadow on, mutating one in place is reported as a drift
+        (naming the object and each site that handed it out, once),
+        while a wholesale replacement by a watch event is not."""
+        c = FakeCluster()
+        c.create(PODS, pod("a", node="n1"))
+        c.create(PODS, pod("b", node="n1"))
+        inf = Informer(c, PODS, namespace="default", copy_on_read=False,
+                       copy_events=False)
+        prev = informer_mod.SHADOW.enable()
+        snap = informer_mod.SHADOW.snapshot()
+        inf.start()
+        try:
+            assert inf.wait_for_sync()
+            views = {o["metadata"]["name"]: o for o in inf.lister.list()}
+            assert inf.lister.get("a", "default") is views["a"]
+            # b is replaced through the API: a new object, no drift.
+            upd = c.get(PODS, "b", "default")
+            upd["metadata"]["labels"] = {"x": "1"}
+            c.update(PODS, upd)
+            assert c.wait_for(lambda: inf.lister.get("b", "default")
+                              is not views["b"])
+            assert informer_mod.SHADOW.violations_since(snap) == []
+            views["a"]["spec"]["nodeName"] = "n2"   # the forbidden write
+            drifts = informer_mod.SHADOW.violations_since(snap)
+            # One drift per hand-out site of the object (the lister's
+            # list and get here, the initial dispatch on the watch
+            # thread), each naming it; reported once.
+            assert drifts and all("'default/a'" in d
+                                  and "mutated in place" in d
+                                  for d in drifts)
+            assert any("tests/test_torch_informer.py:" in d for d in drifts)
+            assert informer_mod.SHADOW.violations_since(snap) == drifts
+        finally:
+            inf.stop()
+            informer_mod.SHADOW.restore(prev)
+            informer_mod.SHADOW.reset()

@@ -17,7 +17,11 @@ domain daemons over the fake API server); bench_cd_gpus runs the node's
 GPUs as the ranks of a two-node domain.
 The ops benches (bench_fake_inventory_configs, bench_prepare_sustained,
 bench_sched_churn, bench_topology, bench_sched_failover,
-bench_trace_overhead) read the control plane on the host's clock.
+bench_trace_overhead) read the control plane on the host's clock, as do
+bench_chaos_recovery (plugin crash to claim ready again, on the fake node
+or a passed backend) and bench_sched_scale10k (the scheduler pool's
+churn at scale-out with a hollow-node watcher fleet, against a
+same-process baseline).
 
     python -m tpu_dra_torch.bench
     # one JSON line each: shared_claim and mps (one claim, two flagship
@@ -39,6 +43,11 @@ bench_trace_overhead) read the control plane on the host's clock.
     # MPS claim-to-ready on a fake inventory (fake_inventory), sustained
     # prepare/unprepare (prepare_sustained), scheduler churn, topology
     # and failover on fake GPU nodes, the tracer's cost (ops_benches)
+    python -m tpu_dra_torch.bench chaos
+    # one JSON line: bench_chaos_recovery on the fake node (host alone)
+    python -m tpu_dra_torch.bench scale10k
+    # one JSON line: bench_sched_scale10k at its TPU_DRA_BENCH_SCALE10K_*
+    # sizes (host alone; the defaults take a long while)
     python -m tpu_dra_torch.bench claim-child [--steps N] [--wait-go] ...
     # one tenant of the claim whose CDI env is this process's environment
 """
@@ -1365,9 +1374,47 @@ def _start_bind_watcher(cluster, stop):
     return bound_q, watcher
 
 
+def _start_hollow_fleet(cluster, node_names, n_watchers, stop):
+    """Kubemark-style hollow-node watcher fleet: `n_watchers` threads,
+    each holding a field-selector-scoped pod watch
+    (spec.nodeName=<node>) the way a kubelet does. The fake's fan-out is
+    topic-indexed, so a node-scoped watcher is never offered another
+    node's bind events and the fleet's cost is per delivered event, not
+    per watcher x event. Returns (threads, stats): one dict of
+    events/bookmarks/errors counts per watcher, updated live."""
+    from tpu_dra_torch.k8s import PODS
+
+    stats = [{"events": 0, "bookmarks": 0, "errors": 0}
+             for _ in range(n_watchers)]
+    stride = max(1, len(node_names) // n_watchers)
+
+    def hollow(i, node):
+        st = stats[i]
+        for ev, obj in cluster.watch(
+                PODS, namespace="default", stop=stop,
+                field_selector=f"spec.nodeName={node}"):
+            if ev == "BOOKMARK":
+                st["bookmarks"] += 1
+            elif ev == "ERROR":
+                st["errors"] += 1
+                break
+            else:
+                st["events"] += 1
+
+    threads = []
+    for i in range(n_watchers):
+        node = node_names[(i * stride) % len(node_names)]
+        t = threading.Thread(target=hollow, args=(i, node), daemon=True,
+                             name=f"hollow-{i}")
+        t.start()
+        threads.append(t)
+    return threads, stats
+
+
 def bench_sched_churn(n_nodes: int = None, n_pods: int = None,
                       gpus_per_node: int = 4, window: int = None,
-                      workers: int = None) -> dict:
+                      workers: int = None,
+                      hollow_watchers: int = 0) -> dict:
     """Control-plane churn (counterpart of bench.py's bench_sched_churn):
     `n_nodes` fake GPU nodes publishing ResourceSlices, `n_pods` pod
     lifecycles (create -> template claim -> allocate -> bind -> delete
@@ -1379,9 +1426,12 @@ def bench_sched_churn(n_nodes: int = None, n_pods: int = None,
     selector sources (the compile cache: compiles <= distinct), and
     ``sched_churn_gc_leak`` where a claim outlives its pod.
 
-    The port's scheduler runs one queue worker (its WorkQueue has no
-    per-key serialization, which a pool needs): ``sched_workers`` reads
-    1, and a `workers` other than 1 is ignored with a warning.
+    `workers` sizes the scheduler's pool (None: its default,
+    ``TPU_DRA_SCHED_WORKERS`` or 4), and ``sched_workers`` reports what
+    the scheduler ran. `hollow_watchers` > 0 runs that many node-scoped
+    pod watchers beside the churn (``_start_hollow_fleet``) and adds the
+    ``sched_hollow_*`` keys: events delivered in all and to the busiest
+    watcher, bookmarks, and watcher-queue overflows.
     ``sched_churn_chips_per_node`` keeps the reference's name and counts
     GPUs."""
     import queue as queue_mod
@@ -1396,9 +1446,6 @@ def bench_sched_churn(n_nodes: int = None, n_pods: int = None,
         DEFAULT_SCHED_SELECTOR, make_sched_pod, seed_sched_inventory,
     )
 
-    if workers not in (None, 1):
-        log.warning("bench_sched_churn: the port's scheduler runs one "
-                    "worker; workers=%s ignored", workers)
     n_nodes = n_nodes if n_nodes is not None else int(
         os.environ.get("TPU_DRA_BENCH_SCHED_NODES", "100"))
     n_pods = n_pods if n_pods is not None else int(
@@ -1408,8 +1455,9 @@ def bench_sched_churn(n_nodes: int = None, n_pods: int = None,
     # allocation; each must compile once across the whole churn.
     exprs = [DEFAULT_SCHED_SELECTOR,
              'device.attributes["gpu.dev"].architecture == "hopper"']
-    seed_sched_inventory(cluster, nodes=n_nodes, gpus_per_node=gpus_per_node,
-                         node_fmt="n{i:03d}", selector_exprs=exprs)
+    node_names = seed_sched_inventory(
+        cluster, nodes=n_nodes, gpus_per_node=gpus_per_node,
+        node_fmt="n{i:03d}", selector_exprs=exprs)
     capacity = n_nodes * gpus_per_node
     window = min(window or 64, max(1, capacity // 2), n_pods)
 
@@ -1421,10 +1469,15 @@ def bench_sched_churn(n_nodes: int = None, n_pods: int = None,
 
     # The sweep is pushed past the bench's horizon: the claim-GC drain
     # below must prove the event path, not the periodic safety net.
-    sched = Scheduler(cluster, resync_interval=2.0, gc_sweep_interval=3600.0)
+    sched = Scheduler(cluster, resync_interval=2.0, gc_sweep_interval=3600.0,
+                      workers=workers)
     sched.start()
     stop = threading.Event()
     bound_q, _watcher = _start_bind_watcher(cluster, stop)
+    hollow_stats = []
+    if hollow_watchers:
+        _hollow_threads, hollow_stats = _start_hollow_fleet(
+            cluster, node_names, hollow_watchers, stop)
     t_created: dict = {}
     lat_ms = []
 
@@ -1473,7 +1526,7 @@ def bench_sched_churn(n_nodes: int = None, n_pods: int = None,
         "sched_churn_pods": n_pods,
         "sched_churn_chips_per_node": gpus_per_node,
         "sched_churn_window": window,
-        "sched_workers": 1,
+        "sched_workers": sched._workers,
         "sched_index_shards": sched._index.n_shards,
         "sched_snapshot_conflicts": int(
             SCHED_SNAPSHOT_CONFLICTS.value() - conflicts0),
@@ -1483,10 +1536,78 @@ def bench_sched_churn(n_nodes: int = None, n_pods: int = None,
         "sched_cel_cache_hit_pct": (100.0 * hits / (hits + misses)
                                     if hits + misses else None),
     }
+    if hollow_watchers:
+        delivered = [st["events"] for st in hollow_stats]
+        out["sched_hollow_watchers"] = hollow_watchers
+        out["sched_hollow_events_total"] = sum(delivered)
+        out["sched_hollow_events_max"] = max(delivered)
+        out["sched_hollow_bookmarks"] = sum(
+            st["bookmarks"] for st in hollow_stats)
+        out["sched_hollow_overflow_errors"] = sum(
+            st["errors"] for st in hollow_stats)
     if not gc_ok:
         out["sched_churn_gc_leak"] = len(
             cluster.list(RESOURCECLAIMS, namespace="default"))
     return out
+
+
+def bench_sched_scale10k(n_nodes: int = None, n_pods: int = None,
+                         n_watchers: int = None, gpus_per_node: int = 4,
+                         baseline_nodes: int = None,
+                         baseline_pods: int = None) -> dict:
+    """Kubemark-style control-plane scale-out (counterpart of bench.py's
+    bench_sched_scale10k): `n_nodes` fake GPU nodes and `n_pods` pod
+    lifecycles through the scheduler's pool (partitioned claims informer,
+    sharded watch fan-out), with a hollow-node fleet of `n_watchers`
+    node-scoped pod watchers riding the stream as kubelets would. Sizes
+    default from TPU_DRA_BENCH_SCALE10K_NODES / _PODS / _WATCHERS /
+    _BASELINE_NODES / _BASELINE_PODS (10000 / 100000 / 100 / 1000 /
+    5000). A same-process baseline churn of `baseline_nodes` x
+    `baseline_pods` runs first, so the ratio compares like with like.
+    Reports bench_sched_churn's keys renamed sched_scale10k_*, the
+    baseline's throughput and p50, and sched_scale10k_throughput_ratio
+    (big pods/s over baseline pods/s; hack/perf.sh gates the
+    reference's at >= 0.5)."""
+    n_nodes = n_nodes if n_nodes is not None else int(
+        os.environ.get("TPU_DRA_BENCH_SCALE10K_NODES", "10000"))
+    n_pods = n_pods if n_pods is not None else int(
+        os.environ.get("TPU_DRA_BENCH_SCALE10K_PODS", "100000"))
+    n_watchers = n_watchers if n_watchers is not None else int(
+        os.environ.get("TPU_DRA_BENCH_SCALE10K_WATCHERS", "100"))
+    baseline_nodes = baseline_nodes if baseline_nodes is not None else int(
+        os.environ.get("TPU_DRA_BENCH_SCALE10K_BASELINE_NODES", "1000"))
+    baseline_pods = baseline_pods if baseline_pods is not None else int(
+        os.environ.get("TPU_DRA_BENCH_SCALE10K_BASELINE_PODS", "5000"))
+
+    base = bench_sched_churn(n_nodes=baseline_nodes, n_pods=baseline_pods,
+                             gpus_per_node=gpus_per_node)
+    big = bench_sched_churn(n_nodes=n_nodes, n_pods=n_pods,
+                            gpus_per_node=gpus_per_node,
+                            hollow_watchers=n_watchers)
+    out = {k.replace("sched_", "sched_scale10k_", 1): v
+           for k, v in big.items()}
+    base_pps = base["sched_throughput_pods_per_s"]
+    out["sched_scale10k_baseline_nodes"] = baseline_nodes
+    out["sched_scale10k_baseline_pods"] = baseline_pods
+    out["sched_scale10k_baseline_throughput_pods_per_s"] = base_pps
+    out["sched_scale10k_baseline_pod_to_allocated_p50_ms"] = base[
+        "sched_pod_to_allocated_p50_ms"]
+    out["sched_scale10k_throughput_ratio"] = (
+        big["sched_throughput_pods_per_s"] / base_pps if base_pps else None)
+    return out
+
+
+def bench_chaos_recovery(n: int = 7, backend=None) -> dict:
+    """Chaos-recovery latency (counterpart of bench.py's
+    bench_chaos_recovery): median and p95 wall ms from an injected
+    plugin crash (unclean teardown, nothing unprepared) to the affected
+    claim prepared again — checkpoint load + orphan GC + CDI spec
+    rewrite + DRA server up + idempotent re-prepare — over `n` crashes.
+    `backend` is the node's inventory (NVML on the card); by default the
+    chaos harness's fake node."""
+    from tpu_dra_torch.simcluster.chaos import measure_daemon_crash_recovery
+
+    return measure_daemon_crash_recovery(n, backend=backend)
 
 
 TOPO_NODES = 8          # HGX H100 nodes of the topology bench
@@ -2369,6 +2490,14 @@ def main(argv) -> int:
     if argv[:1] == ["ops"]:
         for name, rec in ops_benches():
             print(json.dumps({name: rec}), flush=True)
+        return 0
+    if argv[:1] == ["chaos"]:
+        print(json.dumps({"chaos_recovery": bench_chaos_recovery()}),
+              flush=True)
+        return 0
+    if argv[:1] == ["scale10k"]:
+        print(json.dumps({"sched_scale10k": bench_sched_scale10k()}),
+              flush=True)
         return 0
     nvml = gpuinfo.get_backend()
     try:

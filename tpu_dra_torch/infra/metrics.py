@@ -8,7 +8,8 @@ the kubelet plugin's self-probe) and the thread-stack dump at
 here: the checkpoint journal's, the tracer's, the quarantine gauge, the
 kubelet plugin's prepare and RPC instruments (each in its own module),
 the mesh-build counter and the control plane's (the sim scheduler's,
-its CEL cache's and the leader election's) below. The metric names are the reference's,
+its CEL cache's and the leader election's) and the work
+queues' below. The metric names are the reference's,
 so one dashboard reads both. The reference's metric catalog comes with
 the slice that uses it.
 """
@@ -331,6 +332,9 @@ SCHED_CLAIMS_GCED = DefaultRegistry.counter(
     "tpu_dra_sched_claims_gced",
     "template-owned ResourceClaims garbage-collected after pod death, "
     "labeled by path (event|sweep)")
+SCHED_WORKERS = DefaultRegistry.gauge(
+    "tpu_dra_sched_workers",
+    "reconcile worker threads the scheduler's WorkQueue pool runs")
 SCHED_SNAPSHOT_CONFLICTS = DefaultRegistry.counter(
     "tpu_dra_sched_snapshot_conflicts_total",
     "optimistic snapshot commits refused because the shard moved "
@@ -376,3 +380,14 @@ SCHED_LEASE_TRANSITIONS = DefaultRegistry.counter(
     "lease acquisitions (first grab + every takeover) observed by the "
     "electors of this process; each one bumps the fencing generation "
     "that deposed-leader claim-status writes are refused against")
+
+# -- work queues (infra.workqueue): a named queue's depth and busy pool
+# workers. -------------------------------------------------------------------
+
+WORKQUEUE_DEPTH = DefaultRegistry.gauge(
+    "tpu_dra_workqueue_depth",
+    "items queued (delay heap + per-key deferred) in a named WorkQueue, "
+    "labeled by queue")
+WORKQUEUE_BUSY = DefaultRegistry.gauge(
+    "tpu_dra_workqueue_busy_workers",
+    "pool workers currently processing an item, labeled by queue")

@@ -6,7 +6,8 @@ Retryable callbacks are enqueued with a key; when a newer item is
 enqueued under the same key, a *failed* older item is forgotten instead
 of retried (supersede). Rate limiting combines per-item exponential
 backoff with a global token bucket (``default_prep_unprep_rate_limiter``).
-One consumer thread (``run``/``run_in_thread``) processes the items.
+One consumer thread (``run``/``run_in_thread``) processes the items, or
+a pool of them (``start_workers``).
 
 The compute-domain stack adds the controller's and the domain daemon's
 rate limiters (``default_controller_rate_limiter``,
@@ -14,9 +15,18 @@ rate limiters (``default_controller_rate_limiter``,
 ``after`` enqueue for time-based re-evaluation; the sim scheduler adds
 the ``dedupe`` enqueue (a waiting item of the same key absorbs it).
 
-Not copied: the reference's worker pools and their per-key
-serialization, the queue-depth gauges and the model checker's
-scheduling hooks.
+**Worker pools:** ``start_workers(n)`` runs N consumer threads against
+one queue with client-go's parallelism contract: two items sharing a key
+are never processed at once. A ready item whose key is mid-process on
+another worker is *deferred* (parked in a per-key side list, still
+absorbing ``dedupe=True`` enqueues, since it has not run yet) and
+re-queued the moment the in-flight item completes, so per-key order is
+kept. Keyless items are never serialized. One worker (``run()``) is the
+single-consumer behaviour exactly. A named queue (``name=``) exports its
+depth and busy workers as the ``tpu_dra_workqueue_depth`` and
+``tpu_dra_workqueue_busy_workers`` gauges.
+
+Not copied: the reference's model-checker scheduling hooks.
 """
 
 from __future__ import annotations
@@ -166,15 +176,37 @@ class WorkQueue:
     re-raised.
     """
 
-    def __init__(self, rate_limiter: Optional[RateLimiter] = None):
+    def __init__(self, rate_limiter: Optional[RateLimiter] = None,
+                 log: Optional[Callable[[str], None]] = None,
+                 name: str = ""):
         self._rl = rate_limiter or default_prep_unprep_rate_limiter()
         self._heap: list = []  # (ready_at, seq, WorkItem)
         self._seq = itertools.count()
+        # An explicit Lock created here (not the RLock a bare Condition
+        # makes inside threading's own frame), so the lock-order witness
+        # sees the queue's critical sections.
         self._cond = threading.Condition(threading.Lock())
         self._active_ops: Dict[str, WorkItem] = {}
-        # key -> items of that key waiting in the heap (dedupe=True).
+        # key -> items of that key still queued (in the heap or deferred,
+        # not yet handed to a worker); backs dedupe=True.
         self._queued_keys: Dict[str, int] = {}
+        # Per-key serialization for worker pools: the keys a worker is
+        # processing now, and ready items deferred behind them.
+        self._processing: Dict[str, WorkItem] = {}
+        self._deferred: Dict[str, list] = {}
+        self._busy = 0
         self._shutdown = False
+        self._log = log or (lambda msg: None)
+        # Named queues export depth/busy-worker gauges (unnamed ones,
+        # short-lived fixtures, stay out of the registry's labels).
+        self._name = name
+        self._depth_gauge = self._busy_gauge = None
+        if name:
+            from tpu_dra_torch.infra.metrics import (
+                WORKQUEUE_BUSY, WORKQUEUE_DEPTH,
+            )
+            self._depth_gauge = WORKQUEUE_DEPTH
+            self._busy_gauge = WORKQUEUE_BUSY
 
     # -- producers ----------------------------------------------------------
 
@@ -192,7 +224,7 @@ class WorkQueue:
         if _FLIGHTREC.enabled:
             # Queue events are flight-recorder evidence: a wedge dump
             # shows what was queued when. Recorded outside _cond.
-            _FLIGHTREC.record_wq("?", "add", key)
+            _FLIGHTREC.record_wq(self._name or "?", "add", key)
         with self._cond:
             if dedupe and key and self._queued_keys.get(key, 0) > 0:
                 return
@@ -202,6 +234,7 @@ class WorkQueue:
                 item.counted = True
                 self._queued_keys[key] = self._queued_keys.get(key, 0) + 1
             self._push_locked(item, after=after)
+            self._observe_locked()
             self._cond.notify()
 
     def _push_locked(self, item: WorkItem,
@@ -211,10 +244,10 @@ class WorkQueue:
 
     # -- consumer -----------------------------------------------------------
 
-    def run(self) -> None:
-        """Process items until shutdown()."""
+    def run(self, stop_event: Optional[threading.Event] = None) -> None:
+        """Process items until shutdown() (or stop_event set)."""
         while True:
-            item = self._get()
+            item = self._get(stop_event)
             if item is None:
                 return
             self._process(item)
@@ -224,48 +257,109 @@ class WorkQueue:
         t.start()
         return t
 
+    def start_workers(self, n: int,
+                      stop_event: Optional[threading.Event] = None
+                      ) -> list:
+        """The worker pool: N consumer threads over this queue with
+        per-key serialization (module docstring). Returns the threads;
+        join them after shutdown()/stop_event for a clean stop."""
+        threads = []
+        for i in range(n):
+            t = threading.Thread(target=self.run, args=(stop_event,),
+                                 daemon=True,
+                                 name=f"workqueue-{self._name or 'pool'}-{i}")
+            t.start()
+            threads.append(t)
+        return threads
+
     def shutdown(self) -> None:
         with self._cond:
             self._shutdown = True
             self._cond.notify_all()
 
-    def _get(self) -> Optional[WorkItem]:
+    def _get(self, stop_event: Optional[threading.Event] = None
+             ) -> Optional[WorkItem]:
         with self._cond:
             while True:
-                if self._shutdown:
+                if self._shutdown or (stop_event is not None
+                                      and stop_event.is_set()):
                     return None
                 now = time.monotonic()
-                if self._heap and self._heap[0][0] <= now:
-                    item = heapq.heappop(self._heap)[2]
-                    if item.counted:
-                        item.counted = False
-                        n = self._queued_keys.pop(item.key) - 1
-                        if n:
-                            self._queued_keys[item.key] = n
-                    return item
+                handed = None
+                while self._heap and self._heap[0][0] <= now:
+                    _, _, item = heapq.heappop(self._heap)
+                    if item.key and item.key in self._processing:
+                        # Per-key serialization: the key is mid-process on
+                        # another worker. Defer; the item keeps its dedupe
+                        # registration (it has not run) and is re-queued
+                        # when the in-flight item completes.
+                        self._deferred.setdefault(item.key, []).append(item)
+                        continue
+                    handed = item
+                    break
+                if handed is not None:
+                    if handed.key:
+                        self._processing[handed.key] = handed
+                        if handed.counted:
+                            # A retry's re-push stays uncounted: dedupe
+                            # must not absorb into it.
+                            handed.counted = False
+                            n = self._queued_keys.pop(handed.key) - 1
+                            if n:
+                                self._queued_keys[handed.key] = n
+                    self._busy += 1
+                    self._observe_locked()
+                    return handed
                 if self._heap:
                     self._cond.wait(timeout=min(self._heap[0][0] - now, 0.5))
                 else:
                     self._cond.wait(timeout=0.5)
 
+    def _release_key_locked(self, item: WorkItem) -> None:
+        """End of this item's processing: free its key and re-queue the
+        ready items deferred behind it (one notify each, so idle pool
+        workers pick them up at once)."""
+        self._busy -= 1
+        if item.key:
+            if self._processing.get(item.key) is item:
+                del self._processing[item.key]
+            for deferred in self._deferred.pop(item.key, ()):
+                heapq.heappush(self._heap,
+                               (time.monotonic(), next(self._seq), deferred))
+                self._cond.notify()
+        self._observe_locked()
+
     def _process(self, item: WorkItem) -> None:
         if _FLIGHTREC.enabled:
-            _FLIGHTREC.record_wq("?", "get", item.key)
+            _FLIGHTREC.record_wq(self._name or "?", "get", item.key)
         try:
             item.callback(item.obj)
-        except Exception:  # noqa: BLE001 — retryable by contract
+        except Exception as e:  # noqa: BLE001 — retryable by contract
+            self._log(f"reconcile: {e}")
             with self._cond:
+                self._release_key_locked(item)
                 current = self._active_ops.get(item.key)
                 if item.key and current is not item:
                     # Superseded: a newer item under this key is still
                     # pending, or already completed (success deletes the
                     # entry). Either way this failure is obsolete.
+                    self._log(f"not re-enqueueing '{item.key}': superseded")
                     self._rl.forget(item.item_id)
                 else:
                     self._push_locked(item)
                     self._cond.notify()
             return
         with self._cond:
+            self._release_key_locked(item)
             if item.key and self._active_ops.get(item.key) is item:
                 del self._active_ops[item.key]
             self._rl.forget(item.item_id)
+
+    def _observe_locked(self) -> None:
+        if self._depth_gauge is not None:
+            labels = {"queue": self._name}
+            self._depth_gauge.set(
+                len(self._heap) + sum(len(v) for v in
+                                      self._deferred.values()),
+                labels=labels)
+            self._busy_gauge.set(self._busy, labels=labels)

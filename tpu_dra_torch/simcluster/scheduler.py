@@ -21,8 +21,14 @@ Two drive modes:
   index falls back to a guarded resync of its dirty shards only when an
   event is known-dropped or an index apply fails (fault sites
   ``sched.watch_event`` / ``sched.index_apply`` / ``sched.shard_apply``).
-  One worker drains the queue (the port's WorkQueue has no per-key
-  serialization, which a pool of workers would need); allocation still
+  The informers hand out zero-copy views (read-only by contract; the
+  chaos walks check it with ``informer.SHADOW``), and the claims
+  informer is partitioned by allocation pool with the index's crc32
+  shard function, so informer shard i feeds index shard i; a shed delta
+  (``sched.watch_shard_dispatch``) dirties exactly that index shard.
+  A pool of ``workers`` threads drains the queue (default
+  ``TPU_DRA_SCHED_WORKERS`` or 4; the queue's per-key serialization keeps
+  items of one pod, one GC key or the resync exclusive), and allocation
   commits optimistically (``try_commit``) against an immutable per-pool
   snapshot, so a stale pick surfaces as a re-scan, never a double
   allocation.
@@ -46,6 +52,7 @@ from __future__ import annotations
 import itertools
 import logging
 import os
+import sys
 import threading
 import time
 import zlib
@@ -58,8 +65,8 @@ from tpu_dra_torch.infra.leaderelect import FENCING_ANNOTATION
 from tpu_dra_torch.infra.metrics import (
     SCHED_CLAIMS_GCED, SCHED_EVICTIONS, SCHED_FULL_RELISTS,
     SCHED_PODS_BOUND, SCHED_SHARD_RESYNCS, SCHED_SNAPSHOT_CONFLICTS,
-    SCHED_WATCH_EVENTS, TOPO_ALLOCS, TOPO_FREE_CUBOID, TOPO_SCORE_SECONDS,
-    Timer,
+    SCHED_WATCH_EVENTS, SCHED_WORKERS, TOPO_ALLOCS, TOPO_FREE_CUBOID,
+    TOPO_SCORE_SECONDS, Timer,
 )
 from tpu_dra_torch.infra.trace import TRACEPARENT_ANNOTATION, TRACER
 from tpu_dra_torch.infra.workqueue import (
@@ -78,6 +85,35 @@ from tpu_dra_torch.simcluster import cel
 from tpu_dra_torch.topology import placement
 
 log = logging.getLogger("simcluster.scheduler")
+
+# sys.setswitchinterval is interpreter-global: the raise is refcounted so
+# overlapping Scheduler lifecycles in one process can neither revert the
+# interval under a still-running sibling nor leak the raised value past
+# the last stop() (see Scheduler.start for the why).
+_switch_lock = threading.Lock()
+_switch_refs = 0
+_switch_saved = 0.0
+
+
+def _raise_switch_interval() -> None:
+    global _switch_refs, _switch_saved
+    with _switch_lock:
+        _switch_refs += 1
+        if _switch_refs == 1:
+            _switch_saved = sys.getswitchinterval()
+            sys.setswitchinterval(max(
+                _switch_saved,
+                float(os.environ.get(
+                    "TPU_DRA_SCHED_SWITCH_INTERVAL", "0.02"))))
+
+
+def _restore_switch_interval() -> None:
+    global _switch_refs
+    with _switch_lock:
+        _switch_refs -= 1
+        if _switch_refs == 0:
+            sys.setswitchinterval(_switch_saved)
+
 
 # A MIG device's name is its GPU's plus this infix and the placement
 # (gpu-3-mig-3g40gb-4 on gpu-3).
@@ -707,6 +743,14 @@ class AllocationIndex:
                 out.extend(shard._by_claim.items())
         return out
 
+    def entries_for(self, key: str) -> Tuple[_Entry, ...]:
+        pool = self._homes.get(key)
+        if pool is None:
+            return ()
+        shard = self._shards[self.shard_of(pool)]
+        with shard._lock:
+            return shard._by_claim.get(key, ())
+
     def is_taken(self, driver: str, pool: str, name: str,
                  overlay: Optional[Set[_Entry]] = None) -> bool:
         shard = self._shards[self.shard_of(pool)]
@@ -750,8 +794,12 @@ class Scheduler:
     """See module docstring. ``resync_interval`` is the event-mode
     safety-net cadence at which still-pending pods are
     re-nudged; ``gc_sweep_interval`` paces the low-frequency orphan-claim
-    sweep backing the event-driven GC; ``index_shards`` shards the
-    allocation index (default ``TPU_DRA_SCHED_INDEX_SHARDS`` or 8)."""
+    sweep backing the event-driven GC; ``workers`` sizes the event-mode
+    reconcile pool (default ``TPU_DRA_SCHED_WORKERS`` or 4: per-key
+    serialization keeps same-pod/same-gc items exclusive, the snapshot
+    commit keeps cross-worker picks conflict-free); ``index_shards``
+    shards the allocation index (default ``TPU_DRA_SCHED_INDEX_SHARDS``
+    or 8)."""
 
     SYNC_TIMEOUT = 10.0
     # Fresh-snapshot re-scans after an optimistic commit conflict before
@@ -764,14 +812,18 @@ class Scheduler:
 
     def __init__(self, client: ApiClient, *, resync_interval: float = 2.0,
                  gc_sweep_interval: float = 10.0,
+                 workers: Optional[int] = None,
                  index_shards: Optional[int] = None):
         self._client = client
         self._resync_interval = resync_interval
         self._gc_sweep_interval = gc_sweep_interval
+        self._workers = (workers if workers is not None else
+                         int(os.environ.get("TPU_DRA_SCHED_WORKERS", "4")))
         self._index_shards = (index_shards if index_shards is not None else
                               int(os.environ.get(
                                   "TPU_DRA_SCHED_INDEX_SHARDS", "8")))
         self._stop = threading.Event()
+        self._raised_switch = False
         self._queue: Optional[WorkQueue] = None
         self._pool: List[threading.Thread] = []
         self._sweeper: Optional[threading.Thread] = None
@@ -853,13 +905,31 @@ class Scheduler:
             # (after=0) and failures back off per item; a bucket would
             # throttle churn-scale nudge fan-in for no protection (the
             # "apiserver" here is in-process or the fake).
-            rate_limiter=ExponentialFailureRateLimiter(0.005, 2.0))
+            rate_limiter=ExponentialFailureRateLimiter(0.005, 2.0),
+            log=lambda msg: log.debug("workqueue: %s", msg),
+            name="sched")
 
         inf = {}
         for name, gvr in (("pods", PODS), ("claims", RESOURCECLAIMS),
                           ("slices", RESOURCESLICES),
                           ("classes", DEVICECLASSES), ("nodes", NODES)):
-            inf[name] = Informer(self._client, gvr)
+            if name == "claims":
+                # Partitioned by allocation pool with AllocationIndex's
+                # crc32 shard function: informer shard i feeds exactly
+                # index shard i, so claim deltas of one node pool apply
+                # in order on one FIFO while other pools run free, and a
+                # shed delta dirties precisely the shard it would have fed.
+                inf[name] = Informer(
+                    self._client, gvr,
+                    copy_on_read=False, copy_events=False,
+                    partitions=self._index_shards,
+                    partition_key=self._claim_pool,
+                    shard_queue_cap=int(os.environ.get(
+                        "TPU_DRA_SCHED_SHARD_QUEUE_CAP", "4096")),
+                    on_shard_overflow=self._on_informer_shard_overflow)
+            else:
+                inf[name] = Informer(self._client, gvr,
+                                     copy_on_read=False, copy_events=False)
         inf["claims"].add_indexer("owner", self._owner_index)
         inf["slices"].add_indexer("node", self._slice_node_index)
 
@@ -879,16 +949,25 @@ class Scheduler:
 
         self._informers = inf
         self._started = True
+        # CPython GIL tuning for the lock-heavy event control plane: the
+        # 5 ms default switch interval preempts lock holders mid-critical-
+        # section, convoying every waiter behind them; 20 ms lets critical
+        # sections complete between forced switches. Process-global, so
+        # raise/restore is refcounted module-wide.
+        _raise_switch_interval()
+        self._raised_switch = True
         for i in inf.values():
             i.start()
         for i in inf.values():
             i.wait_for_sync(self.SYNC_TIMEOUT)
-        # The worker starts once every informer has synced: an evict
-        # scan queued by the first slice events must not read a node
-        # lister that has not listed yet (every pool would look lost).
-        # A standby leaves the worker paused — promote() starts it.
+        # The pool starts once every informer has synced: an evict scan
+        # queued by the first slice events must not read a node lister
+        # that has not listed yet (every pool would look lost). Its
+        # workers serialize per key (infra.workqueue); cross-worker
+        # allocation safety comes from the snapshot commit step. A
+        # standby leaves the pool paused — promote() starts it.
         if not self._standby:
-            self._pool = [self._queue.run_in_thread()]
+            self._start_pool()
         # The initial claim listing flowed through _on_claim adds during
         # informer sync, so the index is already built; the nudge below
         # only covers pods whose add events raced the pending-set wiring.
@@ -898,6 +977,10 @@ class Scheduler:
                                              daemon=True,
                                              name="sim-scheduler-sweep")
             self._sweeper.start()
+
+    def _start_pool(self) -> None:
+        self._pool = self._queue.start_workers(self._workers, self._stop)
+        SCHED_WORKERS.set(self._workers)
 
     @property
     def is_standby(self) -> bool:
@@ -932,10 +1015,10 @@ class Scheduler:
         except FaultInjected:
             # Declared degradation (sched.takeover_resync): the queued
             # resync item re-runs the rebuild; until it converges,
-            # dirty shards refuse try_commit, so the promoted worker
+            # dirty shards refuse try_commit, so the promoted workers
             # degrade to bounded requeues rather than unsafe commits.
             self.request_resync("takeover resync faulted")
-        self._pool = [self._queue.run_in_thread()]
+        self._start_pool()
         self._nudge_all_pending()
         self._sweeper = threading.Thread(target=self._sweep_loop,
                                          daemon=True,
@@ -954,6 +1037,9 @@ class Scheduler:
             if t is not None:
                 t.join(timeout=5)
         self._pool = []
+        if self._raised_switch:
+            self._raised_switch = False
+            _restore_switch_interval()
         self._started = False
 
     # -- event handlers (watch threads: derive keys, enqueue, return) -------
@@ -1021,6 +1107,33 @@ class Scheduler:
             return
         if old is not None and claim_entries(old) and not claim_entries(new):
             self._nudge_pending_pods()  # deallocation freed devices
+
+    @staticmethod
+    def _claim_pool(claim: Dict) -> Optional[str]:
+        """Partition key for the partitioned claims informer: the pool
+        of the claim's allocation, i.e. exactly what AllocationIndex
+        shards by — claim deltas ride the informer shard that feeds
+        their index shard. Unallocated claims return None and fall back
+        to the informer's name-hash routing (they carry no entries, so
+        any shard is equally correct for them)."""
+        entries = claim_entries(claim)
+        return entries[0][1] if entries else None
+
+    def _on_informer_shard_overflow(self, shard_id: int, reason: str) -> None:
+        """Recovery hook for a shed claims-informer delta: the shard's
+        slice of the allocation index missed an apply/remove, so mark
+        exactly that index shard dirty (try_commit refuses dirty shards
+        — no allocation can race the gap) and queue the guarded resync.
+        If even this path faults (sched.informer_shard_relist), degrade
+        to dirtying the whole index: over-resync is safe, a clean-
+        looking shard that lost deltas is not."""
+        why = f"informer shard {shard_id} overflow ({reason})"
+        try:
+            FAULTS.check("sched.informer_shard_relist", shard=shard_id)
+            self._index.mark_shard_dirty(shard_id, why)
+            self._enqueue_resync(why)
+        except FaultInjected:
+            self._mark_dirty(why)
 
     def _on_claim_deleted(self, claim: Dict) -> None:
         if self._drop_event("resourceclaims"):
@@ -1520,12 +1633,15 @@ class Scheduler:
 
     def _process_pod(self, key: str) -> None:
         # A known-divergent shard must rebuild before its commits flow;
-        # the one worker rebuilds inline rather than wait for the queued
-        # resync item. A still-dirty (or mid-rebuild) shard refuses
-        # try_commit, so a pod whose pool is divergent degrades to a
-        # bounded conflict/requeue, never allocates against untrusted
-        # state.
-        if self._index.dirty:
+        # the inline call keeps single-worker schedulers converging
+        # without waiting for the queued resync item, but only there: on
+        # a pool, every worker inlining it would race concurrent full
+        # listings and swap-thrash each other's only_if_mutations guards
+        # (the keyed, deduped "resync" item already serializes recovery).
+        # A still-dirty (or mid-rebuild) shard refuses try_commit, so a
+        # pod whose pool is divergent degrades to a bounded
+        # conflict/requeue, never allocates against untrusted state.
+        if self._workers <= 1 and self._index.dirty:
             self._full_resync()
         ns, name = key.split("/", 1)
         pod = self._get_pod(ns, name)
