@@ -187,7 +187,27 @@ Phases, each printing one JSON line ({"phase": ...}):
                   bench_chaos_recovery twice, on the fake node (the
                   reference's number) and on the card through NVML with
                   a claim of no sharing config: p50, p95 and crashes
-                  each, and the phase's seconds (chaos);
+                  each, and the phase's seconds (chaos); the witness
+                  also covers one untimed NVML crash recovery after the
+                  matrix, and its edges are exported to
+                  build/analysis/chaos-edges.json;
+   analysis     — the port's analysis tier on the host (host clock):
+                  python -m tpu_dra_torch.analysis cold (no cache) over
+                  tpu_dra_torch/, tests/test_torch_*.py and chip_smoke.py
+                  with --require-justified: 0 findings, every
+                  suppression justified, within hack/lint.sh's 180 s
+                  cold-run limit; python -m tpu_dra_torch.analysis.drmc
+                  at hack/drmc.sh's sizes (budget 200, >= 200 distinct
+                  schedules, >= 30 crash points in each crash scenario,
+                  then evict-churn, takeover-resync and shard-dispatch
+                  at budget 250, each >= 200), exporting its witness's
+                  edges; --check-witness over the chaos phase's edges
+                  and over drmc's, 0 unexplained; the view-shadow walk
+                  run_sched_schedule(11, 40) and --check-view-shadow, 0
+                  unexplained drifts; MeshSliceHarness(2, 4)'s plan: 8
+                  GPUs over 2 workers, contiguous, its modeled GB/s;
+                  files, findings, suppressions, schedules per scenario,
+                  crash points and the seconds of each (analysis);
    scale        — bench_sched_scale10k at SCALE_NODES nodes x SCALE_PODS
                   pods with SCALE_WATCHERS hollow watchers, against a
                   SCALE_BASELINE same-process baseline: 0 full relists,
@@ -255,6 +275,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -356,6 +377,21 @@ SCALE_BASELINE = (100, 1000)      # nodes, pods
 SCALE_RATIO_GATE = 0.5            # hack/perf.sh's PERF_SCALE10K_RATIO
 OPS_FAILOVER_P50_GATE_MS = 2000.0
 MESH_TRAIN_STEPS = 3
+# The analysis phase: the port's dralint and drmc at hack/lint.sh's and
+# hack/drmc.sh's sizes, with their exports under build/ (gitignored).
+ANALYSIS_DIR = os.path.join(ROOT, "build", "analysis")
+CHAOS_EDGES = os.path.join(ANALYSIS_DIR, "chaos-edges.json")
+DRMC_EDGES = os.path.join(ANALYSIS_DIR, "drmc-edges.json")
+VIEW_DRIFTS = os.path.join(ANALYSIS_DIR, "view-drifts.json")
+LINT_COLD_LIMIT_S = 180    # hack/lint.sh's cold-run wall-clock gate
+DRMC_GATE = ["--budget", "200", "--min-schedules", "200",
+             "--min-crash-points", "30", "--deadline", "180"]
+DRMC_FLOORS = ("evict-churn", "takeover-resync", "shard-dispatch")
+DRMC_FLOOR_ARGS = ["--budget", "250", "--min-schedules", "200",
+                   "--deadline", "120", "--skip-crash"]
+DRMC_MIN_SCHEDULES = 200
+DRMC_MIN_CRASH_POINTS = 30
+VIEW_SHADOW_WALK = (11, 40)   # run_sched_schedule(seed, events)
 # Ranks of the ring emulated by ring_local.
 RING_N = 4
 CLAIM_CHILD = "claim-child"
@@ -1394,7 +1430,7 @@ def _wait(pred, timeout: float, interval: float = 0.05):
     while time.perf_counter() < deadline:
         try:
             got = pred()
-        except Exception:  # noqa: BLE001 — an API read racing a write
+        except Exception:  # noqa: BLE001 # drflow: swallow-ok[an API read racing a write counts as not yet; the deadline bounds the wait]
             got = None
         if got:
             return got
@@ -1690,20 +1726,36 @@ def phase_chaos() -> dict:
     """The chaos tier (tpu_dra_torch.simcluster.chaos) at CHAOS_SEEDS x
     CHAOS_EVENTS with the port's lock witness installed across the whole
     matrix (the harnesses' own installs nest in it, so the graph holds
-    every walk): zero violations in every walk and the watch-flake
-    scenario, no lock-order cycle. Then bench_chaos_recovery on the fake
-    node and on the card's NativeBackend."""
+    every walk) and one untimed crash recovery on the card's
+    NativeBackend: zero violations in every walk and the watch-flake
+    scenario, no lock-order cycle. The witnessed edges are exported to
+    CHAOS_EDGES for the analysis phase. Then, outside the witness,
+    bench_chaos_recovery on the fake node and on the card's
+    NativeBackend."""
     from tpu_dra_torch import bench
     from tpu_dra_torch.infra import lockwitness
     from tpu_dra_torch.native import gpuinfo
     from tpu_dra_torch.simcluster import chaos
 
     t_phase = time.perf_counter()
+    os.makedirs(ANALYSIS_DIR, exist_ok=True)
+    if os.path.exists(CHAOS_EDGES):
+        os.unlink(CHAOS_EDGES)
     lockwitness.install()
     try:
         summary = chaos.walk_matrix(list(range(CHAOS_SEEDS)), CHAOS_EVENTS)
+        matrix_s = time.perf_counter() - t_phase
+        backend = gpuinfo.NativeBackend()
+        try:
+            witnessed = bench.bench_chaos_recovery(CHAOS_RECOVERY_CRASHES,
+                                                   backend=backend)
+        finally:
+            backend.close()
         cycles = lockwitness.WITNESS.cycles()
         edges = len(lockwitness.WITNESS.edges())
+        # The card run's own edges, for the analysis phase's
+        # observed-within-static check.
+        exported = lockwitness.export_edges(CHAOS_EDGES)
     finally:
         lockwitness.uninstall()
     walks = {"plugin": _chaos_walk_line(summary,
@@ -1711,7 +1763,6 @@ def phase_chaos() -> dict:
     for walk in chaos.WALKS:
         walks[walk] = _chaos_walk_line(summary[walk],
                                        chaos.REARM_SITES[walk])
-    matrix_s = time.perf_counter() - t_phase
     fake = bench.bench_chaos_recovery(CHAOS_RECOVERY_CRASHES)
     backend = gpuinfo.NativeBackend()
     try:
@@ -1724,8 +1775,9 @@ def phase_chaos() -> dict:
            "walks": walks,
            "watch_flake_violations": summary["watch_flake_violations"],
            "witness_cycles": cycles, "witness_edges": edges,
-           "matrix_s": matrix_s,
+           "witness_export": exported, "matrix_s": matrix_s,
            "recovery_fake": fake, "recovery_nvml": nvml,
+           "witnessed_recovery_nvml": witnessed,
            "phase_s": time.perf_counter() - t_phase,
            "nvidia_smi": gpuinfo.nvidia_smi()}
     emit("chaos", **res)
@@ -1735,10 +1787,162 @@ def phase_chaos() -> dict:
     check(not summary["watch_flake_violations"],
           f"chaos: watch flake: {summary['watch_flake_violations']}")
     check(not cycles, f"chaos: lock-order cycles: {cycles}")
-    for name, rec in (("fake", fake), ("nvml", nvml)):
+    check(exported == CHAOS_EDGES, f"chaos: witness export {exported}")
+    for name, rec in (("fake", fake), ("nvml", nvml),
+                      ("witnessed nvml", witnessed)):
         check(rec["chaos_recovery_crashes"] == CHAOS_RECOVERY_CRASHES
               and rec["chaos_recovery_p50_ms"] > 0,
               f"chaos: crash recovery on {name}: {rec}")
+    return res
+
+
+def _run_module(args, timeout: float, env=None):
+    """`python -m <args>` from the checkout's root, output captured; the
+    wall seconds beside the completed process."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                          env={**os.environ, **(env or {})},
+                          capture_output=True, text=True, timeout=timeout)
+    return proc, time.perf_counter() - t0
+
+
+def _check_line(out: str, kind: str) -> dict:
+    """The counts of dralint's ``witness:`` / ``viewshadow:`` summary."""
+    pat = {"witness": r"witness: (\d+) observed edge\(s\), (\d+) static, "
+                      r"(\d+) unexplained",
+           "viewshadow": r"viewshadow: (\d+) observed drift\(s\), (\d+) "
+                         r"recognized view site\(s\), (\d+) unexplained"}
+    m = re.search(pat[kind], out)
+    check(m is not None, f"analysis: no {kind} summary in {out[-400:]!r}")
+    a, b, c = map(int, m.groups())
+    keys = (("observed", "static", "unexplained") if kind == "witness"
+            else ("drifts", "recognized_sites", "unexplained"))
+    return dict(zip(keys, (a, b, c)))
+
+
+def _drmc(args, timeout: float) -> tuple:
+    proc, secs = _run_module(
+        ["tpu_dra_torch.analysis.drmc", *args, "--json"], timeout,
+        env={"TPU_DRA_LOCK_WITNESS_EXPORT": DRMC_EDGES})
+    check(proc.returncode == 0 and proc.stdout.strip().startswith("{"),
+          f"analysis: drmc {args} exited {proc.returncode}: "
+          f"{(proc.stdout + proc.stderr)[-800:]}")
+    return json.loads(proc.stdout), secs
+
+
+def phase_analysis() -> dict:
+    """The port's analysis tier on the card's host (host clock): dralint
+    (R1-R15) cold over its default paths with --require-justified, the
+    chaos phase's witnessed edges and drmc's held against the static
+    lock-order graph, drmc at hack/drmc.sh's sizes, the view-shadow walk
+    held against R13, and MeshSliceHarness(2, 4)'s plan."""
+    from tpu_dra_torch.k8s import informer
+    from tpu_dra_torch.native import gpuinfo
+    from tpu_dra_torch.simcluster import chaos
+    from tpu_dra_torch.testing import MeshSliceHarness
+    from tpu_dra_torch.topology.meshexport import plan_from_worker_envs
+
+    t_phase = time.perf_counter()
+    os.makedirs(ANALYSIS_DIR, exist_ok=True)
+    for path in (DRMC_EDGES, VIEW_DRIFTS):
+        if os.path.exists(path):
+            os.unlink(path)
+    # 1. The cold whole-tree gate (no result cache read or written).
+    proc, lint_s = _run_module(
+        ["tpu_dra_torch.analysis", "--root", ROOT, "--no-cache",
+         "--jobs", "auto", "--require-justified", "--json"],
+        LINT_COLD_LIMIT_S)
+    check(proc.stdout.strip().startswith("{"),
+          f"analysis: dralint printed no report: {proc.stderr[-800:]}")
+    doc = json.loads(proc.stdout)
+    lint = {"files": doc["files"], "findings": len(doc["findings"]),
+            "suppressed": len(doc["suppressed"]),
+            "unjustified": len(doc["suppressed_unjustified"]),
+            "findings_by_rule": doc["findings_by_rule"],
+            "suppressed_by_rule": doc["suppressed_by_rule"],
+            "seconds": lint_s, "limit_s": LINT_COLD_LIMIT_S,
+            "returncode": proc.returncode}
+    # 2. drmc: the gate, then the three dedicated floors, every run
+    # exporting its witness's edges.
+    gate, gate_s = _drmc(DRMC_GATE, 600)
+    floors = {}
+    floors_s = 0.0
+    for name in DRMC_FLOORS:
+        floors[name], secs = _drmc(["--scenario", name, *DRMC_FLOOR_ARGS],
+                                   300)
+        floors_s += secs
+    drmc = {
+        "schedules": {e["scenario"]: e["distinct"] for e in gate["explore"]},
+        "distinct_total": gate["distinct_total"],
+        "crash_points": {c["scenario"]: c["points_run"]
+                         for c in gate["crash"]},
+        "crash_enumerated": {c["scenario"]: c["points_enumerated"]
+                             for c in gate["crash"]},
+        "floors": {n: d["explore"][0]["distinct"]
+                   for n, d in floors.items()},
+        "gate_s": gate_s, "floors_s": floors_s}
+    # 3. The view-shadow walk (drifts exported for the check below).
+    os.environ[informer.ViewShadow.EXPORT_ENV] = VIEW_DRIFTS
+    try:
+        walk = chaos.run_sched_schedule(*VIEW_SHADOW_WALK)
+    finally:
+        os.environ.pop(informer.ViewShadow.EXPORT_ENV, None)
+    # 4. observed within static: the card run's chaos edges and the view
+    # drifts in one scan (it writes the port's result cache), drmc's
+    # edges in a second (warm) one.
+    proc, chaos_check_s = _run_module(
+        ["tpu_dra_torch.analysis", "--root", ROOT, "--check-witness",
+         CHAOS_EDGES, "--check-view-shadow", VIEW_DRIFTS], 300)
+    out = proc.stdout + proc.stderr
+    witness_chaos = {**_check_line(out, "witness"),
+                     "returncode": proc.returncode}
+    view = {**_check_line(out, "viewshadow"), "walk_ok": walk.ok,
+            "walk_violations": walk.violations[:5]}
+    proc, drmc_check_s = _run_module(
+        ["tpu_dra_torch.analysis", "--root", ROOT, "--check-witness",
+         DRMC_EDGES], 300)
+    witness_drmc = {**_check_line(proc.stdout + proc.stderr, "witness"),
+                    "returncode": proc.returncode}
+    # 5. The multi-worker slice's plan.
+    harness = MeshSliceHarness(n_workers=2, gpus_per_worker=4)
+    try:
+        plan = plan_from_worker_envs(harness.worker_envs())
+    finally:
+        harness.close()
+    mesh = {"gpus": plan.n_devices, "workers": plan.n_workers,
+            "contiguous": plan.contiguous, "hop_mean": plan.hop_mean,
+            "modeled_nvlink_gbps": plan.modeled_nvlink_gbps}
+    res = {"lint": lint, "drmc": drmc, "witness_chaos": witness_chaos,
+           "witness_drmc": witness_drmc, "view_shadow": view,
+           "mesh_slice": mesh,
+           "check_s": chaos_check_s + drmc_check_s,
+           "phase_s": time.perf_counter() - t_phase,
+           "nvidia_smi": gpuinfo.nvidia_smi()}
+    emit("analysis", **res)
+    check(lint["returncode"] == 0 and lint["findings"] == 0
+          and lint["unjustified"] == 0,
+          f"analysis: dralint {lint['findings']} findings, "
+          f"{lint['unjustified']} unjustified suppressions: "
+          f"{doc['findings'][:5]}")
+    check(lint_s < LINT_COLD_LIMIT_S,
+          f"analysis: cold dralint took {lint_s:.1f} s")
+    check(gate["distinct_total"] >= DRMC_MIN_SCHEDULES,
+          f"analysis: drmc explored {gate['distinct_total']} schedules")
+    check(all(c["points_run"] == c["points_enumerated"]
+              >= DRMC_MIN_CRASH_POINTS for c in gate["crash"]),
+          f"analysis: drmc crash points {drmc['crash_points']}")
+    check(all(v >= DRMC_MIN_SCHEDULES for v in drmc["floors"].values()),
+          f"analysis: drmc floors {drmc['floors']}")
+    for name, rec in (("chaos", witness_chaos), ("drmc", witness_drmc)):
+        check(rec["returncode"] == 0 and rec["unexplained"] == 0
+              and rec["observed"] > 0,
+              f"analysis: {name} witness edges against the static "
+              f"graph: {rec}")
+    check(walk.ok, f"analysis: view-shadow walk: {walk.violations[:5]}")
+    check(view["unexplained"] == 0, f"analysis: view drifts: {view}")
+    check(mesh["gpus"] == 8 and mesh["workers"] == 2 and mesh["contiguous"]
+          and mesh["modeled_nvlink_gbps"] > 0,
+          f"analysis: MeshSliceHarness(2, 4) plan: {mesh}")
     return res
 
 
@@ -2349,6 +2553,7 @@ def main() -> int:
     phase_hot_restart()
     phase_ops()
     phase_chaos()
+    phase_analysis()
     phase_scale()
     _, counts = phase_main_path()
     _free()

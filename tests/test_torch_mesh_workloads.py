@@ -244,7 +244,10 @@ def test_dryrun_multichip_four_ranks():
 
 
 def test_mesh_dataplane_runs_every_workload_on_eight_ranks():
-    out = tbench.bench_mesh_dataplane(8)
+    out = tbench.bench_mesh_dataplane()
+    assert out["psum_mesh_workers"] == 2
+    assert out["psum_mesh_allocated_gpus"] == 8
+    assert out["psum_mesh_contiguous"]
     assert out["psum_mesh_coverage"] == "8/8"
     assert out["psum_mesh_devices"] == 8 and out["psum_mesh_algo_gbps"] > 0
     for name in mb.WORKLOADS:

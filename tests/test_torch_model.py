@@ -291,7 +291,7 @@ class TestImportIsolation:
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'tpu_dra'))\n"
             "print(len(names), bad)\n"
-            "sys.exit(1 if bad or len(names) < 77 else 0)\n")
+            "sys.exit(1 if bad or len(names) < 111 else 0)\n")
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                               env=env, capture_output=True, text=True,

@@ -6,7 +6,8 @@ bench_mesh_dataplane, bench_claim_to_ready and their helpers).
 bench_mfu, bench_long_context, bench_moe and profile_train_step are
 device measurements: they run on a CUDA device or raise. bench_psum
 times the all-reduce over a claim's GPUs, and bench_mesh_dataplane runs
-every workload of meshbuild on an 8-GPU fake claim over gloo CPU ranks.
+every workload of meshbuild on a fake 2-worker x 4-GPU slice
+(testing.MeshSliceHarness) over gloo CPU ranks.
 bench_claim_to_ready times the kubelet plugin over its sockets on any
 discovery backend.
 bench_shared_claim runs one claim's tenants (train-step processes,
@@ -422,23 +423,37 @@ def bench_mesh_gpus(train_steps: int = 3) -> dict:
 DATAPLANE_TRAIN = ModelConfig(vocab=64, d_model=32, n_heads=2, n_layers=2,
                               d_ff=64, max_seq=16, dtype=torch.float32)
 
+# The data plane's fake slice: (workers, GPUs per worker).
+MESH_SLICE = (2, 4)
 
-def bench_mesh_dataplane(n_gpus: int = 8) -> dict:
-    """Every registered workload on the plan of an `n_gpus`-GPU
-    FakeBackend claim, over one spawned gloo CPU rank per GPU
+
+def bench_mesh_dataplane() -> dict:
+    """Every registered workload on the plan of a MESH_SLICE fake
+    multi-worker GPU slice, over one spawned gloo CPU rank per GPU
     (counterpart of bench.py:bench_mesh_dataplane, whose data plane runs
-    on a CPU mesh in a subprocess): the all-reduce first (4 MiB per
-    rank, 6 iterations), then the rest at their default sizes, "train"
-    at DATAPLANE_TRAIN. Host-clock readings of CPU collectives: a check
-    that every workload runs on the claim's plan, not a device rate."""
+    on a CPU mesh in a subprocess). The plan is built the way the reference's
+    _mesh_dataplane_collect builds it: ``testing.MeshSliceHarness``
+    prepares one all-GPUs claim per worker through the real pipeline,
+    and ``plan_from_worker_envs`` merges the claims' CDI envs. The
+    all-reduce runs first (4 MiB per rank, 6 iterations), then the rest
+    at their default sizes, "train" at DATAPLANE_TRAIN. Host-clock
+    readings of CPU collectives: a check that every workload runs on the
+    slice's plan, not a device rate."""
     from tpu_dra_torch.infra.metrics import PSUM_BW
-    from tpu_dra_torch.topology.meshexport import plan_from_env
+    from tpu_dra_torch.testing import MeshSliceHarness
+    from tpu_dra_torch.topology.meshexport import plan_from_worker_envs
     from tpu_dra_torch.workloads import meshbuild
 
-    env = claim_env(n_gpus)
-    plan = plan_from_env(env)
-    devices = meshbuild.devices_from_env(env, "cpu")
-    out = {"psum_mesh_allocated_gpus": plan.n_devices,
+    harness = MeshSliceHarness(*MESH_SLICE)
+    try:
+        envs = harness.worker_envs()
+        plan = plan_from_worker_envs(envs)
+        devices = [d for env in envs
+                   for d in meshbuild.devices_from_env(env, "cpu")]
+    finally:
+        harness.close()
+    out = {"psum_mesh_workers": plan.n_workers,
+           "psum_mesh_allocated_gpus": plan.n_devices,
            "psum_mesh_contiguous": plan.contiguous,
            "psum_mesh_hop_mean": round(plan.hop_mean, 3),
            "psum_mesh_modeled_nvlink_gbps": round(

@@ -146,6 +146,7 @@ class DeviceState:
                  mps_manager: Optional[MpsManager] = None,
                  pt_manager: Optional[PassthroughManager] = None,
                  include_mig: bool = True,
+                 async_cdi: bool = True,
                  quarantine_threshold: int = 3,
                  quarantine_window_s: float = 60.0,
                  quarantine_ttl_s: float = 0.0):
@@ -191,9 +192,13 @@ class DeviceState:
         self._apply_pool: Optional[ThreadPoolExecutor] = None
         # Async claim-spec writer pool: spec tmp-write + rename overlap
         # the terminal checkpoint append + group sync; the commit barrier
-        # (_await_cdi) runs before any result externalizes.
-        self._cdi_pool: Optional[ThreadPoolExecutor] = ThreadPoolExecutor(
-            max_workers=4, thread_name_prefix="gpu-dra-cdi-write")
+        # (_await_cdi) runs before any result externalizes. async_cdi=False
+        # writes the specs on the batch's own thread (a model checker's
+        # interleavings must not leak into an uncontrolled pool thread).
+        self._cdi_pool: Optional[ThreadPoolExecutor] = (
+            ThreadPoolExecutor(max_workers=4,
+                               thread_name_prefix="gpu-dra-cdi-write")
+            if async_cdi else None)
         # The standard per-node CDI spec is written once at startup.
         self._cdi.create_standard_device_spec_file(gpus)
         self._checkpoint = self._ckpt_mgr.load_or_init()
@@ -1186,8 +1191,8 @@ class DeviceState:
                 results[claim_uid] = f"unprepare checkpoint store: {e}"
             try:
                 self._ckpt_mgr.store(self._checkpoint)
-            except Exception:  # noqa: BLE001 — the reinsertion is the
-                # compensation; this store is best-effort durability.
+            # dralint: ignore[R7] — reinsertion above is the compensation; this store is best-effort durability for it
+            except Exception:  # noqa: BLE001
                 log.warning("unprepare rollback store failed",
                             exc_info=True)
 

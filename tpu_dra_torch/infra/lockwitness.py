@@ -31,9 +31,10 @@ The copy differs from the reference in three ways only, so that both
 witnesses can live in one process (the reference's is installed for a
 whole test session under ``TPU_DRA_LOCK_WITNESS=1``):
 
-- the raw constructors are ``_thread.allocate_lock`` / ``_thread.RLock``,
-  not whatever ``threading.Lock`` was when this module was imported (it
-  may be the other witness's factory);
+- the raw constructors are taken from ``threading`` at import, as the
+  reference takes them, only while ``threading.Lock`` is still
+  ``_thread.allocate_lock``; if another witness had patched ``threading``
+  by then, its factories are passed over for ``_thread``'s own;
 - the creation key matches ``tpu_dra_torch/`` frames only (the
   reference's matches any path holding ``tpu_dra``, this package's
   too);
@@ -54,8 +55,12 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set, Tuple
 
-_real_lock = _thread.allocate_lock
-_real_rlock = _thread.RLock
+# The module-level alias of threading.Lock is what a static lock-order
+# graph reads as this witness's lock creation site.
+_real_lock = threading.Lock
+_real_rlock = threading.RLock
+if _real_lock is not _thread.allocate_lock:
+    _real_lock, _real_rlock = _thread.allocate_lock, _thread.RLock
 
 
 @dataclass

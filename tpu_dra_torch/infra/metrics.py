@@ -7,11 +7,10 @@ the kubelet plugin's self-probe) and the thread-stack dump at
 /debug/stacks. Only the instruments the port's modules register are
 here: the checkpoint journal's, the tracer's, the quarantine gauge, the
 kubelet plugin's prepare and RPC instruments (each in its own module),
-the mesh-build counter and the control plane's (the sim scheduler's,
-its CEL cache's and the leader election's) and the work
-queues' below. The metric names are the reference's,
-so one dashboard reads both. The reference's metric catalog comes with
-the slice that uses it.
+the mesh-build counter, the control plane's (the sim scheduler's,
+its CEL cache's and the leader election's), the work queues' and the
+model checker's below. The metric names are the reference's, so one
+dashboard reads both; ``METRICS_CATALOG`` lists every one of them.
 """
 
 from __future__ import annotations
@@ -207,6 +206,70 @@ class Registry:
 
 DefaultRegistry = Registry()
 
+# ---------------------------------------------------------------------------
+# Metric catalog (dralint R5)
+# ---------------------------------------------------------------------------
+# Every metric the port registers, by the module whose DefaultRegistry.
+# counter/gauge/histogram call registers it. The port's dralint
+# (tpu_dra_torch.analysis) enforces both directions: a registration whose
+# name is missing here fails lint, and a cataloged name nobody registers is
+# an orphan. Names must match ``tpu_dra_[a-z0-9_]+``.
+METRICS_CATALOG: Dict[str, str] = {
+    "tpu_dra_lint_cache_hits_total": "analysis/core.py",
+    "tpu_dra_lint_findings_total": "analysis/core.py",
+    "tpu_dra_cd_degraded_total": "cdcontroller/controller.py",
+    "tpu_dra_cd_reconciles_total": "cdcontroller/controller.py",
+    "tpu_dra_cd_teardowns_total": "cdcontroller/controller.py",
+    "tpu_dra_cd_claim_prepare_seconds": "cdplugin/driver.py",
+    "tpu_dra_journal_appends_total": "gpuplugin/checkpoint.py",
+    "tpu_dra_journal_compactions_total": "gpuplugin/checkpoint.py",
+    "tpu_dra_journal_group_syncs_total": "gpuplugin/checkpoint.py",
+    "tpu_dra_journal_lag_records": "gpuplugin/checkpoint.py",
+    "tpu_dra_journal_rotations_total": "gpuplugin/checkpoint.py",
+    "tpu_dra_journal_window_holds_total": "gpuplugin/checkpoint.py",
+    "tpu_dra_quarantined_chips": "gpuplugin/device_state.py",
+    "tpu_dra_claim_prepare_seconds": "gpuplugin/driver.py",
+    "tpu_dra_prepare_batch_size": "gpuplugin/driver.py",
+    "tpu_dra_prepare_wire_decode_seconds": "gpuplugin/driver.py",
+    "tpu_dra_prepare_wire_encode_seconds": "gpuplugin/driver.py",
+    "tpu_dra_prepare_wire_queue_seconds": "gpuplugin/driver.py",
+    "tpu_dra_health_monitor_wedged": "gpuplugin/health.py",
+    "tpu_dra_cel_cache_hits": "infra/metrics.py",
+    "tpu_dra_cel_cache_misses": "infra/metrics.py",
+    "tpu_dra_cel_compiles": "infra/metrics.py",
+    "tpu_dra_drmc_crashpoints_total": "infra/metrics.py",
+    "tpu_dra_drmc_schedules_total": "infra/metrics.py",
+    "tpu_dra_mesh_builds_total": "infra/metrics.py",
+    "tpu_dra_psum_bandwidth_gbps": "infra/metrics.py",
+    "tpu_dra_sched_claims_gced": "infra/metrics.py",
+    "tpu_dra_sched_evictions_total": "infra/metrics.py",
+    "tpu_dra_sched_full_relists": "infra/metrics.py",
+    "tpu_dra_sched_leader": "infra/metrics.py",
+    "tpu_dra_sched_lease_transitions_total": "infra/metrics.py",
+    "tpu_dra_sched_pods_bound": "infra/metrics.py",
+    "tpu_dra_sched_shard_resyncs_total": "infra/metrics.py",
+    "tpu_dra_sched_snapshot_conflicts_total": "infra/metrics.py",
+    "tpu_dra_sched_watch_events": "infra/metrics.py",
+    "tpu_dra_sched_workers": "infra/metrics.py",
+    "tpu_dra_topo_allocations": "infra/metrics.py",
+    "tpu_dra_topo_free_cuboid_chips": "infra/metrics.py",
+    "tpu_dra_topo_score_seconds": "infra/metrics.py",
+    "tpu_dra_workqueue_busy_workers": "infra/metrics.py",
+    "tpu_dra_workqueue_depth": "infra/metrics.py",
+    "tpu_dra_flightrecorder_dumps_total": "infra/trace.py",
+    "tpu_dra_flightrecorder_ring_occupancy": "infra/trace.py",
+    "tpu_dra_trace_spans_completed_total": "infra/trace.py",
+    "tpu_dra_trace_spans_dropped_total": "infra/trace.py",
+    "tpu_dra_trace_spans_started_total": "infra/trace.py",
+    "tpu_dra_informer_relists_total": "k8s/informer.py",
+    "tpu_dra_informer_shard_overflows_total": "k8s/informer.py",
+    "tpu_dra_rpc_loop_lag_seconds": "kubeletplugin/aio_server.py",
+    "tpu_dra_rpc_sustained_inflight": "kubeletplugin/aio_server.py",
+    "tpu_dra_prepare_inflight_rpcs": "kubeletplugin/pipeline.py",
+    "tpu_dra_rpc_drain_seconds": "kubeletplugin/pipeline.py",
+    "tpu_dra_rpc_reconnects_total": "kubeletplugin/server.py",
+}
+
 
 class MetricsServer:
     """Serves /metrics (text exposition), /debug/stacks (the thread-stack
@@ -391,3 +454,15 @@ WORKQUEUE_DEPTH = DefaultRegistry.gauge(
 WORKQUEUE_BUSY = DefaultRegistry.gauge(
     "tpu_dra_workqueue_busy_workers",
     "pool workers currently processing an item, labeled by queue")
+
+# -- drmc model checker (tpu_dra_torch.analysis.drmc): exploration volume,
+# labeled by scenario. --------------------------------------------------------
+
+DRMC_SCHEDULES = DefaultRegistry.counter(
+    "tpu_dra_drmc_schedules_total",
+    "controlled-scheduler interleavings executed by the drmc explorer, "
+    "labeled by scenario")
+DRMC_CRASHPOINTS = DefaultRegistry.counter(
+    "tpu_dra_drmc_crashpoints_total",
+    "crash-point variants (post-op, torn, all-persisted) enumerated and "
+    "recovered by the drmc crash engine, labeled by scenario")

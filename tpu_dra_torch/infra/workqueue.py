@@ -26,7 +26,11 @@ single-consumer behaviour exactly. A named queue (``name=``) exports its
 depth and busy workers as the ``tpu_dra_workqueue_depth`` and
 ``tpu_dra_workqueue_busy_workers`` gauges.
 
-Not copied: the reference's model-checker scheduling hooks.
+**Model-checker hooks:** ``set_drmc_hooks`` lets the port's drmc
+(``tpu_dra_torch.analysis.drmc``) virtualize the queue's condition
+variable for the threads it schedules and see enqueue/pop as yield
+points. Threads it does not control fall through to the real
+``Condition``.
 """
 
 from __future__ import annotations
@@ -40,6 +44,31 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
 from tpu_dra_torch.infra.trace import RECORDER as _FLIGHTREC
+
+
+# ---------------------------------------------------------------------------
+# drmc seam (tpu_dra_torch/analysis/drmc): deterministic-scheduler hooks
+# ---------------------------------------------------------------------------
+# When installed, the model checker virtualizes the queue's condition
+# variable for threads under controlled scheduling — wait() parks the
+# task in the scheduler's model (a timed wait can always wake, so a
+# waiting task stays schedulable as a timeout when nothing else can
+# run) and notify() wakes modeled waiters — and sees enqueue/pop as
+# yield points carrying the item key (the DPOR conflict label).
+# Uncontrolled threads fall through to the real Condition, so a live
+# process with a checker installed elsewhere keeps working.
+
+_drmc = None
+
+
+def set_drmc_hooks(hooks) -> None:
+    global _drmc
+    _drmc = hooks
+
+
+def clear_drmc_hooks() -> None:
+    global _drmc
+    _drmc = None
 
 
 # ---------------------------------------------------------------------------
@@ -226,6 +255,7 @@ class WorkQueue:
             # shows what was queued when. Recorded outside _cond.
             _FLIGHTREC.record_wq(self._name or "?", "add", key)
         with self._cond:
+            self._yield_op("queue.add", key)
             if dedupe and key and self._queued_keys.get(key, 0) > 0:
                 return
             item = WorkItem(key=key, obj=obj, callback=callback)
@@ -235,12 +265,34 @@ class WorkQueue:
                 self._queued_keys[key] = self._queued_keys.get(key, 0) + 1
             self._push_locked(item, after=after)
             self._observe_locked()
-            self._cond.notify()
+            self._notify()
 
     def _push_locked(self, item: WorkItem,
                      after: Optional[float] = None) -> None:
         delay = self._rl.when(item.item_id) if after is None else after
         heapq.heappush(self._heap, (time.monotonic() + delay, next(self._seq), item))
+
+    # -- drmc indirections ---------------------------------------------------
+
+    def _yield_op(self, kind: str, key: str) -> None:
+        hooks = _drmc
+        if hooks is not None:
+            hooks.yield_op(kind, key)
+
+    def _notify(self, all_waiters: bool = False) -> None:
+        hooks = _drmc
+        if hooks is not None and hooks.notify(self._cond, all_waiters):
+            return
+        if all_waiters:
+            self._cond.notify_all()
+        else:
+            self._cond.notify()
+
+    def _wait(self, timeout: float) -> None:
+        hooks = _drmc
+        if hooks is not None and hooks.wait(self._cond, timeout):
+            return
+        self._cond.wait(timeout=timeout)
 
     # -- consumer -----------------------------------------------------------
 
@@ -275,7 +327,7 @@ class WorkQueue:
     def shutdown(self) -> None:
         with self._cond:
             self._shutdown = True
-            self._cond.notify_all()
+            self._notify(all_waiters=True)
 
     def _get(self, stop_event: Optional[threading.Event] = None
              ) -> Optional[WorkItem]:
@@ -298,6 +350,7 @@ class WorkQueue:
                     handed = item
                     break
                 if handed is not None:
+                    self._yield_op("queue.get", handed.key)
                     if handed.key:
                         self._processing[handed.key] = handed
                         if handed.counted:
@@ -311,9 +364,9 @@ class WorkQueue:
                     self._observe_locked()
                     return handed
                 if self._heap:
-                    self._cond.wait(timeout=min(self._heap[0][0] - now, 0.5))
+                    self._wait(min(self._heap[0][0] - now, 0.5))
                 else:
-                    self._cond.wait(timeout=0.5)
+                    self._wait(0.5)
 
     def _release_key_locked(self, item: WorkItem) -> None:
         """End of this item's processing: free its key and re-queue the
@@ -326,7 +379,7 @@ class WorkQueue:
             for deferred in self._deferred.pop(item.key, ()):
                 heapq.heappush(self._heap,
                                (time.monotonic(), next(self._seq), deferred))
-                self._cond.notify()
+                self._notify()
         self._observe_locked()
 
     def _process(self, item: WorkItem) -> None:
@@ -347,7 +400,7 @@ class WorkQueue:
                     self._rl.forget(item.item_id)
                 else:
                     self._push_locked(item)
-                    self._cond.notify()
+                    self._notify()
             return
         with self._cond:
             self._release_key_locked(item)

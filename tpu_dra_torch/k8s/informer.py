@@ -215,6 +215,19 @@ class ViewShadow:
         return path
 
 
+def load_drifts(path: str) -> List[Dict]:
+    """Read a view-shadow export for the analyzer's --check-view-shadow.
+    Raises on a missing/garbled file: an absent export turning the check
+    green would be the silent under-approximation it exists to catch."""
+    import json as _json
+    with open(path, encoding="utf-8") as fh:
+        doc = _json.load(fh)
+    if not isinstance(doc, dict) or not isinstance(doc.get("drifts"),
+                                                   list):
+        raise ValueError(f"{path}: not a view-shadow export")
+    return list(doc["drifts"])
+
+
 SHADOW = ViewShadow()
 
 
@@ -637,7 +650,7 @@ class Informer:
             for a in reversed(args):
                 try:
                     key = self._partition_key(a)
-                except Exception:  # noqa: BLE001 — an extractor bug degrades to name-hash routing, correct for any key
+                except Exception:  # noqa: BLE001  # drflow: swallow-ok[extractor bug degrades to name-hash routing, which is correct for any key]
                     key = None
                 if key:
                     return key

@@ -286,7 +286,7 @@ class ChaosHarness:
             try:
                 self._build_stack()
                 return
-            except Exception:  # noqa: BLE001 — crash-looping restart under armed faults is the modeled outcome
+            except Exception:  # noqa: BLE001 # drflow: swallow-ok[crash-looping restart under armed faults is the modeled outcome; report.crashes counts it]
                 time.sleep(0.002)
         self._harvest_faults()
         FAULTS.reset()

@@ -30,6 +30,10 @@
   ``run_nodes`` runs one launcher process per simulated node.
   Simulated nodes discover fake GPUs (a FakeBackend passed to each node
   explicitly); a node given a NativeBackend discovers the host's GPUs.
+- ``MeshSliceHarness`` (counterpart of the reference's): a fake
+  multi-worker GPU slice, one DeviceState per worker over its block of
+  one NVLink domain, whose claims' CDI envs plan one mesh
+  (``meshexport.plan_from_worker_envs``) without a native build.
 - The scheduler's inventory (counterpart of the reference's
   seed_sched_inventory and make_sched_pod): fake GPU nodes publishing
   ResourceSlices with the plugin's attribute set, the ``gpu.dev``
@@ -111,7 +115,7 @@ class MpsNodeSim:
             try:
                 deps = self._cluster.list(DEPLOYMENTS, self._namespace,
                                           label_selector=sel)
-            except Exception:  # noqa: BLE001 — the next tick retries
+            except Exception:  # noqa: BLE001 # drflow: swallow-ok[fake cluster shutting down mid-tick; the loop exits on the next stop wait]
                 continue
             seen = set()
             for dep in deps:
@@ -212,8 +216,8 @@ class MpsNodeSim:
         dep["status"] = {**(dep.get("status") or {}), "readyReplicas": want}
         try:
             self._cluster.update(DEPLOYMENTS, dep, self._namespace)
-        except Exception:  # noqa: BLE001 — lost a resourceVersion race;
-            pass           # the next tick retries
+        except Exception:  # noqa: BLE001 # drflow: swallow-ok[optimistic status write lost an RV race; the next kubelet tick retries]
+            pass
 
 
 def _control_socket(pipe_dir: str) -> str:
@@ -402,8 +406,8 @@ def _node_main(fn, args, conn) -> None:
     os.setsid()   # run_nodes can then stop the node with its ranks
     try:
         out = ("ok", fn(*args))
-    except BaseException:  # noqa: BLE001 — reported to the parent
-        out = ("err", traceback.format_exc())
+    except BaseException as exc:  # noqa: BLE001 — reported to the parent
+        out = ("err", "".join(traceback.format_exception(exc)))
     conn.send_bytes(pickle.dumps(out))
 
 
@@ -808,6 +812,130 @@ def provision_two_node_cd(namespace: str = "cdtest") -> Dict:
     (provision_multi_node_cd)."""
     return provision_multi_node_cd(namespace=namespace,
                                    node_names=("node-a", "node-b"))
+
+
+# ---------------------------------------------------------------------------
+# Fake multi-worker GPU slice provisioning (the data-plane bench and tests)
+# ---------------------------------------------------------------------------
+
+class MeshSliceHarness:
+    """A fake multi-worker GPU slice provisioned through the REAL
+    gpuplugin prepare pipeline (counterpart of the reference's
+    MeshSliceHarness): each of `n_workers` "hosts" runs its own
+    DeviceState + CDIHandler + CheckpointManager over a FakeBackend
+    holding that worker's block of one NVLink domain
+    (``default_fake_gpus`` with ``worker_index``/``total_workers``).
+    Claims are prepared through ``DeviceState.prepare_batch`` (the
+    pipeline kubelet drives), and each claim's env is read back from the
+    WRITTEN CDI spec, the workload container's view with its topology
+    block, merged with the worker identity a ComputeDomain channel claim
+    adds (GPU_WORKER_ID, GPU_WORKER_HOSTNAMES, GPU_PROCESS_COUNT,
+    GPU_COORDINATOR_ADDRESS).
+
+    ``provision_multi_node_cd`` is the full-stack counterpart (real
+    domain daemons); this one needs no native build. Sized by argument,
+    not hardware.
+    """
+
+    def __init__(self, n_workers: int = 2, gpus_per_worker: int = 4):
+        import shutil
+        import tempfile
+
+        from tpu_dra_torch.api.types import GPU_DRIVER_NAME
+        from tpu_dra_torch.cddaemon.dnsnames import stable_name
+        from tpu_dra_torch.cdi.handler import CDIHandler
+        from tpu_dra_torch.cdplugin.computedomain import COORDINATOR_PORT
+        from tpu_dra_torch.gpuplugin.checkpoint import CheckpointManager
+        from tpu_dra_torch.gpuplugin.device_state import DeviceState
+        from tpu_dra_torch.gpuplugin.sharing import TimeSlicingManager
+        from tpu_dra_torch.native.gpuinfo import (
+            FakeBackend, default_fake_gpus,
+        )
+
+        self.n_workers = n_workers
+        self.gpus_per_worker = gpus_per_worker
+        self.driver_name = GPU_DRIVER_NAME
+        self.tmp = tempfile.mkdtemp(prefix="gpu-dra-meshslice-")
+        self._rmtree = shutil.rmtree
+        self._claim_seq = 0
+        self._prepared = []  # (worker, uid) for close-time unprepare
+        peers = ",".join(stable_name(i) for i in range(n_workers))
+        self._identity = [{
+            "GPU_WORKER_ID": str(w),
+            "GPU_WORKER_HOSTNAMES": peers,
+            "GPU_PROCESS_COUNT": str(n_workers),
+            "GPU_COORDINATOR_ADDRESS": f"127.0.0.1:{COORDINATOR_PORT}",
+        } for w in range(n_workers)]
+        self.states = []
+        self.backends = []
+        try:
+            for w in range(n_workers):
+                backend = FakeBackend(default_fake_gpus(
+                    gpus_per_worker, worker_index=w,
+                    total_workers=n_workers))
+                wdir = os.path.join(self.tmp, f"w{w}")
+                state = DeviceState(
+                    backend=backend,
+                    cdi=CDIHandler(os.path.join(wdir, "cdi")),
+                    checkpoints=CheckpointManager(os.path.join(wdir, "p")),
+                    driver_name=GPU_DRIVER_NAME,
+                    node_name=f"mesh-{w}",
+                    ts_manager=TimeSlicingManager(backend))
+                self.backends.append(backend)
+                self.states.append(state)
+        except BaseException:
+            self.close()
+            raise
+
+    def prepare_claim(self, worker: int,
+                      gpu_indices=None) -> Dict[str, str]:
+        """Prepare one allocated claim of `gpu_indices` on `worker` (all
+        its GPUs by default) and return the claim's CDI-spec env merged
+        with the worker's identity vars: what that worker's workload
+        container sees."""
+        state = self.states[worker]
+        indices = (gpu_indices if gpu_indices is not None
+                   else [g.index for g in self.backends[worker].gpus()])
+        devices = [f"gpu-{i}" for i in indices]
+        uid = f"mesh-claim-{worker}-{self._claim_seq}"
+        self._claim_seq += 1
+        claim = {
+            "apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+            "metadata": {"name": uid, "namespace": "default", "uid": uid},
+            "spec": {"devices": {"requests": [{"name": "gpu"}]}},
+            "status": {"allocation": {"devices": {"results": [
+                {"request": "gpu", "driver": self.driver_name,
+                 "pool": f"mesh-{worker}", "device": d}
+                for d in devices], "config": []}}},
+        }
+        result = state.prepare_batch([claim])[uid]
+        if result.error:
+            raise RuntimeError(
+                f"mesh harness prepare failed on worker {worker}: "
+                f"{result.error}")
+        self._prepared.append((worker, uid))
+        env = read_claim_env(state._cdi, uid)
+        env.update(self._identity[worker])
+        return env
+
+    def worker_envs(self) -> List[Dict[str, str]]:
+        """One all-GPUs claim per worker: the env list a multi-worker
+        mesh build consumes (meshexport.plan_from_worker_envs)."""
+        return [self.prepare_claim(w) for w in range(self.n_workers)]
+
+    def close(self) -> None:
+        for worker, uid in self._prepared:
+            try:
+                self.states[worker].unprepare_batch([uid])
+            except Exception:  # noqa: BLE001 # drflow: swallow-ok[test-harness teardown is best-effort; rmtree below removes the residue]
+                pass
+        self._prepared.clear()
+        for state in self.states:
+            try:
+                state.close()
+            except Exception:  # noqa: BLE001 # drflow: swallow-ok[test-harness teardown is best-effort; rmtree below removes the residue]
+                pass
+        self._rmtree(self.tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------

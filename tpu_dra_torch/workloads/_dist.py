@@ -399,8 +399,8 @@ def _pool_worker(rank: int, world: int, store_path: str, device: str,
                         dist.FileStore(store_path, world))
         else:
             start_domain_group(domain, device, rank, world)
-    except Exception:  # noqa: BLE001 — reported to the parent
-        _send(conn, ("err", traceback.format_exc()))
+    except Exception as exc:  # noqa: BLE001 — reported to the parent
+        _send(conn, ("err", "".join(traceback.format_exception(exc))))
         return
     _send(conn, ("ok", None))
     try:
@@ -411,8 +411,8 @@ def _pool_worker(rank: int, world: int, store_path: str, device: str,
             fn, args, kw = task
             try:
                 _send(conn, ("ok", fn(*args, **kw)))
-            except Exception:  # noqa: BLE001 — reported to the parent
-                _send(conn, ("err", traceback.format_exc()))
+            except Exception as exc:  # noqa: BLE001 — reported to the parent
+                _send(conn, ("err", "".join(traceback.format_exception(exc))))
     finally:
         stop_group()
 
