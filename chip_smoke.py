@@ -8,7 +8,7 @@ Phases, each printing one JSON line ({"phase": ...}):
 1. probe        — the card (nvidia-smi name and power limit, torch name
                   and compute capability, expected (9, 0)) and nvcc's
                   version;
-2. build        — compiles the five flash-attention kernels from
+2. build        — compiles the four flash-attention kernels from
                   tpu_dra_torch/workloads/csrc with nvcc for sm_90a and,
                   beside them, the native domain daemon from
                   tpu_dra_torch/native/src with c++;
@@ -59,18 +59,22 @@ Phases, each printing one JSON line ({"phase": ...}):
                   TOL_REL; and the fused backward's reproducibility (dk,
                   dv bitwise over two runs; dq, whose fp32 atomics add in
                   no fixed order, within TOL_REPRO);
-4. kernels_fp32 — the same on fp32 inputs at the reference's streaming
-                  tier's shapes (its TestStreamingKernels' B2 S384 H2
-                  D16, causal x rope, and B1 S8192 H2 D128, where its
-                  fp32 path streams) and at the fp32 model's (B1 S8191
-                  H4 D128), within TOL_REL_FP32 / TOL_LSE_FP32;
+4. kernels_fp32 — the same on fp32 inputs (the mma.sync kernels) at the
+                  reference's streaming tier's shapes (its
+                  TestStreamingKernels' B2 S384 H2 D16, causal x rope,
+                  and B1 S8192 H2 D128, where its fp32 path streams) and
+                  at the fp32 model's (B1 S8191 H4 D128), within
+                  TOL_REL_FP32 / TOL_LSE_FP32; at B1 S8192 H2 D128 a
+                  planted fault (one dropped 64-wide tile) above
+                  TOL_REL_FP32 and the reproducibility reading (dk, dv
+                  bitwise; dq within TOL_REPRO_FP32);
 5. kernels_long — bf16 at the long-context paths' shapes, B1 H16 D128
                   at S=8191 and 16383, and at S=16384, each kernel run
                   once at the full shape and its plain version two heads
                   at a time; a planted fault at 8192 of S=16383 and the
                   reproducibility reading at S=16384;
-6. times        — the forward and the backward (one call of the
-                  backward wrapper: the fused kernel, or dq then dkv) at
+6. times        — the forward and the backward (one call of each
+                  wrapper: one fused backward kernel on either route) at
                   the main path's shape (B8 S1023 H16 D128, causal,
                   rope): CUDA-event median, its roofline bound, its plain
                   version's time and PyTorch's SDPA forward and backward
@@ -254,12 +258,16 @@ Phases, each printing one JSON line ({"phase": ...}):
                   kernel path against the same path on the kernels' plain
                   versions and against plain attention: logits and every
                   gradient leaf; parity_fp32 the kernel path of an fp32
-                  model at S=8192 against its plain versions.
+                  model at S=8192 against its plain versions, each layer
+                  launching flash_fwd twice and flash_bwd_mma once.
 
 Then it prints the kernels' summary as one JSON line (one entry per TPU
-kernel: rows 1-3 at the main path, rows 4-6, the streaming tier, at
-S=16384; rows 2/3 and 5/6, the dq and dkv kernels, both name the fused
-backward and its time), the nvidia-smi name/power-limit line, and last
+kernel and route: rows 1-3 at the main path, rows 4-6, the streaming
+tier, at S=16384, both through the Hopper kernels; then the mma.sync
+route's rows 1-3, flash_fwd and flash_bwd_mma, with parity_fp32's
+launches and times_fp32's times; each route's dq and dkv rows name its
+one fused backward and its time), the nvidia-smi name/power-limit line,
+and last
 {"ok": true,
 "device": {...}}. Any failed check raises, so the script exits non-zero
 without that last line; it refuses to run without a CUDA device.
@@ -292,6 +300,12 @@ TOL_LSE = 1e-4   # lse, absolute: fp32 sums in a different order
 # atomics add the K tiles' partials in no fixed order, so a few values
 # round to the neighbouring bf16 after the epilogue.
 TOL_REPRO = 1e-3
+# The same reading of the fp32 backward (flash_bwd_mma): its fp32 atomics
+# add up to S/64 partials per dq element in no fixed order, and two
+# orders differ by fp32 rounding, ~2^-24 * sqrt(S/64) relative (~1e-6 at
+# S=8192); dq is not rounded further. 1e-5 leaves that room and stays
+# below TOL_REL_FP32.
+TOL_REPRO_FP32 = 1e-5
 TOL_LOGITS = 1e-2   # model logits, relative norm (the reference's bound)
 TOL_GRAD = 5e-2     # model gradient leaves, max-rel (the reference's bound)
 # fp32 kernels against their fp32 plain versions: the reference's fp32
@@ -320,17 +334,17 @@ H100_SXM = "NVIDIA H100 80GB HBM3"
 SOURCES = {
     "flash_fwd_sm90": "tpu_dra_torch/workloads/csrc/flash_fwd_sm90.cu",
     "flash_fwd": "tpu_dra_torch/workloads/csrc/flash_fwd.cu",
-    "flash_bwd_dq": "tpu_dra_torch/workloads/csrc/flash_bwd_dq.cu",
-    "flash_bwd_dkv": "tpu_dra_torch/workloads/csrc/flash_bwd_dkv.cu",
     "flash_bwd_sm90": "tpu_dra_torch/workloads/csrc/flash_bwd_sm90.cu",
+    "flash_bwd_mma": "tpu_dra_torch/workloads/csrc/flash_bwd_mma.cu",
 }
-# Every TPU kernel in the repo: (entry name, timed wrapper, port kernel
-# on the main path, replaces). Rows 4-6, the streaming tier, are the same
+# Every TPU kernel in the repo, per route: (entry name, timed wrapper,
+# port kernel, replaces). Rows 4-6, the streaming tier, are the same
 # kernels held at the tier's shapes (tpu_dra_torch/workloads/
 # flashattention.py says why). The forward wrapper routes bf16 at D 64
 # and 128 (every model path) to flash_fwd_sm90, fp32 to flash_fwd; the
-# backward wrapper routes the same inputs to flash_bwd_sm90, one fused
-# pass that stands for the dq and the dkv kernel, and fp32 to the pair.
+# backward wrapper routes the same inputs to flash_bwd_sm90 and
+# flash_bwd_mma, each one fused pass that stands for the dq and the dkv
+# kernel. The "_fp32" rows are the mma.sync route.
 TPU_KERNELS = [
     ("flash_fwd", "flash_fwd", "flash_fwd_sm90",
      "tpu_dra/workloads/flashattention.py:191"),
@@ -344,6 +358,12 @@ TPU_KERNELS = [
      "tpu_dra/workloads/flashattention.py:550"),
     ("flash_bwd_dkv_xl", "flash_bwd", "flash_bwd_sm90",
      "tpu_dra/workloads/flashattention.py:601"),
+    ("flash_fwd_fp32", "flash_fwd", "flash_fwd",
+     "tpu_dra/workloads/flashattention.py:191"),
+    ("flash_bwd_dq_fp32", "flash_bwd", "flash_bwd_mma",
+     "tpu_dra/workloads/flashattention.py:269"),
+    ("flash_bwd_dkv_fp32", "flash_bwd", "flash_bwd_mma",
+     "tpu_dra/workloads/flashattention.py:339"),
 ]
 # What a bf16 model path at D=128 launches per forward/backward: the
 # Hopper kernels, never the mma.sync ones.
@@ -603,21 +623,22 @@ def check_case(s, causal, rope, b, h, d, seed, dtype=None, chunk=None,
         fres = {**{f"{n}_rel": f.rel for n, f in faults.items()},
                 **{f"{n}_max_rel": f.max_rel for n, f in faults.items()}}
         emit("planted_faults", s=s, b=b, h=h, d=d, tile_start=fault_at,
-             tol_rel=TOL_REL, **fres)
+             dtype=res["dtype"], tol_rel=tol_rel, **fres)
         for name in faults:
-            check(fres[f"{name}_rel"] > TOL_REL,
+            check(fres[f"{name}_rel"] > tol_rel,
                   f"a dropped tile reads {fres[name + '_rel']} on {name}, "
-                  f"within TOL_REL {TOL_REL}: the check cannot see it")
+                  f"within {tol_rel}: the check cannot see it")
     if repro:
-        res.update(check_repro(args, causal, (dq, dk, dv)))
+        res.update(check_repro(args, causal, (dq, dk, dv),
+                               TOL_REPRO_FP32 if fp32 else TOL_REPRO))
     return res
 
 
-def check_repro(args, causal, first) -> dict:
+def check_repro(args, causal, first, tol) -> dict:
     """The backward wrapper run again on the same operands: dk and dv
     must equal the first run's bit for bit (each is summed by one CTA in
-    a fixed order); dq's ||diff|| / ||dq|| is read and held within
-    TOL_REPRO (its K tiles' partials meet in fp32 atomics)."""
+    a fixed order); dq's ||diff|| / ||dq|| is read and held within `tol`
+    (its K tiles' partials meet in fp32 atomics)."""
     import torch
 
     from tpu_dra_torch.workloads import _flash_kernels as fk
@@ -630,11 +651,14 @@ def check_repro(args, causal, first) -> dict:
            "repro_dq_rel": float((dq.float() - dq0.float()).norm()
                                  / dq0.float().norm()),
            "repro_dq_values_changed": int((dq != dq0).sum())}
-    emit("repro", s=args[0].shape[1], **res)
+    emit("repro", s=args[0].shape[1], dtype=str(args[0].dtype),
+         bwd_kernel=fk.BWD_KERNELS[fk.bwd_route(args[0].dtype,
+                                                args[0].shape[-1])],
+         tol=tol, **res)
     check(res["repro_dk_equal"] and res["repro_dv_equal"],
           f"dk/dv differ between two runs: {res}")
-    check(res["repro_dq_rel"] <= TOL_REPRO,
-          f"dq run-to-run {res['repro_dq_rel']} > {TOL_REPRO}")
+    check(res["repro_dq_rel"] <= tol,
+          f"dq run-to-run {res['repro_dq_rel']} > {tol}")
     return res
 
 
@@ -662,19 +686,21 @@ def phase_kernels() -> dict:
 def phase_kernels_fp32() -> dict:
     """fp32 inputs at the reference's streaming-tier shapes: its
     TestStreamingKernels' (B2 S384 H2 D16, causal x rope) and B1 S8192
-    H2 D128, where its fp32 path streams; then the fp32 model's own shape
-    (parity_fp32: B1 S8191 H4 D128)."""
+    H2 D128, where its fp32 path streams, the latter with a planted fault
+    at its middle tile and the reproducibility reading; then the fp32
+    model's own shape (parity_fp32: B1 S8191 H4 D128). Returns the B1
+    S8192 H2 D128 readings (times_fp32's shape)."""
     import torch
 
     for i, (causal, rope) in enumerate((c, r) for c in (True, False)
                                        for r in (True, False)):
         check_case(384, causal, rope, b=2, h=2, d=16, seed=300 + i,
                    dtype=torch.float32)
-    check_case(FP32_LONG_S, True, True, seed=310, dtype=torch.float32,
-               **LONG_CHECK)
+    res = check_case(FP32_LONG_S, True, True, seed=310, dtype=torch.float32,
+                     fault_at=FP32_LONG_S // 2, repro=True, **LONG_CHECK)
     _free()
-    res = check_case(FP32_LONG_S - 1, True, True, seed=311,
-                     dtype=torch.float32, chunk=PLAIN_HEADS, **FP32_MODEL_ATTN)
+    check_case(FP32_LONG_S - 1, True, True, seed=311, dtype=torch.float32,
+               chunk=PLAIN_HEADS, **FP32_MODEL_ATTN)
     _free()
     return res
 
@@ -770,12 +796,9 @@ def bounds(b, s, h, d, peak_flops, peak_bytes, elem=2) -> dict:
     work = {
         # q, k, v in; o, lse out. QK^T and PV.
         "flash_fwd": (4 * d * pairs, 4 * tile + row + tables),
-        # q, k, v, dO, lse, delta, dlse in; dq out. QK^T, dO V^T, dS K.
-        "flash_bwd_dq": (6 * d * pairs, 5 * tile + 3 * row + tables),
-        # as dq in; dk, dv out. QK^T, dO V^T, P^T dO, dS^T Q.
-        "flash_bwd_dkv": (8 * d * pairs, 6 * tile + 3 * row + tables),
-        # The fused backward: as dq in; dq, dk, dv out. QK^T, dO V^T,
-        # P^T dO, dS^T Q, dS K (its fp32 dQ accumulator is scratch).
+        # The fused backward: q, k, v, dO, lse, delta, dlse in; dq, dk, dv
+        # out. QK^T, dO V^T, P^T dO, dS^T Q, dS K (its fp32 dQ
+        # accumulator is scratch).
         "flash_bwd": (10 * d * pairs, 7 * tile + 3 * row + tables),
     }
     out = {}
@@ -2382,6 +2405,10 @@ def phase_mesh_workloads() -> dict:
     for name in ("ringattention", "ulysses", "sp_train"):
         check(sum(records[name]["kernel_launches"].values()) > 0,
               f"{name} launched no kernel on the card")
+    # sp_train's fp32 D16 model: its backward is the mma.sync route's.
+    sp = records["sp_train"]["kernel_launches"]
+    check(sp["flash_bwd_mma"] > 0 and sp["flash_bwd_sm90"] == 0,
+          f"sp_train's fp32 backward launched {sp}")
     psum = bench.bench_psum(env)
     peak_bytes = gpuinfo.PEAK_HBM_BYTES_PER_S[H100_SXM]
     proxy = psum.get("local_hbm_proxy_gbps")
@@ -2496,10 +2523,9 @@ def phase_model_parity_fp32(seed=3) -> dict:
     check(math.isfinite(loss_k) and bool(torch.isfinite(lk).all()),
           "non-finite fp32 kernel-path logits or loss")
     # Two forwards (logits, loss), through the mma.sync forward, and one
-    # backward per layer, through the mma.sync pair.
+    # backward per layer, through the mma.sync route's fused backward.
     want = {"flash_fwd_sm90": 0, "flash_fwd": 2 * base["n_layers"],
-            "flash_bwd_sm90": 0, "flash_bwd_dq": base["n_layers"],
-            "flash_bwd_dkv": base["n_layers"]}
+            "flash_bwd_sm90": 0, "flash_bwd_mma": base["n_layers"]}
     check(counts == want, f"fp32 model launches {counts}, want {want}")
     with plain_kernels():
         lr, loss_r, gr, _ = _model_run(base, params, tokens, "flash")
@@ -2536,7 +2562,7 @@ def main() -> int:
     phase_build()
     phase_device_sharing()
     flagship = phase_kernels()
-    phase_kernels_fp32()
+    fp32_case = phase_kernels_fp32()
     long_bf16 = phase_kernels_long()
     # Bounds are against the H100 SXM's published peaks (700 W). fp32
     # runs three TF32 products per product: a third of the TF32 peak.
@@ -2544,8 +2570,8 @@ def main() -> int:
     peak_bytes = gpuinfo.PEAK_HBM_BYTES_PER_S[H100_SXM]
     times = phase_times(peak_bf16, peak_bytes)
     times_xl = phase_times_xl(peak_bf16, peak_bytes)
-    phase_times_fp32(gpuinfo.PEAK_TF32_TFLOPS[H100_SXM] * 1e12 / 3,
-                     peak_bytes)
+    times_fp32 = phase_times_fp32(
+        gpuinfo.PEAK_TF32_TFLOPS[H100_SXM] * 1e12 / 3, peak_bytes)
     _free()
     claim = phase_claim_path()
     phase_compute_domain()
@@ -2563,26 +2589,27 @@ def main() -> int:
     phase_ring_local()
     phase_mesh_workloads()
     phase_model_parity()
-    phase_model_parity_fp32()
+    parity_fp32 = phase_model_parity_fp32()
 
     def max_err(res):
         return {"flash_fwd": res["out_abs"], "flash_bwd_dq": res["dq_abs"],
                 "flash_bwd_dkv": max(res["dk_abs"], res["dv_abs"])}
 
-    entries = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-    rows = {  # entry name -> (times, launches, max_abs_err)
-        **{name: (times, counts, max_err(flagship)) for name in entries},
-        **{name + "_xl": (times_xl, counts_xl, max_err(long_bf16))
-           for name in entries},
+    tiers = {  # entry suffix -> (times, launches, max_abs_err)
+        "": (times, counts, max_err(flagship)),
+        "_xl": (times_xl, counts_xl, max_err(long_bf16)),
+        "_fp32": (times_fp32, parity_fp32["launches"], max_err(fp32_case)),
     }
     kernels = []
     for entry, wrapper, kname, replaces in TPU_KERNELS:
-        t_all, cnt, err = rows[entry]
+        suffix = next(x for x in ("_xl", "_fp32", "") if entry.endswith(x))
+        base = entry[:len(entry) - len(suffix)]
+        t_all, cnt, err = tiers[suffix]
         t = t_all[wrapper]
         kernels.append({
             "name": entry, "route": "cuda", "source": SOURCES[kname],
             "replaces": replaces, "launches": cnt[kname],
-            "max_abs_err": err[entry.removesuffix("_xl")], "ms": t["ms"],
+            "max_abs_err": err[base], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     emit("done", seconds=time.perf_counter() - t_start)

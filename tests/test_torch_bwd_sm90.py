@@ -70,11 +70,10 @@ class TestRoute:
         assert fk.BWD_SM90_HEAD_DIMS == fk.FWD_SM90_HEAD_DIMS
 
     def test_each_route_names_its_sources(self):
-        assert fk.BWD_KERNELS == {"sm90": ("flash_bwd_sm90",),
-                                  "mma": ("flash_bwd_dq", "flash_bwd_dkv")}
-        for names in fk.BWD_KERNELS.values():
-            for name in names:
-                assert (fk.CSRC / f"{name}.cu").is_file()
+        assert fk.BWD_KERNELS == {"sm90": "flash_bwd_sm90",
+                                  "mma": "flash_bwd_mma"}
+        for name in fk.BWD_KERNELS.values():
+            assert (fk.CSRC / f"{name}.cu").is_file()
 
 
 class TestEntrySignature:
@@ -88,12 +87,12 @@ class TestEntrySignature:
         assert args[-2] is fk._INT   # element bytes
 
     def test_pair_signatures_kept(self):
-        """bwd_dq and bwd_dkv keep their C entries (the mma route and
-        kernel_report.py's parent trees call them)."""
-        assert fk.ARGTYPES["flash_bwd_dq"] == [fk._PTR] * 10 + fk._SHAPE \
-            + [fk._PTR]
-        assert fk.ARGTYPES["flash_bwd_dkv"] == [fk._PTR] * 11 + fk._SHAPE \
-            + [fk._PTR]
+        """The mma route's one fused kernel, which took the dq/dkv pair's
+        place, takes this entry's operands: one launch call serves both
+        routes."""
+        assert fk.ARGTYPES["flash_bwd_mma"] == fk.ARGTYPES["flash_bwd_sm90"]
+        assert "flash_bwd_dq" not in fk.ARGTYPES
+        assert "flash_bwd_dkv" not in fk.ARGTYPES
 
 
 def _operands(s, d, seed, dtype=torch.bfloat16, dlse_scale=0.1):
@@ -117,8 +116,8 @@ class TestCpuPath:
         args = (q, k, v, dout, lse, delta, dlse, tables)
         fk.reset_launches()
         dq, dk, dv = fk.bwd(*args, causal=True)
-        assert torch.equal(dq, fk.bwd_dq(*args, causal=True))
-        want_dk, want_dv = fk.bwd_dkv(*args, causal=True)
+        assert torch.equal(dq, fk.bwd_dq_plain(*args, causal=True))
+        want_dk, want_dv = fk.bwd_dkv_plain(*args, causal=True)
         assert torch.equal(dk, want_dk) and torch.equal(dv, want_dv)
         assert all(n == 0 for n in fk.launches().values())
         assert all(n == 0 for n in fk.kernel_launches().values())
@@ -126,8 +125,7 @@ class TestCpuPath:
     def test_kernel_launches_names_every_kernel(self):
         fk.reset_launches()
         assert set(fk.kernel_launches()) == {
-            "flash_fwd_sm90", "flash_fwd", "flash_bwd_sm90", "flash_bwd_dq",
-            "flash_bwd_dkv"}
+            "flash_fwd_sm90", "flash_fwd", "flash_bwd_sm90", "flash_bwd_mma"}
 
     def test_autograd_backward_goes_through_bwd(self, monkeypatch):
         """_FlashAttention.backward makes one call to the fused wrapper."""

@@ -187,8 +187,7 @@ class TestKernelPlainVersions:
         o, lse = fk.fwd(tq, tk, tv, tables, causal=causal)
         delta = (tdo * o).sum(-1).transpose(1, 2)
         args = (tq, tk, tv, tdo, lse, delta, torch.from_numpy(dlse), tables)
-        dq = fk.bwd_dq(*args, causal=causal)
-        dk, dv = fk.bwd_dkv(*args, causal=causal)
+        dq, dk, dv = fk.bwd(*args, causal=causal)
 
         def to_bh(x):
             return _f32(x).transpose(0, 2, 1, 3).reshape(B * H, s, D)
@@ -207,8 +206,7 @@ class TestKernelPlainVersions:
         fk.reset_launches()
         q, k, v = _torch(_np_inputs(64, seed=3), torch.float32)
         fk.fwd(q, k, v, None, causal=True)
-        assert fk.launches() == {"flash_fwd": 0, "flash_bwd": 0,
-                                 "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        assert fk.launches() == {"flash_fwd": 0, "flash_bwd": 0}
 
 
 class TestRope:
@@ -304,7 +302,7 @@ class TestKernelInputChecks:
 
     def test_each_kernel_is_told_the_element_size(self):
         """The C entry points take the element size after the shape."""
-        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        for name in fk.ARGTYPES:
             assert fk.ARGTYPES[name][-2] is fk._INT
         for dtype, size in fk.KERNEL_DTYPES.items():
             q = torch.zeros(1, 64, 2, 32, dtype=dtype)

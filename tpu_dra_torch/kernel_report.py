@@ -11,16 +11,17 @@ this file) with that tree's own build code, and prints one JSON line:
   spills), as ``cuobjdump --dump-resource-usage`` reads them from the
   built library;
 - ``ms``: CUDA-event times (median of 5 windows of 10 calls) of the
-  forward and of the backward, first at B1 S8192 H2 D128 fp32 where the
-  tree's kernels take fp32 (its dkv kernel's times swing between
-  processes, so it runs before any other shape's allocations), then at
-  the flagship shape, B8 S1023 H16 D128 bf16, causal, rope, q/k/v views
-  of one fused projection, and at the long_ctx_xl shape, B1 S16384 H16
-  D128 bf16 (windows of 3 calls). The
-  backward (``flash_bwd``) is one timed call of the tree's ``bwd``
-  wrapper where it has one, else ``bwd_dq`` then ``bwd_dkv``, so trees
-  before and after the fused kernel read the same work. Both directions
-  are also timed without rope (``flash_fwd_no_rope``,
+  forward and of the backward, first at the fp32 shapes where the tree's
+  kernels take fp32 (B1 S8192 H2 D128, then the reference's
+  streaming-tier test shape B2 S384 H2 D16; in trees before the fused
+  fp32 backward its dkv kernel's times swing between processes, so fp32
+  runs before any other shape's allocations), then at the flagship
+  shape, B8 S1023 H16 D128 bf16, causal, rope, q/k/v views of one fused
+  projection, and at the long_ctx_xl shape, B1 S16384 H16 D128 bf16
+  (windows of 3 calls). The backward (``flash_bwd``) is one timed call
+  of the tree's ``bwd`` wrapper, whichever kernels its route launches,
+  so trees before and after a backward's redesign read the same work.
+  Both directions are also timed without rope (``flash_fwd_no_rope``,
   ``flash_bwd_no_rope``) to show what the rotation costs.
 
 To compare two trees on one card, unpack the other into a directory
@@ -91,10 +92,7 @@ def kernel_times(fk, rope_operands, b, s, h, d, dtype, inner=10) -> dict:
         o, lse = fk.fwd(q, k, v, tables, causal=True)
         delta = (dout.float() * o.float()).sum(-1).transpose(1, 2)
         args = (q, k, v, dout, lse, delta.contiguous(), dlse, tables)
-        if hasattr(fk, "bwd"):
-            return lambda: fk.bwd(*args, causal=True)
-        return lambda: (fk.bwd_dq(*args, causal=True),
-                        fk.bwd_dkv(*args, causal=True))
+        return lambda: fk.bwd(*args, causal=True)
 
     ms = {
         "flash_fwd": time_ms(lambda: fk.fwd(q, k, v, tables, causal=True),
@@ -114,6 +112,7 @@ def kernel_times(fk, rope_operands, b, s, h, d, dtype, inner=10) -> dict:
 # timed.
 SHAPES = {
     "fp32_b1_s8192_h2_d128": (1, 8192, 2, 128, "float32", 10),
+    "fp32_b2_s384_h2_d16": (2, 384, 2, 16, "float32", 10),
     "bf16_b8_s1023_h16_d128": (8, 1023, 16, 128, "bfloat16", 10),
     "bf16_b1_s16384_h16_d128": (1, 16384, 16, 128, "bfloat16", 3),
 }

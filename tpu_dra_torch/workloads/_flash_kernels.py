@@ -1,6 +1,6 @@
 """Build, load and launch the hand-written CUDA flash-attention kernels.
 
-Five kernels, one per source under ``csrc/`` (see each source's header
+Four kernels, one per source under ``csrc/`` (see each source's header
 for the TPU kernels it replaces, what bounds it on the H100 and what its
 design does about that). Each streams its non-stationary side through
 shared memory at every sequence length, so each is the counterpart of
@@ -13,15 +13,14 @@ resident TPU kernels and of their streaming (XL) twins:
   the Hopper kernel (128-row Q tiles, TMA ring, warp-specialised wgmma);
   fp32, and bf16 at the other head dims, run ``flash_fwd`` (64-row Q
   tiles, mma.sync);
-- ``flash_bwd_sm90`` (csrc/flash_bwd_sm90.cu) replaces ``_bwd_dq_kernel``,
-  ``_bwd_dkv_kernel`` and their streaming twins in one fused pass, and
-  ``flash_bwd_dq`` (csrc/flash_bwd_dq.cu) with ``flash_bwd_dkv``
-  (csrc/flash_bwd_dkv.cu) replace them as a pair. ``bwd_route`` picks
-  per (dtype, D): bf16 at D in ``BWD_SM90_HEAD_DIMS`` (64, 128: every
-  backward of the model paths) runs the fused Hopper kernel (128-key
-  K/V tiles, TMA ring, warp-specialised wgmma, fp32 dQ accumulator);
-  fp32, and bf16 at the other head dims, run the pair (64-row tiles,
-  mma.sync)
+- ``flash_bwd_sm90`` (csrc/flash_bwd_sm90.cu) and ``flash_bwd_mma``
+  (csrc/flash_bwd_mma.cu) each replace ``_bwd_dq_kernel``,
+  ``_bwd_dkv_kernel`` and their streaming twins in one fused pass that
+  adds dQ into an fp32 accumulator. ``bwd_route`` picks per (dtype, D):
+  bf16 at D in ``BWD_SM90_HEAD_DIMS`` (64, 128: every backward of the
+  model paths) runs the Hopper kernel (128-key K/V tiles, TMA ring,
+  warp-specialised wgmma); fp32, and bf16 at the other head dims, run
+  ``flash_bwd_mma`` (64-key K/V tiles, cp.async ring, mma.sync)
   (all in tpu_dra/workloads/flashattention.py).
 
 They take bf16 or fp32 inputs (``KERNEL_DTYPES``). fp32 products run as
@@ -34,13 +33,12 @@ repository root (listed in .gitignore), at first use. File names carry a
 hash of the sources and flags, so an edit rebuilds. The libraries are
 loaded with ``ctypes``; every pointer and the stream are ``c_void_p``.
 
-Each wrapper (``fwd``, ``bwd``, ``bwd_dq``, ``bwd_dkv``) takes
-[B, S, H, D] tensors. For CPU tensors it runs its plain PyTorch version
-beside it in this module (``fwd_plain``, ``bwd_plain``, ``bwd_dq_plain``,
-``bwd_dkv_plain``); for CUDA tensors it launches its kernel on the
-current stream (``bwd`` the fused kernel, or ``bwd_dq`` then ``bwd_dkv``),
-adds one to its ``launches`` count (``fwd`` and ``bwd`` also to
-``route_launches[route]``), and raises if the launch fails. There is no
+Each wrapper (``fwd``, ``bwd``) takes [B, S, H, D] tensors. For CPU
+tensors it runs its plain PyTorch version beside it in this module
+(``fwd_plain``, ``bwd_plain``, the latter built of ``bwd_dq_plain`` and
+``bwd_dkv_plain``); for CUDA tensors it launches its route's kernel on
+the current stream, adds one to its ``launches`` count and to
+``route_launches[route]``, and raises if the launch fails. There is no
 other path: no fallback from a failed build or launch, and none from one
 route to the other.
 """
@@ -73,11 +71,10 @@ FP32_HEAD_DIMS = (16, 128)
 FWD_SM90_HEAD_DIMS = (64, 128)
 # The forward kernel of each route.
 FWD_KERNELS = {"sm90": "flash_fwd_sm90", "mma": "flash_fwd"}
-# The head dims the fused Hopper backward (csrc/flash_bwd_sm90.cu) is
-# built for, in bf16, and the backward kernels of each route.
+# The head dims the Hopper backward (csrc/flash_bwd_sm90.cu) is built
+# for, in bf16, and the backward kernel of each route.
 BWD_SM90_HEAD_DIMS = (64, 128)
-BWD_KERNELS = {"sm90": ("flash_bwd_sm90",),
-               "mma": ("flash_bwd_dq", "flash_bwd_dkv")}
+BWD_KERNELS = {"sm90": "flash_bwd_sm90", "mma": "flash_bwd_mma"}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_dra_torch"
@@ -92,9 +89,8 @@ _SHAPE = [_INT] * 4 + [_I64] * 3 + [_INT] * 3
 ARGTYPES = {
     "flash_fwd": [_PTR] * 7 + _SHAPE + [_PTR],
     "flash_fwd_sm90": [_PTR] * 7 + _SHAPE + [_PTR],
-    "flash_bwd_dq": [_PTR] * 10 + _SHAPE + [_PTR],
-    "flash_bwd_dkv": [_PTR] * 11 + _SHAPE + [_PTR],
     "flash_bwd_sm90": [_PTR] * 13 + _SHAPE + [_PTR],
+    "flash_bwd_mma": [_PTR] * 13 + _SHAPE + [_PTR],
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -354,48 +350,12 @@ def _bwd_inputs(q, dout, lse, delta, dlse):
     return (dout,) + tuple(x.float().contiguous() for x in (lse, delta, dlse))
 
 
-def bwd_dq(q, k, v, dout, lse, delta, dlse, tables, *, causal: bool):
-    """dq [B, S, H, D]; dout [B, S, H, D]; lse, delta = rowsum(dO * O) and
-    dlse (the lse cotangent) [B, H, S] fp32."""
-    if _device_of(q) == "cpu":
-        return bwd_dq_plain(q, k, v, dout, lse, delta, dlse, tables,
-                            causal=causal)
-    q, k, v, tables = _kernel_inputs(q, k, v, tables)
-    dout, lse, delta, dlse = _bwd_inputs(q, dout, lse, delta, dlse)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        _call("flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-              dlse.data_ptr(), *_table_ptrs(tables), dq.data_ptr(),
-              *_dims(q, causal, tables), _stream(q))
-    bwd_dq.launches += 1
-    return dq
-
-
-def bwd_dkv(q, k, v, dout, lse, delta, dlse, tables, *, causal: bool):
-    """(dk, dv) [B, S, H, D]; operands as bwd_dq."""
-    if _device_of(q) == "cpu":
-        return bwd_dkv_plain(q, k, v, dout, lse, delta, dlse, tables,
-                             causal=causal)
-    q, k, v, tables = _kernel_inputs(q, k, v, tables)
-    dout, lse, delta, dlse = _bwd_inputs(q, dout, lse, delta, dlse)
-    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        _call("flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-              dlse.data_ptr(), *_table_ptrs(tables), dk.data_ptr(),
-              dv.data_ptr(), *_dims(q, causal, tables), _stream(q))
-    bwd_dkv.launches += 1
-    return dk, dv
-
-
 def bwd_route(dtype: torch.dtype, d: int) -> str:
-    """The backward that serves (dtype, D): "sm90" (flash_bwd_sm90, one
-    fused pass: bf16 at D in BWD_SM90_HEAD_DIMS) or "mma" (flash_bwd_dq
-    then flash_bwd_dkv: fp32, and bf16 at the other head dims). As in
-    fwd_route, wgmma takes fp32 only as TF32 with both operands K-major,
-    and the fused pass reads dO, Q, dS and K MN-major."""
+    """The backward that serves (dtype, D): "sm90" (flash_bwd_sm90: bf16
+    at D in BWD_SM90_HEAD_DIMS) or "mma" (flash_bwd_mma: fp32, and bf16 at
+    the other head dims). As in fwd_route, wgmma takes fp32 only as TF32
+    with both operands K-major, and the backward reads dO, Q, dS and K
+    MN-major."""
     if dtype == torch.bfloat16 and d in BWD_SM90_HEAD_DIMS:
         return "sm90"
     return "mma"
@@ -410,36 +370,27 @@ def bwd(q, k, v, dout, lse, delta, dlse, tables, *, causal: bool):
                          causal=causal)
     q, k, v, tables = _kernel_inputs(q, k, v, tables)
     route = bwd_route(q.dtype, q.shape[-1])
-    if route == "mma":
-        args = (q, k, v, dout, lse, delta, dlse, tables)
-        out = (bwd_dq(*args, causal=causal),
-               *bwd_dkv(*args, causal=causal))
-    else:
-        dout, lse, delta, dlse = _bwd_inputs(q, dout, lse, delta, dlse)
-        # dQ's fp32 accumulator: every K tile's CTA adds into it.
-        dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-        dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
-                      for _ in range(3))
-        with torch.cuda.device(q.device):
-            _call("flash_bwd_sm90", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                  dlse.data_ptr(), *_table_ptrs(tables), dq_acc.data_ptr(),
-                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                  *_dims(q, causal, tables), _stream(q))
-        out = (dq, dk, dv)
+    dout, lse, delta, dlse = _bwd_inputs(q, dout, lse, delta, dlse)
+    # dQ's fp32 accumulator: every K tile's CTA adds into it.
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    with torch.cuda.device(q.device):
+        _call(BWD_KERNELS[route], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+              dlse.data_ptr(), *_table_ptrs(tables), dq_acc.data_ptr(),
+              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+              *_dims(q, causal, tables), _stream(q))
     bwd.launches += 1
     bwd.route_launches[route] += 1
-    return out
+    return dq, dk, dv
 
 
 fwd.launches = 0
 fwd.route_launches = dict.fromkeys(FWD_KERNELS, 0)
 bwd.launches = 0
 bwd.route_launches = dict.fromkeys(BWD_KERNELS, 0)
-bwd_dq.launches = 0
-bwd_dkv.launches = 0
-WRAPPERS = {"flash_fwd": fwd, "flash_bwd": bwd, "flash_bwd_dq": bwd_dq,
-            "flash_bwd_dkv": bwd_dkv}
+WRAPPERS = {"flash_fwd": fwd, "flash_bwd": bwd}
 
 
 def reset_launches() -> None:
@@ -454,13 +405,11 @@ def launches() -> dict[str, int]:
 
 
 def kernel_launches() -> dict[str, int]:
-    """Launches of each CUDA kernel since the last reset_launches(): the
-    forward's by route (FWD_KERNELS), the fused backward's as its route
-    counts it, and the pair's as their wrappers count them (the "mma"
-    route of ``bwd`` calls both)."""
-    routes = WRAPPERS["flash_fwd"].route_launches
-    counts = {FWD_KERNELS[route]: n for route, n in routes.items()}
-    counts["flash_bwd_sm90"] = WRAPPERS["flash_bwd"].route_launches["sm90"]
-    counts.update((name, WRAPPERS[name].launches)
-                  for name in BWD_KERNELS["mma"])
+    """Launches of each CUDA kernel since the last reset_launches(), as
+    the wrappers' routes count them (FWD_KERNELS, BWD_KERNELS)."""
+    counts = {}
+    for wrapper, kernels in (("flash_fwd", FWD_KERNELS),
+                             ("flash_bwd", BWD_KERNELS)):
+        routes = WRAPPERS[wrapper].route_launches
+        counts.update((kernels[route], n) for route, n in routes.items())
     return counts

@@ -9,8 +9,8 @@
 // _bwd_dq_stream_kernel and _bwd_dkv_stream_kernel (_bwd_calls_stream)
 // for bf16 at D 64 and 128, which carries every backward of the
 // flagship, long_ctx and long_ctx_xl paths. fp32 inputs and the other
-// bf16 head dims stay on flash_bwd_dq.cu and flash_bwd_dkv.cu
-// (_flash_kernels.bwd_route says which).
+// bf16 head dims run flash_bwd_mma.cu (_flash_kernels.bwd_route says
+// which).
 //
 // What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s): five products
 // per (query, key) pair, 10 * D FLOPs, against q, k, v, dO in and dq, dk,

@@ -1,15 +1,15 @@
 // Shared pieces of the hand-written mma.sync flash-attention kernels
-// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu), for bf16 and fp32
-// inputs (the element type T is a template parameter throughout); the
-// wgmma kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu) take its scalar
-// helpers (bf16 packing, rot, ld_pair).
+// (flash_fwd.cu, flash_bwd_mma.cu), for bf16 and fp32 inputs (the element
+// type T is a template parameter throughout); the wgmma kernels
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu) take its scalar helpers (bf16
+// packing, rot, ld_pair).
 //
-// Tile geometry: one CTA of 4 warps owns a 64-row stationary tile (Q rows
-// for fwd/dq, K/V rows for dkv); each warp owns 16 of those rows and runs
-// warp-level tensor-core products (mma.sync) with fp32 accumulation. The
-// streamed side (K/V, or Q/dO) passes through shared memory in 64-row
-// tiles. Shared memory holds 3-4 tiles whatever S is, and every global
-// offset is 64-bit, so one kernel serves every sequence length.
+// Tile geometry: a CTA owns a 64-row stationary tile (Q rows for fwd, K/V
+// rows for bwd); each warp owns 16 of those rows and runs warp-level
+// tensor-core products (mma.sync) with fp32 accumulation. The streamed
+// side (K/V, or Q/dO) passes through shared memory in 64-row tiles.
+// Shared memory holds a few tiles whatever S is, and every global offset
+// is 64-bit, so one kernel serves every sequence length.
 //
 // bf16 products: mma.sync.m16n8k16. Fragment layouts are the PTX ISA's
 // (g = lane / 4, t = lane % 4):
@@ -83,17 +83,18 @@ struct Layout {
   long long b, s, h;
 };
 
-// Everything the three kernels read and write. Inputs q, k, v share the
-// `in` layout (the model passes views of one fused qkv projection);
-// dout/o/dq/dk/dv are [B, S, H, D] contiguous (`out`); lse, delta and
-// dlse are [B, H, S] fp32. cos_t/sinm_t are the [S, D] rope tables, in
-// the input type, as the TPU kernels store them.
+// Everything the kernels read and write. Inputs q, k, v share the `in`
+// layout (the model passes views of one fused qkv projection);
+// dout/o/dq/dk/dv are [B, S, H, D] contiguous (`out`), as is the
+// backward's fp32 dQ accumulator dq_acc; lse, delta and dlse are
+// [B, H, S] fp32. cos_t/sinm_t are the [S, D] rope tables, in the input
+// type, as the TPU kernels store them.
 template <typename T>
 struct Params {
   const T *q, *k, *v, *dout, *cos_t, *sinm_t;
   const float *lse_in, *delta, *dlse;
   T *o, *dq, *dk, *dv;
-  float *lse_out;
+  float *lse_out, *dq_acc;
   int B, S, H;
   Layout in, out;
   int causal, rope;
@@ -331,50 +332,6 @@ __device__ __forceinline__ void mma_c_rows(float acc[D / 8][4],
   }
 }
 
-// acc0 += T(C0) . Z0 and acc1 += T(C1) . Z1 over the same k range: dkv's
-// two products, P^T.dO and dS^T.Q. bf16 runs both in one k loop, each
-// A fragment built once per k step, as two independent mma chains; fp32
-// runs them one after the other (interleaved, its per-tile sums would
-// take 32 more registers in a kernel already at the limit).
-template <int D, int LD, int KSTEPS>
-__device__ __forceinline__ void mma_c_rows2(float acc0[D / 8][4],
-                                            const float (*c0)[4],
-                                            const bf16* z0,
-                                            float acc1[D / 8][4],
-                                            const float (*c1)[4],
-                                            const bf16* z1, int zrow,
-                                            int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KSTEPS; ++kk) {
-    FragA<bf16> a0, a1;
-    a_from_c(a0, c0, kk);
-    a_from_c(a1, c1, kk);
-    const int k0 = zrow + kk * Elem<bf16>::kDepth;
-#pragma unroll
-    for (int j = 0; j < D / 8; j += 2) {
-      FragB<bf16> b0, b1;
-      load_b_rows_k_x2<LD>(b0, b1, z0, k0, j * 8, lane);
-      mma(acc0[j], a0, b0);
-      mma(acc0[j + 1], a0, b1);
-      load_b_rows_k_x2<LD>(b0, b1, z1, k0, j * 8, lane);
-      mma(acc1[j], a1, b0);
-      mma(acc1[j + 1], a1, b1);
-    }
-  }
-}
-
-template <int D, int LD, int KSTEPS>
-__device__ __forceinline__ void mma_c_rows2(float acc0[D / 8][4],
-                                            const float (*c0)[4],
-                                            const float* z0,
-                                            float acc1[D / 8][4],
-                                            const float (*c1)[4],
-                                            const float* z1, int zrow,
-                                            int lane) {
-  mma_c_rows<D, LD, KSTEPS>(acc0, c0, z0, zrow, lane);
-  mma_c_rows<D, LD, KSTEPS>(acc1, c1, z1, zrow, lane);
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -513,7 +470,7 @@ struct Operands {
   const void *q, *k, *v, *dout, *cos_t, *sinm_t;
   const float *lse_in, *delta, *dlse;
   void *o, *dq, *dk, *dv;
-  float *lse_out;
+  float *lse_out, *dq_acc;
 };
 
 struct Shape {
@@ -539,6 +496,7 @@ Params<T> make_params(const Operands& x, const Shape& sh) {
   p.dk = static_cast<T*>(x.dk);
   p.dv = static_cast<T*>(x.dv);
   p.lse_out = x.lse_out;
+  p.dq_acc = x.dq_acc;
   p.B = sh.B;
   p.S = sh.S;
   p.H = sh.H;

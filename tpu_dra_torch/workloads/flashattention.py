@@ -5,9 +5,9 @@ attention: the [S, S] score matrix never reaches device memory, in
 either direction. The forward streams K/V tiles for one Q tile through
 shared memory with the online-softmax recurrence and saves the per-row
 logsumexp; the backward recomputes probabilities tile by tile from
-(q, k, lse), in one fused kernel for bf16 at D 64 and 128 (every model
-path; dK/dV per K/V tile, dQ added into an fp32 accumulator) and as two
-kernels (dq; dk/dv) otherwise. The kernels are CUDA C++
+(q, k, lse) in one fused kernel per K/V tile (dK/dV in registers, dQ
+added into an fp32 accumulator), for bf16 at D 64 and 128 (every model
+path) and for the other inputs alike. The kernels are CUDA C++
 (``csrc/``, built and launched by ``_flash_kernels``); this module holds
 their contract: rope tables, the joint autograd over (out, lse), and the
 ``attend`` dispatch the model calls.
@@ -21,10 +21,10 @@ the forward a 128-row Q tile for bf16 at D 64 and 128 (flash_fwd_sm90,
 every model path) and a 64-row one otherwise (flash_fwd: fp32, other
 bf16 head dims; _flash_kernels.fwd_route), the fused backward a 128-key
 K/V tile (flash_bwd_sm90, the same dtypes and head dims;
-_flash_kernels.bwd_route) and the dq/dkv pair a 64-row tile. So one
-kernel per direction and (dtype, D) serves both
-tiers: the port has no ``_needs_streaming``, no ``STREAM_BLOCKS`` and no
-``streaming=`` flag.
+_flash_kernels.bwd_route) and a 64-key one otherwise (flash_bwd_mma).
+So one kernel per direction and (dtype, D) serves both tiers: the port
+has no ``_needs_streaming``, no ``STREAM_BLOCKS`` and no ``streaming=``
+flag.
 
 Causal inputs of any length run on the kernels: they mask the ragged last
 tile themselves (keys past S sit above every real row's diagonal, rows
