@@ -62,12 +62,16 @@ Phases, each printing one JSON line ({"phase": ...}):
 4. kernels_fp32 — the same on fp32 inputs (the mma.sync kernels) at the
                   reference's streaming tier's shapes (its
                   TestStreamingKernels' B2 S384 H2 D16, causal x rope,
-                  and B1 S8192 H2 D128, where its fp32 path streams) and
-                  at the fp32 model's (B1 S8191 H4 D128), within
+                  and B1 S8192 H2 D128, where its fp32 path streams), at
+                  B1 S40 and S320 H2 D128 (causal x rope: ragged tiles,
+                  a key half with no key left) and at the fp32 model's
+                  (B1 S8191 H4 D128), within
                   TOL_REL_FP32 / TOL_LSE_FP32; at B1 S8192 H2 D128 a
                   planted fault (one dropped 64-wide tile) above
-                  TOL_REL_FP32 and the reproducibility reading (dk, dv
-                  bitwise; dq within TOL_REPRO_FP32);
+                  TOL_REL_FP32 and the reproducibility readings (the
+                  forward's out and lse bitwise: its key halves meet in
+                  a fixed order; dk, dv bitwise; dq within
+                  TOL_REPRO_FP32);
 5. kernels_long — bf16 at the long-context paths' shapes, B1 H16 D128
                   at S=8191 and 16383, and at S=16384, each kernel run
                   once at the full shape and its plain version two heads
@@ -558,7 +562,8 @@ def _heads(args, hs):
 
 
 def check_case(s, causal, rope, b, h, d, seed, dtype=None, chunk=None,
-               fault_at=None, zero_dlse=False, repro=False) -> dict:
+               fault_at=None, zero_dlse=False, repro=False,
+               fwd_repro=False) -> dict:
     """The forward and the backward wrapper once on one set of [b, s, h,
     d] inputs (bf16 unless `dtype` says otherwise; q, k, v views of one
     fused projection, as the model passes them), against their plain
@@ -566,7 +571,8 @@ def check_case(s, causal, rope, b, h, d, seed, dtype=None, chunk=None,
     default: the dense plain backward at long S holds four [B, chunk, S,
     S] fp32 tensors), at the tolerances of that type. With `fault_at`,
     also the planted-fault readings at these inputs (planted_faults);
-    with `repro`, the backward's reproducibility (check_repro)."""
+    with `repro`, the backward's reproducibility (check_repro); with
+    `fwd_repro`, the forward's (check_fwd_repro)."""
     import torch
 
     from tpu_dra_torch.workloads import _flash_kernels as fk
@@ -631,6 +637,29 @@ def check_case(s, causal, rope, b, h, d, seed, dtype=None, chunk=None,
     if repro:
         res.update(check_repro(args, causal, (dq, dk, dv),
                                TOL_REPRO_FP32 if fp32 else TOL_REPRO))
+    if fwd_repro:
+        res.update(check_fwd_repro(args, causal, (o, lse)))
+    return res
+
+
+def check_fwd_repro(args, causal, first) -> dict:
+    """The forward wrapper run again on the same operands: out and lse
+    must equal the first run's bit for bit (each row's partials meet in
+    a fixed order)."""
+    import torch
+
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+
+    q, k, v = args[:3]
+    o, lse = fk.fwd(q, k, v, args[-1], causal=causal)
+    torch.cuda.synchronize()
+    res = {"repro_out_equal": bool(torch.equal(o, first[0])),
+           "repro_lse_equal": bool(torch.equal(lse, first[1]))}
+    emit("fwd_repro", s=q.shape[1], dtype=str(q.dtype),
+         fwd_kernel=fk.FWD_KERNELS[fk.fwd_route(q.dtype, q.shape[-1])],
+         **res)
+    check(res["repro_out_equal"] and res["repro_lse_equal"],
+          f"the forward's out/lse differ between two runs: {res}")
     return res
 
 
@@ -685,19 +714,24 @@ def phase_kernels() -> dict:
 
 def phase_kernels_fp32() -> dict:
     """fp32 inputs at the reference's streaming-tier shapes: its
-    TestStreamingKernels' (B2 S384 H2 D16, causal x rope) and B1 S8192
-    H2 D128, where its fp32 path streams, the latter with a planted fault
-    at its middle tile and the reproducibility reading; then the fp32
-    model's own shape (parity_fp32: B1 S8191 H4 D128). Returns the B1
-    S8192 H2 D128 readings (times_fp32's shape)."""
+    TestStreamingKernels' (B2 S384 H2 D16, causal x rope, beside B1 S40
+    and S320 H2 D128) and B1 S8192 H2 D128, where its fp32 path streams,
+    the latter with a planted fault at its middle tile and both
+    wrappers' reproducibility readings; then the fp32 model's own shape
+    (parity_fp32: B1 S8191 H4 D128). Returns the B1 S8192 H2 D128
+    readings (times_fp32's shape)."""
     import torch
 
     for i, (causal, rope) in enumerate((c, r) for c in (True, False)
                                        for r in (True, False)):
         check_case(384, causal, rope, b=2, h=2, d=16, seed=300 + i,
                    dtype=torch.float32)
+        for j, s in enumerate((40, 320)):
+            check_case(s, causal, rope, b=1, h=2, d=128,
+                       seed=320 + 4 * j + i, dtype=torch.float32)
     res = check_case(FP32_LONG_S, True, True, seed=310, dtype=torch.float32,
-                     fault_at=FP32_LONG_S // 2, repro=True, **LONG_CHECK)
+                     fault_at=FP32_LONG_S // 2, repro=True, fwd_repro=True,
+                     **LONG_CHECK)
     _free()
     check_case(FP32_LONG_S - 1, True, True, seed=311, dtype=torch.float32,
                chunk=PLAIN_HEADS, **FP32_MODEL_ATTN)

@@ -148,13 +148,56 @@ def test_reconnect_fault_degrades_to_backoff(node):
     client.close()
 
 
+class FakeClock:
+    """A monotonic clock that only `sleep` advances: the client's
+    deadline and backoff then run the same on any host."""
+
+    def __init__(self):
+        self.now = 0.0
+        self.slept = []
+
+    def monotonic(self) -> float:
+        return self.now
+
+    def sleep(self, s: float) -> None:
+        self.slept.append(s)
+        self.now += s
+
+
+# max_elapsed_s 0.3 and backoff 0.05, doubling: dials at 0, 0.05, 0.15
+# and 0.35; the fourth fails past the deadline and is raised.
+DEADLINE_S, BACKOFF_S = 0.3, 0.05
+DIALS_AT = [0.0, 0.05, 0.15, 0.35]
+
+
+def _deadline_client(sock, clock):
+    return RetryingFramedClient(sock, max_elapsed_s=DEADLINE_S,
+                                backoff_s=BACKOFF_S, clock=clock.monotonic,
+                                sleep=clock.sleep)
+
+
+def _stopped_at_the_deadline(client, clock, dials):
+    """Every failure before the deadline was retried after one backoff,
+    and the first one at or past it was raised."""
+    assert dials == pytest.approx(DIALS_AT)
+    assert client.reconnects == len(DIALS_AT) - 1
+    assert clock.slept == pytest.approx([0.05, 0.1, 0.2])
+    assert dials[-2] < DEADLINE_S <= dials[-1] == clock.now
+
+
 def test_reconnect_fault_bounded_by_deadline(node):
-    FAULTS.arm("prepare.reconnect", EveryNth(1))
-    client = RetryingFramedClient(node.driver.server.fast_socket,
-                                  max_elapsed_s=0.3, backoff_s=0.05)
+    clock = FakeClock()
+    dials = []
+
+    def refuse(**ctx):
+        dials.append(clock.now)
+        raise server.FaultInjected("prepare.reconnect")
+
+    FAULTS.arm("prepare.reconnect", EveryNth(1), action=refuse)
+    client = _deadline_client(node.driver.server.fast_socket, clock)
     with pytest.raises(server.FaultInjected):
         client.ping()
-    assert client.reconnects >= 2
+    _stopped_at_the_deadline(client, clock, dials)
 
 
 def test_only_the_drain_refusal_is_retried(node, monkeypatch):
@@ -183,9 +226,18 @@ def test_only_the_drain_refusal_is_retried(node, monkeypatch):
     assert client.reconnects == 0
 
 
-def test_gap_without_a_server_raises_at_the_deadline(tmp_path):
-    client = RetryingFramedClient(str(tmp_path / "none.sock"),
-                                  max_elapsed_s=0.3, backoff_s=0.05)
+def test_gap_without_a_server_raises_at_the_deadline(tmp_path,
+                                                     monkeypatch):
+    clock = FakeClock()
+    dials = []
+    dial = FramedClient.__init__
+
+    def counted(self, *args, **kwargs):
+        dials.append(clock.now)
+        dial(self, *args, **kwargs)
+
+    monkeypatch.setattr(FramedClient, "__init__", counted)
+    client = _deadline_client(str(tmp_path / "none.sock"), clock)
     with pytest.raises(OSError):
         client.ping()
-    assert client.reconnects >= 2
+    _stopped_at_the_deadline(client, clock, dials)

@@ -22,7 +22,11 @@ this file) with that tree's own build code, and prints one JSON line:
   of the tree's ``bwd`` wrapper, whichever kernels its route launches,
   so trees before and after a backward's redesign read the same work.
   Both directions are also timed without rope (``flash_fwd_no_rope``,
-  ``flash_bwd_no_rope``) to show what the rotation costs.
+  ``flash_bwd_no_rope``) to show what the rotation costs;
+- ``device_ms``: the same calls' device time (torch.profiler: the
+  kernels and fills they run, summed, per call). Where a shape is
+  launch-bound (D=16) the CUDA-event window also holds the host's gaps
+  between calls; this reading does not.
 
 To compare two trees on one card, unpack the other into a directory
 that .gitignore lists and run this script on each in turn (A, B, B, A):
@@ -79,7 +83,25 @@ def time_ms(fn, reps=5, inner=10) -> float:
     return statistics.median(times)
 
 
-def kernel_times(fk, rope_operands, b, s, h, d, dtype, inner=10) -> dict:
+def device_ms(fn, calls=20) -> float:
+    """Device time per call of fn: the durations of the CUDA kernels
+    and fills that `calls` calls run, summed, over calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages())
+    return total_us / 1e3 / calls
+
+
+def kernel_times(fk, rope_operands, b, s, h, d, dtype, inner=10) -> tuple:
+    """({name: CUDA-event ms}, {name: device ms}) of the forward and the
+    backward, with and without rope, at [b, s, h, d]."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -94,18 +116,18 @@ def kernel_times(fk, rope_operands, b, s, h, d, dtype, inner=10) -> dict:
         args = (q, k, v, dout, lse, delta.contiguous(), dlse, tables)
         return lambda: fk.bwd(*args, causal=True)
 
-    ms = {
-        "flash_fwd": time_ms(lambda: fk.fwd(q, k, v, tables, causal=True),
-                             inner=inner),
-        # The same forward without the fused rotation: what RoPE costs.
-        "flash_fwd_no_rope": time_ms(
-            lambda: fk.fwd(q, k, v, None, causal=True), inner=inner),
-        "flash_bwd": time_ms(backward(tables), inner=inner),
-        "flash_bwd_no_rope": time_ms(backward(None), inner=inner),
+    calls = {
+        "flash_fwd": lambda: fk.fwd(q, k, v, tables, causal=True),
+        # The same forward without the rotation: what RoPE costs.
+        "flash_fwd_no_rope": lambda: fk.fwd(q, k, v, None, causal=True),
+        "flash_bwd": backward(tables),
+        "flash_bwd_no_rope": backward(None),
     }
-    del q, k, v, dout, qkv
+    ms = {name: time_ms(fn, inner=inner) for name, fn in calls.items()}
+    dev = {name: device_ms(fn) for name, fn in calls.items()}
+    del q, k, v, dout, qkv, calls
     torch.cuda.empty_cache()
-    return ms
+    return ms, dev
 
 
 # name: (B, S, H, D, dtype name, calls per timed window), in the order
@@ -144,13 +166,13 @@ def main() -> int:
         "label": opts.label or str(root), "card": gpuinfo.nvidia_smi(),
         "resources": {name: resources(lib, cuobjdump)
                       for name, lib in sorted(libs.items())},
-        "ms": {},
+        "ms": {}, "device_ms": {},
     }
     for name, (b, s, h, d, dtype, inner) in SHAPES.items():
         dtype = getattr(torch, dtype)
         if dtype in getattr(fk, "KERNEL_DTYPES", {torch.bfloat16: 2}):
-            report["ms"][name] = kernel_times(fk, _rope_operands, b, s, h, d,
-                                              dtype, inner=inner)
+            report["ms"][name], report["device_ms"][name] = kernel_times(
+                fk, _rope_operands, b, s, h, d, dtype, inner=inner)
     print(json.dumps(report), flush=True)
     return 0
 

@@ -421,16 +421,22 @@ class RetryingFramedClient:
     because prepare and unprepare are idempotent on the server (the
     checkpoint journal replays or dedupes a batch committed just before
     the cut). Each redial checks the ``prepare.reconnect`` fault site;
-    a fired fault takes the same backoff as a refused dial.
+    a fired fault takes the same backoff as a refused dial. `clock` and
+    `sleep` read and spend the time the deadline and the backoff count
+    (a caller may pass fake ones: the retry sequence is then exact).
 
     Like FramedClient: NOT thread-safe, one per worker thread."""
 
     def __init__(self, fast_socket: str, timeout_s: float = 30.0,
-                 max_elapsed_s: float = 30.0, backoff_s: float = 0.05):
+                 max_elapsed_s: float = 30.0, backoff_s: float = 0.05,
+                 clock: Callable[[], float] = time.monotonic,
+                 sleep: Callable[[float], None] = time.sleep):
         self._fast_socket = fast_socket
         self._timeout_s = timeout_s
         self._max_elapsed_s = max_elapsed_s
         self._backoff_s = backoff_s
+        self._clock = clock
+        self._sleep = sleep
         self._client: Optional[FramedClient] = None
         self.reconnects = 0
 
@@ -456,16 +462,16 @@ class RetryingFramedClient:
             self._client = None
         self.reconnects += 1
         RPC_RECONNECTS.inc()
-        time.sleep(delay)
+        self._sleep(delay)
 
     def _call(self, fn_name: str, *args):
-        deadline = time.monotonic() + self._max_elapsed_s
+        deadline = self._clock() + self._max_elapsed_s
         delay = self._backoff_s
         while True:
             try:
                 return getattr(self._ensure(), fn_name)(*args)
             except (FramedRpcError, FaultInjected, OSError) as e:
-                if not self._retryable(e) or time.monotonic() >= deadline:
+                if not self._retryable(e) or self._clock() >= deadline:
                     raise
                 self._reconnect_backoff(delay)
                 delay = min(delay * 2.0, MAX_BACKOFF_S)

@@ -12,7 +12,8 @@ resident TPU kernels and of their streaming (XL) twins:
   ``FWD_SM90_HEAD_DIMS`` (64, 128: every forward of the model paths) runs
   the Hopper kernel (128-row Q tiles, TMA ring, warp-specialised wgmma);
   fp32, and bf16 at the other head dims, run ``flash_fwd`` (64-row Q
-  tiles, mma.sync);
+  tiles, cp.async ring, mma.sync; with rope a first launch writes the
+  roped k into a scratch buffer the wrapper allocates);
 - ``flash_bwd_sm90`` (csrc/flash_bwd_sm90.cu) and ``flash_bwd_mma``
   (csrc/flash_bwd_mma.cu) each replace ``_bwd_dq_kernel``,
   ``_bwd_dkv_kernel`` and their streaming twins in one fused pass that
@@ -87,7 +88,8 @@ _I64 = ctypes.c_longlong
 # B S H D, in strides, causal, rope, element bytes
 _SHAPE = [_INT] * 4 + [_I64] * 3 + [_INT] * 3
 ARGTYPES = {
-    "flash_fwd": [_PTR] * 7 + _SHAPE + [_PTR],
+    # flash_fwd_sm90's operands, then the roped-k scratch.
+    "flash_fwd": [_PTR] * 8 + _SHAPE + [_PTR],
     "flash_fwd_sm90": [_PTR] * 7 + _SHAPE + [_PTR],
     "flash_bwd_sm90": [_PTR] * 13 + _SHAPE + [_PTR],
     "flash_bwd_mma": [_PTR] * 13 + _SHAPE + [_PTR],
@@ -332,10 +334,15 @@ def fwd(q, k, v, tables, *, causal: bool):
     route = fwd_route(q.dtype, d)
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), *_table_ptrs(tables),
+            o.data_ptr(), lse.data_ptr()]
+    if route == "mma":
+        # flash_fwd's first launch writes the roped k here.
+        kr = None if tables is None else torch.empty_like(o)
+        ptrs.append(None if kr is None else kr.data_ptr())
     with torch.cuda.device(q.device):
-        _call(FWD_KERNELS[route], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              *_table_ptrs(tables), o.data_ptr(), lse.data_ptr(),
-              *_dims(q, causal, tables), _stream(q))
+        _call(FWD_KERNELS[route], *ptrs, *_dims(q, causal, tables),
+              _stream(q))
     fwd.launches += 1
     fwd.route_launches[route] += 1
     return o, lse

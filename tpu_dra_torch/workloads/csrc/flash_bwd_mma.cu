@@ -77,103 +77,19 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kStages = 2;
 
-// ---------------------------------------------------------------------------
-// fp32 operands: x = hi + lo with hi = x truncated to TF32 and lo = x - hi.
-// The loaders take the addresses of flash_common.cuh's loaders.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-template <int LD>
-__device__ __forceinline__ void ld_a(FragA<float>& a, const float* tile,
-                                     int r0, int k0, int lane) {
-  const float* p = tile + (r0 + (lane >> 2)) * LD + k0 + (lane & 3);
-  split(p[0], a.hi[0], a.lo[0]);
-  split(p[8 * LD], a.hi[1], a.lo[1]);
-  split(p[4], a.hi[2], a.lo[2]);
-  split(p[8 * LD + 4], a.hi[3], a.lo[3]);
-}
-
-template <int LD>
-__device__ __forceinline__ void ld_a(FragA<bf16>& a, const bf16* tile, int r0,
-                                     int k0, int lane) {
-  flash::load_a<LD>(a, tile, r0, k0, lane);
-}
-
-// B[k][n] = Y[n0 + n][k0 + k] (k along a row of Y).
-template <int LD>
-__device__ __forceinline__ void ld_b_n(FragB<float>& b, const float* tile,
-                                       int n0, int k0, int lane) {
-  const float* p = tile + (n0 + (lane >> 2)) * LD + k0 + (lane & 3);
-  split(p[0], b.hi[0], b.lo[0]);
-  split(p[4], b.hi[1], b.lo[1]);
-}
-
-template <int LD>
-__device__ __forceinline__ void ld_b_n(FragB<bf16>& b, const bf16* tile,
-                                       int n0, int k0, int lane) {
-  flash::load_b_rows_n<LD>(b, tile, n0, k0, lane);
-}
-
-// B[k][n] = Z[k0 + k][n0 + n] (one row of Z per k), one n-tile. fp32 in
-// the permuted k slots of flash_common.cuh: slot t = row k0 + 2t, slot
-// t + 4 = row k0 + 2t + 1.
-template <int LD>
-__device__ __forceinline__ void ld_b_k(FragB<float>& b, const float* tile,
-                                       int k0, int n0, int lane) {
-  const float* p = tile + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
-  split(p[0], b.hi[0], b.lo[0]);
-  split(p[LD], b.hi[1], b.lo[1]);
-}
-
-// bf16: ldmatrix.trans of k rows k0..k0+7 and k0+8..k0+15 at column n0
-// (lanes 0-7 and 8-15 address them; the other lanes repeat them).
-template <int LD>
-__device__ __forceinline__ void ld_b_k(FragB<bf16>& b, const bf16* tile,
-                                       int k0, int n0, int lane) {
-  const bf16* p = tile + (k0 + (lane & 15)) * LD + n0;
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-      : "=r"(b.x[0]), "=r"(b.x[1])
-      : "r"(addr)
-      : "memory");
-}
-
-// Two adjacent n-tiles of ld_b_k.
-template <int LD>
-__device__ __forceinline__ void ld_b_k2(FragB<float>& b0, FragB<float>& b1,
-                                        const float* tile, int k0, int n0,
-                                        int lane) {
-  const float* p = tile + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
-  split(p[0], b0.hi[0], b0.lo[0]);
-  split(p[LD], b0.hi[1], b0.lo[1]);
-  split(p[8], b1.hi[0], b1.lo[0]);
-  split(p[LD + 8], b1.hi[1], b1.lo[1]);
-}
-
-template <int LD>
-__device__ __forceinline__ void ld_b_k2(FragB<bf16>& b0, FragB<bf16>& b1,
-                                        const bf16* tile, int k0, int n0,
-                                        int lane) {
-  flash::load_b_rows_k_x2<LD>(b0, b1, tile, k0, n0, lane);
-}
-
 // The A fragment of dS (query m x key k) at keys k0.., queries m0.., read
 // from dS^T stored [key][query]. fp32 in the permuted k slots (matching
-// ld_b_k); bf16 by ldmatrix.trans: matrices 0-3 are (keys k0..7, queries
-// m0..7), (k0..7, m0+8..15), (k0+8..15, m0..7), (k0+8..15, m0+8..15).
+// load_b_rows_k); bf16 by ldmatrix.trans: matrices 0-3 are (keys k0..7,
+// queries m0..7), (k0..7, m0+8..15), (k0+8..15, m0..7), (k0+8..15,
+// m0+8..15).
 template <int LD>
 __device__ __forceinline__ void ld_a_t(FragA<float>& a, const float* ds_t,
                                        int k0, int m0, int lane) {
   const float* p = ds_t + (k0 + 2 * (lane & 3)) * LD + m0 + (lane >> 2);
-  split(p[0], a.hi[0], a.lo[0]);       // (g, slot t)
-  split(p[8], a.hi[1], a.lo[1]);       // (g + 8, slot t)
-  split(p[LD], a.hi[2], a.lo[2]);      // (g, slot t + 4)
-  split(p[LD + 8], a.hi[3], a.lo[3]);  // (g + 8, slot t + 4)
+  flash::split(p[0], a.hi[0], a.lo[0]);       // (g, slot t)
+  flash::split(p[8], a.hi[1], a.lo[1]);       // (g + 8, slot t)
+  flash::split(p[LD], a.hi[2], a.lo[2]);      // (g, slot t + 4)
+  flash::split(p[LD + 8], a.hi[3], a.lo[3]);  // (g + 8, slot t + 4)
 }
 
 template <int LD>
@@ -197,19 +113,10 @@ template <typename T> struct ScoreA {
   FragA<T> a[kSteps];
 };
 
-__device__ __forceinline__ void to_a(ScoreA<float>& s, const float (*c)[4]) {
+template <typename T>
+__device__ __forceinline__ void to_a(ScoreA<T>& s, const float (*c)[4]) {
 #pragma unroll
-  for (int kk = 0; kk < ScoreA<float>::kSteps; ++kk) {
-    split(c[kk][0], s.a[kk].hi[0], s.a[kk].lo[0]);  // (g, slot t)
-    split(c[kk][2], s.a[kk].hi[1], s.a[kk].lo[1]);  // (g + 8, slot t)
-    split(c[kk][1], s.a[kk].hi[2], s.a[kk].lo[2]);  // (g, slot t + 4)
-    split(c[kk][3], s.a[kk].hi[3], s.a[kk].lo[3]);  // (g + 8, slot t + 4)
-  }
-}
-
-__device__ __forceinline__ void to_a(ScoreA<bf16>& s, const float (*c)[4]) {
-#pragma unroll
-  for (int kk = 0; kk < ScoreA<bf16>::kSteps; ++kk)
+  for (int kk = 0; kk < ScoreA<T>::kSteps; ++kk)
     flash::a_from_c(s.a[kk], c, kk);
 }
 
@@ -226,7 +133,8 @@ __device__ __forceinline__ void add_c_rows(float (*acc)[4], const ScoreA<T>& s,
 #pragma unroll
     for (int kk = 0; kk < ScoreA<T>::kSteps; ++kk) {
       FragB<T> b0, b1;
-      ld_b_k2<LD>(b0, b1, z, z0 + kk * Elem<T>::kDepth, j * 8, lane);
+      flash::load_b_rows_k_x2<LD>(b0, b1, z, z0 + kk * Elem<T>::kDepth,
+                                  j * 8, lane);
       flash::mma(t0, s.a[kk], b0);
       flash::mma(t1, s.a[kk], b1);
     }
@@ -236,35 +144,6 @@ __device__ __forceinline__ void add_c_rows(float (*acc)[4], const ScoreA<T>& s,
       acc[j + 1][e] += t1[e];
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// cp.async staging (zero-filled where `real` is false)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool real) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(real ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool real) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(real ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Shared memory, in elements of T unless named: K, V, kStages x (Q, dO),
@@ -331,25 +210,25 @@ __global__ void __launch_bounds__(kThreads, 1)
       const int row = q0 + r;
       const bool real = row < p.S;
       const long long at = real ? row : 0;
-      cp_async16(q_t + r * LD + c, qs + at * q_l.s + c, real);
-      cp_async16(do_t + r * LD + c, dout + at * p.out.s + c, real);
+      flash::cp_async16(q_t + r * LD + c, qs + at * q_l.s + c, real);
+      flash::cp_async16(do_t + r * LD + c, dout + at * p.out.s + c, real);
     }
     if (tid < kQ) {
       const int row = q0 + tid;
       const bool real = row < p.S;
       const int at = real ? row : 0;
       float* rs = rows_s + s * 3 * kQ;
-      cp_async4(rs + tid, lse_row + at, real);
-      cp_async4(rs + kQ + tid, dlse_row + at, real);
-      cp_async4(rs + 2 * kQ + tid, delta_row + at, real);
+      flash::cp_async4(rs + tid, lse_row + at, real);
+      flash::cp_async4(rs + kQ + tid, dlse_row + at, real);
+      flash::cp_async4(rs + 2 * kQ + tid, delta_row + at, real);
     }
   };
 
   const int first = p.causal ? kt : 0;
   load_stage(0, first);
-  cp_async_commit();
+  flash::cp_async_commit();
   if (first + 1 < n_tiles) load_stage(1, first + 1);
-  cp_async_commit();
+  flash::cp_async_commit();
   // K (rotated) and V, once, while the first tiles land.
   if (tid < flash::kThreads) {
     const long long in_off = b * p.in.b + h * p.in.h;
@@ -374,8 +253,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float* dlse_s = lse_s + kQ;
     const float* delta_s = dlse_s + kQ;
     const int q0 = qt * kQ;
-    cp_async_wait<1>();   // tile qt's group has landed (qt + 1's may not)
-    __syncthreads();      // ... for every thread; dS^T of qt - 1 is read
+    flash::cp_async_wait<1>();  // tile qt's group landed (qt + 1's may not)
+    __syncthreads();            // ... for every thread; dS^T of qt - 1 is read
 
     // S^T = K.Q^T and dP^T = V.dO^T: 16 keys x 32 queries per warp.
     float st[4][4], dpt[4][4];
@@ -387,13 +266,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int kk = 0; kk < D / kDepth; ++kk) {
       FragA<T> ka, va;
-      ld_a<LD>(ka, Ks, kg * 16, kk * kDepth, lane);
-      ld_a<LD>(va, Vs, kg * 16, kk * kDepth, lane);
+      flash::load_a<LD>(ka, Ks, kg * 16, kk * kDepth, lane);
+      flash::load_a<LD>(va, Vs, kg * 16, kk * kDepth, lane);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         FragB<T> bq, bd;
-        ld_b_n<LD>(bq, Qs, c0 + j * 8, kk * kDepth, lane);
-        ld_b_n<LD>(bd, dOs, c0 + j * 8, kk * kDepth, lane);
+        flash::load_b_rows_n<LD>(bq, Qs, c0 + j * 8, kk * kDepth, lane);
+        flash::load_b_rows_n<LD>(bd, dOs, c0 + j * 8, kk * kDepth, lane);
         flash::mma(st[j], ka, bq);
         flash::mma(dpt[j], va, bd);
       }
@@ -441,7 +320,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();   // dS^T complete; stage s is read
     if (qt + 2 < n_tiles) load_stage(s, qt + 2);
-    cp_async_commit();
+    flash::cp_async_commit();
 
     // dQ partial = T(dS) . K: warp w takes queries 16 (w % 4) .. +15 and
     // the (w / 4)-th half of D's columns, summed over the 64 keys in fresh
@@ -461,7 +340,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int j = 0; j < kN; ++j) {
           FragB<T> bk;
-          ld_b_k<LD>(bk, Ks, kk * kDepth, (n0 + j) * 8, lane);
+          flash::load_b_rows_k<LD>(bk, Ks, kk * kDepth, (n0 + j) * 8, lane);
           flash::mma(acc[j], a, bk);
         }
       }
@@ -483,7 +362,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // The two warps of a key group hold dK, dV over disjoint queries: warps
   // 4-7 hand theirs over through the stage area, warps 0-3 add them.
-  cp_async_wait<0>();
+  flash::cp_async_wait<0>();
   __syncthreads();
   float* red = reinterpret_cast<float*>(base + L::kStage0);
   float* red_k = red + (kg * 16 + g) * L::kRedLd + 2 * t;
@@ -522,32 +401,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                           lane);
   flash::store_rows<T, D>(p.dv + out_off, p.out.s, dv, key_g, key_g8, p.S,
                           lane);
-}
-
-// qr = rope(q) as stage_tile rotates it (rounded to T), [B, S, H, D]
-// contiguous. One thread per 16-byte chunk of a row's first half and its
-// partner D/2 away.
-template <typename T, int D>
-__global__ void __launch_bounds__(256)
-    rope_q_kernel(const T* q, Layout in, const T* cos_t, const T* sinm_t,
-                  T* qr, long long rows, int S, int H) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kChunks = D / 2 / kVec;
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= rows * kChunks) return;
-  const long long r = i / kChunks;   // [B, S, H] row
-  const int c = static_cast<int>(i % kChunks) * kVec;
-  const int h = static_cast<int>(r % H);
-  const int s = static_cast<int>((r / H) % S);
-  const long long b = r / ((long long)H * S);
-  const T* x = q + b * in.b + s * in.s + h * in.h;
-  const T* ct = cos_t + (long long)s * D;
-  const T* st = sinm_t + (long long)s * D;
-  const uint4 xl = flash::ld_u128(x + c), xh = flash::ld_u128(x + c + D / 2);
-  *reinterpret_cast<uint4*>(qr + r * D + c) = flash::rope16<T>(
-      xl, xh, flash::ld_u128(ct + c), flash::ld_u128(st + c));
-  *reinterpret_cast<uint4*>(qr + r * D + c + D / 2) = flash::rope16<T>(
-      xh, xl, flash::ld_u128(ct + c + D / 2), flash::ld_u128(st + c + D / 2));
 }
 
 // dq = inverse_rope(acc * sm_scale) rounded to T once, the rounding of
@@ -600,11 +453,7 @@ struct Launch {
     Layout q_l = p.in;
     if (p.rope) {
       // The roped q goes into dq, which only the epilogue writes.
-      const long long threads = rows * (D / 2 / (16 / sizeof(T)));
-      rope_q_kernel<T, D><<<(unsigned)((threads + 255) / 256), 256, 0,
-                            stream>>>(p.q, p.in, p.cos_t, p.sinm_t, p.dq,
-                                      rows, p.S, p.H);
-      cudaError_t err = cudaGetLastError();
+      cudaError_t err = flash::rope_rows<T, D>(p, p.q, p.dq, stream);
       if (err != cudaSuccess) return err;
       q_src = p.dq;
       q_l = p.out;

@@ -4,12 +4,12 @@
 // (flash_fwd_sm90.cu, flash_bwd_sm90.cu) take its scalar helpers (bf16
 // packing, rot, ld_pair).
 //
-// Tile geometry: a CTA owns a 64-row stationary tile (Q rows for fwd, K/V
-// rows for bwd); each warp owns 16 of those rows and runs warp-level
-// tensor-core products (mma.sync) with fp32 accumulation. The streamed
-// side (K/V, or Q/dO) passes through shared memory in 64-row tiles.
-// Shared memory holds a few tiles whatever S is, and every global offset
-// is 64-bit, so one kernel serves every sequence length.
+// Tile geometry: a CTA of eight warps owns a 64-row stationary tile (Q
+// rows for fwd, K/V rows for bwd) and runs warp-level tensor-core
+// products (mma.sync) with fp32 accumulation. The streamed side (K/V, or
+// Q/dO) passes through shared memory in 64-row tiles, in a two-stage
+// cp.async ring. Shared memory holds a few tiles whatever S is, and every
+// global offset is 64-bit, so one kernel serves every sequence length.
 //
 // bf16 products: mma.sync.m16n8k16. Fragment layouts are the PTX ISA's
 // (g = lane / 4, t = lane % 4):
@@ -22,9 +22,14 @@
 // next product without touching shared memory.
 //
 // fp32 products: three TF32 tensor-core products per fp32 product
-// (mma.sync.m16n8k8 .tf32), x = hi + lo with hi = tf32(x) and
-// lo = tf32(x - hi), a.b = a_hi.b_hi + a_hi.b_lo + a_lo.b_hi; the dropped
-// a_lo.b_lo term is ~2^-22 relative. Why not one TF32 pass: it keeps ~3
+// (mma.sync.m16n8k8 .tf32), x = hi + lo with hi = x & 0xffffe000 (x
+// truncated to TF32: one integer op) and lo = x - hi (exact in fp32; the
+// tensor cores read its top 10 mantissa bits), a.b = a_lo.b_hi +
+// a_hi.b_lo + a_hi.b_hi; the dropped a_lo.b_lo term and lo's own
+// truncation cost at most ~3 * 2^-20 of a product
+// (tests/test_torch_bwd_mma.py and test_torch_fwd_mma.py emulate it).
+// Each operand is split once where it is loaded, and a score-shaped
+// accumulator (P, dS) once per tile. Why not one TF32 pass: it keeps ~3
 // decimal digits, a different function from the reference's fp32 dot.
 // Why not FFMA on the CUDA cores: the split keeps the bf16 path's warp
 // tiling and runs at 495/3 = 165 TFLOP/s of tensor-core peak, against 67
@@ -39,8 +44,8 @@
 // k does not care in which slot each k sits). The same rows also make
 // those B loads bank-conflict-free at a row pitch of D + 4 floats. The
 // tensor cores round each fp32 accumulation toward zero, so the long sums
-// over streamed tiles are added up in IEEE fp32, once per tile
-// (mma_c_rows).
+// over streamed tiles are summed per tile in fresh registers and added up
+// in IEEE fp32, once per tile.
 //
 // Numerics follow the TPU kernels (tpu_dra/workloads/flashattention.py):
 // roped q/k are rounded to the input type before the dot, p and ds are
@@ -62,8 +67,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;
 constexpr int kBlock = 64;          // rows per tile, stationary and streamed
-constexpr int kWarps = 4;           // 16 rows of the stationary tile each
-constexpr int kThreads = kWarps * 32;
+constexpr int kThreads = 128;       // stage_tile's threads, by default
 
 // Per element type: the depth of one mma and the smem row padding that
 // keeps fragment loads bank-conflict-free (16 bytes either way, so rows
@@ -85,15 +89,16 @@ struct Layout {
 
 // Everything the kernels read and write. Inputs q, k, v share the `in`
 // layout (the model passes views of one fused qkv projection);
-// dout/o/dq/dk/dv are [B, S, H, D] contiguous (`out`), as is the
-// backward's fp32 dQ accumulator dq_acc; lse, delta and dlse are
-// [B, H, S] fp32. cos_t/sinm_t are the [S, D] rope tables, in the input
-// type, as the TPU kernels store them.
+// dout/o/dq/dk/dv are [B, S, H, D] contiguous (`out`), as are the
+// backward's fp32 dQ accumulator dq_acc and the forward's roped-k
+// scratch kr; lse, delta and dlse are [B, H, S] fp32. cos_t/sinm_t are
+// the [S, D] rope tables, in the input type, as the TPU kernels store
+// them.
 template <typename T>
 struct Params {
   const T *q, *k, *v, *dout, *cos_t, *sinm_t;
   const float *lse_in, *delta, *dlse;
-  T *o, *dq, *dk, *dv;
+  T *o, *dq, *dk, *dv, *kr;
   float *lse_out, *dq_acc;
   int B, S, H;
   Layout in, out;
@@ -177,12 +182,10 @@ __device__ __forceinline__ void mma(float c[4], const FragA<float>& a,
   mma_tf32(c, a.hi, b.hi);
 }
 
-// x = hi + lo, both TF32 (round to nearest; x - hi is exact in fp32).
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  const float rest = x - __uint_as_float(hi);
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(rest));
+// x = hi + lo: hi = x truncated to TF32, lo = x - hi (exact in fp32).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 // A fragment of rows r0..r0+15, columns k0..k0+depth-1 of a row-major
@@ -201,10 +204,10 @@ template <int LD>
 __device__ __forceinline__ void load_a(FragA<float>& a, const float* tile,
                                        int r0, int k0, int lane) {
   const float* p = tile + (r0 + (lane >> 2)) * LD + k0 + (lane & 3);
-  split_tf32(p[0], a.hi[0], a.lo[0]);
-  split_tf32(p[8 * LD], a.hi[1], a.lo[1]);
-  split_tf32(p[4], a.hi[2], a.lo[2]);
-  split_tf32(p[8 * LD + 4], a.hi[3], a.lo[3]);
+  split(p[0], a.hi[0], a.lo[0]);
+  split(p[8 * LD], a.hi[1], a.lo[1]);
+  split(p[4], a.hi[2], a.lo[2]);
+  split(p[8 * LD + 4], a.hi[3], a.lo[3]);
 }
 
 // B fragment with B[k][n] = Y[n0 + n][k0 + k]: Y holds one row per n (the
@@ -222,8 +225,8 @@ __device__ __forceinline__ void load_b_rows_n(FragB<float>& b,
                                               const float* tile, int n0,
                                               int k0, int lane) {
   const float* p = tile + (n0 + (lane >> 2)) * LD + k0 + (lane & 3);
-  split_tf32(p[0], b.hi[0], b.lo[0]);
-  split_tf32(p[4], b.hi[1], b.lo[1]);
+  split(p[0], b.hi[0], b.lo[0]);
+  split(p[4], b.hi[1], b.lo[1]);
 }
 
 // B fragments of two adjacent n-tiles with B[k][n] = Z[k0 + k][n0 + n]: Z
@@ -254,10 +257,35 @@ __device__ __forceinline__ void load_b_rows_k_x2(FragB<float>& b0,
                                                  const float* tile, int k0,
                                                  int n0, int lane) {
   const float* p = tile + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
-  split_tf32(p[0], b0.hi[0], b0.lo[0]);
-  split_tf32(p[LD], b0.hi[1], b0.lo[1]);
-  split_tf32(p[8], b1.hi[0], b1.lo[0]);
-  split_tf32(p[LD + 8], b1.hi[1], b1.lo[1]);
+  split(p[0], b0.hi[0], b0.lo[0]);
+  split(p[LD], b0.hi[1], b0.lo[1]);
+  split(p[8], b1.hi[0], b1.lo[0]);
+  split(p[LD + 8], b1.hi[1], b1.lo[1]);
+}
+
+// One n-tile of the same B: fp32 in the permuted k slots; bf16 by
+// ldmatrix.trans of k rows k0..k0+7 and k0+8..k0+15 at column n0 (lanes
+// 0-7 and 8-15 address them; the other lanes repeat them).
+template <int LD>
+__device__ __forceinline__ void load_b_rows_k(FragB<float>& b,
+                                              const float* tile, int k0,
+                                              int n0, int lane) {
+  const float* p = tile + (k0 + 2 * (lane & 3)) * LD + n0 + (lane >> 2);
+  split(p[0], b.hi[0], b.lo[0]);
+  split(p[LD], b.hi[1], b.lo[1]);
+}
+
+template <int LD>
+__device__ __forceinline__ void load_b_rows_k(FragB<bf16>& b,
+                                              const bf16* tile, int k0,
+                                              int n0, int lane) {
+  const bf16* p = tile + (k0 + (lane & 15)) * LD + n0;
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(b.x[0]), "=r"(b.x[1])
+      : "r"(addr)
+      : "memory");
 }
 
 // The A fragment of k-step kk of a product whose A is a warp's fp32
@@ -274,16 +302,16 @@ __device__ __forceinline__ void a_from_c(FragA<bf16>& a, const float (*c)[4],
 
 __device__ __forceinline__ void a_from_c(FragA<float>& a, const float (*c)[4],
                                          int kk) {
-  split_tf32(c[kk][0], a.hi[0], a.lo[0]);  // (g, slot t) = column 2t
-  split_tf32(c[kk][2], a.hi[1], a.lo[1]);  // (g + 8, slot t)
-  split_tf32(c[kk][1], a.hi[2], a.lo[2]);  // (g, slot t + 4) = column 2t+1
-  split_tf32(c[kk][3], a.hi[3], a.lo[3]);  // (g + 8, slot t + 4)
+  split(c[kk][0], a.hi[0], a.lo[0]);  // (g, slot t) = column 2t
+  split(c[kk][2], a.hi[1], a.lo[1]);  // (g + 8, slot t)
+  split(c[kk][1], a.hi[2], a.lo[2]);  // (g, slot t + 4) = column 2t+1
+  split(c[kk][3], a.hi[3], a.lo[3]);  // (g + 8, slot t + 4)
 }
 
-// acc[j] += T(C) . Z[z0 .. z0 + KSTEPS * depth) for every 8-column n-tile
-// j of D: C is a warp's score-shaped fp32 accumulator (P or dS, 16 rows,
-// c[n-tile][4]) and Z a smem tile with one row per k (V in P.V, K in
-// dS.K, dO in P^T.dO, Q in dS^T.Q).
+// acc[j] += bf16(C) . Z[z0 .. z0 + KSTEPS * 16) for every 8-column n-tile
+// j of D: C is a warp's score-shaped fp32 accumulator (P, 16 rows,
+// c[n-tile][4]) and Z a bf16 smem tile with one row per k (V in P.V).
+// bf16 products are exact in fp32 and round once into acc.
 template <int D, int LD, int KSTEPS>
 __device__ __forceinline__ void mma_c_rows(float acc[D / 8][4],
                                            const float (*c)[4], const bf16* z,
@@ -303,33 +331,31 @@ __device__ __forceinline__ void mma_c_rows(float acc[D / 8][4],
   }
 }
 
-// fp32: the tensor cores round each accumulation toward zero, a bias that
-// grows with the number of accumulations into one register. So one
-// tile's products are summed in fresh registers (tens of accumulations)
-// and added to acc in IEEE fp32, once per tile.
-template <int D, int LD, int KSTEPS>
-__device__ __forceinline__ void mma_c_rows(float acc[D / 8][4],
-                                           const float (*c)[4],
-                                           const float* z, int z0, int lane) {
-#pragma unroll
-  for (int j = 0; j < D / 8; j += 2) {
-    float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      FragA<float> a;
-      a_from_c(a, c, kk);
-      FragB<float> b0, b1;
-      load_b_rows_k_x2<LD>(b0, b1, z, z0 + kk * Elem<float>::kDepth, j * 8,
-                           lane);
-      mma(t0, a, b0);
-      mma(t1, a, b1);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc[j][e] += t0[e];
-      acc[j + 1][e] += t1[e];
-    }
-  }
+// cp.async of 16 or 4 bytes into shared memory, zero-filled where `real`
+// is false (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool real) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(real ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool real) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(real ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -373,22 +399,22 @@ __device__ __forceinline__ uint4 ld_u128(const T* p) {
 }
 
 // Copy rows [row0, row0 + kBlock) of one (b, h) slice (row stride
-// `stride` elements) into a smem tile of pitch D + kPad, zero-filling rows
-// at or past S: the ragged causal edge is masked here and by the score
-// masks, so the wrapper never pads. With `rope`, the rows are rotated on
-// the way in (position = row index): x * cos + roll(x, D/2) * sinm, the
-// TPU kernels' _rope_apply, so roped q/k exist only in shared memory.
-template <typename T, int D>
+// `stride` elements) into a smem tile of pitch LD, zero-filling rows at or
+// past S: the ragged causal edge is masked here and by the score masks,
+// so the wrapper never pads. With `rope`, the rows are rotated on the way
+// in (position = row index): x * cos + roll(x, D/2) * sinm, the TPU
+// kernels' _rope_apply, so roped q/k exist only in shared memory. Threads
+// 0 .. NT-1 share the work.
+template <typename T, int D, int LD = D + Elem<T>::kPad, int NT = kThreads>
 __device__ __forceinline__ void stage_tile(T* tile, const T* src,
                                            long long stride, int row0, int S,
                                            const T* cos_t, const T* sinm_t,
                                            bool rope) {
-  constexpr int LD = D + Elem<T>::kPad;
   constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte chunk
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
   if (!rope) {
     constexpr int kChunks = D / kVec;
-    for (int i = threadIdx.x; i < kBlock * kChunks; i += kThreads) {
+    for (int i = threadIdx.x; i < kBlock * kChunks; i += NT) {
       const int r = i / kChunks, c = (i % kChunks) * kVec;
       const int row = row0 + r;
       const uint4 x = row < S ? ld_u128(src + row * stride + c) : zero;
@@ -398,7 +424,7 @@ __device__ __forceinline__ void stage_tile(T* tile, const T* src,
   }
   constexpr int kHalf = D / 2;
   constexpr int kChunks = kHalf / kVec;  // a thread rotates a (c, c+D/2) pair
-  for (int i = threadIdx.x; i < kBlock * kChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < kBlock * kChunks; i += NT) {
     const int r = i / kChunks, c = (i % kChunks) * kVec;
     const int row = row0 + r;
     uint4 lo = zero, hi = zero;
@@ -465,11 +491,50 @@ __device__ __forceinline__ void store_rows(T* dst, long long stride,
   }
 }
 
+// xr = rope(x) as stage_tile rotates it (rounded to T), [B, S, H, D]
+// contiguous, from x in the `in` layout: the one rotation of the streamed
+// operand (q in the backward, k in the forward), so that its tiles need
+// none. One thread per 16-byte chunk of a row's first half and its
+// partner D/2 away.
+template <typename T, int D>
+__global__ void __launch_bounds__(256)
+    rope_rows_kernel(const T* x, Layout in, const T* cos_t, const T* sinm_t,
+                     T* xr, long long rows, int S, int H) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kChunks = D / 2 / kVec;
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= rows * kChunks) return;
+  const long long r = i / kChunks;   // [B, S, H] row
+  const int c = static_cast<int>(i % kChunks) * kVec;
+  const int h = static_cast<int>(r % H);
+  const int s = static_cast<int>((r / H) % S);
+  const long long b = r / ((long long)H * S);
+  const T* src = x + b * in.b + s * in.s + h * in.h;
+  const T* ct = cos_t + (long long)s * D;
+  const T* st = sinm_t + (long long)s * D;
+  const uint4 xl = ld_u128(src + c), xh = ld_u128(src + c + D / 2);
+  *reinterpret_cast<uint4*>(xr + r * D + c) =
+      rope16<T>(xl, xh, ld_u128(ct + c), ld_u128(st + c));
+  *reinterpret_cast<uint4*>(xr + r * D + c + D / 2) =
+      rope16<T>(xh, xl, ld_u128(ct + c + D / 2), ld_u128(st + c + D / 2));
+}
+
+template <typename T, int D>
+cudaError_t rope_rows(const Params<T>& p, const T* x, T* xr,
+                      cudaStream_t stream) {
+  const long long rows = (long long)p.B * p.S * p.H;
+  const long long threads = rows * (D / 2 / (16 / sizeof(T)));
+  rope_rows_kernel<T, D><<<(unsigned)((threads + 255) / 256), 256, 0,
+                           stream>>>(x, p.in, p.cos_t, p.sinm_t, xr, rows,
+                                     p.S, p.H);
+  return cudaGetLastError();
+}
+
 // The C entry points' operands, untyped until the element type is known.
 struct Operands {
   const void *q, *k, *v, *dout, *cos_t, *sinm_t;
   const float *lse_in, *delta, *dlse;
-  void *o, *dq, *dk, *dv;
+  void *o, *dq, *dk, *dv, *kr;
   float *lse_out, *dq_acc;
 };
 
@@ -495,6 +560,7 @@ Params<T> make_params(const Operands& x, const Shape& sh) {
   p.dq = static_cast<T*>(x.dq);
   p.dk = static_cast<T*>(x.dk);
   p.dv = static_cast<T*>(x.dv);
+  p.kr = static_cast<T*>(x.kr);
   p.lse_out = x.lse_out;
   p.dq_acc = x.dq_acc;
   p.B = sh.B;
