@@ -140,11 +140,13 @@ Phases, each printing one JSON line ({"phase": ...}):
                   or template left (compute_domain);
    cluster      — the cluster tier: a SimCluster whose one node is this
                   host (its kubelet plugins read NVML), the driver
-                  installed from manifests.all_manifests() (Python
-                  dicts; the webhook with a self-signed cert where
-                  cryptography or openssl can make one, and a claim with
-                  an unknown GpuConfig field then denied at admission;
-                  else "webhook": "off: <why>"); the plugin pod's
+                  installed from manifests.all_manifests() (the chart's
+                  default render: the webhook on a self-signed cert made
+                  at render time where cryptography or openssl can make
+                  one, and a claim with an unknown GpuConfig field then
+                  denied at admission; else the render with
+                  webhook.enabled=false and "webhook": "off: <why>"); the
+                  plugin pod's
                   ResourceSlice with the card's UUID; the exclusive-GPU
                   demo (one pod, one claim from a template, `python -m
                   tpu_dra_torch.bench claim-child --steps CLAIM_STEPS`)
@@ -159,6 +161,22 @@ Phases, each printing one JSON line ({"phase": ...}):
                   Running and -> Succeeded (host clock) and the child's
                   median step beside claim_path's, and the phase's own
                   seconds (cluster);
+   e2e          — the e2e tier, `python -m tpu_dra_torch.e2e
+                  --card-node` in a child process: a two-node SimCluster
+                  whose n0 is this host (plugins on NVML) and n1 a
+                  simulated node (MIG, MPS, health events and time
+                  slices, which the card cannot show), the chart's
+                  default render installed, then the ten suites (basics,
+                  admission, gpu_claims, stress, multiprocess, health,
+                  debug, cd_lifecycle, cd_failover, updowngrade), one
+                  e2e_suite line each; every suite must pass and the
+                  child exit 0. gpu_claims' first exclusive pod runs on
+                  n0, on the card: `python -m tpu_dra_torch.bench
+                  claim-child --steps CLAIM_STEPS` at the flagship's full
+                  width, checked as cluster's pod (finite losses, n_layers
+                  x steps launches of flash_fwd_sm90 and flash_bwd_sm90,
+                  none of the mma.sync kernels); the suites' seconds and
+                  the phase's (e2e);
    hot_restart  — tpu_dra_torch.bench.bench_hot_restart on NVML: client
                   threads on RetryingFramedClient prepare and unprepare
                   while the plugin restarts twice on its dirs: 0 failed
@@ -378,6 +396,12 @@ CLAIM_STEPS = 3
 CLAIM_TIMING_CYCLES = 50
 # cluster: how long the demo pod may stay Pending (scheduling, prepare).
 POD_START_TIMEOUT_S = 180
+# e2e: the ten suites in order, and the child's time limit.
+E2E_SUITES = ("basics", "admission", "gpu_claims", "stress", "multiprocess",
+              "health", "debug", "cd_lifecycle", "cd_failover",
+              "updowngrade")
+E2E_TIMEOUT_S = 600
+E2E_LOG = os.path.join(ROOT, "build", "e2e", "stderr.log")
 # hot_restart: client threads, seconds of load and plugin restarts.
 HOT_RESTART_WORKERS = 4
 HOT_RESTART_S = 6.0
@@ -1530,7 +1554,7 @@ def _webhook_denies(cluster, ns: str) -> str:
 def phase_cluster(claim_path_child: dict) -> dict:
     """The cluster tier on the card: a SimCluster whose one node, n0, is
     this host (its plugins read NVML); the driver installed from
-    manifests.all_manifests() (Python dicts); the plugin pod's
+    manifests.all_manifests() (the chart's render); the plugin pod's
     ResourceSlice holding the card's UUID; then the exclusive-GPU demo,
     one pod whose claim comes from a template and whose container runs
     `python -m tpu_dra_torch.bench claim-child --steps CLAIM_STEPS`.
@@ -1564,15 +1588,11 @@ def phase_cluster(claim_path_child: dict) -> dict:
     finally:
         backend.close()
     try:
-        secret, ca_bundle = manifests.webhook_tls_secret()
+        docs = manifests.all_manifests()
         webhook = "on"
     except Exception as e:  # noqa: BLE001 — no cryptography, no openssl
-        secret, ca_bundle, webhook = None, "", f"off: {e}"
-    docs = manifests.all_manifests(ca_bundle=ca_bundle)
-    if secret is None:
-        docs = [d for d in docs if "webhook" not in d["metadata"]["name"]]
-    else:
-        docs.insert(1, secret)
+        docs = manifests.render({"webhook": {"enabled": False}})
+        webhook = f"off: {e}"
     work = short_workdir()
     cluster = SimCluster(work, num_nodes=1, card_node=True)
     ns = manifests.DEFAULT_NAMESPACE
@@ -1596,7 +1616,7 @@ def phase_cluster(claim_path_child: dict) -> dict:
         check(device is not None,
               "the plugin pod never published the card's UUID")
         slice_s = time.perf_counter() - t0
-        denial = _webhook_denies(cluster, ns) if secret else None
+        denial = _webhook_denies(cluster, ns) if webhook == "on" else None
         demo = demos.test1_exclusive_per_pod(
             demos.claim_child_command(CLAIM_STEPS), pods=1)
         pod_doc = demo[-1]
@@ -1672,6 +1692,80 @@ def phase_cluster(claim_path_child: dict) -> dict:
            "phase_s": time.perf_counter() - t_phase,
            "nvidia_smi": gpuinfo.nvidia_smi()}
     emit("cluster", **res)
+    return res
+
+
+def phase_e2e() -> dict:
+    """`python -m tpu_dra_torch.e2e --card-node` in a child process: the
+    ten suites against a two-node SimCluster whose n0 is this host. One
+    e2e_suite line per suite; every suite must pass and the child exit
+    0. gpu_claims' training pod ran on n0, on the card: its losses
+    finite and its launch counts checked as on the main path."""
+    from tpu_dra_torch.native import gpuinfo
+    from tpu_dra_torch.workloads.meshbuild import normalize_uuid
+
+    import signal
+    import threading
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.dirname(E2E_LOG), exist_ok=True)
+    records = {}
+    with open(E2E_LOG, "w") as err:
+        # A session of its own: at the time limit the child, its
+        # cluster and every pod process go together.
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpu_dra_torch.e2e", "--card-node"],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT},
+            stdout=subprocess.PIPE, stderr=err, text=True,
+            start_new_session=True)
+        timer = threading.Timer(
+            E2E_TIMEOUT_S, lambda: os.killpg(proc.pid, signal.SIGKILL))
+        timer.start()
+        try:
+            for line in proc.stdout:
+                if line.startswith('{"suite"'):
+                    rec = json.loads(line)
+                    records[rec["suite"]] = rec
+                    emit("e2e_suite", **{
+                        k: v for k, v in rec.items()
+                        if k != "train" and (k != "traceback"
+                                             or not rec["ok"])})
+            rc = proc.wait()
+        finally:
+            timer.cancel()
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    with open(E2E_LOG) as f:
+        err_tail = f.read()[-4000:]
+    failed = [n for n, r in records.items() if not r["ok"]]
+    check(rc == 0 and not failed,
+          f"e2e exited {rc} (killed at {E2E_TIMEOUT_S} s: {rc == -9}), "
+          f"failed suites {failed}; ran {list(records)}:\n{err_tail}")
+    check(list(records) == ["up", *E2E_SUITES],
+          f"e2e ran {list(records)}, want up then {list(E2E_SUITES)}")
+    train = records["gpu_claims"]["train"]
+    check(train["node"] == "n0", f"the training pod ran on {train['node']}")
+    check(normalize_uuid(train["uuid"] or "") == normalize_uuid(
+        train["claim_uuids"][0]), f"the training pod ran on {train['uuid']},"
+        f" its claim holds {train['claim_uuids']}")
+    check(train["device"].startswith("cuda") and all(
+        math.isfinite(x) for x in train["losses"]),
+        f"the e2e training pod: {train['device']}, {train['losses']}")
+    counts = check_path_launches(
+        "the e2e training pod", train["n_layers"] * train["steps"],
+        (train["launches"], train["kernel_launches"]))
+    res = {"suites_s": {n: r["seconds"] for n, r in records.items()},
+           "stress_churn_p95_s": records["stress"]["churn_p95_s"],
+           "cd_failover": {k: records["cd_failover"][k] for k in (
+               "fault_status", "heal_daemons_s", "heal_worker_s")},
+           "train_uuid": train["uuid"], "losses": train["losses"],
+           "train_median_step_ms": statistics.median(
+               train["step_times_s"]) * 1e3,
+           "kernel_launches": counts,
+           "phase_s": time.perf_counter() - t_phase,
+           "nvidia_smi": gpuinfo.nvidia_smi()}
+    emit("e2e", **res)
     return res
 
 
@@ -2610,6 +2704,7 @@ def main() -> int:
     claim = phase_claim_path()
     phase_compute_domain()
     phase_cluster(claim["claim_path"]["child"])
+    phase_e2e()
     phase_hot_restart()
     phase_ops()
     phase_chaos()

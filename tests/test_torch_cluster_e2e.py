@@ -1,7 +1,8 @@
 """The port's cluster tier end to end on the CPU: a two-node SimCluster
 (tpu_dra_torch.simcluster) over fake per-node GPU inventories, the driver
-installed from the port's chart (rendered by helmlite, the webhook with
-a self-signed cert), and the quickstart demos applied as a user would.
+installed from the port's chart (manifests.all_manifests(): the chart's
+default render, the webhook with a self-signed cert), and the quickstart
+demos applied as a user would.
 
 Every driver component runs as a subprocess from the chart's manifests:
 both kubelet plugins per node, the compute-domain controller, the
@@ -31,16 +32,12 @@ import pytest
 
 from tpu_dra_torch.api.types import API_VERSION, GPU_DRIVER_NAME
 from tpu_dra_torch.cdi.handler import CDIHandler
-from tpu_dra_torch.deploy import demos
-from tpu_dra_torch.deploy.helmlite import render_chart
+from tpu_dra_torch.deploy import demos, manifests
 from tpu_dra_torch.k8s import PODS, RESOURCECLAIMS, RESOURCESLICES
 from tpu_dra_torch.k8s.client import ApiError
 from tpu_dra_torch.simcluster import SimCluster
 from tpu_dra_torch.simcluster.cluster import short_workdir
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CHART = os.path.join(ROOT, "tpu_dra_torch", "deploy", "chart",
-                     "gpu-dra-driver")
 ENV_KEYS = ("CUDA_VISIBLE_DEVICES", "NODE_RANK", "NNODES", "MASTER_ADDR",
             "MASTER_PORT")
 PRINT_ENV = ["python", "-c",
@@ -88,8 +85,7 @@ def run():
                          clique_ids=["clique-a", "clique-b"], mig_gpus=[3])
     cluster.start()
     try:
-        cluster.install(render_chart(CHART, {"webhook": {"tls": {
-            "mode": "selfSigned"}}}))
+        cluster.install(manifests.all_manifests())
         assert _wait(lambda: len(cluster.api.list(RESOURCESLICES)) == 4), \
             "the plugins never published"
         no_claim = {"apiVersion": "v1", "kind": "Namespace",

@@ -284,9 +284,9 @@ class TestCelParity:
     def test_device_class_selectors_put_driver_first(self):
         """The port's DeviceClass selectors never read another driver's
         attributes: a compute-domain device is no match, not an error."""
-        from tpu_dra_torch.deploy.manifests import device_classes
+        from tpu_dra_torch.deploy.manifests import all_manifests
         cd_dev = {"attributes": {"type": {"string": "channel"}}}
-        for dc in device_classes():
+        for dc in [d for d in all_manifests() if d["kind"] == "DeviceClass"]:
             expr = dc["spec"]["selectors"][0]["cel"]["expression"]
             assert expr.startswith("device.driver == ")
             prog = cel.compile_expr(expr)

@@ -229,12 +229,18 @@ class TestServerAndCaller:
             server.stop()
 
     def test_tls_with_the_manifests_cert(self, tmp_path):
-        """The serving cert manifests.webhook_tls_secret makes: the TLS
-        server serves it and a client pinned to its CA bundle (as the
-        API server's admission chain pins caBundle) verifies it."""
+        """The serving cert of manifests.all_manifests() (the chart's
+        selfsigned mode: the Secret and the webhook configuration's
+        caBundle): the TLS server serves it and a client pinned to that
+        CA bundle (as the API server's admission chain pins caBundle)
+        verifies it."""
         import base64
         import ssl
-        secret, ca_bundle = manifests.webhook_tls_secret()
+        docs = manifests.all_manifests()
+        (secret,) = [d for d in docs if d["kind"] == "Secret"]
+        (vwc,) = [d for d in docs
+                  if d["kind"] == "ValidatingWebhookConfiguration"]
+        ca_bundle = vwc["webhooks"][0]["clientConfig"]["caBundle"]
         cert, key = tmp_path / "tls.crt", tmp_path / "tls.key"
         cert.write_bytes(base64.b64decode(secret["data"]["tls.crt"]))
         key.write_bytes(base64.b64decode(secret["data"]["tls.key"]))
@@ -263,7 +269,8 @@ class TestServerAndCaller:
         api_server.start()
         try:
             api = HttpApiClient(base_url=api_server.url)
-            vwc = manifests.webhook_manifests()[2]
+            (vwc,) = [d for d in manifests.all_manifests()
+                      if d["kind"] == "ValidatingWebhookConfiguration"]
             vwc["webhooks"][0]["clientConfig"] = {
                 "url": f"http://127.0.0.1:{hook.port}"
                        "/validate-resource-claim-parameters"}
@@ -319,22 +326,40 @@ class TestManifests:
                 assert importlib.util.find_spec(cmd[2]) is not None, cmd
 
     def test_demo_specs_are_valid_configs(self):
+        """Every demo's configs are admitted under the chart's default
+        gates; gpu-test-passthrough's only with the PassthroughSupport
+        gate its docstring names, and refused without it."""
         handler = AdmissionHandler()
         for name, docs in demos.all_demos().items():
             for doc in docs:
                 if doc["kind"] not in ("ResourceClaim",
                                        "ResourceClaimTemplate"):
                     continue
+                if name == "gpu-test-passthrough":
+                    out = handler.review(review(doc, kind=doc["kind"]))
+                    assert not out["response"]["allowed"]
+                    assert "PassthroughSupport" in \
+                        out["response"]["status"]["message"]
+                    featuregates.Features.set_from_string(
+                        GATES + ",PassthroughSupport=true")
                 out = handler.review(review(doc, kind=doc["kind"]))
+                featuregates.Features.reset()
+                featuregates.Features.set_from_string(GATES)
                 assert out["response"]["allowed"], (
                     f"{name}: {out['response'].get('status')}")
 
-    def test_yaml_render(self, tmp_path):
+    def test_yaml_render(self, tmp_path, capsys):
         import yaml
 
-        from tpu_dra_torch.deploy.render import render_all
-        written = render_all(str(tmp_path / "m"), "gpu-dra-driver",
-                             "img:test", demo_dir=str(tmp_path / "demo"))
+        from tpu_dra_torch.deploy.render import main
+        assert main(["-o", str(tmp_path / "m"), "--demo-dir",
+                     str(tmp_path / "demo"), "--set", "image.repository=img",
+                     "--set", "image.tag=test", "--set",
+                     "webhook.tls.mode=secret", "--set",
+                     "webhook.tls.secret.name=gpu-dra-driver-webhook-tls",
+                     "--set", "webhook.tls.secret.caBundle=QUJD"]) == 0
+        written = capsys.readouterr().out.split()
         assert len(written) == 1 + len(demos.all_demos())
         docs = list(yaml.safe_load_all(open(written[0])))
-        assert docs == manifests.all_manifests("gpu-dra-driver", "img:test")
+        assert docs == manifests.all_manifests("gpu-dra-driver", "img:test",
+                                               "QUJD")

@@ -361,6 +361,11 @@ def run(argv=None) -> int:
     # Transient API-server failures (rolling upgrade, LB blips)
     # retry with jittered backoff instead of crash-looping the pod.
     client = RetryingApiClient(HttpApiClient(base_url=ns.kube_api_url))
+    # The daemon reads the node's NVLink fabric: every GPU of the node,
+    # not the share a container runtime's CUDA_VISIBLE_DEVICES names (a
+    # host whose NVML withholds PCI bus ids has them mapped through
+    # CUDA, which that variable would hide).
+    os.environ.pop("CUDA_VISIBLE_DEVICES", None)
     runner = DaemonRunner(client, ns)
 
     stop = threading.Event()

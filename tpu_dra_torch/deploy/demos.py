@@ -149,6 +149,102 @@ def test_mps_shared_gpu(command=None) -> List[Dict]:
                  command, containers=2)]
 
 
+def print_env_command(tag: str) -> List[str]:
+    """A container that prints its tag and CUDA_VISIBLE_DEVICES."""
+    return ["python", "-c",
+            f"import os; print('{tag} CUDA_VISIBLE_DEVICES=%s' % "
+            "os.environ.get('CUDA_VISIBLE_DEVICES'))"]
+
+
+def _mig_claim(name: str, ns: str, expr: str) -> Dict:
+    # The driver clause first: && decides on its left-hand side, so the
+    # selector never reads another driver's attributes (the sim's CEL
+    # absorbs no error).
+    cel = f'device.driver == "{apitypes.GPU_DRIVER_NAME}" && {expr}'
+    return {"apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+            "metadata": {"name": name, "namespace": ns},
+            "spec": {"devices": {"requests": [{
+                "name": "mig",
+                "exactly": {"deviceClassName": DEVICE_CLASS_MIG,
+                            "selectors": [{"cel": {"expression": cel}}]},
+            }]}}}
+
+
+TEST6_PROFILE = "3g.40gb"
+TEST6_STARTS = (0, 4)
+
+
+def test6_cel_selection(gpu_index: int = 3,
+                        commands: Optional[List[List[str]]] = None
+                        ) -> List[Dict]:
+    """gpu-test6: CEL attribute selection. One pod, two containers, each
+    consuming a different MIG device of one GPU: claim ``mig0`` and
+    ``mig1`` pin the TEST6_PROFILE devices at placementStart 0 and 4 of
+    the GPU at `gpu_index` by the published attributes (productName,
+    architecture, index, profile, placementStart), so a wrong attribute
+    name, type or value leaves a claim unallocated. A third claim's
+    selector (an architecture no GPU has) cannot be satisfied: its pod,
+    ``pod-unsatisfiable``, must stay Pending."""
+    ns = "gpu-test6"
+    attr = f"device.attributes['{apitypes.GPU_DRIVER_NAME}']"
+    claims = [_mig_claim(f"mig{i}", ns, (
+        f"{attr}.productName.lowerAscii().matches('^nvidia h100.*$') && "
+        f"{attr}.architecture == 'hopper' && "
+        f"{attr}.index == {gpu_index} && "
+        f"{attr}.profile == '{TEST6_PROFILE}' && "
+        f"{attr}.placementStart == {start}"))
+        for i, start in enumerate(TEST6_STARTS)]
+    cmds = commands or [print_env_command(f"CTR{i}") for i in range(2)]
+    pod = {
+        "apiVersion": "v1", "kind": "Pod",
+        "metadata": {"name": "pod0", "namespace": ns},
+        "spec": {
+            "restartPolicy": "Never",
+            "containers": [{
+                "name": f"ctr{i}", "image": WORKLOAD_IMAGE,
+                "command": list(cmds[i]),
+                "resources": {"claims": [{"name": f"mig{i}"}]}}
+                for i in range(2)],
+            "resourceClaims": [{"name": f"mig{i}",
+                                "resourceClaimName": f"mig{i}"}
+                               for i in range(2)],
+        },
+    }
+    never = _mig_claim("no-such-architecture", ns,
+                       f"{attr}.architecture == 'Rubin99'")
+    pending = _pod("pod-unsatisfiable", ns, {
+        "mig": {"resourceClaimName": "no-such-architecture"}},
+        ["python", "-c", "print('must never run')"])
+    return [_ns(ns)] + claims + [pod, never, pending]
+
+
+def test_passthrough(command=None) -> List[Dict]:
+    """gpu-test-passthrough: a whole GPU claimed for VFIO passthrough to
+    a VM workload. Needs the PassthroughSupport feature gate on the
+    kubelet plugin (off by default). The prepared claim rebinds the
+    GPU's PCI function to vfio-pci and injects /dev/vfio/vfio and
+    /dev/vfio/<iommu-group> instead of /dev/nvidia*."""
+    ns = "gpu-test-passthrough"
+    claim = {
+        "apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+        "metadata": {"name": "pt-gpu", "namespace": ns},
+        "spec": {"devices": {
+            "requests": [{"name": "gpu",
+                          "exactly": {"deviceClassName": DEVICE_CLASS_GPU}}],
+            "config": [{"requests": ["gpu"], "opaque": {
+                "driver": apitypes.GPU_DRIVER_NAME,
+                "parameters": {
+                    "apiVersion": apitypes.API_VERSION,
+                    "kind": apitypes.PASSTHROUGH_CONFIG_KIND,
+                }}}],
+        }},
+    }
+    pod = _pod("vm-launcher", ns, {"gpu": {"resourceClaimName": "pt-gpu"}},
+               command or ["sh", "-c", "ls -l /dev/vfio && sleep 3600"])
+    pod["spec"]["containers"][0]["name"] = "vm"
+    return [_ns(ns), claim, pod]
+
+
 # -- multi-node ComputeDomain ---------------------------------------------
 
 def cd_train(num_nodes: int = 2, command=None) -> List[Dict]:
@@ -187,6 +283,8 @@ def all_demos() -> Dict[str, List[Dict]]:
         "gpu-test3": test3_time_sliced_across_pods(),
         "gpu-test4": test4_multi_gpu(),
         "gpu-test5": test5_mig(),
+        "gpu-test6": test6_cel_selection(),
+        "gpu-test-passthrough": test_passthrough(),
         "gpu-test-mps": test_mps_shared_gpu(),
         "gpu-cd-train": cd_train(),
     }

@@ -137,6 +137,25 @@ class Histogram(_Metric):
         with self._lock:
             return self._sum
 
+    @property
+    def empty(self) -> bool:
+        """True while nothing has been observed: the explicit check for
+        callers that must not mistake the empty-state percentile default
+        for a measured zero."""
+        with self._lock:
+            return self._n == 0
+
+    def percentile(self, q: float, default: float = 0.0) -> float:
+        """Approximate percentile from bucket upper bounds (for
+        bench/report).
+
+        Empty-state contract: with zero observations there is no
+        distribution to query, so `default` (0.0) is returned, told apart
+        from a measured zero by ``empty`` / ``count``. Values above the
+        largest finite bucket report +Inf (the bucket that holds them)."""
+        return self.percentile_since((0,) * (len(self._buckets) + 1), q,
+                                     default)
+
     def bucket_counts(self) -> Tuple[int, ...]:
         """Raw per-bucket counts snapshot (finite buckets + overflow) —
         the baseline handle for ``percentile_since``."""

@@ -69,7 +69,9 @@ def _parse_path(path: str) -> Optional[Tuple[GVR, Optional[str],
     else:
         return None
     namespace = None
-    if rest and rest[0] == "namespaces" and len(rest) >= 2:
+    # namespaces/<ns>/<plural>...: a namespaced path; namespaces/<name>
+    # alone is the Namespace object itself.
+    if rest and rest[0] == "namespaces" and len(rest) >= 3:
         namespace = rest[1]
         rest = rest[2:]
     if not rest:

@@ -8,7 +8,11 @@ subprocesses read that file through the fake backend, so every node has
 GPUs of its own. With ``card_node=True`` node ``n0`` is the host this
 runs on: its plugins read NVML (native backend) and prepare the host's
 GPUs. Unlike the reference's, a node's inventory holds only its own
-worker index and clique, so N nodes start for any N.
+worker index and clique, so N nodes start for any N. Each fake node also
+has a health-events file (``events_file(node)``, the reference's fake
+``sys/class/accel/health_events``): a line ``"<gpu> <code> <kind>
+<text>"`` appended to it reaches that node's plugin as a health event,
+and its MPS control daemons run ``testing.MPS_STANDIN``.
 """
 
 from __future__ import annotations
@@ -27,13 +31,14 @@ from tpu_dra_torch.k8s.client import AlreadyExistsError, HttpApiClient
 from tpu_dra_torch.k8s.fakeserver import FakeApiServer
 from tpu_dra_torch.k8s.resources import NODES
 from tpu_dra_torch.native.gpuinfo import (
-    BACKEND_ENV, INVENTORY_ENV, write_fake_inventory,
+    BACKEND_ENV, EVENTS_ENV, INVENTORY_ENV, write_fake_inventory,
 )
 from tpu_dra_torch.simcluster.admission import WebhookCaller
 from tpu_dra_torch.simcluster.gvk import gvr_for_doc
 from tpu_dra_torch.simcluster.nodesim import NodeSim
 from tpu_dra_torch.simcluster.scheduler import Scheduler
 from tpu_dra_torch.simcluster.workloads import WorkloadController
+from tpu_dra_torch.testing import MPS_STANDIN
 
 log = logging.getLogger("simcluster")
 
@@ -101,7 +106,15 @@ class SimCluster:
         write_fake_inventory(path, self._gpus, clique_id=clique,
                              worker_index=worker, node_index=i,
                              mig_mode=self._mig_gpus)
-        return {BACKEND_ENV: "fake", INVENTORY_ENV: path}
+        events = self.events_file(name)
+        open(events, "a").close()
+        return {BACKEND_ENV: "fake", INVENTORY_ENV: path,
+                EVENTS_ENV: events}
+
+    def events_file(self, name: str) -> str:
+        """The health-events file of fake node `name`
+        (gpuinfo.append_health_event writes to it)."""
+        return os.path.join(self.node_dir(name), "health_events")
 
     def start(self) -> "SimCluster":
         self.server.start()
@@ -119,8 +132,10 @@ class SimCluster:
                 "apiVersion": "v1", "kind": "Node",
                 "metadata": {"name": name, "labels": {NODE_LABEL: "true"}},
             })
+            fake = env.get(BACKEND_ENV) == "fake"
             sim = NodeSim(self.api, name, self.node_dir(name),
-                          api_url=self.server.url, inventory_env=env)
+                          api_url=self.server.url, inventory_env=env,
+                          mps_binary=MPS_STANDIN if fake else None)
             sim.start()
             self.nodes[name] = sim
         self.scheduler = Scheduler(self.api)

@@ -28,7 +28,13 @@ sim puts on the card's host, whose plugin reads NVML.
 
 Driver DaemonSet pods (the plugins themselves) are launched the same way
 from the same manifests the chart renders — they are just pods whose
-commands happen to be ``python -m tpu_dra_torch...``.
+commands happen to be ``python -m tpu_dra_torch...``. Each pod gets a
+``TMPDIR`` of its own (a container's /tmp is its own), so a stack dump
+(``infra/debug.py``) lands in ``<node>/pods/<uid>/tmp``. On a node given
+``mps_binary`` (a simulated node: its GPUs are fake, so NVIDIA's MPS
+daemon cannot serve them) that argv stands for
+``nvidia-cuda-mps-control`` in commands and probes, as
+``testing.MpsNodeSim`` substitutes it.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import hashlib
 import json
 import logging
 import os
+import shlex
 import signal
 import socket
 import subprocess
@@ -48,8 +55,9 @@ import urllib.request
 from typing import Dict, List, Optional, Tuple
 
 from tpu_dra_torch.k8s.client import ApiClient, ApiError, NotFoundError
-from tpu_dra_torch.native.gpuinfo import INVENTORY_ENV
+from tpu_dra_torch.native.gpuinfo import EVENTS_ENV, INVENTORY_ENV
 from tpu_dra_torch.k8s.resources import PODS, RESOURCECLAIMS, SECRETS, SERVICES
+from tpu_dra_torch.gpuplugin.sharing import MPS_CONTROL
 from tpu_dra_torch.simcluster.admission import ENDPOINT_ANNOTATION
 
 log = logging.getLogger("simcluster.nodesim")
@@ -81,8 +89,10 @@ class _RunningPod:
 class NodeSim:
     def __init__(self, client: ApiClient, node_name: str, node_dir: str,
                  *, api_url: str, interval: float = 0.2,
-                 inventory_env: Optional[Dict[str, str]] = None):
+                 inventory_env: Optional[Dict[str, str]] = None,
+                 mps_binary: Optional[List[str]] = None):
         self._client = client
+        self._mps_binary = list(mps_binary or [])
         self._inventory_env = dict(inventory_env or {})
         self._node = node_name
         self._dir = node_dir          # <node_dir>/fs is the node's "/"
@@ -228,9 +238,12 @@ class NodeSim:
             self._set_status(pod, phase="Failed", ready=False,
                              message=str(e))
             return
-        self._running[uid] = rp
+        # Running is written before the reconcile loop can see the pod:
+        # a container that exits at once is then reaped (Succeeded)
+        # after it, never overwritten by it.
         self._set_status(pod, phase="Running", ready=False,
                          pids=self._pids(rp))
+        self._running[uid] = rp
         self._publish_endpoints(pod, rp)
 
     def _publish_endpoints(self, pod: Dict, rp: _RunningPod) -> None:
@@ -414,6 +427,7 @@ class NodeSim:
         env = dict(os.environ)
         env.pop("CUDA_VISIBLE_DEVICES", None)  # the launching shell's
         env.pop(INVENTORY_ENV, None)
+        env.pop(EVENTS_ENV, None)
         env.update({
             "PYTHONPATH": REPO,
             "KUBE_API_URL": self._api_url,   # in-cluster config analog
@@ -424,6 +438,8 @@ class NodeSim:
         # daemon of each node must listen on a port of its own.
         env.setdefault("WORK_DIR",
                        os.path.join(self._dir, "pods", rp.uid, "work"))
+        env["TMPDIR"] = os.path.join(self._dir, "pods", rp.uid, "tmp")
+        os.makedirs(env["TMPDIR"], exist_ok=True)
         env.setdefault("HOSTS_FILE", os.path.join(self._dir, "hosts"))
         env.setdefault("DOMAIN_DAEMON_PORT", str(free_port()))
         for e in ctr.get("env") or []:
@@ -451,6 +467,8 @@ class NodeSim:
                 env[key] = port_map[env[key]]
         cmd = [self._rewrite_path(c, mounts) for c in
                list(ctr.get("command") or []) + list(ctr.get("args") or [])]
+        if self._mps_binary and cmd[:1] == [MPS_CONTROL]:
+            cmd[:1] = self._mps_binary
         if DOMAIN_DAEMON_MODULE in cmd and "DOMAIN_DAEMON_BINARY" not in env:
             # The native domain daemon, built from this checkout's source
             # at first use (cached by source hash).
@@ -474,6 +492,13 @@ class NodeSim:
         log.info("node %s: started %s/%s:%s (pid %d)", self._node, ns,
                  pod["metadata"]["name"], ctr["name"], proc.pid)
         return proc
+
+    def _mps_substitute(self, text: str) -> str:
+        """A shell line naming nvidia-cuda-mps-control, with the node's
+        mps_binary in its place."""
+        if not self._mps_binary:
+            return text
+        return text.replace(MPS_CONTROL, shlex.join(self._mps_binary))
 
     def _mount_map(self, pod: Dict, ctr: Dict,
                    rp: _RunningPod) -> List[Tuple[str, str]]:
@@ -594,7 +619,7 @@ class NodeSim:
             return True
         if "exec" in probe:
             mounts = getattr(proc, "_mounts", [])
-            cmd = [self._rewrite_path(c, mounts)
+            cmd = [self._mps_substitute(self._rewrite_path(c, mounts))
                    for c in probe["exec"].get("command") or []]
             if cmd and cmd[0] == "python":
                 cmd[0] = sys.executable
@@ -674,6 +699,10 @@ class NodeSim:
         try:
             fresh = self._client.get(PODS, pod["metadata"]["name"], ns)
         except NotFoundError:
+            return
+        if fresh["metadata"].get("uid") != pod["metadata"].get("uid"):
+            # A pod of the same name made since (a DaemonSet's pod rolled
+            # while this one's prepare was retrying): not ours to set.
             return
         status = fresh.setdefault("status", {})
         status["phase"] = phase
