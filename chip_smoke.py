@@ -234,6 +234,26 @@ Phases, each printing one JSON line ({"phase": ...}):
                   GPUs over 2 workers, contiguous, its modeled GB/s;
                   files, findings, suppressions, schedules per scenario,
                   crash points and the seconds of each (analysis);
+   race         — the race tier on the host (tpu_dra_torch.race, host
+                  clock): the domain daemon's ThreadSanitizer flavour
+                  (built beside the daemon in build) driven by
+                  race.tsan_drive, TSAN_OPTIONS halt_on_error=1
+                  exitcode=66 in every process: two daemons listing each
+                  other and a closed port, an idle client on each, rounds
+                  of concurrent --check probes with SIGUSR1 reloads in
+                  between, then SIGTERM: no report, both exit 0, READY
+                  probes, a Q reply counting the live peer; drmc at
+                  hack/race.sh's budget (600, --skip-crash) exporting its
+                  edges; then, under the port's lock witness and view
+                  shadow, the threaded paths of the CPU tier's witnessed
+                  suites through the port's entry points (a two-node
+                  ComputeDomain, scheduler failover behind electors, MPS
+                  and MIG prepares on a fake inventory) and one hot
+                  restart on NVML, each passing; no cycle, no drift; one
+                  --check-witness/--check-view-shadow over the phase's
+                  exports, 0 unexplained; daemon exit codes, probes,
+                  peers seen, drives passed and failed, witness edges,
+                  drifts and the seconds of each (race);
    scale        — bench_sched_scale10k at SCALE_NODES nodes x SCALE_PODS
                   pods with SCALE_WATCHERS hollow watchers, against a
                   SCALE_BASELINE same-process baseline: 0 full relists,
@@ -440,6 +460,13 @@ DRMC_FLOOR_ARGS = ["--budget", "250", "--min-schedules", "200",
 DRMC_MIN_SCHEDULES = 200
 DRMC_MIN_CRASH_POINTS = 30
 VIEW_SHADOW_WALK = (11, 40)   # run_sched_schedule(seed, events)
+# The race phase: the TSan drive at the race tier's own sizes, deep drmc
+# at hack/race.sh's budget, and its exports under build/race/.
+RACE_DIR = os.path.join(ROOT, "build", "race")
+RACE_EDGES = os.path.join(RACE_DIR, "card-edges.json")
+RACE_DRIFTS = os.path.join(RACE_DIR, "card-drifts.json")
+RACE_DRMC_BUDGET = 600
+RACE_FAILOVERS = 2
 # Ranks of the ring emulated by ring_local.
 RING_N = 4
 CLAIM_CHILD = "claim-child"
@@ -477,7 +504,8 @@ def phase_probe() -> dict:
 
 def phase_build() -> None:
     """The kernels (one nvcc per source, started together) and, beside
-    them on a thread, the native domain daemon (c++)."""
+    them on a thread, the native domain daemon and its ThreadSanitizer
+    flavour (c++)."""
     import threading
 
     from tpu_dra_torch.cddaemon import binary
@@ -489,6 +517,7 @@ def phase_build() -> None:
         t = time.perf_counter()
         try:
             daemon["path"] = binary.build()
+            daemon["tsan"] = binary.build(tsan=True)
         except Exception as e:  # noqa: BLE001 — re-raised below
             daemon["error"] = e
         daemon["seconds"] = time.perf_counter() - t
@@ -503,6 +532,7 @@ def phase_build() -> None:
         raise daemon["error"]
     emit("build", seconds=seconds, libs=[str(p) for p in libs.values()],
          daemon=os.path.relpath(daemon["path"], ROOT),
+         daemon_tsan=os.path.relpath(daemon["tsan"], ROOT),
          daemon_build_s=daemon["seconds"])
 
 
@@ -2097,6 +2127,111 @@ def phase_analysis() -> dict:
     return res
 
 
+def phase_race() -> dict:
+    """The race tier on the card's host (host clock). The domain daemon's
+    TSan flavour under tpu_dra_torch.race.tsan_drive: two daemons that
+    list each other, idle clients, concurrent --check probes, reloads
+    racing the sweep. drmc at hack/race.sh's deep budget without the
+    crash matrix, exporting its witness's edges. Then, under the port's
+    lock witness and view shadow (installed here, as the race tier's
+    pytest plugin installs them for a session), the threaded paths the
+    CPU tier's witnessed suites cover, through the port's own entry
+    points: a two-node ComputeDomain (bench_cd_convergence: controller,
+    two CD plugins, two native daemons), scheduler failover behind
+    leader electors (bench_sched_failover) and the MPS and MIG prepares
+    on a fake inventory (bench_fake_inventory_configs); and one hot
+    restart of the plugin on NVML (bench_hot_restart), the threaded path
+    only the card has. Those suites themselves hold the port against the
+    reference, which the card's host does not run. Last, one
+    --check-witness / --check-view-shadow over the phase's exports."""
+    from tpu_dra_torch import bench
+    from tpu_dra_torch.infra import lockwitness
+    from tpu_dra_torch.k8s import informer
+    from tpu_dra_torch.native import gpuinfo
+    from tpu_dra_torch.race import runner, tsan_drive
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+
+    t_phase = time.perf_counter()
+    os.makedirs(RACE_DIR, exist_ok=True)
+    for path in (RACE_EDGES, RACE_DRIFTS):
+        if os.path.exists(path):
+            os.unlink(path)
+    tsan = tsan_drive.drive()
+    drmc = runner.step_drmc(edges=RACE_EDGES, budget=RACE_DRMC_BUDGET)
+    drives = {}
+    lockwitness.install()
+    shadow_prev = informer.SHADOW.enable()
+    informer.SHADOW.reset()
+    try:
+        for name, fn in (
+                ("cd_convergence", bench.bench_cd_convergence),
+                ("sched_failover",
+                 lambda: bench.bench_sched_failover(RACE_FAILOVERS)),
+                ("fake_inventory", bench.bench_fake_inventory_configs)):
+            t0 = time.perf_counter()
+            try:
+                rec = fn()
+                errors = {k: v for k, v in rec.items()
+                          if k.endswith("_error")}
+                drives[name] = {"ok": not errors, "errors": errors}
+            except Exception as e:  # noqa: BLE001  # drflow: swallow-ok[a failed drive is recorded and checked below]
+                drives[name] = {"ok": False, "errors": repr(e)}
+            drives[name]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        backend = gpuinfo.NativeBackend()
+        try:
+            hot = bench.bench_hot_restart(
+                backend, duration_s=HOT_RESTART_S,
+                workers=HOT_RESTART_WORKERS, gpus_per_worker=1,
+                n_restarts=HOT_RESTARTS, scratch=fk.BUILD_DIR.parent)
+        finally:
+            backend.close()
+        drives["hot_restart_nvml"] = {
+            "ok": (hot["hot_restart_failed_rpcs"] == 0
+                   and hot["hot_restart_leaked_claims"] == 0),
+            "failed_rpcs": hot["hot_restart_failed_rpcs"],
+            "leaked_claims": hot["hot_restart_leaked_claims"],
+            "seconds": time.perf_counter() - t0}
+        cycles = lockwitness.WITNESS.cycles()
+        drifts = informer.SHADOW.violations_since(0)
+        informer.SHADOW.export(RACE_DRIFTS)
+        lockwitness.export_edges(RACE_EDGES)
+    finally:
+        informer.SHADOW.restore(shadow_prev)
+        lockwitness.uninstall()
+    checked = runner.step_check(RACE_EDGES, RACE_DRIFTS)
+    passed = sorted(n for n, d in drives.items() if d["ok"])
+    res = {"daemon_rcs": tsan["daemon_rcs"], "probes": tsan["probes"],
+           "ready_probes": tsan["ready"], "peers_seen": tsan["peers_seen"],
+           "tsan_reports": len(tsan["reports"]), "tsan_s": tsan["seconds"],
+           "drmc": {"budget": RACE_DRMC_BUDGET, "distinct": drmc["distinct"],
+                    "violations": drmc["violations"],
+                    "seconds": drmc["seconds"]},
+           "drives_passed": passed,
+           "drives_failed": sorted(set(drives) - set(passed)),
+           "drives": drives, "witness_cycles": cycles,
+           "witness": checked["witness"],
+           "view_shadow": checked["view_shadow"], "drifts": drifts,
+           "check_s": checked["seconds"],
+           "phase_s": time.perf_counter() - t_phase,
+           "nvidia_smi": gpuinfo.nvidia_smi()}
+    emit("race", **res)
+    for report in tsan["reports"]:
+        print(report, file=sys.stderr)
+    check(tsan["ok"], f"race: TSan drive: {tsan['errors']}")
+    check(drmc["ok"], f"race: drmc at {RACE_DRMC_BUDGET}: "
+                      f"{drmc['violations'] or drmc.get('tail')}")
+    check(not res["drives_failed"],
+          f"race: witnessed drives failed: "
+          f"{ {n: drives[n] for n in res['drives_failed']} }")
+    check(not cycles, f"race: lock-order cycles: {cycles}")
+    check(not drifts, f"race: view drifts: {drifts}")
+    check(checked["ok"], f"race: observed within static: "
+                         f"{checked['witness']} {checked['view_shadow']} "
+                         f"{checked.get('tail', '')}")
+    return res
+
+
 def phase_scale() -> dict:
     """bench_sched_scale10k cut to SCALE_NODES x SCALE_PODS with
     SCALE_WATCHERS hollow watchers and a SCALE_BASELINE baseline: no full
@@ -2709,6 +2844,7 @@ def main() -> int:
     phase_ops()
     phase_chaos()
     phase_analysis()
+    phase_race()
     phase_scale()
     _, counts = phase_main_path()
     _free()

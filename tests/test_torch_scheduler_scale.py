@@ -420,6 +420,63 @@ def test_late_own_write_after_delete_leaves_no_phantom():
         s.stop()
 
 
+def test_resync_keeps_deleted_claim_tombstone_against_queued_delta():
+    """The node-death walk's phantom, replayed in order: an allocated
+    claim's delta waits in its pool's informer shard FIFO while the
+    claim is deleted; the DELETED delta is shed (sched.watch_shard_dispatch)
+    and the shard's resync rebuilds from a cache that no longer holds
+    the claim. The queued allocated delta then runs last and must be
+    refused as stale, or its devices stay taken forever."""
+    import threading
+
+    from tpu_dra_torch.infra.faults import OneShot
+    from tpu_dra_torch.infra.metrics import SCHED_SHARD_RESYNCS
+    from tpu_dra_torch.simcluster.scheduler import claim_entries
+
+    c = make_cluster(nodes=2, gpus=2)
+    s = Scheduler(c, resync_interval=3600.0, gc_sweep_interval=3600.0,
+                  workers=2)
+    s.start()
+    gate, held = threading.Event(), threading.Event()
+
+    def hold():
+        held.set()
+        gate.wait()
+
+    try:
+        make_pod(c, "p0")
+        assert c.wait_for(lambda: c.get(PODS, "p0", "default")["spec"].get(
+            "nodeName"), timeout=10)
+        claim = c.get(RESOURCECLAIMS, "p0-t", "default")
+        pool = claim_entries(claim)[0][1]
+        sid = s._index.shard_of(pool)
+        claims_inf = s._informers["claims"]
+        claims_inf._dispatcher.flush()
+        assert s.verify_index() == []
+        # Hold the pool's shard, then queue an allocated delta behind it.
+        claims_inf._dispatcher.offer(sid, hold)
+        assert held.wait(timeout=10)
+        claim["metadata"].setdefault("annotations", {})["touch"] = "1"
+        c.update(RESOURCECLAIMS, claim, "default")
+        assert c.wait_for(lambda: claims_inf._dispatcher.depth(sid) == 1,
+                          timeout=10), "the allocated delta never queued"
+        r0 = SCHED_SHARD_RESYNCS.value()
+        with FAULTS.armed("sched.watch_shard_dispatch", OneShot()):
+            c.delete(PODS, "p0", "default")
+            assert c.wait_for(lambda: not c.list(RESOURCECLAIMS,
+                                                 namespace="default"),
+                              timeout=10)
+            assert c.wait_for(lambda: SCHED_SHARD_RESYNCS.value() > r0
+                              and not s._index.dirty, timeout=10), \
+                "the shed delete never reached the shard resync"
+        gate.set()
+        assert claims_inf._dispatcher.flush(timeout=10)
+        assert s.verify_index() == []
+    finally:
+        gate.set()
+        s.stop()
+
+
 class TestSchedulerChaos:
     def test_one_seeded_walk_clean(self):
         report = SchedulerChaosHarness(11).run(n_events=30)

@@ -44,50 +44,61 @@ class Flock:
             raise FlockTimeout(f"in-process lock on {self._path} not acquired "
                                f"within {timeout}s")
         try:
-            while True:
-                if cancel is not None and cancel.is_set():
-                    raise FlockTimeout(f"lock acquisition on {self._path} cancelled")
-                fd = vfs.open_fd(self._path, os.O_CREAT | os.O_RDWR, 0o644)
-                try:
-                    # Through the vfs seam: the enumerator treats the
-                    # acquire as a crash point — an flock dies with its
-                    # holder, so recovery must simply re-acquire.
-                    vfs.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
-                    self._fd = fd
-                    return
-                except OSError as e:
-                    vfs.close_fd(fd)
-                    if e.errno not in (errno.EAGAIN, errno.EACCES):
-                        raise
-                except BaseException:
-                    # A simulated crash (drmc CrashPoint) fired inside
-                    # the flock syscall seam: close the fd — process
-                    # death would have — or the exclusive lock leaks
-                    # into the long-lived harness process.
-                    vfs.close_fd(fd)
-                    raise
-                if time.monotonic() >= deadline:
-                    raise FlockTimeout(
-                        f"flock on {self._path} not acquired within {timeout}s")
-                time.sleep(self._poll)
+            self._lock_file(deadline, timeout, cancel)
         except BaseException:
             self._tlock.release()
             raise
 
+    def _lock_file(self, deadline: float, timeout: float,
+                   cancel: Optional[threading.Event] = None) -> None:
+        """The flock(2) poll loop alone; the caller serializes this
+        instance's callers (``_tlock``, or SharedFlock's own protocol)."""
+        while True:
+            if cancel is not None and cancel.is_set():
+                raise FlockTimeout(f"lock acquisition on {self._path} cancelled")
+            fd = vfs.open_fd(self._path, os.O_CREAT | os.O_RDWR, 0o644)
+            try:
+                # Through the vfs seam: the enumerator treats the
+                # acquire as a crash point — an flock dies with its
+                # holder, so recovery must simply re-acquire.
+                vfs.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                self._fd = fd
+                return
+            except OSError as e:
+                vfs.close_fd(fd)
+                if e.errno not in (errno.EAGAIN, errno.EACCES):
+                    raise
+            except BaseException:
+                # A simulated crash (drmc CrashPoint) fired inside
+                # the flock syscall seam: close the fd — process
+                # death would have — or the exclusive lock leaks
+                # into the long-lived harness process.
+                vfs.close_fd(fd)
+                raise
+            if time.monotonic() >= deadline:
+                raise FlockTimeout(
+                    f"flock on {self._path} not acquired within {timeout}s")
+            time.sleep(self._poll)
+
     def release(self) -> None:
         # Nested finally: the unlock op can raise through the vfs seam
-        # (drmc crash point on LOCK_UN) — the fd close and the
-        # in-process serializer release must both still happen, or the
-        # next acquire on this instance wedges on _tlock.
+        # (drmc crash point on LOCK_UN) — the in-process serializer
+        # release must still happen, or the next acquire on this
+        # instance wedges on _tlock.
         try:
-            if self._fd is not None:
-                try:
-                    vfs.flock(self._fd, fcntl.LOCK_UN)
-                finally:
-                    vfs.close_fd(self._fd)
-                    self._fd = None
+            self._unlock_file()
         finally:
             self._tlock.release()
+
+    def _unlock_file(self) -> None:
+        # Nested finally: the fd close must happen even when the unlock
+        # raises through the vfs seam.
+        if self._fd is not None:
+            try:
+                vfs.flock(self._fd, fcntl.LOCK_UN)
+            finally:
+                vfs.close_fd(self._fd)
+                self._fd = None
 
     def __enter__(self) -> "Flock":
         self.acquire()
@@ -109,9 +120,9 @@ class SharedFlock:
     this, the pipelined server would re-serialize every RPC on the
     flock and the cross-RPC group commit could never coalesce.
 
-    Distinct threads may acquire and release (the underlying
-    threading.Lock inside Flock is not owner-checked), which is exactly
-    the pattern here.
+    Distinct threads may acquire and release, which is exactly the
+    pattern here: a share takes the Flock's file lock alone (see
+    acquire), never the Flock's thread-owned in-process lock.
 
     Fairness: under sustained RPC traffic, late joiners could keep the
     refcount above zero forever and the OS flock would never drop — a
@@ -165,8 +176,14 @@ class SharedFlock:
         try:
             # The blocking flock syscall runs OUTSIDE the condition so
             # joiners park on the condition, not behind a held mutex.
-            self._flock.acquire(
-                timeout=max(0.05, deadline - time.monotonic()))
+            # The file lock alone: `_acquiring` and the refcount already
+            # serialize this instance's callers, and the Flock's own
+            # in-process lock would be held by whichever thread got here
+            # first and released by whichever leaves last — a mutex
+            # owned by no thread, which the lock witness would book as
+            # held by its first holder long after it left.
+            remaining = max(0.05, deadline - time.monotonic())
+            self._flock._lock_file(time.monotonic() + remaining, remaining)
         except BaseException:
             with self._ref_cond:
                 self._acquiring = False
@@ -183,5 +200,7 @@ class SharedFlock:
             self._refs -= 1
             if self._refs > 0:
                 return
-            self._flock.release()
-            self._ref_cond.notify_all()
+            try:
+                self._flock._unlock_file()
+            finally:
+                self._ref_cond.notify_all()

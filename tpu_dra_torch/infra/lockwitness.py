@@ -86,6 +86,12 @@ class LockWitness:
         self._violations: List[str] = []
         self._seen_cycles: Set[Tuple[str, ...]] = set()
         self._tls = threading.local()
+        # instance -> the held-stack entry of the thread that acquired
+        # it. A plain Lock may be released by another thread (a
+        # SharedFlock's last holder out releases the Flock a first
+        # holder took): that release ends the acquirer's hold, or every
+        # lock the acquirer takes afterwards would read as nested in it.
+        self._holds: Dict[int, dict] = {}
 
     # -- per-thread held stack ----------------------------------------------
 
@@ -93,7 +99,16 @@ class LockWitness:
         held = getattr(self._tls, "held", None)
         if held is None:
             held = self._tls.held = []
+        elif held and any("gone" in e for e in held):
+            held[:] = [e for e in held if "gone" not in e]
         return held
+
+    def _close_hold(self, key: str, entry: dict) -> None:
+        dt = time.monotonic() - entry["t0"]
+        with self._graph_lock:
+            st = self._stats.setdefault(key, _ClassStats())
+            if dt > st.max_hold_s:
+                st.max_hold_s = dt
 
     # -- events from witnessed locks ----------------------------------------
 
@@ -110,8 +125,10 @@ class LockWitness:
                 self_nest = True
             else:
                 new_edges.append((entry["key"], key))
-        held.append({"key": key, "instance": instance, "depth": 1,
-                     "t0": time.monotonic()})
+        entry = {"key": key, "instance": instance, "depth": 1,
+                 "t0": time.monotonic()}
+        held.append(entry)
+        self._holds[instance] = entry
         if not (new_edges or self_nest):
             with self._graph_lock:
                 self._stats.setdefault(key, _ClassStats()).acquisitions += 1
@@ -137,14 +154,18 @@ class LockWitness:
             if entry["instance"] == instance:
                 entry["depth"] -= 1
                 if entry["depth"] == 0:
-                    dt = time.monotonic() - entry["t0"]
                     del held[i]
-                    with self._graph_lock:
-                        st = self._stats.setdefault(key, _ClassStats())
-                        if dt > st.max_hold_s:
-                            st.max_hold_s = dt
+                    self._holds.pop(instance, None)
+                    self._close_hold(key, entry)
                 return
-        # release of a lock acquired before install()/reset(): ignore
+        # Released by a thread that did not acquire it: end the
+        # acquirer's hold (its own thread drops the entry at its next
+        # witnessed operation). A lock acquired before install() has no
+        # entry anywhere: nothing to do.
+        entry = self._holds.pop(instance, None)
+        if entry is not None:
+            entry["gone"] = True
+            self._close_hold(key, entry)
 
     def force_release(self, key: str, instance: int) -> int:
         """Condition._release_save seam: the inner RLock is FULLY
@@ -155,12 +176,9 @@ class LockWitness:
         for i in range(len(held) - 1, -1, -1):
             entry = held[i]
             if entry["instance"] == instance:
-                dt = time.monotonic() - entry["t0"]
                 del held[i]
-                with self._graph_lock:
-                    st = self._stats.setdefault(key, _ClassStats())
-                    if dt > st.max_hold_s:
-                        st.max_hold_s = dt
+                self._holds.pop(instance, None)
+                self._close_hold(key, entry)
                 return entry["depth"]
         return 1
 

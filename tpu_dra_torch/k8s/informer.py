@@ -555,6 +555,15 @@ class Informer:
                 SHADOW.record(o)
         return out
 
+    def list_with_tombstones(self) -> Tuple[List[Dict], Dict[str, int]]:
+        """The lister's listing and the deletion tombstones (key -> the
+        resourceVersion the deletion was seen at), read under one lock:
+        a consumer rebuilding derived state from the listing also learns
+        which keys died before it, and so which deltas still queued for
+        them are stale."""
+        with self._lock:
+            return self.lister.list(), dict(self._tombstones)
+
     def update_cache(self, obj: Dict) -> None:
         """Mutation cache: record our own write so the next read sees it
         even before the watch event lands (daemonset.go mutation cache)."""

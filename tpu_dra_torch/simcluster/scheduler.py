@@ -668,24 +668,46 @@ class AllocationIndex:
         return by_claim, taken, nreal, rvs, homes
 
     def _swap_shard(self, shard_id: int, state,
-                    only_if_mutations: Optional[int]) -> bool:
+                    only_if_mutations: Optional[int],
+                    deleted: Optional[Dict[str, int]] = None) -> bool:
         shard = self._shards[shard_id]
         by_claim, taken, nreal, rvs, homes = state
         with shard._lock:
             if (only_if_mutations is not None
                     and shard._mutations != only_if_mutations):
                 return False
+            # Watermarks only move forward. The listing is the cache at
+            # one instant, but deltas dispatched before it may still wait
+            # in the informer's shard FIFOs: a claim deleted before the
+            # listing is absent from it, and dropping its watermark let
+            # such a delta re-add the claim's devices with no later
+            # event to remove them (a shed DELETED delta is what queued
+            # this very resync). Deletions the informer saw (key -> the
+            # deletion's RV) raise the mark past every state the claim
+            # had, in every rebuilt shard: a queued delta routes by its
+            # own pool, which the index may never have seen.
+            gone: List[str] = []
+            for key, rv in list(shard._rv.items()) + list(
+                    (deleted or {}).items()):
+                if key in by_claim or rv <= rvs.get(key, 0):
+                    continue
+                if key not in rvs and key not in shard._rv:
+                    gone.append(key)
+                rvs[key] = rv
             shard._by_claim = by_claim
             shard._taken = taken
             shard._nreal = nreal
             shard._rv = rvs
-            shard._removed.clear()
+            evicted: List[str] = []
+            for key in gone:
+                evicted += shard._note_removed_locked(key)
             # The swap is itself a mutation: a CONCURRENT resync of the
             # same shard holding an older listing must see its
             # only_if_mutations guard trip rather than silently clobber
             # this fresher state.
             shard._mutations += 1
             shard.resyncing = False
+        self._drop_homes(evicted, shard_id)
         # Routing hygiene: the rebuild is the authoritative home set for
         # this shard. A key routing HERE but absent from the listing was
         # deleted during the divergence window — it never re-enters the
@@ -716,7 +738,8 @@ class AllocationIndex:
         return True
 
     def resync_shard(self, shard_id: int, claims: Iterable[Dict],
-                     only_if_mutations: Optional[int] = None) -> bool:
+                     only_if_mutations: Optional[int] = None,
+                     deleted: Optional[Dict[str, int]] = None) -> bool:
         """Rebuild ONE shard from a full claim listing (the guarded
         fallback's unit: sibling shards keep applying and scanning).
 
@@ -724,10 +747,14 @@ class AllocationIndex:
         caller took its claim snapshot; the swap is refused (returns
         False) when a concurrent apply/remove landed in between —
         wholesale replacement would silently resurrect what that
-        mutation changed (e.g. an out-of-band claim delete)."""
+        mutation changed (e.g. an out-of-band claim delete).
+
+        deleted: claim key -> the resourceVersion its deletion was seen
+        at, read with the listing (Informer.list_with_tombstones); the
+        rebuilt shard refuses any older state of those claims."""
         return self._swap_shard(
-            shard_id,
-            self._shard_state_from(claims, shard_id), only_if_mutations)
+            shard_id, self._shard_state_from(claims, shard_id),
+            only_if_mutations, deleted)
 
     # -- queries ------------------------------------------------------------
 
@@ -1282,10 +1309,11 @@ class Scheduler:
         failed = list(dirty)
         for _ in range(8):
             gens = {sid: self._index.mutation_count(sid) for sid in failed}
-            listing = self._list_claims()
+            listing, deleted = self._list_claims_with_tombstones()
             failed = [sid for sid in failed
                       if not self._index.resync_shard(
-                          sid, listing, only_if_mutations=gens[sid])]
+                          sid, listing, only_if_mutations=gens[sid],
+                          deleted=deleted)]
             if not failed:
                 break
         SCHED_SHARD_RESYNCS.inc(len(dirty) - len(failed))
@@ -1341,6 +1369,12 @@ class Scheduler:
         if self._started:
             return self._informers["claims"].lister.list()
         return self._client.list(RESOURCECLAIMS)
+
+    def _list_claims_with_tombstones(self) -> Tuple[List[Dict],
+                                                    Dict[str, int]]:
+        if self._started:
+            return self._informers["claims"].list_with_tombstones()
+        return self._client.list(RESOURCECLAIMS), {}
 
     def _get_pod(self, ns: str, name: str) -> Optional[Dict]:
         if self._started:
