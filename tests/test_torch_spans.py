@@ -1,0 +1,230 @@
+"""The port's device plane (tpu_dra_torch.infra.trace: device_span,
+count, read_counters) and the ranges and counters of its train step, on
+the CPU under torch.profiler's CPU activity.
+
+- Off (no profiler session), a range is the one shared no-op context
+  and a count records nothing.
+- Under the profiler, a tiny dense step and a tiny MoE step open every
+  range of DEVICE_SPANS that their paths reach, nested as the step
+  nests them, and route_top1 counts what its own outputs hold.
+- Profiling changes no number: the loss and every updated parameter are
+  bit-identical with and without it.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from tpu_dra_torch.infra import trace
+from tpu_dra_torch.workloads import model as tm
+from tpu_dra_torch.workloads import moe, moe_model
+
+torch.set_num_threads(2)   # the suite runs 6 workers beside timing tests
+
+ROOT = Path(__file__).resolve().parents[1]
+DENSE = tm.ModelConfig(vocab=64, d_model=32, n_heads=2, n_layers=2,
+                       d_ff=64, max_seq=16, dtype=torch.float32,
+                       attn_impl="flash")
+MOE = moe_model.MoEModelConfig(vocab=64, d_model=32, n_heads=2, n_layers=2,
+                               d_ff=64, max_seq=16, dtype=torch.float32,
+                               attn_impl="flash", n_experts=4)
+# Range -> the range that directly holds it in a step.
+PARENT = {
+    "step.forward": "step", "step.backward": "step", "step.sgd": "step",
+    "attention.fwd": "step.forward", "attention.bwd": "step.backward",
+    "moe.route": "step.forward", "moe.dispatch": "step.forward",
+    "moe.experts": "step.forward", "moe.combine": "step.forward",
+}
+MOE_SPANS = {"moe.route", "moe.dispatch", "moe.experts", "moe.combine"}
+
+
+@pytest.fixture(autouse=True)
+def _no_counts_left():
+    trace.read_counters()
+    yield
+    trace.read_counters()
+
+
+def _model(cfg, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    if isinstance(cfg, moe_model.MoEModelConfig):
+        return moe_model.MoETransformerLM(
+            cfg, moe_model.init_params(cfg, g, device="cpu"))
+    return tm.TransformerLM(cfg, tm.init_params(cfg, g, device="cpu"))
+
+
+def _step(model):
+    if isinstance(model, moe_model.MoETransformerLM):
+        return moe_model.make_train_step(model, lr=1e-2)
+    return tm.make_train_step(model, lr=1e-2)
+
+
+def _tokens(seed=1):
+    return torch.randint(0, 64, (2, 17),
+                         generator=torch.Generator().manual_seed(seed))
+
+
+def _profiled(fn):
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, prof.events()
+
+
+def _ranges(events):
+    return sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in events if e.name in trace.DEVICE_SPANS)
+
+
+def _holder(ranges, inner):
+    """The innermost range that holds `inner` in time (not itself)."""
+    best = None
+    for r in ranges:
+        if r is inner or not (r[0] <= inner[0] and inner[1] <= r[1]):
+            continue
+        if best is None or r[0] >= best[0]:
+            best = r
+    return best
+
+
+class TestOff:
+    def test_span_is_the_shared_noop(self):
+        assert not trace.recording()
+        spans = [trace.device_span(name) for name in trace.DEVICE_SPANS]
+        spans.append(trace.device_span("step", 7))
+        assert all(s is trace._NO_SPAN for s in spans)
+        with trace.device_span("step.forward") as inside:
+            assert inside is None
+
+    def test_count_records_nothing(self):
+        trace.count("moe.kept", torch.tensor(5))
+        trace.count("moe.slots", 40)
+        assert trace.read_counters() == {}
+
+    def test_a_step_counts_nothing(self):
+        _step(_model(MOE))(_tokens())
+        assert trace.read_counters() == {}
+
+    def test_module_does_not_import_torch(self):
+        code = ("import sys; import tpu_dra_torch.infra.trace as t; "
+                "assert not t.recording(); "
+                "assert t.device_span('step') is t._NO_SPAN; "
+                "assert 'torch' not in sys.modules, 'torch imported'")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                              capture_output=True, text=True, timeout=60)
+        assert proc.returncode == 0, proc.stderr
+
+
+class TestCounters:
+    def test_tensor_and_int_counts_then_reset(self):
+        counters = trace.DeviceCounters()
+        counters.add("moe.kept", torch.tensor(3))
+        counters.add("moe.kept", torch.tensor([2.0, 4.0]).sum())
+        counters.add("moe.slots", 10)
+        counters.add("moe.slots", 6)
+        assert counters.read() == {"moe.kept": 9.0, "moe.slots": 16}
+        assert counters.read() == {}
+        counters.add("moe.routed", torch.tensor(1))
+        counters.add("moe.kept", torch.tensor(0))
+        assert counters.read() == {"moe.routed": 1.0, "moe.kept": 0.0}
+
+    def test_unknown_names_raise(self):
+        with pytest.raises(ValueError, match="unknown counter"):
+            trace.DeviceCounters().add("moe.nope", 1)
+        with profile(activities=[ProfilerActivity.CPU]):
+            assert trace.recording()
+            with pytest.raises(ValueError, match="unknown device span"):
+                trace.device_span("step.nope")
+        assert not trace.recording()
+
+    def test_route_counts_its_own_outputs(self):
+        g = torch.Generator().manual_seed(3)
+        x = torch.randn(2, 24, 16, generator=g)
+        router = torch.randn(16, 4, generator=g)
+        capacity = moe.capacity_of(1.0, 48, 4)
+        (dispatch, _, _), _ = _profiled(
+            lambda: moe.route_top1(x, router, 4, capacity))
+        counts = trace.read_counters()
+        assert counts["moe.kept"] == dispatch.sum().item()
+        assert 0 < counts["moe.kept"] < 48     # capacity 12 drops some
+        assert counts["moe.slots"] == 4 * capacity
+        assert counts["moe.routed"] == 48
+        assert trace.read_counters() == {}
+
+
+class TestRangesInTheStep:
+    @pytest.mark.parametrize("cfg", [DENSE, MOE], ids=["dense", "moe"])
+    def test_every_range_nested_as_the_step(self, cfg):
+        step = _step(_model(cfg))
+        step(_tokens())
+        _, events = _profiled(lambda: step(_tokens(2)))
+        ranges = _ranges(events)
+        want = set(trace.DEVICE_SPANS)
+        if cfg is DENSE:
+            want -= MOE_SPANS
+        assert {name for _, _, name in ranges} == want
+        steps = [r for r in ranges if r[2] == "step"]
+        assert len(steps) == 1
+        for r in ranges:
+            if r[2] == "step":
+                assert _holder(ranges, r) is None
+            else:
+                assert _holder(ranges, r)[2] == PARENT[r[2]], r
+        per_step = {name: sum(1 for r in ranges if r[2] == name)
+                    for name in want}
+        assert per_step["attention.fwd"] == cfg.n_layers
+        assert per_step["attention.bwd"] == cfg.n_layers
+        if cfg is MOE:
+            n_moe = sum(cfg.is_moe_block(i) for i in range(cfg.n_layers))
+            assert all(per_step[n] == n_moe for n in MOE_SPANS)
+
+    def test_step_range_carries_its_count(self):
+        step = _step(_model(DENSE))
+        step(_tokens())
+        with profile(activities=[ProfilerActivity.CPU],
+                     record_shapes=True) as prof:
+            step(_tokens())
+            step(_tokens(2))
+        args = [e.kwinputs.get("arg") for e in
+                sorted(prof.events(), key=lambda e: e.time_range.start)
+                if e.name == "step"]
+        assert args == [1, 2]
+
+    def test_ranges_are_function_scope(self, tmp_path):
+        # A user-scope range (torch.profiler.record_function) is mirrored
+        # on the device's timeline as one more device operation; the
+        # port's ranges are function scope and have no mirror.
+        step = _step(_model(MOE))
+        step(_tokens())
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            step(_tokens())
+        prof.export_chrome_trace(str(tmp_path / "t.json"))
+        events = json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+        cats = {e["cat"] for e in events if e.get("name") in
+                trace.DEVICE_SPANS}
+        assert cats == {"cpu_op"}
+
+    def test_moe_step_counts_its_routes(self):
+        step = _step(_model(MOE))
+        _profiled(lambda: step(_tokens()))
+        counts = trace.read_counters()
+        tokens = 2 * 16
+        capacity = moe.capacity_of(MOE.capacity_factor, tokens,
+                                   MOE.n_experts)
+        assert counts["moe.routed"] == tokens
+        assert counts["moe.slots"] == MOE.n_experts * capacity
+        assert 0 < counts["moe.kept"] <= tokens
+
+    @pytest.mark.parametrize("cfg", [DENSE, MOE], ids=["dense", "moe"])
+    def test_profiling_changes_no_number(self, cfg):
+        plain, traced = _model(cfg), _model(cfg)
+        loss_plain = _step(plain)(_tokens())
+        loss_traced, _ = _profiled(lambda: _step(traced)(_tokens()))
+        assert torch.equal(loss_plain, loss_traced)
+        for (name, a), (_, b) in zip(plain.named_parameters(),
+                                     traced.named_parameters()):
+            assert torch.equal(a, b), name

@@ -3,11 +3,11 @@ workload library's data plane, and claim-to-ready of the kubelet plugin
 (counterpart of bench.py's bench_mfu, bench_long_context, bench_psum,
 bench_mesh_dataplane, bench_claim_to_ready and their helpers).
 
-bench_mfu, bench_long_context, bench_moe and profile_train_step are
-device measurements: they run on a CUDA device or raise. bench_psum
-times the all-reduce over a claim's GPUs, and bench_mesh_dataplane runs
-every workload of meshbuild on a fake 2-worker x 4-GPU slice
-(testing.MeshSliceHarness) over gloo CPU ranks.
+bench_mfu, bench_long_context and bench_moe are device measurements:
+they run on a CUDA device or raise. bench_psum times the all-reduce over
+a claim's GPUs, and bench_mesh_dataplane runs every workload of
+meshbuild on a fake 2-worker x 4-GPU slice (testing.MeshSliceHarness)
+over gloo CPU ranks.
 bench_claim_to_ready times the kubelet plugin over its sockets on any
 discovery backend.
 bench_shared_claim runs one claim's tenants (train-step processes,
@@ -28,9 +28,8 @@ same-process baseline).
     # one JSON line each: shared_claim and mps (one claim, two flagship
     # tenants), mfu, long_ctx (S=8192), long_ctx_xl (S=16384) and at
     # remat "dots" and "full", moe (the MoE LM), psum (the node's GPUs),
-    # profile (flagship), profile_xl (S=16384), claim_to_ready (the
-    # node's GPUs through NVML) and mesh_dataplane (every workload on an
-    # 8-GPU fake claim, over gloo CPU ranks)
+    # claim_to_ready (the node's GPUs through NVML) and mesh_dataplane
+    # (every workload on an 8-GPU fake claim, over gloo CPU ranks)
     python -m tpu_dra_torch.bench mesh
     # one JSON line: every workload over every GPU of the node, one NCCL
     # rank per GPU (bench_mesh_gpus)
@@ -51,6 +50,16 @@ same-process baseline).
     # sizes (host alone; the defaults take a long while)
     python -m tpu_dra_torch.bench claim-child [--steps N] [--wait-go] ...
     # one tenant of the claim whose CDI env is this process's environment
+
+Where a step's device time goes: the train step opens named ranges
+(tpu_dra_torch.infra.trace.DEVICE_SPANS: ``step``, ``step.forward``,
+``step.backward``, ``step.sgd``, ``attention.fwd``, ``attention.bwd``,
+``moe.route``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``)
+whenever torch.profiler records, so they appear in any torch.profiler
+or Chrome trace of a training pod, and the MoE router counts
+``moe.kept``, ``moe.slots`` and ``moe.routed`` over the profiled steps
+(``read_counters()``). ``python3 -m portbench --workload <cell> --seed
+<n> --seconds 10 --trace 1`` reads them per phase and layer.
 """
 
 from __future__ import annotations
@@ -84,7 +93,6 @@ FLAGSHIP_BATCH = 8
 # recomputed block runs its forward again in the backward.
 FORWARD_RUNS = {"none": 1, "dots": 2, "full": 2}
 LONG_CONTEXT_BATCH = 1
-TOP_KERNELS = 15
 
 log = logging.getLogger("tpu_dra_torch.bench")
 
@@ -477,71 +485,6 @@ def bench_mesh_dataplane() -> dict:
             if k not in ("window", "step_times_s", "losses", "coords"):
                 out[f"mesh_workload_{name}_{k}"] = v
     return out
-
-
-def _category(kernel: str) -> str:
-    name = kernel.lower()
-    if "flash_" in name:
-        return "flash attention (port kernels)"
-    if any(tag in name for tag in ("nvjet", "gemm", "xmma", "cutlass")):
-        return "matmul (cuBLAS)"
-    if "copy_kernel" in name:
-        return "dtype casts and copies"
-    return "other elementwise and reductions"
-
-
-def profile_train_step(steps: int = 3, device="cuda", cfg=FLAGSHIP,
-                       batch: int = FLAGSHIP_BATCH) -> dict:
-    """Device time of a train step (the flagship's by default) by kernel,
-    from torch.profiler's CUDA activity over `steps` steps after a warm
-    one: the per-step device-busy time, the window it sits in (first
-    kernel start to last kernel end) and so the device's idle share, the
-    busy time by category and the TOP_KERNELS kernels with most time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    device = _require_card(device)
-    _, tokens, step = _setup(cfg, batch, device)
-    step(tokens)
-    _sync(device)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step(tokens)
-        _sync(device)
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    if not spans:
-        return {"device_events": 0}
-    busy, cursor = 0.0, spans[0][0]
-    by_name: dict[str, list] = {}
-    for start, end, name in spans:
-        busy += max(0.0, end - max(start, cursor))
-        cursor = max(cursor, end)
-        entry = by_name.setdefault(name, [0.0, 0])
-        entry[0] += end - start
-        entry[1] += 1
-    window = spans[-1][1] - spans[0][0]
-    by_cat: dict[str, float] = {}
-    for name, (us, _) in by_name.items():
-        by_cat[_category(name)] = by_cat.get(_category(name), 0.0) + us
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]
-    return {
-        "device_events": len(spans),
-        "seq": cfg.max_seq,
-        "batch": batch,
-        "steps": steps,
-        "busy_ms_per_step": busy / steps / 1e3,
-        "window_ms_per_step": window / steps / 1e3,
-        "idle_share": 1.0 - busy / window,
-        "ms_per_step_by_category": {k: v / steps / 1e3
-                                    for k, v in by_cat.items()},
-        "top_kernels": [{"name": name[:120], "ms_per_step": us / steps / 1e3,
-                         "calls_per_step": n / steps}
-                        for name, (us, n) in ranked],
-        "device_name": torch.cuda.get_device_name(device),
-        "power_limit": gpuinfo.power_limit(device.index or 0),
-    }
 
 
 # ---------------------------------------------------------------------------
@@ -2536,10 +2479,6 @@ def main(argv) -> int:
                 flush=True)
         print(json.dumps({"moe": bench_moe()}), flush=True)
         print(json.dumps({"psum": bench_psum(node_env(nvml))}), flush=True)
-        print(json.dumps({"profile": profile_train_step()}), flush=True)
-        print(json.dumps({"profile_xl": profile_train_step(
-            steps=2, cfg=long_context_config(16384),
-            batch=LONG_CONTEXT_BATCH)}), flush=True)
         print(json.dumps({"claim_to_ready": bench_claim_to_ready(nvml)}),
               flush=True)
         print(json.dumps({"mesh_dataplane": bench_mesh_dataplane()}),

@@ -44,6 +44,28 @@ Ownership and hot-path rules:
 - The ``trace.emit`` fault site guards emission only: a firing drops
   the span (counted, trace marked dropped) and never breaks the traced
   operation.
+
+Beside the claim tracer sits the **device plane**: named ranges and
+counters inside the train step, on torch.profiler's clock, so that every
+device operation and idle gap of a profiled step falls under a program
+range (``device_span``, names in DEVICE_SPANS) and the MoE router's work
+is counted where it happens (``count``, names in DEVICE_COUNTERS). Its
+hot-path rules:
+
+- Off (no torch.profiler session recording) a range costs one read of
+  the profiler's Python flag and returns one shared no-op context: no
+  dispatcher op, no allocation. Counters cost the same read at the call
+  site (``recording()``), which skips computing the value.
+- On, a range is a RecordFunction of the profiler's function scope
+  (``torch._C._profiler._RecordFunctionFast``), so it sits on the clock
+  of the CUDA activity. Unlike ``torch.profiler.record_function`` (the
+  user scope), it has no mirror on the device's timeline, so the device
+  operations a trace lists are the same with and without the ranges. A tensor count is added on its device
+  into one preallocated accumulator per device, with no synchronize; an
+  int is added on the host. ``read_counters()`` synchronizes once and
+  resets.
+- This module never imports torch: the control plane imports it, and
+  the flag is read from torch's own module where torch is loaded.
 """
 
 from __future__ import annotations
@@ -52,11 +74,12 @@ import itertools
 import json
 import os
 import signal
+import sys
 import tempfile
 import threading
 import time
 from collections import deque
-from typing import Dict, FrozenSet, Iterable, List, Optional, Tuple
+from typing import Any, Dict, FrozenSet, Iterable, List, Optional, Tuple
 
 from tpu_dra_torch.infra import faults as _faults
 from tpu_dra_torch.infra.faults import FAULTS
@@ -673,3 +696,117 @@ def install_signal_handler(signum: int = signal.SIGUSR1) -> bool:
     except ValueError:  # not the main thread
         return False
     return True
+
+
+# ---------------------------------------------------------------------------
+# Device plane: the train step's ranges and counters
+# ---------------------------------------------------------------------------
+
+# Every range the port opens inside its train step. A device operation
+# belongs to the innermost range open when the host launched it.
+DEVICE_SPANS = (
+    "step",            # model.build_train_step's step; arg: its count
+    "step.forward",    # loss(model, tokens): embedding, blocks, head, loss
+    "step.backward",   # torch.autograd.grad
+    "step.sgd",        # the in-place update of every leaf
+    "attention.fwd",   # flashattention.attend, every impl
+    "attention.bwd",   # _FlashAttention.backward
+    "moe.route",       # moe.route_top1
+    "moe.dispatch",    # moe._experts: the [B,S,E,C] dispatch einsum
+    "moe.experts",     # moe._experts: up-proj, gelu, down-proj
+    "moe.combine",     # moe._experts: the [B,S,E,C] combine einsum
+)
+
+# Every counter: tokens kept within capacity (a device tensor), expert
+# slots E x C and tokens routed B x S (host ints), per route_top1 call.
+DEVICE_COUNTERS = ("moe.kept", "moe.slots", "moe.routed")
+
+
+class _NoSpan:
+    """The one context every range returns while nothing records."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+def recording() -> bool:
+    """Whether a torch.profiler session records now (one flag read)."""
+    profiler = sys.modules.get("torch.autograd.profiler")
+    return profiler is not None and profiler._is_profiler_enabled
+
+
+def device_span(name: str, arg=None):
+    """A range of the train step: a function-scope RecordFunction while a
+    profiler session records, else the shared no-op context. `arg` (the
+    step's count on ``step``) is the range's keyword input ``arg``, which
+    a session with ``record_shapes`` keeps."""
+    if not recording():
+        return _NO_SPAN
+    if name not in DEVICE_SPANS:
+        raise ValueError(f"unknown device span {name!r} "
+                         f"(have {DEVICE_SPANS})")
+    fast = sys.modules["torch"]._C._profiler._RecordFunctionFast
+    # Its arguments are checked in C++, where a wrong type aborts the
+    # process: no inputs but a list, keyword inputs only as a dict.
+    return fast(name) if arg is None else fast(name, [], {"arg": arg})
+
+
+class DeviceCounters:
+    """Counters of DEVICE_COUNTERS: tensor values summed on their device
+    into one fp64 vector per device, ints on the host."""
+
+    def __init__(self):
+        self._acc: Dict[Any, Any] = {}      # device -> fp64 [len(names)]
+        self._on_device: set = set()        # names counted there
+        self._host: Dict[str, int] = {}
+
+    def add(self, name: str, value) -> None:
+        if name not in DEVICE_COUNTERS:
+            raise ValueError(f"unknown counter {name!r} "
+                             f"(have {DEVICE_COUNTERS})")
+        if isinstance(value, int):
+            self._host[name] = self._host.get(name, 0) + value
+            return
+        acc = self._acc.get(value.device)
+        if acc is None:
+            acc = value.new_zeros(len(DEVICE_COUNTERS),
+                                  dtype=sys.modules["torch"].float64)
+            self._acc[value.device] = acc
+        acc[DEVICE_COUNTERS.index(name)].add_(value.detach())
+        self._on_device.add(name)
+
+    def read(self) -> Dict[str, float]:
+        """{name: number} of every counter counted since the last read
+        (one synchronize per device holding counts), then all zero."""
+        out: Dict[str, float] = dict(self._host)
+        for acc in self._acc.values():
+            for name, value in zip(DEVICE_COUNTERS, acc.tolist()):
+                if name in self._on_device:
+                    out[name] = out.get(name, 0) + value
+            acc.zero_()
+        self._host.clear()
+        self._on_device.clear()
+        return out
+
+
+DEVICE_COUNTS = DeviceCounters()
+
+
+def count(name: str, value) -> None:
+    """Add `value` (a tensor, summed on its device, or an int) to counter
+    `name` while a profiler session records; nothing otherwise. Compute
+    a tensor value only under ``recording()``."""
+    if recording():
+        DEVICE_COUNTS.add(name, value)
+
+
+def read_counters() -> Dict[str, float]:
+    """The device plane's counts since the last read; resets them."""
+    return DEVICE_COUNTS.read()

@@ -40,6 +40,7 @@ import math
 
 import torch
 
+from tpu_dra_torch.infra.trace import device_span
 from tpu_dra_torch.workloads import _flash_kernels
 from tpu_dra_torch.workloads._flash_kernels import BLOCK
 from tpu_dra_torch.workloads.ringattention import NEG_INF, reference_attention
@@ -118,16 +119,17 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout, dlse):
-        q, k, v, out, lse = ctx.saved_tensors
-        if dout is None:
-            dout = torch.zeros_like(out)
-        dout = dout.to(q.dtype)
-        dlse = torch.zeros_like(lse) if dlse is None else dlse.float()
-        # delta_i = dO_i . O_i: one elementwise+reduce pass outside the
-        # kernels, [B, H, S] like lse.
-        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
-        dq, dk, dv = _flash_kernels.bwd(q, k, v, dout, lse, delta, dlse,
-                                        ctx.tables, causal=ctx.causal)
+        with device_span("attention.bwd"):
+            q, k, v, out, lse = ctx.saved_tensors
+            if dout is None:
+                dout = torch.zeros_like(out)
+            dout = dout.to(q.dtype)
+            dlse = torch.zeros_like(lse) if dlse is None else dlse.float()
+            # delta_i = dO_i . O_i: one elementwise+reduce pass outside
+            # the kernels, [B, H, S] like lse.
+            delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+            dq, dk, dv = _flash_kernels.bwd(q, k, v, dout, lse, delta, dlse,
+                                            ctx.tables, causal=ctx.causal)
         return dq, dk, dv, None, None
 
 
@@ -171,12 +173,15 @@ def attend(q, k, v, *, causal: bool = True, impl: str = "auto",
     rope=True fuses rope_half (positions = sequence index) into whichever
     path is chosen — in-kernel on the flash path, external on the
     reference path — so all impls compute the same function.
+
+    Under torch.profiler the call is the range ``attention.fwd``.
     """
     if impl not in ("auto", "flash", "reference"):
         raise ValueError(f"unknown attention impl {impl!r}")
-    if impl == "flash" or (impl == "auto" and q.device.type != "cpu"):
-        return flash_attention(q, k, v, causal=causal, rope=rope)
-    if rope:
-        positions = torch.arange(q.shape[1], device=q.device)[None, :]
-        q, k = rope_half(q, positions), rope_half(k, positions)
-    return reference_attention(q, k, v, causal=causal)
+    with device_span("attention.fwd"):
+        if impl == "flash" or (impl == "auto" and q.device.type != "cpu"):
+            return flash_attention(q, k, v, causal=causal, rope=rope)
+        if rope:
+            positions = torch.arange(q.shape[1], device=q.device)[None, :]
+            q, k = rope_half(q, positions), rope_half(k, positions)
+        return reference_attention(q, k, v, causal=causal)

@@ -35,6 +35,7 @@ and numerics, in PyTorch's idiom.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Any, Dict, List, Optional
 
@@ -47,6 +48,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
+from tpu_dra_torch.infra.trace import device_span
 from tpu_dra_torch.workloads import _dist
 from tpu_dra_torch.workloads.flashattention import attend
 
@@ -427,9 +429,14 @@ def build_train_step(model: nn.Module, lr: float = 1e-3, loss=loss_fn):
     counterpart of the reference donating its params buffer to XLA — so
     the fp32 masters are never copied. On one device (or a mesh without
     a 'data' axis of size > 1) this is the single-device step.
-    `loss(model, tokens)` is the objective."""
+    `loss(model, tokens)` is the objective.
+
+    Under torch.profiler the step is the range ``step`` (its count the
+    argument) around ``step.forward``, ``step.backward`` and
+    ``step.sgd`` (infra.trace.device_span)."""
     params = list(model.parameters())
     group, n_data, index = _dist.axis_of(model.mesh, "data")
+    counts = itertools.count()
 
     def step(tokens: torch.Tensor) -> torch.Tensor:
         if n_data > 1:
@@ -438,20 +445,23 @@ def build_train_step(model: nn.Module, lr: float = 1e-3, loss=loss_fn):
                     f"batch {tokens.shape[0]} does not divide by the 'data' "
                     f"axis' {n_data} ranks")
             tokens = tokens.chunk(n_data)[index]
-        value = loss(model, tokens)
-        grads = torch.autograd.grad(value, params)
-        value = value.detach()
-        if n_data > 1:
-            flat = torch._utils._flatten_dense_tensors(grads)
-            dist.all_reduce(flat, group=group)
-            flat.div_(n_data)
-            grads = torch._utils._unflatten_dense_tensors(flat, grads)
-            value = value.clone()
-            dist.all_reduce(value, group=group)
-            value.div_(n_data)
-        with torch.no_grad():
-            for p, g in zip(params, grads):
-                p.sub_(g, alpha=lr)
+        with device_span("step", next(counts)):
+            with device_span("step.forward"):
+                value = loss(model, tokens)
+            with device_span("step.backward"):
+                grads = torch.autograd.grad(value, params)
+            value = value.detach()
+            if n_data > 1:
+                flat = torch._utils._flatten_dense_tensors(grads)
+                dist.all_reduce(flat, group=group)
+                flat.div_(n_data)
+                grads = torch._utils._unflatten_dense_tensors(flat, grads)
+                value = value.clone()
+                dist.all_reduce(value, group=group)
+                value.div_(n_data)
+            with device_span("step.sgd"), torch.no_grad():
+                for p, g in zip(params, grads):
+                    p.sub_(g, alpha=lr)
         return value
 
     return step

@@ -26,6 +26,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from tpu_dra_torch.infra import trace
 from tpu_dra_torch.workloads import _dist
 
 
@@ -61,46 +62,61 @@ def route_top1(x: torch.Tensor, router_w: torch.Tensor, n_experts: int,
     Position c of expert e holds token (b, s) iff the token routed to e
     within capacity. Router math in fp32. With `data_group`, x is this
     rank's block of a batch split over that group in rank order, and the
-    positions and the aux loss are those of the whole batch."""
-    logits = x.float() @ router_w.float()                      # [B,S,E]
-    probs = torch.softmax(logits, dim=-1)
-    expert = probs.argmax(-1)     # the first maximum, as jnp.argmax
-    onehot = F.one_hot(expert, n_experts).float()
-    flat = onehot.reshape(-1, n_experts)
-    counts = flat.sum(0)
-    offset = torch.zeros_like(counts)
-    n_data = _dist.group_size(data_group)
-    if n_data > 1:
-        every = [torch.empty_like(counts) for _ in range(n_data)]
-        dist.all_gather(every, counts, group=data_group)
-        offset = sum(every[:_dist.group_rank(data_group)], offset)
-        counts = sum(every[1:], every[0])
-    # Position within the expert's capacity, in (b, s) order.
-    pos = (torch.cumsum(flat, dim=0) + offset) * flat - 1.0
-    pos = pos.reshape(onehot.shape)                            # [B,S,E]
-    keep = (pos >= 0) & (pos < capacity)
-    pos_cap = pos.clamp(0, capacity - 1).long()
-    dispatch = (F.one_hot(pos_cap, capacity).float()
-                * (onehot * keep)[..., None])                  # [B,S,E,C]
-    gate = (probs * onehot).amax(-1)                           # [B,S]
-    combine = dispatch * gate[..., None, None]
-    # Load-balancing aux loss (mean prob x mean assignment per expert),
-    # the means over the whole batch.
-    n_tokens = flat.shape[0] * n_data
-    density = counts / n_tokens
-    density_proxy = _dist.all_reduce(probs.sum((0, 1)), data_group) / n_tokens
-    aux = (density * density_proxy).sum() * (n_experts ** 2)
-    return dispatch, combine, aux
+    positions and the aux loss are those of the whole batch.
+
+    Under torch.profiler the call is the range ``moe.route`` and counts
+    ``moe.kept`` (this rank's tokens kept within capacity),
+    ``moe.slots`` (E x C) and ``moe.routed`` (this rank's B x S)."""
+    with trace.device_span("moe.route"):
+        logits = x.float() @ router_w.float()                  # [B,S,E]
+        probs = torch.softmax(logits, dim=-1)
+        expert = probs.argmax(-1)     # the first maximum, as jnp.argmax
+        onehot = F.one_hot(expert, n_experts).float()
+        flat = onehot.reshape(-1, n_experts)
+        counts = flat.sum(0)
+        offset = torch.zeros_like(counts)
+        n_data = _dist.group_size(data_group)
+        if n_data > 1:
+            every = [torch.empty_like(counts) for _ in range(n_data)]
+            dist.all_gather(every, counts, group=data_group)
+            offset = sum(every[:_dist.group_rank(data_group)], offset)
+            counts = sum(every[1:], every[0])
+        # Position within the expert's capacity, in (b, s) order.
+        pos = (torch.cumsum(flat, dim=0) + offset) * flat - 1.0
+        pos = pos.reshape(onehot.shape)                        # [B,S,E]
+        keep = (pos >= 0) & (pos < capacity)
+        if trace.recording():
+            trace.count("moe.kept", keep.sum())
+            trace.count("moe.slots", n_experts * capacity)
+            trace.count("moe.routed", flat.shape[0])
+        pos_cap = pos.clamp(0, capacity - 1).long()
+        dispatch = (F.one_hot(pos_cap, capacity).float()
+                    * (onehot * keep)[..., None])              # [B,S,E,C]
+        gate = (probs * onehot).amax(-1)                       # [B,S]
+        combine = dispatch * gate[..., None, None]
+        # Load-balancing aux loss (mean prob x mean assignment per
+        # expert), the means over the whole batch.
+        n_tokens = flat.shape[0] * n_data
+        density = counts / n_tokens
+        density_proxy = (_dist.all_reduce(probs.sum((0, 1)), data_group)
+                         / n_tokens)
+        aux = (density * density_proxy).sum() * (n_experts ** 2)
+        return dispatch, combine, aux
 
 
 def _experts(params, x, dispatch, combine, compute_dtype):
+    """The ranges ``moe.dispatch``, ``moe.experts`` and ``moe.combine``
+    under torch.profiler, each with its operands' casts."""
     cd = compute_dtype
     # Dispatch tokens to expert buffers: [E, C, D].
-    buffers = torch.einsum("bsec,bsd->ecd", dispatch.to(cd), x.to(cd))
-    h = F.gelu(torch.einsum("ecd,edf->ecf", buffers,
-                            params["w_up"].to(cd)), approximate="tanh")
-    out_buf = torch.einsum("ecf,efd->ecd", h, params["w_down"].to(cd))
-    return torch.einsum("bsec,ecd->bsd", combine.to(cd), out_buf)
+    with trace.device_span("moe.dispatch"):
+        buffers = torch.einsum("bsec,bsd->ecd", dispatch.to(cd), x.to(cd))
+    with trace.device_span("moe.experts"):
+        h = F.gelu(torch.einsum("ecd,edf->ecf", buffers,
+                                params["w_up"].to(cd)), approximate="tanh")
+        out_buf = torch.einsum("ecf,efd->ecd", h, params["w_down"].to(cd))
+    with trace.device_span("moe.combine"):
+        return torch.einsum("bsec,ecd->bsd", combine.to(cd), out_buf)
 
 
 def moe_ffn(params: Dict, x: torch.Tensor, *, capacity_factor: float = 1.25,
