@@ -85,6 +85,17 @@ Phases, each printing one JSON line ({"phase": ...}):
                   as the yardstick; times_xl the same at B1 S16384 H16
                   D128 (plain versions at H2), times_fp32 at B1 S8192 H2
                   D128 fp32 against the 3xTF32 product path's peak;
+   moe_kernels  — the MoE FFN's kernels (csrc/moe_route.cu) at the MoE
+                  LM cell's routing shapes (T 8192 tokens, 8 experts
+                  drawn skewed so some overflow, capacity 1280, D 2048
+                  bf16), each call as moe.py makes it, against its plain
+                  version on the same card tensors: moe_route's five
+                  outputs and moe_gather_rows' four uses (dispatch and
+                  combine, forward and backward) bit for bit,
+                  moe_row_dot (the gate's gradient) within
+                  MOE_ROW_DOT_TOL of its largest value; CUDA-event time
+                  of each against its plain version's and its
+                  compulsory bytes over the memory rate;
 7. claim_path   — the device plane through the kubelet plugin: the
                   node's GPUs discovered through NVML (NativeBackend, the
                   host driver's libnvidia-ml.so.1; its count, names and
@@ -279,7 +290,10 @@ Phases, each printing one JSON line ({"phase": ...}):
 11. moe         — tpu_dra_torch.bench.bench_moe: the MoE LM at the
                   flagship's widths (MoEModelConfig's defaults: 8
                   experts, an MoE FFN every second block), step time,
-                  tokens/s, peak memory, launch counts as in main;
+                  tokens/s, peak memory, launch counts as in main, and
+                  the MoE kernels' launches: per MoE block and step
+                  call one moe_route, four moe_gather_rows and one
+                  moe_row_dot;
 12. ring_local  — an N=4 ring emulated in one process at long_ctx_xl's
                   attention shape (B1 S16384 H16 D128 bf16, s_local 4096,
                   rope off) through the ring's own per-step partial and
@@ -293,7 +307,9 @@ Phases, each printing one JSON line ({"phase": ...}):
                   node's GPUs, each starting a world-1 NCCL group: records
                   and launch counts, "train" the flagship as the DP x TP
                   step at a (1, 1) grid (n_layers x steps launches of
-                  each Hopper kernel); psum: bench_psum over the same
+                  each Hopper kernel, none of the MoE kernels), "moe"
+                  the expert-parallel FFN's forward (one moe_route and
+                  two moe_gather_rows per call, no moe_row_dot); psum: bench_psum over the same
                   env (0.0 with its skip_reason on one GPU, the local
                   memory-bandwidth proxy against the card's 3.35 TB/s);
 14. parity      — a reduced TransformerLM on the card, two seeds, the
@@ -308,7 +324,9 @@ kernel and route: rows 1-3 at the main path, rows 4-6, the streaming
 tier, at S=16384, both through the Hopper kernels; then the mma.sync
 route's rows 1-3, flash_fwd and flash_bwd_mma, with parity_fp32's
 launches and times_fp32's times; each route's dq and dkv rows name its
-one fused backward and its time), the nvidia-smi name/power-limit line,
+one fused backward and its time; then one row per MoE kernel, which
+replaces no TPU kernel, with moe's launches and moe_kernels' times,
+summed over one MoE block's launches of the kernel), the nvidia-smi name/power-limit line,
 and last
 {"ok": true,
 "device": {...}}. Any failed check raises, so the script exits non-zero
@@ -378,6 +396,7 @@ SOURCES = {
     "flash_fwd": "tpu_dra_torch/workloads/csrc/flash_fwd.cu",
     "flash_bwd_sm90": "tpu_dra_torch/workloads/csrc/flash_bwd_sm90.cu",
     "flash_bwd_mma": "tpu_dra_torch/workloads/csrc/flash_bwd_mma.cu",
+    "moe_route": "tpu_dra_torch/workloads/csrc/moe_route.cu",
 }
 # Every TPU kernel in the repo, per route: (entry name, timed wrapper,
 # port kernel, replaces). Rows 4-6, the streaming tier, are the same
@@ -407,6 +426,17 @@ TPU_KERNELS = [
     ("flash_bwd_dkv_fp32", "flash_bwd", "flash_bwd_mma",
      "tpu_dra/workloads/flashattention.py:339"),
 ]
+# The MoE LM cell's routing (portbench's moe_lm.s1k_uniform: B8 x S1024
+# tokens, 8 experts, capacity factor 1.25, d_model 2048, bf16), where
+# moe_kernels holds the MoE FFN's kernels against their plain versions.
+MOE_TOKENS, MOE_EXPERTS, MOE_D, MOE_CAPACITY_FACTOR = 8 * 1024, 8, 2048, 1.25
+# moe_row_dot sums D fp32 products in another order than torch.sum.
+MOE_ROW_DOT_TOL = 1e-5
+MOE_REPLACES = ("replaces no TPU kernel (the reference's dense one-hot "
+                "dispatch and combine einsums, tpu_dra/workloads/moe.py)")
+# Launches per MoE block and step call: the route; dispatch and combine,
+# forward and backward; the gate's gradient.
+MOE_BLOCK_LAUNCHES = {"moe_route": 1, "moe_gather_rows": 4, "moe_row_dot": 1}
 # What a bf16 model path at D=128 launches per forward/backward: the
 # Hopper kernels, never the mma.sync ones.
 MODEL_PATH_KERNELS = ("flash_fwd_sm90", "flash_bwd_sm90")
@@ -969,6 +999,118 @@ def time_kernels(label, b, s, h, d, peak_flops, peak_bytes, dtype=None,
          sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd,
          peak_flops=peak_flops, peak_bytes_per_s=peak_bytes, kernels=res)
     return res
+
+
+def phase_moe_kernels(peak_bytes: float) -> dict:
+    """The MoE FFN's kernels at the MoE LM cell's routing shapes, each
+    call as moe.py makes it, against its plain version on the same card
+    tensors (route and gathers bit for bit, row_dot within
+    MOE_ROW_DOT_TOL of its largest value), with CUDA-event times, the
+    plain versions' times and each call's compulsory bytes (every input
+    element the result depends on read once, every output written once)
+    over `peak_bytes`. Returns {kernel: {ms, plain_ms, bound_ms, bytes,
+    max_abs_err}}, summed over one MoE block's launches of the kernel."""
+    import torch
+
+    from tpu_dra_torch.workloads import _moe_kernels as mk
+    from tpu_dra_torch.workloads import moe
+
+    t, n_exp, d = MOE_TOKENS, MOE_EXPERTS, MOE_D
+    cap = moe.capacity_of(MOE_CAPACITY_FACTOR, t, n_exp)
+    n_slots = n_exp * cap
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    # Expert e drawn with weight e + 1: the last experts overflow their
+    # capacity, the first leave slots empty.
+    weights = torch.arange(1, n_exp + 1, dtype=torch.float32, device="cuda")
+    expert = torch.multinomial(weights, t, replacement=True,
+                               generator=gen).int()
+    offset = torch.zeros(n_exp, dtype=torch.int32, device="cuda")
+    got = mk.route(expert, offset, cap, 0, n_exp)
+    want = mk.route_plain(expert, offset, cap, 0, n_exp)
+    for name, a, b in zip(("pos", "slot", "token_of_slot", "counts", "kept"),
+                          got, want):
+        check(torch.equal(a, b), f"moe_route {name} differs from its plain "
+                                 f"version")
+    _, slot, token_of_slot, _, kept = got
+    n_kept = int(kept[0])
+    check(0 < n_kept < min(t, n_slots), f"moe_kernels kept {n_kept} of {t}")
+
+    def randn(rows):
+        return torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
+
+    x, dout, out_buf, dbuf = randn(t), randn(t), randn(n_slots), randn(n_slots)
+    # The gate as _Combine scales by it: rounded to the rows' dtype.
+    scale = torch.rand(t, generator=gen, device="cuda").bfloat16().float()
+    row, idx4 = d * x.element_size(), 4
+    # call: (kernel, plain version, compulsory bytes)
+    calls = {
+        "route": (lambda: mk.route(expert, offset, cap, 0, n_exp),
+                  lambda: mk.route_plain(expert, offset, cap, 0, n_exp),
+                  idx4 * (t + n_exp) + idx4 * (2 * t + n_slots + n_exp + 1)),
+        "dispatch_fwd": (
+            lambda: mk.gather_rows(x, token_of_slot),
+            lambda: mk.gather_rows_plain(x, token_of_slot),
+            (n_kept + n_slots) * row + idx4 * n_slots),
+        "dispatch_bwd": (
+            lambda: mk.gather_rows(dbuf, slot),
+            lambda: mk.gather_rows_plain(dbuf, slot),
+            (n_kept + t) * row + idx4 * t),
+        "combine_fwd": (
+            lambda: mk.gather_rows(out_buf, slot, scale),
+            lambda: mk.gather_rows_plain(out_buf, slot, scale),
+            (n_kept + t) * row + 2 * idx4 * t),
+        "combine_bwd": (
+            lambda: mk.gather_rows(dout, token_of_slot, scale,
+                                   scale_by_src=True),
+            lambda: mk.gather_rows_plain(dout, token_of_slot, scale,
+                                         scale_by_src=True),
+            (n_kept + n_slots) * row + idx4 * (n_slots + n_kept)),
+        "gate_grad": (lambda: mk.row_dot(dout, out_buf, slot),
+                      lambda: mk.row_dot_plain(dout, out_buf, slot),
+                      2 * n_kept * row + 2 * idx4 * t),
+    }
+    kernel_of = {"route": "moe_route", "gate_grad": "moe_row_dot"}
+    res, out = {}, {}
+    for call, (kernel, plain, nbytes) in calls.items():
+        a, b = kernel(), plain()
+        if call == "route":
+            err = 0.0
+        elif call == "gate_grad":
+            err = float((a - b).abs().max())
+            check(err <= MOE_ROW_DOT_TOL * float(b.abs().max()),
+                  f"moe_row_dot off its plain version by {err}")
+        else:
+            check(torch.equal(a, b), f"moe_gather_rows ({call}) differs "
+                                     f"from its plain version")
+            err = 0.0
+        del a, b
+        res[call] = {"ms": time_ms(kernel), "plain_ms": time_ms(plain, 3, 3),
+                     "bytes": nbytes, "bound_ms": nbytes / peak_bytes * 1e3,
+                     "max_abs_err": err}
+        entry = out.setdefault(kernel_of.get(call, "moe_gather_rows"),
+                               dict.fromkeys(res[call], 0.0))
+        for key, value in res[call].items():
+            entry[key] = (max(entry[key], value) if key == "max_abs_err"
+                          else entry[key] + value)
+    emit("moe_kernels", shape=dict(tokens=t, experts=n_exp, capacity=cap,
+                                   d=d, dtype="bfloat16", kept=n_kept),
+         peak_bytes_per_s=peak_bytes, calls=res, kernels=out)
+    del x, dout, out_buf, dbuf
+    _free()
+    return out
+
+
+def moe_kernel_rows(times: dict, launches: dict) -> list:
+    """The kernels line's rows of the MoE kernels: phase_moe_kernels'
+    `times` (summed over one MoE block's launches, `timed_launches`) and
+    phase_moe's `launches`."""
+    return [{"name": name, "route": "cuda", "source": SOURCES["moe_route"],
+             "replaces": MOE_REPLACES, "launches": launches[name],
+             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+             "bound_by": "bytes", "library_ms": None,
+             "timed_launches": MOE_BLOCK_LAUNCHES[name]}
+            for name, t in times.items()]
 
 
 def phase_times(peak_flops: float, peak_bytes: float) -> dict:
@@ -2540,16 +2682,24 @@ def phase_remat(xl_none: dict) -> dict:
 def phase_moe() -> dict:
     """bench.bench_moe: the MoE LM at the flagship's widths on the card,
     launch counts zeroed just before and read just after (every block's
-    attention through the Hopper kernels)."""
+    attention through the Hopper kernels; every MoE block's route,
+    dispatch and combine through the MoE kernels, MOE_BLOCK_LAUNCHES per
+    step call)."""
     from tpu_dra_torch import bench
     from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _moe_kernels as mk
 
     fk.reset_launches()
+    mk.reset_launches()
     res = bench.bench_moe(steps=3)
     _free()
     counts = check_path_launches("moe", res["n_layers"] * res["step_calls"])
-    emit("moe", kernel_launches=counts, **res)
-    return res
+    moe_counts = mk.launches()
+    per_block = res["moe_blocks"] * res["step_calls"]
+    want = {name: n * per_block for name, n in MOE_BLOCK_LAUNCHES.items()}
+    check(moe_counts == want, f"moe kernel launches {moe_counts}, want {want}")
+    emit("moe", kernel_launches=counts, moe_kernel_launches=moe_counts, **res)
+    return {**res, "moe_kernel_launches": moe_counts}
 
 
 def phase_ring_local() -> dict:
@@ -2637,6 +2787,7 @@ def phase_mesh_workloads() -> dict:
     from tpu_dra_torch.native import gpuinfo
     from tpu_dra_torch.topology.meshexport import plan_from_env
     from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _moe_kernels as mk
     from tpu_dra_torch.workloads import meshbuild
 
     backend = gpuinfo.NativeBackend()
@@ -2651,11 +2802,13 @@ def phase_mesh_workloads() -> dict:
             {}, {"steps": MESH_TRAIN_STEPS, "warm_steps": 1,
                  "barrier": fk.reset_launches}):
         fk.reset_launches()
+        mk.reset_launches()
         rec = meshbuild.launch_workload(name, plan, devices, **kw)
         _free()
         rec = {k: v for k, v in rec.items() if k != "window"}
         rec["launches"] = fk.launches()
         rec["kernel_launches"] = fk.kernel_launches()
+        rec["moe_kernel_launches"] = mk.launches()
         emit("mesh_workload", name=name, plan_devices=plan.n_devices, **rec)
         records[name] = rec
     train = records["train"]
@@ -2668,6 +2821,16 @@ def phase_mesh_workloads() -> dict:
     for name in ("ringattention", "ulysses", "sp_train"):
         check(sum(records[name]["kernel_launches"].values()) > 0,
               f"{name} launched no kernel on the card")
+    check(not any(train["moe_kernel_launches"].values()),
+          f"the flagship train launched {train['moe_kernel_launches']}")
+    # The expert-parallel FFN's forward: per call the route, the dispatch
+    # and the combine.
+    ep = records["moe"]["moe_kernel_launches"]
+    check(ep["moe_route"] > 0
+          and ep == {"moe_route": ep["moe_route"],
+                     "moe_gather_rows": 2 * ep["moe_route"],
+                     "moe_row_dot": 0},
+          f"mesh moe launched {ep}")
     # sp_train's fp32 D16 model: its backward is the mma.sync route's.
     sp = records["sp_train"]["kernel_launches"]
     check(sp["flash_bwd_mma"] > 0 and sp["flash_bwd_sm90"] == 0,
@@ -2835,6 +2998,7 @@ def main() -> int:
     times_xl = phase_times_xl(peak_bf16, peak_bytes)
     times_fp32 = phase_times_fp32(
         gpuinfo.PEAK_TF32_TFLOPS[H100_SXM] * 1e12 / 3, peak_bytes)
+    moe_times = phase_moe_kernels(peak_bytes)
     _free()
     claim = phase_claim_path()
     phase_compute_domain()
@@ -2850,7 +3014,7 @@ def main() -> int:
     _free()
     counts_xl, xl_none = phase_long_context()
     phase_remat(xl_none)
-    phase_moe()
+    moe_res = phase_moe()
     phase_ring_local()
     phase_mesh_workloads()
     phase_model_parity()
@@ -2877,6 +3041,7 @@ def main() -> int:
             "max_abs_err": err[base], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    kernels += moe_kernel_rows(moe_times, moe_res["moe_kernel_launches"])
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(info["nvidia_smi"] or f"{info['name']}, power limit not reported")

@@ -96,7 +96,10 @@ class TestEntrySignature:
         assert args[-2] is fk._INT   # element bytes
 
     def test_every_source_has_argtypes(self):
-        assert {p.stem for p in fk.CSRC.glob("*.cu")} == set(fk.ARGTYPES)
+        from tpu_dra_torch.workloads import _moe_kernels  # noqa: F401
+
+        assert {p.stem for p in fk.CSRC.glob("*.cu")} == set(fk.ENTRY_POINTS)
+        assert set(fk.ARGTYPES) <= set(fk.ENTRY_POINTS)
 
 
 class TestRopeTableHalves:

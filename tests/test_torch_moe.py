@@ -71,6 +71,18 @@ def _port(tree):
     return {k: torch.from_numpy(np.array(v)) for k, v in tree.items()}
 
 
+def _dense_masks(route, n_experts, capacity):
+    """The slot form (slot, gate) as the reference's dense dispatch and
+    combine [B,S,E,C]: 1 (or the gate) at (b, s, e, c) iff the token holds
+    slot e·C + c."""
+    slot = route.slot.long()
+    dispatch = torch.zeros(*slot.shape, n_experts * capacity + 1)
+    dispatch.scatter_(-1, torch.where(slot < 0, n_experts * capacity,
+                                      slot)[..., None], 1.0)
+    dispatch = dispatch[..., :-1].reshape(*slot.shape, n_experts, capacity)
+    return dispatch, dispatch * route.gate[..., None, None]
+
+
 @pytest.mark.parametrize("factor", [1.25, 0.5], ids=["cap1.25", "cap0.5"])
 def test_route_top1_matches_reference(factor):
     """Dispatch and combine exact, aux within TOL; at capacity factor 0.5
@@ -83,13 +95,85 @@ def test_route_top1_matches_reference(factor):
     cap = max(1, int(factor * 2 * 16 / 4))
     want = jmoe.route_top1(jnp.asarray(x), jnp.asarray(tree["router"]), 4,
                            cap)
-    got = tmoe.route_top1(torch.from_numpy(x),
-                          torch.from_numpy(tree["router"]), 4, cap)
+    route = tmoe.route_top1(torch.from_numpy(x),
+                            torch.from_numpy(tree["router"]), 4, cap)
+    got = (*_dense_masks(route, 4, cap), route.aux)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
     assert _rel(got[1].numpy(), want[1]) <= TOL
     assert _rel(got[2].numpy(), want[2]) <= TOL
     if factor < 1:
         assert got[0].sum() < 2 * 16   # some tokens dropped
+    # Each slot holds the token that holds it.
+    tos = route.token_of_slot.long()
+    filled = tos >= 0
+    assert int(filled.sum()) == int((route.slot >= 0).sum())
+    assert torch.equal(route.slot.reshape(-1)[tos[filled]].long(),
+                       torch.arange(4 * cap)[filled])
+
+
+def _dense_moe_ffn(params, x, capacity_factor, compute_dtype):
+    """The MoE FFN as the reference writes it: dense one-hot [B,S,E,C]
+    dispatch and combine masks and their einsums."""
+    import torch.nn.functional as F
+
+    n_experts = params["router"].shape[-1]
+    b, s, _ = x.shape
+    capacity = tmoe.capacity_of(capacity_factor, b * s, n_experts)
+    probs = torch.softmax(x.float() @ params["router"].float(), dim=-1)
+    onehot = F.one_hot(probs.argmax(-1), n_experts).float()
+    flat = onehot.reshape(-1, n_experts)
+    pos = (torch.cumsum(flat, dim=0) * flat - 1.0).reshape(onehot.shape)
+    keep = (pos >= 0) & (pos < capacity)
+    dispatch = (F.one_hot(pos.clamp(0, capacity - 1).long(), capacity)
+                .float() * (onehot * keep)[..., None])
+    combine = dispatch * (probs * onehot).amax(-1)[..., None, None]
+    density = flat.sum(0) / flat.shape[0]
+    density_proxy = probs.sum((0, 1)) / flat.shape[0]
+    aux = (density * density_proxy).sum() * n_experts ** 2
+    cd = compute_dtype
+    buffers = torch.einsum("bsec,bsd->ecd", dispatch.to(cd), x.to(cd))
+    h = F.gelu(torch.einsum("ecd,edf->ecf", buffers, params["w_up"].to(cd)),
+               approximate="tanh")
+    out_buf = torch.einsum("ecf,efd->ecd", h, params["w_down"].to(cd))
+    out = torch.einsum("bsec,ecd->bsd", combine.to(cd), out_buf)
+    return out.to(x.dtype), aux
+
+
+# The dense form rounds the gate's gradient through a [B,S,E,C] GEMM
+# output in the compute dtype; the slot form keeps it in fp32. In bf16
+# that is up to 2^-9 of each token's gate gradient, so x's and the
+# router's gradients agree to two bf16 units (2^-7); everything else
+# agrees exactly.
+GRAD_TOL = {torch.float32: TOL, torch.bfloat16: 2.0 ** -7}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("factor", [1.25, 0.5], ids=["cap1.25", "cap0.5"])
+def test_slot_form_matches_the_dense_masks(factor, dtype):
+    """moe_ffn by slot index against the dense one-hot formula: the
+    forward and the aux bit for bit, w_up's and w_down's gradients bit
+    for bit, x's and the router's within GRAD_TOL."""
+    tree, x = _ref_moe(4)
+    results = []
+    for fn in (tmoe.moe_ffn, _dense_moe_ffn):
+        params = {k: v.clone().requires_grad_()
+                  for k, v in _port(tree).items()}
+        xt = torch.from_numpy(x).requires_grad_()
+        out, aux = fn(params, xt, capacity_factor=factor,
+                      compute_dtype=dtype)
+        grads = torch.autograd.grad(out.square().sum() + aux,
+                                    [xt, params["router"], params["w_up"],
+                                     params["w_down"]])
+        results.append((out.detach(), aux.detach(), grads))
+    (out, aux, grads), (want_out, want_aux, want_grads) = results
+    assert torch.equal(out, want_out)
+    assert torch.equal(aux, want_aux)
+    dx, drouter, dw_up, dw_down = grads
+    assert torch.equal(dw_up, want_grads[2])
+    assert torch.equal(dw_down, want_grads[3])
+    assert _rel(dx.numpy(), want_grads[0].numpy()) <= GRAD_TOL[dtype]
+    assert _rel(drouter.numpy(), want_grads[1].numpy()) <= GRAD_TOL[dtype]
 
 
 def test_moe_ffn_matches_reference():

@@ -704,6 +704,8 @@ def install_signal_handler(signum: int = signal.SIGUSR1) -> bool:
 
 # Every range the port opens inside its train step. A device operation
 # belongs to the innermost range open when the host launched it.
+# moe.dispatch and moe.combine open again in their autograd Functions'
+# backward, inside step.backward.
 DEVICE_SPANS = (
     "step",            # model.build_train_step's step; arg: its count
     "step.forward",    # loss(model, tokens): embedding, blocks, head, loss
@@ -712,9 +714,9 @@ DEVICE_SPANS = (
     "attention.fwd",   # flashattention.attend, every impl
     "attention.bwd",   # _FlashAttention.backward
     "moe.route",       # moe.route_top1
-    "moe.dispatch",    # moe._experts: the [B,S,E,C] dispatch einsum
+    "moe.dispatch",    # moe._experts: tokens gathered into their slots
     "moe.experts",     # moe._experts: up-proj, gelu, down-proj
-    "moe.combine",     # moe._experts: the [B,S,E,C] combine einsum
+    "moe.combine",     # moe._experts: slots gathered back, gate-scaled
 )
 
 # Every counter: tokens kept within capacity (a device tensor), expert

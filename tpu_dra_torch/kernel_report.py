@@ -162,10 +162,14 @@ def main() -> int:
         raise RuntimeError("nvcc not found")
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
     libs = fk.build()
+    # The libraries of the kernels the timed wrappers route to; in trees
+    # without routes every library is a flash kernel's.
+    timed = ({*getattr(fk, "FWD_KERNELS", {}).values(),
+              *getattr(fk, "BWD_KERNELS", {}).values()} or set(libs))
     report = {
         "label": opts.label or str(root), "card": gpuinfo.nvidia_smi(),
         "resources": {name: resources(lib, cuobjdump)
-                      for name, lib in sorted(libs.items())},
+                      for name, lib in sorted(libs.items()) if name in timed},
         "ms": {}, "device_ms": {},
     }
     for name, (b, s, h, d, dtype, inner) in SHAPES.items():

@@ -33,6 +33,9 @@ library with a plain C interface under ``build/tpu_dra_torch/`` at the
 repository root (listed in .gitignore), at first use. File names carry a
 hash of the sources and flags, so an edit rebuilds. The libraries are
 loaded with ``ctypes``; every pointer and the stream are ``c_void_p``.
+The same build serves every other source under ``csrc/``: its wrapper
+module declares the source's C entry points with ``register`` (the MoE
+FFN's routing kernels, csrc/moe_route.cu, from _moe_kernels.py).
 
 Each wrapper (``fwd``, ``bwd``) takes [B, S, H, D] tensors. For CPU
 tensors it runs its plain PyTorch version beside it in this module
@@ -94,8 +97,18 @@ ARGTYPES = {
     "flash_bwd_sm90": [_PTR] * 13 + _SHAPE + [_PTR],
     "flash_bwd_mma": [_PTR] * 13 + _SHAPE + [_PTR],
 }
+# {source stem: {C entry point: argtypes}} of every source the libraries
+# are loaded for: each flash source's one entry, named after it, and
+# what register() adds.
+ENTRY_POINTS = {stem: {stem: args} for stem, args in ARGTYPES.items()}
 
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+def register(source: str, entries: dict[str, list]) -> None:
+    """Declare the C entry points of csrc/<source>.cu and their argtypes:
+    the same build compiles the source, and _call launches its entries."""
+    ENTRY_POINTS[source] = dict(entries)
 
 
 def _digest() -> str:
@@ -142,14 +155,19 @@ def build() -> dict[str, Path]:
 
 
 def _lib(name: str) -> ctypes.CDLL:
+    """The library that holds C entry point `name`: every library built,
+    and each declared source's loaded, at the first call that needs it."""
     if name not in _loaded:
         libs = build()
-        for stem, path in libs.items():
-            lib = ctypes.CDLL(str(path))
-            fn = getattr(lib, stem)
-            fn.argtypes = ARGTYPES[stem]
-            fn.restype = ctypes.c_int
-            _loaded[stem] = lib
+        for stem, entries in ENTRY_POINTS.items():
+            if entries.keys() & _loaded.keys():
+                continue
+            lib = ctypes.CDLL(str(libs[stem]))
+            for entry, argtypes in entries.items():
+                fn = getattr(lib, entry)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                _loaded[entry] = lib
     return _loaded[name]
 
 

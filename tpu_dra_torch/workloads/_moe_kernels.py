@@ -1,0 +1,209 @@
+"""Launch the MoE FFN's routing and row-copy kernels (csrc/moe_route.cu).
+
+Three wrappers, one per C entry point, each with its plain PyTorch
+version beside it:
+
+- ``route`` (``moe_route``): each token's position within its expert in
+  token order, continued from ``offset`` (the lower data ranks' counts),
+  its slot (e - lo) * C + c in this rank's expert buffer where expert e
+  lies in [lo, hi) and c < C (else -1), the token of each slot (-1 where
+  empty), the tokens routed to each expert and the tokens kept within
+  capacity by any expert. One CTA scans the tokens.
+- ``gather_rows`` (``moe_gather_rows``): dst[i] = scale * src[idx[i]], or
+  zeros where idx[i] < 0; scale is scale[i], scale[idx[i]] with
+  ``scale_by_src``, or none (a copy). The product is taken in fp32 and
+  rounded once to the rows' dtype.
+- ``row_dot`` (``moe_row_dot``): out[t] = sum_d a[t, d] * b[idx[t], d] in
+  fp32, or 0 where idx[t] < 0.
+
+The source's header says what bounds the kernels on the H100 and what
+their design does about it; they replace no TPU kernel (the reference's
+dense one-hot einsums). The kernels are built and loaded by
+_flash_kernels, with the flash kernels: this module registers the
+source's entry points there. For CPU tensors each
+wrapper runs its plain version; for CUDA tensors it launches its kernel
+on the current stream, adds one to its ``launches`` count and raises if
+the launch fails. There is no other path.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from tpu_dra_torch.workloads import _flash_kernels as fk
+
+# What the row kernels take, and the element size each is told. Rows are
+# moved in 16-byte vectors, so D must be a multiple of ROW_MULTIPLE.
+ROW_DTYPES = {torch.bfloat16: 2, torch.float32: 4}
+ROW_MULTIPLE = 8
+
+_PTR, _INT = fk._PTR, fk._INT
+# The C entry points of csrc/moe_route.cu; each takes the stream last.
+ARGTYPES = {
+    # expert, offset, pos, slot, token_of_slot, counts, kept; T, E, C,
+    # the rank's experts [e_lo, e_hi).
+    "moe_route": [_PTR] * 7 + [_INT] * 5 + [_PTR],
+    # src, idx, scale, dst; rows, D, scale_by_src, element bytes.
+    "moe_gather_rows": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    # a, b, idx, out; rows, D, element bytes.
+    "moe_row_dot": [_PTR] * 4 + [_INT] * 3 + [_PTR],
+}
+fk.register("moe_route", ARGTYPES)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def route_plain(expert, offset, capacity: int, lo: int, hi: int):
+    """route's function: a cumsum of the one-hot along its inner (token)
+    dimension."""
+    n_experts = offset.numel()
+    e = expert.long()
+    onehot = F.one_hot(e, n_experts).T                      # [E, T]
+    cum = onehot.cumsum(1)
+    pos = cum.gather(0, e[None])[0] - 1 + offset.long()[e]
+    kept = (e >= lo) & (e < hi) & (pos < capacity)
+    slot = torch.where(kept, (e - lo) * capacity + pos, -1)
+    n_slots = (hi - lo) * capacity
+    # Every token not kept writes the one spare entry past the slots.
+    token_of_slot = torch.full((n_slots + 1,), -1, dtype=torch.long,
+                               device=e.device)
+    token_of_slot.scatter_(0, torch.where(kept, slot, n_slots),
+                           torch.arange(e.numel(), device=e.device))
+    return (pos.int(), slot.int(), token_of_slot[:n_slots].int(),
+            onehot.sum(1).int(), (pos < capacity).sum().int().reshape(1))
+
+
+def _padded_index(idx, n_rows):
+    """idx with every negative entry pointing at row n_rows."""
+    return torch.where(idx < 0, n_rows, idx).long()
+
+
+def gather_rows_plain(src, idx, scale=None, scale_by_src: bool = False):
+    """gather_rows' function: index_select on src with a zero row after
+    it."""
+    at = _padded_index(idx, src.shape[0])
+    rows = torch.cat([src, src.new_zeros(1, src.shape[1])]).index_select(0, at)
+    if scale is None:
+        return rows
+    if scale_by_src:
+        scale = torch.cat([scale, scale.new_zeros(1)]).index_select(0, at)
+    return (rows.float() * scale.float()[:, None]).to(src.dtype)
+
+
+def row_dot_plain(a, b, idx):
+    """row_dot's function, summed by torch.sum in fp32."""
+    return (a.float() * gather_rows_plain(b, idx).float()).sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers
+# ---------------------------------------------------------------------------
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """x [N, D] as the row kernels take it: bf16 or fp32, D a multiple of
+    ROW_MULTIPLE, rows contiguous from a 16-byte boundary."""
+    if x.dtype not in ROW_DTYPES:
+        raise TypeError(f"MoE row kernels take bfloat16 or float32, got "
+                        f"{x.dtype}")
+    if x.dim() != 2 or x.shape[1] % ROW_MULTIPLE:
+        raise ValueError(f"rows must be [N, D] with D a multiple of "
+                         f"{ROW_MULTIPLE}, got {tuple(x.shape)}")
+    if not (x.is_contiguous() and x.data_ptr() % 16 == 0):
+        x = x.contiguous()
+    return x
+
+
+def _index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    if idx.shape != (n,):
+        raise ValueError(f"index of shape {tuple(idx.shape)} for {n} rows")
+    return idx.to(torch.int32).contiguous()
+
+
+def route(expert, offset, capacity: int, lo: int, hi: int):
+    """(pos [T], slot [T], token_of_slot [(hi - lo) * capacity], counts
+    [E], kept [1]), int32, of expert [T] (each token's expert in token
+    order) and offset [E] (positions to continue from)."""
+    if not 0 <= lo < hi <= offset.numel():
+        raise ValueError(f"experts [{lo}, {hi}) outside [0, {offset.numel()})")
+    if fk._device_of(expert) == "cpu":
+        return route_plain(expert, offset, capacity, lo, hi)
+    expert = expert.to(torch.int32).contiguous()
+    offset = offset.to(torch.int32).contiguous()
+    t, n_experts = expert.numel(), offset.numel()
+    pos, slot = (torch.empty(t, dtype=torch.int32, device=expert.device)
+                 for _ in range(2))
+    token_of_slot = torch.empty((hi - lo) * capacity, dtype=torch.int32,
+                                device=expert.device)
+    counts = torch.empty(n_experts, dtype=torch.int32, device=expert.device)
+    kept = torch.empty(1, dtype=torch.int32, device=expert.device)
+    with torch.cuda.device(expert.device):
+        fk._call("moe_route", expert.data_ptr(), offset.data_ptr(),
+                 pos.data_ptr(), slot.data_ptr(), token_of_slot.data_ptr(),
+                 counts.data_ptr(), kept.data_ptr(), t, n_experts, capacity,
+                 lo, hi, fk._stream(expert))
+    route.launches += 1
+    return pos, slot, token_of_slot, counts, kept
+
+
+def gather_rows(src, idx, scale=None, scale_by_src: bool = False):
+    """dst [len(idx), D] of src [N, D]: row i is scale * src[idx[i]], or
+    zeros where idx[i] < 0. scale (fp32) is indexed by i, or by idx[i]
+    with scale_by_src; None copies the rows as they are."""
+    if fk._device_of(src) == "cpu":
+        return gather_rows_plain(src, idx, scale, scale_by_src)
+    src = _rows(src)
+    n = idx.numel()
+    idx = _index(idx, n)
+    if scale is not None:
+        scale = scale.float().contiguous()
+        want = src.shape[0] if scale_by_src else n
+        if scale.shape != (want,):
+            raise ValueError(f"scale of shape {tuple(scale.shape)}, want "
+                             f"({want},)")
+    dst = torch.empty((n, src.shape[1]), dtype=src.dtype, device=src.device)
+    with torch.cuda.device(src.device):
+        fk._call("moe_gather_rows", src.data_ptr(), idx.data_ptr(),
+                 None if scale is None else scale.data_ptr(), dst.data_ptr(),
+                 n, src.shape[1], int(scale_by_src), ROW_DTYPES[src.dtype],
+                 fk._stream(src))
+    gather_rows.launches += 1
+    return dst
+
+
+def row_dot(a, b, idx):
+    """out [T] fp32 of a [T, D] and b [N, D]: sum_d a[t, d] * b[idx[t], d],
+    or 0 where idx[t] < 0."""
+    if fk._device_of(a) == "cpu":
+        return row_dot_plain(a, b, idx)
+    a, b = _rows(a), _rows(b)
+    if a.dtype != b.dtype or a.shape[1] != b.shape[1]:
+        raise ValueError(f"rows differ: {a.dtype} {tuple(a.shape)}, "
+                         f"{b.dtype} {tuple(b.shape)}")
+    idx = _index(idx, a.shape[0])
+    out = torch.empty(a.shape[0], dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        fk._call("moe_row_dot", a.data_ptr(), b.data_ptr(), idx.data_ptr(),
+                 out.data_ptr(), a.shape[0], a.shape[1], ROW_DTYPES[a.dtype],
+                 fk._stream(a))
+    row_dot.launches += 1
+    return out
+
+
+WRAPPERS = {"moe_route": route, "moe_gather_rows": gather_rows,
+            "moe_row_dot": row_dot}
+
+
+def reset_launches() -> None:
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def launches() -> dict[str, int]:
+    """Launches of each kernel since the last reset_launches()."""
+    return {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
+
+
+reset_launches()

@@ -1,14 +1,21 @@
 """Expert-parallel MoE feed-forward (counterpart of
 tpu_dra/workloads/moe.py).
 
-Top-1 token-choice routing (Switch style) with dense one-hot dispatch and
-combine tensors, as the reference computes it: routing in fp32, each
-token's position within its expert's capacity in (b, s) order (a cumsum
-over the flattened batch), overflow dropped, and a load-balancing aux
-loss. Expert parallelism shards the experts' leading dim over an axis:
-each rank holds its local experts and the FULL (replicated) activations,
-computes its experts' slice of the dense dispatch, and one all-reduce
-combines (the dispatch masks zero every foreign expert's term).
+Top-1 token-choice routing (Switch style), as the reference computes it:
+routing in fp32, each token's position within its expert's capacity in
+(b, s) order, overflow dropped, and a load-balancing aux loss. Where the
+reference builds dense one-hot [B,S,E,C] dispatch and combine tensors
+(static shapes under jit), the port routes by slot index: each kept token
+gets the slot e·C + c of an [E·C, D] expert buffer and each slot its
+token, so dispatch and combine, and their backward, are row gathers of a
+fixed shape (_moe_kernels: hand-written CUDA kernels on the card, their
+plain versions on the CPU). The values are the dense einsums', whose one
+non-zero term per output is rounded once.
+
+Expert parallelism shards the experts' leading dim over an axis: each
+rank holds its local experts and the FULL (replicated) activations,
+routes over all experts, fills only its experts' slots (a foreign
+token's combine row is zero) and one all-reduce combines.
 
 Under data parallelism (the MoE LM's 'data' axis) routing stays global,
 as the reference's step computes it over the global batch: the capacity
@@ -20,7 +27,7 @@ means are over the global batch.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -28,6 +35,7 @@ import torch.nn.functional as F
 
 from tpu_dra_torch.infra import trace
 from tpu_dra_torch.workloads import _dist
+from tpu_dra_torch.workloads import _moe_kernels as mk
 
 
 def init_moe_params(generator: torch.Generator, d_model: int, d_ff: int,
@@ -55,68 +63,129 @@ def capacity_of(capacity_factor: float, tokens: int, n_experts: int) -> int:
     return max(1, int(capacity_factor * tokens / n_experts))
 
 
-def route_top1(x: torch.Tensor, router_w: torch.Tensor, n_experts: int,
-               capacity: int, data_group=None):
-    """(dispatch [B,S,E,C], combine [B,S,E,C], aux_loss) for x [B,S,D].
+class Route(NamedTuple):
+    """route_top1's result for x [B,S,D] over this rank's experts."""
+    slot: torch.Tensor            # [B,S] int32: (e - lo)·C + c, or -1
+    token_of_slot: torch.Tensor   # [E_local·C] int32: b·S + s, or -1
+    gate: torch.Tensor            # [B,S] fp32: the routed expert's prob
+    aux: torch.Tensor             # the load-balancing loss
 
-    Position c of expert e holds token (b, s) iff the token routed to e
-    within capacity. Router math in fp32. With `data_group`, x is this
-    rank's block of a batch split over that group in rank order, and the
-    positions and the aux loss are those of the whole batch.
+
+def route_top1(x: torch.Tensor, router_w: torch.Tensor, n_experts: int,
+               capacity: int, data_group=None,
+               experts: Optional[range] = None) -> Route:
+    """Route x [B,S,D] to its top-1 experts by slot index.
+
+    Token (b, s) routed to expert e at position c < `capacity` within it
+    holds slot (e - lo)·C + c of this rank's buffer when e is one of
+    `experts` (range(lo, hi); all by default), else its slot is -1, as
+    is a dropped token's. Router math in fp32. With `data_group`, x is
+    this rank's block of a batch split over that group in rank order,
+    and the positions and the aux loss are those of the whole batch.
 
     Under torch.profiler the call is the range ``moe.route`` and counts
-    ``moe.kept`` (this rank's tokens kept within capacity),
-    ``moe.slots`` (E x C) and ``moe.routed`` (this rank's B x S)."""
+    ``moe.kept`` (this rank's tokens kept within capacity, by any
+    expert), ``moe.slots`` (E x C) and ``moe.routed`` (this rank's
+    B x S)."""
+    experts = experts or range(n_experts)
     with trace.device_span("moe.route"):
         logits = x.float() @ router_w.float()                  # [B,S,E]
         probs = torch.softmax(logits, dim=-1)
         expert = probs.argmax(-1)     # the first maximum, as jnp.argmax
-        onehot = F.one_hot(expert, n_experts).float()
-        flat = onehot.reshape(-1, n_experts)
-        counts = flat.sum(0)
-        offset = torch.zeros_like(counts)
+        gate = probs.gather(-1, expert[..., None])[..., 0]     # [B,S]
+        flat = expert.reshape(-1).int()
+        offset = torch.zeros(n_experts, dtype=torch.int32, device=x.device)
+        counts = None
         n_data = _dist.group_size(data_group)
         if n_data > 1:
-            every = [torch.empty_like(counts) for _ in range(n_data)]
-            dist.all_gather(every, counts, group=data_group)
+            local = offset.index_add(0, flat, torch.ones_like(flat))
+            every = [torch.empty_like(local) for _ in range(n_data)]
+            dist.all_gather(every, local, group=data_group)
             offset = sum(every[:_dist.group_rank(data_group)], offset)
             counts = sum(every[1:], every[0])
         # Position within the expert's capacity, in (b, s) order.
-        pos = (torch.cumsum(flat, dim=0) + offset) * flat - 1.0
-        pos = pos.reshape(onehot.shape)                        # [B,S,E]
-        keep = (pos >= 0) & (pos < capacity)
+        _, slot, token_of_slot, routed, kept = mk.route(
+            flat, offset, capacity, experts.start, experts.stop)
+        counts = routed if counts is None else counts
         if trace.recording():
-            trace.count("moe.kept", keep.sum())
+            trace.count("moe.kept", kept[0])
             trace.count("moe.slots", n_experts * capacity)
-            trace.count("moe.routed", flat.shape[0])
-        pos_cap = pos.clamp(0, capacity - 1).long()
-        dispatch = (F.one_hot(pos_cap, capacity).float()
-                    * (onehot * keep)[..., None])              # [B,S,E,C]
-        gate = (probs * onehot).amax(-1)                       # [B,S]
-        combine = dispatch * gate[..., None, None]
+            trace.count("moe.routed", flat.numel())
         # Load-balancing aux loss (mean prob x mean assignment per
         # expert), the means over the whole batch.
-        n_tokens = flat.shape[0] * n_data
-        density = counts / n_tokens
+        n_tokens = flat.numel() * n_data
+        density = counts.float() / n_tokens
         density_proxy = (_dist.all_reduce(probs.sum((0, 1)), data_group)
                          / n_tokens)
         aux = (density * density_proxy).sum() * (n_experts ** 2)
-        return dispatch, combine, aux
+        return Route(slot.view(expert.shape), token_of_slot, gate, aux)
 
 
-def _experts(params, x, dispatch, combine, compute_dtype):
+class _Dispatch(torch.autograd.Function):
+    """buf [E_local·C, D] of x [T, D]: slot s holds x[token_of_slot[s]]
+    (zeros where empty); dx[t] = dbuf[slot[t]] (zeros where dropped)."""
+
+    @staticmethod
+    def forward(ctx, x, slot, token_of_slot):
+        ctx.save_for_backward(slot)
+        return mk.gather_rows(x, token_of_slot)
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        with trace.device_span("moe.dispatch"):
+            slot, = ctx.saved_tensors
+            return mk.gather_rows(dbuf, slot), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """out [T, D] of out_buf [E_local·C, D] and gate [T] fp32:
+    out[t] = gate[t] · out_buf[slot[t]] (zeros where slot[t] < 0), the
+    gate in out_buf's dtype and the product in fp32, rounded once.
+    d(out_buf)[s] = gate[tok] · dout[tok] (tok = token_of_slot[s]) and
+    dgate[t] = dout[t] · out_buf[slot[t]] in fp32."""
+
+    @staticmethod
+    def forward(ctx, out_buf, gate, slot, token_of_slot):
+        scale = gate.to(out_buf.dtype).float()
+        ctx.save_for_backward(out_buf, scale, slot, token_of_slot)
+        return mk.gather_rows(out_buf, slot, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        with trace.device_span("moe.combine"):
+            out_buf, scale, slot, token_of_slot = ctx.saved_tensors
+            dout = dout.to(out_buf.dtype)
+            d_buf = d_gate = None
+            if ctx.needs_input_grad[0]:
+                d_buf = mk.gather_rows(dout, token_of_slot, scale,
+                                       scale_by_src=True)
+            if ctx.needs_input_grad[1]:
+                d_gate = mk.row_dot(dout, out_buf, slot)
+            return d_buf, d_gate, None, None
+
+
+def _experts(params, x, slot, token_of_slot, gate, compute_dtype):
     """The ranges ``moe.dispatch``, ``moe.experts`` and ``moe.combine``
-    under torch.profiler, each with its operands' casts."""
+    under torch.profiler (dispatch and combine also in their backward),
+    each with its operands' casts. x [B,S,D] -> [B,S,D] in
+    `compute_dtype`; this rank's experts fill the slots of `slot` and
+    `token_of_slot`."""
     cd = compute_dtype
+    b, s, d = x.shape
+    n_local = params["w_up"].shape[0]
     # Dispatch tokens to expert buffers: [E, C, D].
     with trace.device_span("moe.dispatch"):
-        buffers = torch.einsum("bsec,bsd->ecd", dispatch.to(cd), x.to(cd))
+        buffers = _Dispatch.apply(x.to(cd).reshape(b * s, d),
+                                  slot.reshape(-1), token_of_slot)
+        buffers = buffers.view(n_local, -1, d)
     with trace.device_span("moe.experts"):
         h = F.gelu(torch.einsum("ecd,edf->ecf", buffers,
                                 params["w_up"].to(cd)), approximate="tanh")
         out_buf = torch.einsum("ecf,efd->ecd", h, params["w_down"].to(cd))
     with trace.device_span("moe.combine"):
-        return torch.einsum("bsec,ecd->bsd", combine.to(cd), out_buf)
+        out = _Combine.apply(out_buf.reshape(-1, d), gate.reshape(-1),
+                             slot.reshape(-1), token_of_slot)
+        return out.view(b, s, d)
 
 
 def moe_ffn(params: Dict, x: torch.Tensor, *, capacity_factor: float = 1.25,
@@ -127,10 +196,10 @@ def moe_ffn(params: Dict, x: torch.Tensor, *, capacity_factor: float = 1.25,
     n_experts = params["router"].shape[-1]
     b, s, _ = x.shape
     capacity = capacity_of(capacity_factor, b * s, n_experts)
-    dispatch, combine, aux = route_top1(x, params["router"], n_experts,
-                                        capacity)
-    out = _experts(params, x, dispatch, combine, compute_dtype)
-    return out.to(x.dtype), aux
+    route = route_top1(x, params["router"], n_experts, capacity)
+    out = _experts(params, x, route.slot, route.token_of_slot, route.gate,
+                   compute_dtype)
+    return out.to(x.dtype), route.aux
 
 
 def expert_parallel_ffn(params: Dict, x: torch.Tensor, *, group,
@@ -138,24 +207,23 @@ def expert_parallel_ffn(params: Dict, x: torch.Tensor, *, group,
                         compute_dtype=torch.float32, data_group=None):
     """This rank's body: `params` holds its local experts (w_up, w_down
     [E/N, ...]) and the full router; x [B,S,D] is the same on every rank
-    of `group`. Routes over all experts, computes the local experts'
-    slice of the dense dispatch and combines with one all-reduce.
-    Differentiable: routing runs outside the parallel region, so the
-    router and x get the same gradient on every rank."""
+    of `group`. Routes over all experts, fills its local experts' slots
+    and combines with one all-reduce. Differentiable: routing runs
+    outside the parallel region, so the router and x get the same
+    gradient on every rank."""
     n_local = params["w_up"].shape[0]
     n_experts = n_local * _dist.group_size(group)
     b, s, _ = x.shape
     capacity = capacity_of(capacity_factor,
                            b * s * _dist.group_size(data_group), n_experts)
-    dispatch, combine, aux = route_top1(x, params["router"], n_experts,
-                                        capacity, data_group)
-    # Slice MY experts out of the dense dispatch/combine tensors.
-    mine = slice(_dist.group_rank(group) * n_local,
-                 (_dist.group_rank(group) + 1) * n_local)
+    first = _dist.group_rank(group) * n_local
+    route = route_top1(x, params["router"], n_experts, capacity, data_group,
+                       experts=range(first, first + n_local))
     x_in = _dist.copy_to(x, group)
-    cb = _dist.copy_to(combine, group)[:, :, mine]
-    out = _experts(params, x_in, dispatch[:, :, mine], cb, compute_dtype)
-    return _dist.reduce_from(out, group).to(x.dtype), aux
+    gate = _dist.copy_to(route.gate, group)
+    out = _experts(params, x_in, route.slot, route.token_of_slot, gate,
+                   compute_dtype)
+    return _dist.reduce_from(out, group).to(x.dtype), route.aux
 
 
 def make_expert_parallel_ffn(mesh, axis_name: str = "expert",
