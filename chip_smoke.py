@@ -77,6 +77,12 @@ Phases, each printing one JSON line ({"phase": ...}):
                   once at the full shape and its plain version two heads
                   at a time; a planted fault at 8192 of S=16383 and the
                   reproducibility reading at S=16384;
+   kernels_mla  — bf16 at the Moonlight cell's attention (B6 S8191 H16,
+                  causal, no rope in the kernels: latent attention ropes
+                  its 64 dims before them, dlse nonzero) at (q.k, v) head
+                  dims (192, 128) and, beside them, (128, 128), each
+                  kernel run once at the full shape and its plain
+                  version two heads at a time, within TOL_REL/TOL_LSE;
 6. times        — the forward and the backward (one call of each
                   wrapper: one fused backward kernel on either route) at
                   the main path's shape (B8 S1023 H16 D128, causal,
@@ -85,6 +91,9 @@ Phases, each printing one JSON line ({"phase": ...}):
                   as the yardstick; times_xl the same at B1 S16384 H16
                   D128 (plain versions at H2), times_fp32 at B1 S8192 H2
                   D128 fp32 against the 3xTF32 product path's peak;
+                  times_mla_192x128 and times_mla_128x128 the same at
+                  kernels_mla's shape (plain versions at H2, SDPA at the
+                  full shape);
    moe_kernels  — the MoE FFN's kernels (csrc/moe_route.cu) at the MoE
                   LM cell's routing shapes (T 8192 tokens, 8 experts
                   drawn skewed so some overflow, capacity 1280, D 2048
@@ -96,6 +105,13 @@ Phases, each printing one JSON line ({"phase": ...}):
                   MOE_ROW_DOT_TOL of its largest value; CUDA-event time
                   of each against its plain version's and its
                   compulsory bytes over the memory rate;
+                  moe_topk_kernels the same for the top-k layer at the
+                  Moonlight cell's routing (T 49146 tokens, each to 6
+                  distinct of 64 experts, 8 held, D 2048 bf16):
+                  moe_route_topk's outputs, moe_gather_rows' two uses and
+                  moe_combine_rows' two (the combine and the dispatch's
+                  backward) bit for bit, moe_pair_dot (the gates'
+                  gradient) within MOE_ROW_DOT_TOL;
 7. claim_path   — the device plane through the kubelet plugin: the
                   node's GPUs discovered through NVML (NativeBackend, the
                   host driver's libnvidia-ml.so.1; its count, names and
@@ -294,6 +310,15 @@ Phases, each printing one JSON line ({"phase": ...}):
                   the MoE kernels' launches: per MoE block and step
                   call one moe_route, four moe_gather_rows and one
                   moe_row_dot;
+   dsv3         — a bf16 step of the DeepSeek-V3 family at Moonlight's
+                  widths (one dense and two MoE blocks, 8 of 64 experts
+                  held, top-6, B2 S2048) with the launch counts zeroed
+                  just before two step calls and read just after: every
+                  attention through the Hopper kernels' route (q.k 192,
+                  v 128), none through the mma.sync one; per MoE block
+                  and step call one moe_route_topk, two moe_gather_rows,
+                  two moe_combine_rows and one moe_pair_dot, and no
+                  moe_route or moe_row_dot;
 12. ring_local  — an N=4 ring emulated in one process at long_ctx_xl's
                   attention shape (B1 S16384 H16 D128 bf16, s_local 4096,
                   rope off) through the ring's own per-step partial and
@@ -326,7 +351,13 @@ route's rows 1-3, flash_fwd and flash_bwd_mma, with parity_fp32's
 launches and times_fp32's times; each route's dq and dkv rows name its
 one fused backward and its time; then one row per MoE kernel, which
 replaces no TPU kernel, with moe's launches and moe_kernels' times,
-summed over one MoE block's launches of the kernel), the nvidia-smi name/power-limit line,
+summed over one MoE block's launches of the kernel, the top-k layer's
+with dsv3's launches and moe_topk_kernels' times, its gathers as
+moe_gather_rows_topk; then the Hopper kernels at the Moonlight cell's
+attention, flash_{fwd,bwd}_mla_192x128 with dsv3's launches and
+flash_{fwd,bwd}_mla_128x128, which no model path here runs, with
+kernels_mla's errors and times_mla's times), the nvidia-smi
+name/power-limit line,
 and last
 {"ok": true,
 "device": {...}}. Any failed check raises, so the script exits non-zero
@@ -390,6 +421,13 @@ PLAIN_HEADS = 2
 LONG_CHECK = dict(b=1, h=2, d=128)
 FP32_LONG_S = 8192   # where the reference's fp32 path streams
 FP32_MODEL_ATTN = dict(b=1, h=4, d=128)   # parity_fp32's attention
+# The Moonlight cell's attention (portbench's moonlight.s8k_uniform: B6
+# x S8191 input positions, 16 heads, no rope in the kernels: latent
+# attention ropes its 64 dims before them), at its head dims (q.k 192,
+# v 128) and, beside them, the flagship's (128, 128).
+MLA_ATTN = dict(b=6, h=16)
+MLA_S = 8191
+MLA_HEAD_DIMS = ((192, 128), (128, 128))
 H100_SXM = "NVIDIA H100 80GB HBM3"
 SOURCES = {
     "flash_fwd_sm90": "tpu_dra_torch/workloads/csrc/flash_fwd_sm90.cu",
@@ -434,9 +472,36 @@ MOE_TOKENS, MOE_EXPERTS, MOE_D, MOE_CAPACITY_FACTOR = 8 * 1024, 8, 2048, 1.25
 MOE_ROW_DOT_TOL = 1e-5
 MOE_REPLACES = ("replaces no TPU kernel (the reference's dense one-hot "
                 "dispatch and combine einsums, tpu_dra/workloads/moe.py)")
+TOPK_REPLACES = ("replaces no TPU kernel (the JAX package has no top-k "
+                 "layer)")
 # Launches per MoE block and step call: the route; dispatch and combine,
 # forward and backward; the gate's gradient.
 MOE_BLOCK_LAUNCHES = {"moe_route": 1, "moe_gather_rows": 4, "moe_row_dot": 1}
+# The Moonlight cell's routing (B6 x S8191 tokens, each to 6 of 64
+# experts, experts [0, 8) held, d_model 2048, bf16), where moe_kernels
+# holds the top-k layer's kernels against their plain versions.
+TOPK_TOKENS, TOPK_K, TOPK_EXPERTS, TOPK_HELD = 6 * 8191, 6, 64, 8
+# Launches per MoE block and step call of the top-k layer: the route;
+# the dispatch (a gather) and its backward (a k-way sum); the combine (a
+# k-way sum) and its backward (a gather and the gates' pair dot). The
+# kernels line names its gathers moe_gather_rows_topk.
+TOPK_BLOCK_LAUNCHES = {"moe_route_topk": 1, "moe_gather_rows_topk": 2,
+                       "moe_combine_rows": 2, "moe_pair_dot": 1}
+
+
+def _topk_wrapper(row: str) -> str:
+    """The _moe_kernels wrapper of a TOPK_BLOCK_LAUNCHES row."""
+    return "moe_gather_rows" if row == "moe_gather_rows_topk" else row
+
+
+# The dsv3 phase's train step: the DeepSeek-V3 family at Moonlight's
+# widths, cut to one dense and two MoE blocks, B2 x S2048 and a 2048-id
+# vocabulary.
+DSV3_STEP = dict(vocab=2048, d_model=2048, n_heads=16, n_layers=3,
+                 d_ff=11264, max_seq=2048, qk_nope_dim=128, qk_rope_dim=64,
+                 v_head_dim=128, kv_rank=512, moe_d_ff=1408, n_routed=64,
+                 experts_held=(0, TOPK_HELD), top_k=TOPK_K, n_shared=2)
+DSV3_BATCH, DSV3_STEPS = 2, 2
 # What a bf16 model path at D=128 launches per forward/backward: the
 # Hopper kernels, never the mma.sync ones.
 MODEL_PATH_KERNELS = ("flash_fwd_sm90", "flash_bwd_sm90")
@@ -566,20 +631,23 @@ def phase_build() -> None:
          daemon_build_s=daemon["seconds"])
 
 
-def _inputs(b, s, h, d, seed, dtype=None, zero_dlse=False):
+def _inputs(b, s, h, d, seed, dtype=None, zero_dlse=False, dv=None):
     import torch
 
     dtype = dtype or torch.bfloat16
+    dv = dv or d
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape, to=dtype):
         return torch.randn(shape, generator=gen, device="cuda",
                            dtype=torch.float32).to(to)
 
-    # q, k, v as views of one fused projection, as the model passes them.
-    qkv = randn(b, s, 3 * h * d)
-    q, k, v = (t.view(b, s, h, d) for t in qkv.split(h * d, dim=-1))
-    dout = randn(b, s, h, d)
+    # q, k, v as views of one fused projection, as the model passes them
+    # (q and k of head dim d, v of dv).
+    qkv = randn(b, s, h * (2 * d + dv))
+    q, k, v = (t.view(b, s, h, -1)
+               for t in qkv.split([h * d, h * d, h * dv], dim=-1))
+    dout = randn(b, s, h, dv)
     dlse = randn(b, h, s, to=torch.float32) * (0.0 if zero_dlse else 0.1)
     return q, k, v, dout, dlse
 
@@ -647,10 +715,11 @@ def _heads(args, hs):
 
 def check_case(s, causal, rope, b, h, d, seed, dtype=None, chunk=None,
                fault_at=None, zero_dlse=False, repro=False,
-               fwd_repro=False) -> dict:
+               fwd_repro=False, dv=None) -> dict:
     """The forward and the backward wrapper once on one set of [b, s, h,
-    d] inputs (bf16 unless `dtype` says otherwise; q, k, v views of one
-    fused projection, as the model passes them), against their plain
+    d] inputs (v and dout of head dim `dv`, d by default; bf16 unless
+    `dtype` says otherwise; q, k, v views of one fused projection, as
+    the model passes them), against their plain
     versions on the same tensors, `chunk` heads at a time (all at once by
     default: the dense plain backward at long S holds four [B, chunk, S,
     S] fp32 tensors), at the tolerances of that type. With `fault_at`,
@@ -666,7 +735,8 @@ def check_case(s, causal, rope, b, h, d, seed, dtype=None, chunk=None,
     tol_rel = TOL_REL_FP32 if fp32 else TOL_REL
     tol_lse = TOL_LSE_FP32 if fp32 else TOL_LSE
     chunk = chunk or h
-    q, k, v, dout, dlse = _inputs(b, s, h, d, seed, dtype, zero_dlse)
+    q, k, v, dout, dlse = _inputs(b, s, h, d, seed, dtype, zero_dlse, dv)
+    d_v = v.shape[-1]
     tables = _tables(s, d, rope, dtype)
     o, lse = fk.fwd(q, k, v, tables, causal=causal)
     # The backward takes the kernel's (o, lse) on both sides.
@@ -695,9 +765,9 @@ def check_case(s, causal, rope, b, h, d, seed, dtype=None, chunk=None,
         del sub, refs, o_ref, lse_ref
     res = {
         "s": s, "causal": causal, "rope": rope, "b": b, "h": h, "d": d,
-        "dtype": str(dtype).removeprefix("torch."),
-        "fwd_kernel": fk.FWD_KERNELS[fk.fwd_route(dtype, d)],
-        "bwd_kernels": fk.BWD_KERNELS[fk.bwd_route(dtype, d)],
+        "dv": d_v, "dtype": str(dtype).removeprefix("torch."),
+        "fwd_kernel": fk.FWD_KERNELS[fk.fwd_route(dtype, d, d_v)],
+        "bwd_kernels": fk.BWD_KERNELS[fk.bwd_route(dtype, d, d_v)],
         "dlse": "zero" if zero_dlse else "nonzero", "finite": finite,
         "plain_heads_per_pass": chunk, "lse_abs": diffs["lse"].abs,
         **{f"{n}_rel": diffs[n].rel for n in names if n != "lse"},
@@ -740,7 +810,8 @@ def check_fwd_repro(args, causal, first) -> dict:
     res = {"repro_out_equal": bool(torch.equal(o, first[0])),
            "repro_lse_equal": bool(torch.equal(lse, first[1]))}
     emit("fwd_repro", s=q.shape[1], dtype=str(q.dtype),
-         fwd_kernel=fk.FWD_KERNELS[fk.fwd_route(q.dtype, q.shape[-1])],
+         fwd_kernel=fk.FWD_KERNELS[fk.fwd_route(q.dtype, q.shape[-1],
+                                                args[2].shape[-1])],
          **res)
     check(res["repro_out_equal"] and res["repro_lse_equal"],
           f"the forward's out/lse differ between two runs: {res}")
@@ -766,7 +837,8 @@ def check_repro(args, causal, first, tol) -> dict:
            "repro_dq_values_changed": int((dq != dq0).sum())}
     emit("repro", s=args[0].shape[1], dtype=str(args[0].dtype),
          bwd_kernel=fk.BWD_KERNELS[fk.bwd_route(args[0].dtype,
-                                                args[0].shape[-1])],
+                                                args[0].shape[-1],
+                                                args[2].shape[-1])],
          tol=tol, **res)
     check(res["repro_dk_equal"] and res["repro_dv_equal"],
           f"dk/dv differ between two runs: {res}")
@@ -902,22 +974,27 @@ def time_ms(fn, reps: int = 5, inner: int = 10) -> float:
     return statistics.median(times)
 
 
-def bounds(b, s, h, d, peak_flops, peak_bytes, elem=2) -> dict:
-    """Least time for each kernel's work at this shape: the larger of its
-    tensor-core FLOPs (causal pairs only) over `peak_flops` and its
-    compulsory bytes (each input read once, each output written once, in
-    elements of `elem` bytes) over the memory rate."""
+def bounds(b, s, h, d, peak_flops, peak_bytes, elem=2, dv=None,
+           rope=True) -> dict:
+    """Least time for each kernel's work at this shape (q and k of head
+    dim d, v of dv, d by default; the rope tables read where `rope`): the
+    larger of its tensor-core FLOPs (causal pairs only) over `peak_flops`
+    and its compulsory bytes (each input read once, each output written
+    once, in elements of `elem` bytes) over the memory rate."""
+    dv = dv or d
     pairs = b * h * s * (s + 1) // 2
-    tile = b * s * h * d * elem       # one [B, S, H, D] operand
+    qk = b * s * h * d * elem         # one [B, S, H, D] operand
+    vo = b * s * h * dv * elem        # one [B, S, H, Dv] operand
     row = b * h * s * 4               # one fp32 [B, H, S] row vector
-    tables = 2 * s * d * elem         # cos and sinm, in the input type
+    tables = 2 * s * d * elem if rope else 0   # cos and sinm
     work = {
         # q, k, v in; o, lse out. QK^T and PV.
-        "flash_fwd": (4 * d * pairs, 4 * tile + row + tables),
+        "flash_fwd": (2 * (d + dv) * pairs, 2 * qk + 2 * vo + row + tables),
         # The fused backward: q, k, v, dO, lse, delta, dlse in; dq, dk, dv
         # out. QK^T, dO V^T, P^T dO, dS^T Q, dS K (its fp32 dQ
         # accumulator is scratch).
-        "flash_bwd": (10 * d * pairs, 7 * tile + 3 * row + tables),
+        "flash_bwd": (2 * (3 * d + 2 * dv) * pairs,
+                      4 * qk + 3 * vo + 3 * row + tables),
     }
     out = {}
     for name, (flops, nbytes) in work.items():
@@ -931,12 +1008,13 @@ def bounds(b, s, h, d, peak_flops, peak_bytes, elem=2) -> dict:
 
 
 def time_kernels(label, b, s, h, d, peak_flops, peak_bytes, dtype=None,
-                 plain_h=None, inner=10) -> dict:
-    """The forward and the backward wrapper at [b, s, h, d] (causal,
-    rope, out-only dlse as on the model's path): CUDA-event time, bound,
-    plain version's time (at `plain_h` heads where the dense plain
-    version would not fit at h) and PyTorch's SDPA forward and backward
-    as the yardstick."""
+                 plain_h=None, inner=10, dv=None, rope=True) -> dict:
+    """The forward and the backward wrapper at [b, s, h, d] (v of head
+    dim `dv`, d by default; causal, rope unless `rope` is False, out-only
+    dlse as on the model's path): CUDA-event time, bound, plain version's
+    time (at `plain_h` heads where the dense plain version would not fit
+    at h) and PyTorch's SDPA forward and backward at [b, s, h] as the
+    yardstick (None where SDPA refuses the head dims)."""
     import torch
     import torch.nn.functional as F
 
@@ -944,9 +1022,9 @@ def time_kernels(label, b, s, h, d, peak_flops, peak_bytes, dtype=None,
 
     dtype = dtype or torch.bfloat16
     plain_h = plain_h or h
-    q, k, v, dout, dlse = _inputs(b, s, h, d, seed=7, dtype=dtype)
+    q, k, v, dout, dlse = _inputs(b, s, h, d, seed=7, dtype=dtype, dv=dv)
     dlse.zero_()   # the model's path: out-only consumer
-    tables = _tables(s, d, True, dtype)
+    tables = _tables(s, d, rope, dtype)
 
     def operands(q, k, v, dout, dlse):
         o, lse = fk.fwd(q, k, v, tables, causal=True)
@@ -962,21 +1040,26 @@ def time_kernels(label, b, s, h, d, peak_flops, peak_bytes, dtype=None,
     }
     # Yardstick only (the port never calls it): SDPA on the roped inputs,
     # [B, H, S, D] contiguous, forward and backward (dq, dk, dv together).
-    qr, kr = (fk.rope_rotate(x, *tables).transpose(1, 2).contiguous()
-              for x in (q, k))
+    qr, kr = ((x if tables is None else fk.rope_rotate(x, *tables))
+              .transpose(1, 2).contiguous() for x in (q, k))
     vr = v.transpose(1, 2).contiguous()
-    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        qr, kr, vr, is_causal=True), inner=inner)
-    qg, kg, vg = (x.detach().requires_grad_() for x in (qr, kr, vr))
-    out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    do_t = dout.transpose(1, 2).contiguous()
-    sdpa_bwd = time_ms(lambda: torch.autograd.grad(
-        out, (qg, kg, vg), do_t, retain_graph=True), inner=inner)
-    del qr, kr, vr, qg, kg, vg, out, do_t
+    try:
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            qr, kr, vr, is_causal=True), inner=inner)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qr, kr, vr))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        do_t = dout.transpose(1, 2).contiguous()
+        sdpa_bwd = time_ms(lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do_t, retain_graph=True), inner=inner)
+        del qg, kg, vg, out, do_t
+    except RuntimeError:   # no SDPA backend for these head dims
+        sdpa_fwd = sdpa_bwd = None
+    del qr, kr, vr
     if plain_h != h:
         del args, q, k, v, dout, dlse
         _free()
-        q, k, v, dout, dlse = _inputs(b, s, plain_h, d, seed=7, dtype=dtype)
+        q, k, v, dout, dlse = _inputs(b, s, plain_h, d, seed=7, dtype=dtype,
+                                      dv=dv)
         dlse.zero_()
         args = operands(q, k, v, dout, dlse)
     plain_ms = {
@@ -989,27 +1072,71 @@ def time_kernels(label, b, s, h, d, peak_flops, peak_bytes, dtype=None,
     _free()
     library = {"flash_fwd": sdpa_fwd, "flash_bwd": sdpa_bwd}
     elem = torch.empty((), dtype=dtype).element_size()
-    bnd = bounds(b, s, h, d, peak_flops, peak_bytes, elem)
+    bnd = bounds(b, s, h, d, peak_flops, peak_bytes, elem, dv, rope)
     res = {name: {"ms": ms[name], "plain_ms": plain_ms[name],
                   "library_ms": library[name], **bnd[name]} for name in ms}
-    emit(label, shape=dict(b=b, s=s, h=h, d=d, causal=True, rope=True,
-                           dtype=str(dtype).removeprefix("torch.")),
-         bwd_kernels=fk.BWD_KERNELS[fk.bwd_route(dtype, d)],
+    emit(label, shape=dict(b=b, s=s, h=h, d=d, dv=dv or d, causal=True,
+                           rope=rope, dtype=str(dtype).removeprefix("torch.")),
+         bwd_kernels=fk.BWD_KERNELS[fk.bwd_route(dtype, d, dv)],
          plain_shape=dict(b=b, s=s, h=plain_h, d=d),
          sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd,
          peak_flops=peak_flops, peak_bytes_per_s=peak_bytes, kernels=res)
     return res
 
 
+def _moe_call_times(calls: dict, peak_bytes: float) -> dict:
+    """Each of `calls` ({call: (kernel, its plain version, compulsory
+    bytes, how it is held)}) run once against its plain version on the
+    same card tensors ("equal": bit for bit; "dot": within
+    MOE_ROW_DOT_TOL of the plain version's largest value; "held": by the
+    caller), then timed (CUDA events) beside its plain version. Returns
+    {call: {ms, plain_ms, bytes, bound_ms, max_abs_err}}."""
+    import torch
+
+    res = {}
+    for call, (kernel, plain, nbytes, how) in calls.items():
+        err = 0.0
+        if how != "held":
+            a, b = kernel(), plain()
+            if how == "dot":
+                err = float((a - b).abs().max())
+                check(err <= MOE_ROW_DOT_TOL * float(b.abs().max()),
+                      f"{call} off its plain version by {err}")
+            else:
+                check(torch.equal(a, b),
+                      f"{call} differs from its plain version")
+            del a, b
+        res[call] = {"ms": time_ms(kernel), "plain_ms": time_ms(plain, 3, 3),
+                     "bytes": nbytes, "bound_ms": nbytes / peak_bytes * 1e3,
+                     "max_abs_err": err}
+    return res
+
+
+def _by_kernel(res: dict, kernel_of: dict) -> dict:
+    """_moe_call_times' `res` summed by kernel (kernel_of[call]); the
+    largest error."""
+    out = {}
+    for call, r in res.items():
+        entry = out.setdefault(kernel_of[call], dict.fromkeys(r, 0.0))
+        for key, value in r.items():
+            entry[key] = (max(entry[key], value) if key == "max_abs_err"
+                          else entry[key] + value)
+    return out
+
+
 def phase_moe_kernels(peak_bytes: float) -> dict:
-    """The MoE FFN's kernels at the MoE LM cell's routing shapes, each
-    call as moe.py makes it, against its plain version on the same card
-    tensors (route and gathers bit for bit, row_dot within
-    MOE_ROW_DOT_TOL of its largest value), with CUDA-event times, the
+    """The MoE layers' kernels, each call as moe.py makes it, against its
+    plain version on the same card tensors, with CUDA-event times, the
     plain versions' times and each call's compulsory bytes (every input
     element the result depends on read once, every output written once)
-    over `peak_bytes`. Returns {kernel: {ms, plain_ms, bound_ms, bytes,
-    max_abs_err}}, summed over one MoE block's launches of the kernel."""
+    over `peak_bytes`: the top-1 layer's at the MoE LM cell's routing
+    shapes (route and gathers bit for bit, row_dot within
+    MOE_ROW_DOT_TOL of its largest value), then the top-k layer's at the
+    Moonlight cell's (TOPK_*: route_topk, the gathers and combine_rows
+    bit for bit, pair_dot within MOE_ROW_DOT_TOL). Returns {kernel: {ms,
+    plain_ms, bound_ms, bytes, max_abs_err}}, summed over one MoE block's
+    launches of the kernel (the top-k layer's gathers as
+    moe_gather_rows_topk)."""
     import torch
 
     from tpu_dra_torch.workloads import _moe_kernels as mk
@@ -1042,75 +1169,169 @@ def phase_moe_kernels(peak_bytes: float) -> dict:
     # The gate as _Combine scales by it: rounded to the rows' dtype.
     scale = torch.rand(t, generator=gen, device="cuda").bfloat16().float()
     row, idx4 = d * x.element_size(), 4
-    # call: (kernel, plain version, compulsory bytes)
+    # call: (kernel, plain version, compulsory bytes, how it is held)
     calls = {
         "route": (lambda: mk.route(expert, offset, cap, 0, n_exp),
                   lambda: mk.route_plain(expert, offset, cap, 0, n_exp),
-                  idx4 * (t + n_exp) + idx4 * (2 * t + n_slots + n_exp + 1)),
+                  idx4 * (t + n_exp) + idx4 * (2 * t + n_slots + n_exp + 1),
+                  "held"),
         "dispatch_fwd": (
             lambda: mk.gather_rows(x, token_of_slot),
             lambda: mk.gather_rows_plain(x, token_of_slot),
-            (n_kept + n_slots) * row + idx4 * n_slots),
+            (n_kept + n_slots) * row + idx4 * n_slots, "equal"),
         "dispatch_bwd": (
             lambda: mk.gather_rows(dbuf, slot),
             lambda: mk.gather_rows_plain(dbuf, slot),
-            (n_kept + t) * row + idx4 * t),
+            (n_kept + t) * row + idx4 * t, "equal"),
         "combine_fwd": (
             lambda: mk.gather_rows(out_buf, slot, scale),
             lambda: mk.gather_rows_plain(out_buf, slot, scale),
-            (n_kept + t) * row + 2 * idx4 * t),
+            (n_kept + t) * row + 2 * idx4 * t, "equal"),
         "combine_bwd": (
             lambda: mk.gather_rows(dout, token_of_slot, scale,
                                    scale_by_src=True),
             lambda: mk.gather_rows_plain(dout, token_of_slot, scale,
                                          scale_by_src=True),
-            (n_kept + n_slots) * row + idx4 * (n_slots + n_kept)),
+            (n_kept + n_slots) * row + idx4 * (n_slots + n_kept), "equal"),
         "gate_grad": (lambda: mk.row_dot(dout, out_buf, slot),
                       lambda: mk.row_dot_plain(dout, out_buf, slot),
-                      2 * n_kept * row + 2 * idx4 * t),
+                      2 * n_kept * row + 2 * idx4 * t, "dot"),
     }
-    kernel_of = {"route": "moe_route", "gate_grad": "moe_row_dot"}
-    res, out = {}, {}
-    for call, (kernel, plain, nbytes) in calls.items():
-        a, b = kernel(), plain()
-        if call == "route":
-            err = 0.0
-        elif call == "gate_grad":
-            err = float((a - b).abs().max())
-            check(err <= MOE_ROW_DOT_TOL * float(b.abs().max()),
-                  f"moe_row_dot off its plain version by {err}")
-        else:
-            check(torch.equal(a, b), f"moe_gather_rows ({call}) differs "
-                                     f"from its plain version")
-            err = 0.0
-        del a, b
-        res[call] = {"ms": time_ms(kernel), "plain_ms": time_ms(plain, 3, 3),
-                     "bytes": nbytes, "bound_ms": nbytes / peak_bytes * 1e3,
-                     "max_abs_err": err}
-        entry = out.setdefault(kernel_of.get(call, "moe_gather_rows"),
-                               dict.fromkeys(res[call], 0.0))
-        for key, value in res[call].items():
-            entry[key] = (max(entry[key], value) if key == "max_abs_err"
-                          else entry[key] + value)
+    res = _moe_call_times(calls, peak_bytes)
+    out = _by_kernel(res, {call: {"route": "moe_route",
+                                  "gate_grad": "moe_row_dot"}.get(
+                                      call, "moe_gather_rows")
+                           for call in res})
     emit("moe_kernels", shape=dict(tokens=t, experts=n_exp, capacity=cap,
                                    d=d, dtype="bfloat16", kept=n_kept),
          peak_bytes_per_s=peak_bytes, calls=res, kernels=out)
-    del x, dout, out_buf, dbuf
+    del x, dout, out_buf, dbuf, calls
     _free()
-    return out
+
+    # The top-k layer: each token's TOPK_K distinct experts drawn
+    # uniformly of TOPK_EXPERTS, [0, TOPK_HELD) held.
+    t, k, held = TOPK_TOKENS, TOPK_K, TOPK_HELD
+    chosen = torch.rand(t, TOPK_EXPERTS, generator=gen,
+                        device="cuda").topk(k, -1).indices
+    got = mk.route_topk(chosen, k, 0, held)
+    want = mk.route_topk_plain(chosen, k, 0, held)
+    n = int(want[4][0])
+    for name, a, b in zip(("slot", "pair_of_row", "token_of_row", "offsets",
+                           "stats"), got, want):
+        if name in ("pair_of_row", "token_of_row"):   # rows [0, N) only
+            a, b = a[:n], b[:n]
+        check(torch.equal(a, b), f"moe_route_topk {name} differs from its "
+                                 f"plain version")
+    slot, pair_of_row, token_of_row = got[0], got[1][:n], got[2][:n]
+    u = int(slot.view(t, k).ge(0).any(1).sum())   # tokens with a held pair
+    check(0 < u < t and u < n < t * k,
+          f"moe_topk_kernels held {n} pairs of {u} tokens")
+    x, dout, y, dbuf = randn(t), randn(t), randn(n), randn(n)
+    # The gates as topk_ffn passes them: fp32, each row's by its pair.
+    gates = torch.rand(t * k, generator=gen, device="cuda") * 2.446 / k
+    gate_of_row = gates[pair_of_row.long()]
+    pairs = t * k
+    calls = {
+        "route": (lambda: mk.route_topk(chosen, k, 0, held),
+                  lambda: mk.route_topk_plain(chosen, k, 0, held),
+                  idx4 * pairs + idx4 * (pairs + 2 * n), "held"),
+        "dispatch_fwd": (lambda: mk.gather_rows(x, token_of_row),
+                         lambda: mk.gather_rows_plain(x, token_of_row),
+                         u * row + idx4 * n + n * row, "equal"),
+        "combine_fwd": (lambda: mk.combine_rows(y, slot, gates, k),
+                        lambda: mk.combine_rows_plain(y, slot, gates, k),
+                        n * row + 2 * idx4 * pairs + t * row, "equal"),
+        "dispatch_bwd": (lambda: mk.combine_rows(dbuf, slot, None, k),
+                         lambda: mk.combine_rows_plain(dbuf, slot, None, k),
+                         n * row + idx4 * pairs + t * row, "equal"),
+        "combine_bwd": (
+            lambda: mk.gather_rows(dout, token_of_row, gate_of_row),
+            lambda: mk.gather_rows_plain(dout, token_of_row, gate_of_row),
+            u * row + 2 * idx4 * n + n * row, "equal"),
+        "gate_grad": (lambda: mk.pair_dot(dout, y, slot, k),
+                      lambda: mk.pair_dot_plain(dout, y, slot, k),
+                      u * row + n * row + 2 * idx4 * pairs, "dot"),
+    }
+    res = _moe_call_times(calls, peak_bytes)
+    topk = _by_kernel(res, {
+        "route": "moe_route_topk", "dispatch_fwd": "moe_gather_rows_topk",
+        "combine_bwd": "moe_gather_rows_topk",
+        "combine_fwd": "moe_combine_rows", "dispatch_bwd": "moe_combine_rows",
+        "gate_grad": "moe_pair_dot"})
+    emit("moe_topk_kernels", shape=dict(tokens=t, k=k, experts=TOPK_EXPERTS,
+                                        held=[0, held], d=d, dtype="bfloat16",
+                                        pairs_held=n, tokens_held=u),
+         peak_bytes_per_s=peak_bytes, calls=res, kernels=topk)
+    del x, dout, y, dbuf, calls
+    _free()
+    return {**out, **topk}
 
 
 def moe_kernel_rows(times: dict, launches: dict) -> list:
     """The kernels line's rows of the MoE kernels: phase_moe_kernels'
     `times` (summed over one MoE block's launches, `timed_launches`) and
-    phase_moe's `launches`."""
+    the launches phase_moe (top-1) and phase_dsv3 (top-k) counted."""
+    per_block = {**MOE_BLOCK_LAUNCHES, **TOPK_BLOCK_LAUNCHES}
     return [{"name": name, "route": "cuda", "source": SOURCES["moe_route"],
-             "replaces": MOE_REPLACES, "launches": launches[name],
+             "replaces": (TOPK_REPLACES if name in TOPK_BLOCK_LAUNCHES
+                          else MOE_REPLACES),
+             "launches": launches[name],
              "max_abs_err": t["max_abs_err"], "ms": t["ms"],
              "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
              "bound_by": "bytes", "library_ms": None,
-             "timed_launches": MOE_BLOCK_LAUNCHES[name]}
+             "timed_launches": per_block[name]}
             for name, t in times.items()]
+
+
+def mla_kernel_rows(checks: dict, times: dict, launches: dict) -> list:
+    """The kernels line's rows of the Hopper forward and fused backward at
+    the Moonlight cell's attention shape, one pair per head dims of
+    MLA_HEAD_DIMS: phase_kernels_mla's `checks`, the times, and the
+    launches phase_dsv3 counted at the model's head dims (`launches`,
+    {"DqkxDv": {kernel: n}}; None at the dims no model path of this
+    script runs)."""
+    rows = []
+    for dims, t in times.items():
+        res = checks[dims]
+        err = {"flash_fwd": res["out_abs"],
+               "flash_bwd": max(res[f"{n}_abs"] for n in ("dq", "dk", "dv"))}
+        for wrapper, kname in (("flash_fwd", "flash_fwd_sm90"),
+                               ("flash_bwd", "flash_bwd_sm90")):
+            rows.append({
+                "name": f"{wrapper}_mla_{dims}", "route": "cuda",
+                "source": SOURCES[kname],
+                "replaces": "no TPU kernel (split q.k / v head dims)",
+                "launches": launches.get(dims, {}).get(kname),
+                "max_abs_err": err[wrapper], "ms": t[wrapper]["ms"],
+                "plain_ms": t[wrapper]["plain_ms"],
+                "bound_ms": t[wrapper]["bound_ms"],
+                "bound_by": t[wrapper]["bound_by"],
+                "library_ms": t[wrapper]["library_ms"]})
+    return rows
+
+
+def phase_kernels_mla() -> dict:
+    """bf16 at the Moonlight cell's attention (MLA_ATTN at S=MLA_S,
+    causal, no rope in the kernels, dlse nonzero) at each of
+    MLA_HEAD_DIMS, the plain versions PLAIN_HEADS heads at a time.
+    Returns {"DqkxDv": readings}."""
+    out = {}
+    for i, (dqk, dv) in enumerate(MLA_HEAD_DIMS):
+        out[f"{dqk}x{dv}"] = check_case(MLA_S, True, False, seed=500 + i,
+                                        chunk=PLAIN_HEADS, d=dqk, dv=dv,
+                                        **MLA_ATTN)
+        _free()
+    return out
+
+
+def phase_times_mla(peak_flops: float, peak_bytes: float) -> dict:
+    """time_kernels at the Moonlight cell's attention, for each of
+    MLA_HEAD_DIMS (rope-free; plain versions at PLAIN_HEADS heads, SDPA
+    at the full shape). Returns {"DqkxDv": times}."""
+    return {f"{dqk}x{dv}": time_kernels(
+        f"times_mla_{dqk}x{dv}", s=MLA_S, d=dqk, dv=dv, rope=False,
+        peak_flops=peak_flops, peak_bytes=peak_bytes, plain_h=PLAIN_HEADS,
+        inner=3, **MLA_ATTN) for dqk, dv in MLA_HEAD_DIMS}
 
 
 def phase_times(peak_flops: float, peak_bytes: float) -> dict:
@@ -2696,10 +2917,67 @@ def phase_moe() -> dict:
     counts = check_path_launches("moe", res["n_layers"] * res["step_calls"])
     moe_counts = mk.launches()
     per_block = res["moe_blocks"] * res["step_calls"]
-    want = {name: n * per_block for name, n in MOE_BLOCK_LAUNCHES.items()}
+    want = {**dict.fromkeys(mk.WRAPPERS, 0),
+            **{name: n * per_block for name, n in MOE_BLOCK_LAUNCHES.items()}}
     check(moe_counts == want, f"moe kernel launches {moe_counts}, want {want}")
     emit("moe", kernel_launches=counts, moe_kernel_launches=moe_counts, **res)
     return {**res, "moe_kernel_launches": moe_counts}
+
+
+def phase_dsv3() -> dict:
+    """A bf16 train step of the DeepSeek-V3 family (DSV3_STEP: Moonlight's
+    widths, one dense and two MoE blocks) on the card, launch counts
+    zeroed just before DSV3_STEPS step calls and read just after: every
+    block's attention through the Hopper kernels (the wrappers' sm90
+    route, never the mma one), every MoE block's route, dispatch and
+    combine through the top-k kernels, TOPK_BLOCK_LAUNCHES per step
+    call, none through the top-1 layer's route and row dot. Returns
+    {"attention": {"DqkxDv": {kernel: launches}}, "moe": {row name:
+    launches}, "losses": [...]}."""
+    import torch
+
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _moe_kernels as mk
+    from tpu_dra_torch.workloads import dsv3_model as dm
+
+    cfg = dm.DSV3Config(**DSV3_STEP)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    step = dm.make_train_step(dm.DSV3LM(cfg, dm.init_params(cfg, gen)))
+    tokens = torch.randint(0, cfg.vocab, (DSV3_BATCH, cfg.max_seq + 1),
+                           generator=gen, device="cuda")
+    step(tokens)   # the first call builds the kernels
+    torch.cuda.synchronize()
+    fk.reset_launches()
+    mk.reset_launches()
+    losses = [step(tokens).item() for _ in range(DSV3_STEPS)]
+    torch.cuda.synchronize()
+    calls = cfg.n_layers * DSV3_STEPS
+    blocks = (cfg.n_layers - cfg.first_dense) * DSV3_STEPS
+    routes = {"flash_fwd": dict(fk.fwd.route_launches),
+              "flash_bwd": dict(fk.bwd.route_launches)}
+    want = {name: {r: calls if r == "sm90" else 0 for r in kernels}
+            for name, kernels in (("flash_fwd", fk.FWD_KERNELS),
+                                  ("flash_bwd", fk.BWD_KERNELS))}
+    check(routes == want, f"dsv3 attention routes {routes}, want {want}")
+    moe_counts = mk.launches()
+    want = {"moe_route": 0, "moe_row_dot": 0,
+            **{_topk_wrapper(name): n * blocks
+               for name, n in TOPK_BLOCK_LAUNCHES.items()}}
+    check(moe_counts == want,
+          f"dsv3 moe kernel launches {moe_counts}, want {want}")
+    check(all(math.isfinite(x) for x in losses), f"dsv3 losses {losses}")
+    dims = f"{cfg.qk_nope_dim + cfg.qk_rope_dim}x{cfg.v_head_dim}"
+    res = {"attention": {dims: fk.kernel_launches()},
+           "moe": {name: moe_counts[_topk_wrapper(name)]
+                   for name in TOPK_BLOCK_LAUNCHES},
+           "losses": losses}
+    emit("dsv3", n_layers=cfg.n_layers, moe_blocks=cfg.n_layers
+         - cfg.first_dense, step_calls=DSV3_STEPS, batch=DSV3_BATCH,
+         seq=cfg.max_seq, route_launches=routes,
+         moe_kernel_launches=moe_counts, **res)
+    del step
+    _free()
+    return res
 
 
 def phase_ring_local() -> dict:
@@ -2827,9 +3105,8 @@ def phase_mesh_workloads() -> dict:
     # and the combine.
     ep = records["moe"]["moe_kernel_launches"]
     check(ep["moe_route"] > 0
-          and ep == {"moe_route": ep["moe_route"],
-                     "moe_gather_rows": 2 * ep["moe_route"],
-                     "moe_row_dot": 0},
+          and ep == {**dict.fromkeys(ep, 0), "moe_route": ep["moe_route"],
+                     "moe_gather_rows": 2 * ep["moe_route"]},
           f"mesh moe launched {ep}")
     # sp_train's fp32 D16 model: its backward is the mma.sync route's.
     sp = records["sp_train"]["kernel_launches"]
@@ -2990,6 +3267,7 @@ def main() -> int:
     flagship = phase_kernels()
     fp32_case = phase_kernels_fp32()
     long_bf16 = phase_kernels_long()
+    mla_checks = phase_kernels_mla()
     # Bounds are against the H100 SXM's published peaks (700 W). fp32
     # runs three TF32 products per product: a third of the TF32 peak.
     peak_bf16 = gpuinfo.PEAK_BF16_TFLOPS[H100_SXM] * 1e12
@@ -2998,6 +3276,7 @@ def main() -> int:
     times_xl = phase_times_xl(peak_bf16, peak_bytes)
     times_fp32 = phase_times_fp32(
         gpuinfo.PEAK_TF32_TFLOPS[H100_SXM] * 1e12 / 3, peak_bytes)
+    mla_times = phase_times_mla(peak_bf16, peak_bytes)
     moe_times = phase_moe_kernels(peak_bytes)
     _free()
     claim = phase_claim_path()
@@ -3015,6 +3294,7 @@ def main() -> int:
     counts_xl, xl_none = phase_long_context()
     phase_remat(xl_none)
     moe_res = phase_moe()
+    dsv3_res = phase_dsv3()
     phase_ring_local()
     phase_mesh_workloads()
     phase_model_parity()
@@ -3041,7 +3321,9 @@ def main() -> int:
             "max_abs_err": err[base], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-    kernels += moe_kernel_rows(moe_times, moe_res["moe_kernel_launches"])
+    kernels += moe_kernel_rows(moe_times, {**moe_res["moe_kernel_launches"],
+                                           **dsv3_res["moe"]})
+    kernels += mla_kernel_rows(mla_checks, mla_times, dsv3_res["attention"])
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(info["nvidia_smi"] or f"{info['name']}, power limit not reported")

@@ -100,8 +100,8 @@ class TestRoute:
 class TestEntrySignature:
     def test_argtypes(self):
         """q, k, v, dout, lse, delta, dlse, cos, sinm, dq_acc, dq, dk, dv
-        pointers; B S H D; three strides; causal, rope, element bytes;
-        the stream."""
+        pointers; B S H D Dv; q/k's and v's strides; causal, rope,
+        element bytes; the stream."""
         args = fk.ARGTYPES["flash_bwd_mma"]
         assert args[:13] == [fk._PTR] * 13
         assert args[13:] == fk._SHAPE + [fk._PTR]

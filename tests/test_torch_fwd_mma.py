@@ -106,8 +106,8 @@ class TestRoute:
 
 class TestEntrySignature:
     def test_argtypes(self):
-        """q, k, v, cos, sinm, o, lse, kr pointers; B S H D; three
-        strides; causal, rope, element bytes; the stream."""
+        """q, k, v, cos, sinm, o, lse, kr pointers; B S H D Dv; q/k's
+        and v's strides; causal, rope, element bytes; the stream."""
         args = fk.ARGTYPES["flash_fwd"]
         assert args[:8] == [fk._PTR] * 8
         assert args[8:] == fk._SHAPE + [fk._PTR]

@@ -85,9 +85,9 @@ class TestRoute:
 
 class TestEntrySignature:
     def test_same_c_interface_as_flash_fwd(self):
-        """q, k, v, cos, sinm, o, lse pointers; B S H D; three strides;
-        causal, rope, element bytes; the stream. flash_fwd takes the same,
-        with its roped-k scratch pointer after lse."""
+        """q, k, v, cos, sinm, o, lse pointers; B S H D Dv; q/k's and
+        v's strides; causal, rope, element bytes; the stream. flash_fwd
+        takes the same, with its roped-k scratch pointer after lse."""
         fwd_args = fk.ARGTYPES["flash_fwd"]
         assert fwd_args[:7] + fwd_args[8:] == fk.ARGTYPES["flash_fwd_sm90"]
         assert fwd_args[7] is fk._PTR

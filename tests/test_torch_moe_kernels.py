@@ -28,6 +28,9 @@ torch.set_num_threads(2)
 # factor 1.25.
 T_CELL, E_CELL = 8 * 1024, 8
 C_CELL = moe.capacity_of(1.25, T_CELL, E_CELL)
+# The top-k route's kernels (tests/test_torch_dsv3.py), which the top-1
+# path never launches.
+TOPK_IDLE = {"moe_route_topk": 0, "moe_combine_rows": 0, "moe_pair_dot": 0}
 
 
 @pytest.fixture
@@ -158,7 +161,7 @@ def test_cpu_path_counts_no_kernel():
     mk.gather_rows(x, token_of_slot)
     mk.row_dot(x, x, slot)
     assert mk.launches() == {"moe_route": 0, "moe_gather_rows": 0,
-                             "moe_row_dot": 0}
+                             "moe_row_dot": 0, **TOPK_IDLE}
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +218,7 @@ def test_dispatch_and_combine_match_plain(dtype, d, cuda_device):
     got = _dispatch_and_combine(*(t.to(cuda_device) for t in args))
     torch.cuda.synchronize()
     assert mk.launches() == {"moe_route": 0, "moe_gather_rows": 4,
-                             "moe_row_dot": 1}
+                             "moe_row_dot": 1, **TOPK_IDLE}
     for name, g_, w in zip(("buf", "out", "dx", "d_out_buf"), got, want):
         assert g_.dtype == dtype and torch.equal(g_.cpu(), w), name
     d_gate, want_gate = got[4].cpu(), want[4]
@@ -253,4 +256,4 @@ def test_moe_lm_step_runs_the_kernels_without_a_host_sync(cuda_device):
     # backward; the gate's gradient.
     assert mk.launches() == {"moe_route": n_moe,
                              "moe_gather_rows": 4 * n_moe,
-                             "moe_row_dot": n_moe}
+                             "moe_row_dot": n_moe, **TOPK_IDLE}

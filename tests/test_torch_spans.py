@@ -4,10 +4,11 @@ the CPU under torch.profiler's CPU activity.
 
 - Off (no profiler session), a range is the one shared no-op context
   and a count records nothing.
-- Under the profiler, a tiny dense step and a tiny MoE step open every
-  range of DEVICE_SPANS that their paths reach, nested as the step
-  nests them (the MoE dispatch and combine once more in the backward),
-  and route_top1 counts what its own outputs hold.
+- Under the profiler, a tiny dense step, a tiny MoE step and a tiny
+  DeepSeek-V3-family step open every range of DEVICE_SPANS that their
+  paths reach, nested as the step nests them (the MoE dispatch and
+  combine once more in the backward), and route_top1 and route_topk
+  count what their own outputs hold.
 - Profiling changes no number: the loss and every updated parameter are
   bit-identical with and without it.
 """
@@ -24,7 +25,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from tpu_dra_torch.infra import trace
 from tpu_dra_torch.workloads import model as tm
-from tpu_dra_torch.workloads import moe, moe_model
+from tpu_dra_torch.workloads import dsv3_model, moe, moe_model
 
 torch.set_num_threads(2)   # the suite runs 6 workers beside timing tests
 
@@ -35,14 +36,22 @@ DENSE = tm.ModelConfig(vocab=64, d_model=32, n_heads=2, n_layers=2,
 MOE = moe_model.MoEModelConfig(vocab=64, d_model=32, n_heads=2, n_layers=2,
                                d_ff=64, max_seq=16, dtype=torch.float32,
                                attn_impl="flash", n_experts=4)
+DSV3 = dsv3_model.DSV3Config(vocab=64, d_model=32, n_heads=2, n_layers=2,
+                             d_ff=48, max_seq=16, dtype=torch.float32,
+                             attn_impl="flash", moe_d_ff=16, n_routed=8,
+                             experts_held=(2, 6), top_k=2)
 # Range -> the range that directly holds it in a step.
 PARENT = {
     "step.forward": "step", "step.backward": "step", "step.sgd": "step",
     "attention.fwd": "step.forward", "attention.bwd": "step.backward",
     "moe.route": "step.forward", "moe.dispatch": "step.forward",
     "moe.experts": "step.forward", "moe.combine": "step.forward",
+    "mla.project": "step.forward", "moe.shared": "step.forward",
 }
 MOE_SPANS = {"moe.route", "moe.dispatch", "moe.experts", "moe.combine"}
+# Ranges only the DeepSeek-V3 family opens (MLA's projections, the shared
+# expert).
+DSV3_SPANS = {"mla.project", "moe.shared"}
 # Ranges that their autograd Function's backward opens again, inside
 # step.backward.
 IN_BACKWARD_TOO = {"moe.dispatch", "moe.combine"}
@@ -57,6 +66,9 @@ def _no_counts_left():
 
 def _model(cfg, seed=0):
     g = torch.Generator().manual_seed(seed)
+    if isinstance(cfg, dsv3_model.DSV3Config):
+        return dsv3_model.DSV3LM(
+            cfg, dsv3_model.init_params(cfg, g, device="cpu"))
     if isinstance(cfg, moe_model.MoEModelConfig):
         return moe_model.MoETransformerLM(
             cfg, moe_model.init_params(cfg, g, device="cpu"))
@@ -64,6 +76,8 @@ def _model(cfg, seed=0):
 
 
 def _step(model):
+    if isinstance(model, dsv3_model.DSV3LM):
+        return dsv3_model.make_train_step(model, lr=1e-2)
     if isinstance(model, moe_model.MoETransformerLM):
         return moe_model.make_train_step(model, lr=1e-2)
     return tm.make_train_step(model, lr=1e-2)
@@ -163,13 +177,16 @@ class TestCounters:
 
 
 class TestRangesInTheStep:
-    @pytest.mark.parametrize("cfg", [DENSE, MOE], ids=["dense", "moe"])
+    @pytest.mark.parametrize("cfg", [DENSE, MOE, DSV3],
+                             ids=["dense", "moe", "dsv3"])
     def test_every_range_nested_as_the_step(self, cfg):
         step = _step(_model(cfg))
         step(_tokens())
         _, events = _profiled(lambda: step(_tokens(2)))
         ranges = _ranges(events)
         want = set(trace.DEVICE_SPANS)
+        if cfg is not DSV3:
+            want -= DSV3_SPANS
         if cfg is DENSE:
             want -= MOE_SPANS
         assert {name for _, _, name in ranges} == want
@@ -186,11 +203,14 @@ class TestRangesInTheStep:
             held[r[2], holder[2]] += 1
         assert held["attention.fwd", "step.forward"] == cfg.n_layers
         assert held["attention.bwd", "step.backward"] == cfg.n_layers
-        if cfg is MOE:
+        if cfg is not DENSE:
             n_moe = sum(cfg.is_moe_block(i) for i in range(cfg.n_layers))
             assert all(held[n, "step.forward"] == n_moe for n in MOE_SPANS)
             assert all(held[n, "step.backward"] == n_moe
                        for n in IN_BACKWARD_TOO)
+        if cfg is DSV3:
+            assert held["mla.project", "step.forward"] == cfg.n_layers
+            assert held["moe.shared", "step.forward"] == n_moe
 
     def test_step_range_carries_its_count(self):
         step = _step(_model(DENSE))
@@ -229,7 +249,38 @@ class TestRangesInTheStep:
         assert counts["moe.slots"] == MOE.n_experts * capacity
         assert 0 < counts["moe.kept"] <= tokens
 
-    @pytest.mark.parametrize("cfg", [DENSE, MOE], ids=["dense", "moe"])
+    def test_dsv3_step_counts_its_routes(self):
+        """moe.assigned is every held (token, k) pair: nothing dropped."""
+        model = _model(DSV3)
+        step = _step(model)
+        tokens = _tokens()
+        block = model.blocks[1]
+        with torch.no_grad():
+            x = model.embed_tokens(tokens[:, :-1])
+            x = model.blocks[0](x)[0]
+            x = x + dsv3_model.mla(DSV3, dict(block.attn.named_parameters()),
+                                   tm._rmsnorm(x, block.ln1_scale, 1e-5))
+            h = tm._rmsnorm(x, block.ln2_scale, 1e-5)
+            chosen = torch.topk(torch.sigmoid(h @ block.moe.router)
+                                + block.moe.bias, DSV3.top_k, -1).indices
+        held = chosen.ge(2) & chosen.lt(6)
+        loads = torch.bincount(chosen[held], minlength=8)
+        _profiled(lambda: step(tokens))
+        counts = trace.read_counters()
+        assert counts["moe.routed"] == 2 * 16
+        assert counts["moe.assigned"] == held.sum().item()
+        assert counts["moe.load_max"] == loads.max().item()
+        assert counts["moe.tokens_held"] == held.any(-1).sum().item()
+        # The widths the benchmark's MoE readers need: experts held,
+        # pairs selected and the bytes of a row, per route call.
+        assert counts["moe.held"] == 4
+        assert counts["moe.selected"] == 2 * 16 * DSV3.top_k
+        assert counts["moe.row_bytes"] == (DSV3.d_model
+                                           * DSV3.dtype.itemsize)
+        assert "moe.kept" not in counts and "moe.slots" not in counts
+
+    @pytest.mark.parametrize("cfg", [DENSE, MOE, DSV3],
+                             ids=["dense", "moe", "dsv3"])
     def test_profiling_changes_no_number(self, cfg):
         plain, traced = _model(cfg), _model(cfg)
         loss_plain = _step(plain)(_tokens())

@@ -713,15 +713,24 @@ DEVICE_SPANS = (
     "step.sgd",        # the in-place update of every leaf
     "attention.fwd",   # flashattention.attend, every impl
     "attention.bwd",   # _FlashAttention.backward
-    "moe.route",       # moe.route_top1
-    "moe.dispatch",    # moe._experts: tokens gathered into their slots
-    "moe.experts",     # moe._experts: up-proj, gelu, down-proj
-    "moe.combine",     # moe._experts: slots gathered back, gate-scaled
+    "moe.route",       # moe.route_top1, moe.route_topk
+    "moe.dispatch",    # moe._experts, topk_ffn: tokens gathered into rows
+    "moe.experts",     # the experts' GEMMs and activation
+    "moe.combine",     # rows gathered back, gate-scaled (k-way in topk_ffn)
+    "mla.project",     # mla.MLA: q, kv_a, kv_b projections, kv norm, rope,
+                       # q and k assembled
+    "moe.shared",      # moe.topk_ffn: the shared expert
 )
 
 # Every counter: tokens kept within capacity (a device tensor), expert
-# slots E x C and tokens routed B x S (host ints), per route_top1 call.
-DEVICE_COUNTERS = ("moe.kept", "moe.slots", "moe.routed")
+# slots E x C and tokens routed B x S (host ints), per route_top1 call;
+# per route_topk call the held (token, k) pairs, the largest held
+# expert's pairs and the tokens with a held pair (device tensors), and
+# B x S, the experts held, the (token, k) pairs selected B x S x k and
+# the bytes of one token's row in the experts' buffer (host ints).
+DEVICE_COUNTERS = ("moe.kept", "moe.slots", "moe.routed", "moe.assigned",
+                   "moe.load_max", "moe.tokens_held", "moe.held",
+                   "moe.selected", "moe.row_bytes")
 
 
 class _NoSpan:

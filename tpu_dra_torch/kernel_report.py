@@ -23,6 +23,11 @@ this file) with that tree's own build code, and prints one JSON line:
   so trees before and after a backward's redesign read the same work.
   Both directions are also timed without rope (``flash_fwd_no_rope``,
   ``flash_bwd_no_rope``) to show what the rotation costs;
+- at the Moonlight cell's attention shape (B6 S8191 H16 bf16, causal):
+  the forward and the backward at (q.k, v) = (192, 128), without rope,
+  in trees whose kernels take split head dims (``SM90_SPLIT_HEAD_DIMS``),
+  and, beside them, (128, 128) (``bf16_b6_s8191_h16_d192_v128``,
+  ``..._d128_v128``; windows of 3 calls);
 - ``device_ms``: the same calls' device time (torch.profiler: the
   kernels and fills they run, summed, per call). Where a shape is
   launch-bound (D=16) the CUDA-event window also holds the host's gaps
@@ -99,17 +104,24 @@ def device_ms(fn, calls=20) -> float:
     return total_us / 1e3 / calls
 
 
-def kernel_times(fk, rope_operands, b, s, h, d, dtype, inner=10) -> tuple:
+def kernel_times(fk, rope_operands, b, s, h, d, dtype, inner=10,
+                 dv=None) -> tuple:
     """({name: CUDA-event ms}, {name: device ms}) of the forward and the
-    backward, with and without rope, at [b, s, h, d]."""
+    backward, with and without rope, at q, k [b, s, h, d] and v [b, s, h,
+    dv] (d by default); without rope only where dv differs from d (the
+    kernels rotate in-tile at one head dim only)."""
     import torch
 
+    dv = dv or d
     gen = torch.Generator(device="cuda").manual_seed(7)
-    qkv = torch.randn((b, s, 3 * h * d), generator=gen, device="cuda").to(dtype)
-    q, k, v = (t.view(b, s, h, d) for t in qkv.split(h * d, dim=-1))
-    dout = torch.randn((b, s, h, d), generator=gen, device="cuda").to(dtype)
+    qkv = torch.randn((b, s, h * (2 * d + dv)), generator=gen,
+                      device="cuda").to(dtype)
+    q, k, v = (t.view(b, s, h, -1)
+               for t in qkv.split([h * d, h * d, h * dv], dim=-1))
+    dout = torch.randn((b, s, h, dv), generator=gen, device="cuda").to(dtype)
     dlse = torch.zeros((b, h, s), device="cuda")
-    tables = rope_operands(s, d, dtype, torch.device("cuda"))
+    tables = (rope_operands(s, d, dtype, torch.device("cuda")) if dv == d
+              else None)
     def backward(tables):
         o, lse = fk.fwd(q, k, v, tables, causal=True)
         delta = (dout.float() * o.float()).sum(-1).transpose(1, 2)
@@ -123,6 +135,8 @@ def kernel_times(fk, rope_operands, b, s, h, d, dtype, inner=10) -> tuple:
         "flash_bwd": backward(tables),
         "flash_bwd_no_rope": backward(None),
     }
+    if tables is None:
+        del calls["flash_fwd"], calls["flash_bwd"]
     ms = {name: time_ms(fn, inner=inner) for name, fn in calls.items()}
     dev = {name: device_ms(fn) for name, fn in calls.items()}
     del q, k, v, dout, qkv, calls
@@ -130,13 +144,17 @@ def kernel_times(fk, rope_operands, b, s, h, d, dtype, inner=10) -> tuple:
     return ms, dev
 
 
-# name: (B, S, H, D, dtype name, calls per timed window), in the order
-# timed.
+# name: (B, S, H, D, Dv, dtype name, calls per timed window), in the
+# order timed. The last two are the Moonlight cell's attention: a shape
+# with Dv != D runs only in trees whose kernels take split head dims
+# (SM90_SPLIT_HEAD_DIMS).
 SHAPES = {
-    "fp32_b1_s8192_h2_d128": (1, 8192, 2, 128, "float32", 10),
-    "fp32_b2_s384_h2_d16": (2, 384, 2, 16, "float32", 10),
-    "bf16_b8_s1023_h16_d128": (8, 1023, 16, 128, "bfloat16", 10),
-    "bf16_b1_s16384_h16_d128": (1, 16384, 16, 128, "bfloat16", 3),
+    "fp32_b1_s8192_h2_d128": (1, 8192, 2, 128, 128, "float32", 10),
+    "fp32_b2_s384_h2_d16": (2, 384, 2, 16, 16, "float32", 10),
+    "bf16_b8_s1023_h16_d128": (8, 1023, 16, 128, 128, "bfloat16", 10),
+    "bf16_b1_s16384_h16_d128": (1, 16384, 16, 128, 128, "bfloat16", 3),
+    "bf16_b6_s8191_h16_d192_v128": (6, 8191, 16, 192, 128, "bfloat16", 3),
+    "bf16_b6_s8191_h16_d128_v128": (6, 8191, 16, 128, 128, "bfloat16", 3),
 }
 
 
@@ -172,11 +190,12 @@ def main() -> int:
                       for name, lib in sorted(libs.items()) if name in timed},
         "ms": {}, "device_ms": {},
     }
-    for name, (b, s, h, d, dtype, inner) in SHAPES.items():
+    for name, (b, s, h, d, dv, dtype, inner) in SHAPES.items():
         dtype = getattr(torch, dtype)
-        if dtype in getattr(fk, "KERNEL_DTYPES", {torch.bfloat16: 2}):
+        if dtype in getattr(fk, "KERNEL_DTYPES", {torch.bfloat16: 2}) and (
+                dv == d or (d, dv) in getattr(fk, "SM90_SPLIT_HEAD_DIMS", ())):
             report["ms"][name], report["device_ms"][name] = kernel_times(
-                fk, _rope_operands, b, s, h, d, dtype, inner=inner)
+                fk, _rope_operands, b, s, h, d, dtype, inner=inner, dv=dv)
     print(json.dumps(report), flush=True)
     return 0
 

@@ -10,7 +10,9 @@ resident TPU kernels and of their streaming (XL) twins:
   (csrc/flash_fwd.cu) replace ``_fwd_kernel`` and ``_fwd_stream_kernel``.
   ``fwd_route`` picks one per (dtype, D): bf16 at D in
   ``FWD_SM90_HEAD_DIMS`` (64, 128: every forward of the model paths) runs
-  the Hopper kernel (128-row Q tiles, TMA ring, warp-specialised wgmma);
+  the Hopper kernel (128-row Q tiles, TMA ring, warp-specialised wgmma),
+  as does bf16 at the (q.k, v) head-dim pairs of ``SM90_SPLIT_HEAD_DIMS``
+  ((192, 128): the latent attention of dsv3_model.py, no fused rope);
   fp32, and bf16 at the other head dims, run ``flash_fwd`` (64-row Q
   tiles, cp.async ring, mma.sync; with rope a first launch writes the
   roped k into a scratch buffer the wrapper allocates);
@@ -37,7 +39,8 @@ The same build serves every other source under ``csrc/``: its wrapper
 module declares the source's C entry points with ``register`` (the MoE
 FFN's routing kernels, csrc/moe_route.cu, from _moe_kernels.py).
 
-Each wrapper (``fwd``, ``bwd``) takes [B, S, H, D] tensors. For CPU
+Each wrapper (``fwd``, ``bwd``) takes [B, S, H, D] tensors (v, o, dO and
+dV [B, S, H, Dv], Dv = D but at a split pair). For CPU
 tensors it runs its plain PyTorch version beside it in this module
 (``fwd_plain``, ``bwd_plain``, the latter built of ``bwd_dq_plain`` and
 ``bwd_dkv_plain``); for CUDA tensors it launches its route's kernel on
@@ -79,6 +82,11 @@ FWD_KERNELS = {"sm90": "flash_fwd_sm90", "mma": "flash_fwd"}
 # for, in bf16, and the backward kernel of each route.
 BWD_SM90_HEAD_DIMS = (64, 128)
 BWD_KERNELS = {"sm90": "flash_bwd_sm90", "mma": "flash_bwd_mma"}
+# The (q.k, v) head-dim pairs both Hopper kernels are built for besides,
+# in bf16 and without fused rope: multi-head latent attention (DeepSeek-
+# V2/V3), 128 "nope" + 64 roped dims for q and k, 128 for v. Only the
+# Hopper route takes them.
+SM90_SPLIT_HEAD_DIMS = ((192, 128),)
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_dra_torch"
@@ -88,8 +96,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 _I64 = ctypes.c_longlong
-# B S H D, in strides, causal, rope, element bytes
-_SHAPE = [_INT] * 4 + [_I64] * 3 + [_INT] * 3
+# B S H D Dv, q/k's strides, v's strides, causal, rope, element bytes
+_SHAPE = [_INT] * 5 + [_I64] * 6 + [_INT] * 3
 ARGTYPES = {
     # flash_fwd_sm90's operands, then the roped-k scratch.
     "flash_fwd": [_PTR] * 8 + _SHAPE + [_PTR],
@@ -279,13 +287,18 @@ def _kernel_inputs(q, k, v, tables):
     take them: all bf16 or all fp32 on one card, D a multiple of 16 up to
     128 (fp32: one of FP32_HEAD_DIMS), q/k/v sharing one 16-byte-aligned
     layout (views of one fused projection pass as they are; anything else
-    is made contiguous), and the rope tables in q's dtype."""
+    is made contiguous), and the rope tables in q's dtype. At a split pair
+    of SM90_SPLIT_HEAD_DIMS (bf16, no tables) v's head dim differs, q and
+    k share one aligned layout and v has its own."""
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"CUDA flash kernels take bfloat16 or float32, got "
                         f"{q.dtype}")
+    if q.dim() == 4 and q.shape == k.shape and v.shape[:3] == q.shape[:3] \
+            and (q.shape[-1], v.shape[-1]) in SM90_SPLIT_HEAD_DIMS:
+        return _split_inputs(q, k, v, tables)
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
         raise ValueError(f"q, k, v must share a [B, S, H, D] shape: "
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
@@ -307,6 +320,25 @@ def _kernel_inputs(q, k, v, tables):
     return q, k, v, tables
 
 
+def _split_inputs(q, k, v, tables):
+    """_kernel_inputs at a split head-dim pair: bf16 only, no rope tables
+    (the caller ropes the rotated dims), q and k sharing one aligned
+    layout (else both made contiguous) and v aligned in its own."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"head dims {(q.shape[-1], v.shape[-1])}: the "
+                        f"kernels take bfloat16 only, got {q.dtype}")
+    if tables is not None:
+        raise ValueError(f"head dims {(q.shape[-1], v.shape[-1])}: no fused "
+                         "rope (rotate the roped dims before the call)")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k, v on different devices")
+    if not (q.stride() == k.stride() and _aligned(q) and _aligned(k)):
+        q, k = q.contiguous(), k.contiguous()
+    if not _aligned(v):
+        v = v.contiguous()
+    return q, k, v, None
+
+
 def _table_ptrs(tables):
     return (None, None) if tables is None else (tables[0].data_ptr(),
                                                 tables[1].data_ptr())
@@ -316,12 +348,15 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _dims(q, causal, tables):
-    """The shape arguments every kernel takes after its pointers."""
+def _dims(q, causal, tables, v=None):
+    """The shape arguments every kernel takes after its pointers: v (by
+    default q) gives Dv and its own strides."""
+    v = q if v is None else v
     b, s, h, d = q.shape
-    st = q.stride()
-    return (b, s, h, d, st[0], st[1], st[2], int(causal),
-            int(tables is not None), KERNEL_DTYPES[q.dtype])
+    st, vst = q.stride(), v.stride()
+    return (b, s, h, d, v.shape[-1], st[0], st[1], st[2], vst[0], vst[1],
+            vst[2], int(causal), int(tables is not None),
+            KERNEL_DTYPES[q.dtype])
 
 
 def _device_of(x: torch.Tensor) -> str:
@@ -330,13 +365,15 @@ def _device_of(x: torch.Tensor) -> str:
     return x.device.type
 
 
-def fwd_route(dtype: torch.dtype, d: int) -> str:
-    """The forward kernel that serves (dtype, D): "sm90" (flash_fwd_sm90:
-    bf16 at D in FWD_SM90_HEAD_DIMS) or "mma" (flash_fwd: fp32, and bf16
-    at the other head dims). wgmma takes fp32 only as TF32 with both
-    operands K-major, and P.V needs V MN-major, so fp32 keeps the 3xTF32
-    mma.sync kernel."""
-    if dtype == torch.bfloat16 and d in FWD_SM90_HEAD_DIMS:
+def fwd_route(dtype: torch.dtype, d: int, dv: int = None) -> str:
+    """The forward kernel that serves (dtype, D, Dv): "sm90"
+    (flash_fwd_sm90: bf16 at D = Dv in FWD_SM90_HEAD_DIMS or at a pair of
+    SM90_SPLIT_HEAD_DIMS) or "mma" (flash_fwd: fp32, and bf16 at the other
+    head dims). wgmma takes fp32 only as TF32 with both operands K-major,
+    and P.V needs V MN-major, so fp32 keeps the 3xTF32 mma.sync kernel."""
+    dv = d if dv is None else dv
+    if dtype == torch.bfloat16 and ((d == dv and d in FWD_SM90_HEAD_DIMS)
+                                    or (d, dv) in SM90_SPLIT_HEAD_DIMS):
         return "sm90"
     return "mma"
 
@@ -349,8 +386,8 @@ def fwd(q, k, v, tables, *, causal: bool):
         return fwd_plain(q, k, v, tables, causal=causal)
     q, k, v, tables = _kernel_inputs(q, k, v, tables)
     b, s, h, d = q.shape
-    route = fwd_route(q.dtype, d)
-    o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    route = fwd_route(q.dtype, d, v.shape[-1])
+    o = torch.empty((b, s, h, v.shape[-1]), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), *_table_ptrs(tables),
             o.data_ptr(), lse.data_ptr()]
@@ -359,53 +396,57 @@ def fwd(q, k, v, tables, *, causal: bool):
         kr = None if tables is None else torch.empty_like(o)
         ptrs.append(None if kr is None else kr.data_ptr())
     with torch.cuda.device(q.device):
-        _call(FWD_KERNELS[route], *ptrs, *_dims(q, causal, tables),
+        _call(FWD_KERNELS[route], *ptrs, *_dims(q, causal, tables, v),
               _stream(q))
     fwd.launches += 1
     fwd.route_launches[route] += 1
     return o, lse
 
 
-def _bwd_inputs(q, dout, lse, delta, dlse):
-    b, s, h, d = q.shape
-    if dout.shape != (b, s, h, d) or lse.shape != (b, h, s) \
+def _bwd_inputs(q, v, dout, lse, delta, dlse):
+    b, s, h, _ = q.shape
+    if dout.shape != v.shape or lse.shape != (b, h, s) \
             or delta.shape != (b, h, s) or dlse.shape != (b, h, s):
         raise ValueError("backward operands do not match q's [B, S, H, D]")
     dout = dout.to(q.dtype).contiguous()
     return (dout,) + tuple(x.float().contiguous() for x in (lse, delta, dlse))
 
 
-def bwd_route(dtype: torch.dtype, d: int) -> str:
-    """The backward that serves (dtype, D): "sm90" (flash_bwd_sm90: bf16
-    at D in BWD_SM90_HEAD_DIMS) or "mma" (flash_bwd_mma: fp32, and bf16 at
-    the other head dims). As in fwd_route, wgmma takes fp32 only as TF32
-    with both operands K-major, and the backward reads dO, Q, dS and K
+def bwd_route(dtype: torch.dtype, d: int, dv: int = None) -> str:
+    """The backward that serves (dtype, D, Dv): "sm90" (flash_bwd_sm90:
+    bf16 at D = Dv in BWD_SM90_HEAD_DIMS or at a pair of
+    SM90_SPLIT_HEAD_DIMS) or "mma" (flash_bwd_mma: fp32, and bf16 at the
+    other head dims). As in fwd_route, wgmma takes fp32 only as TF32 with
+    both operands K-major, and the backward reads dO, Q, dS and K
     MN-major."""
-    if dtype == torch.bfloat16 and d in BWD_SM90_HEAD_DIMS:
+    dv = d if dv is None else dv
+    if dtype == torch.bfloat16 and ((d == dv and d in BWD_SM90_HEAD_DIMS)
+                                    or (d, dv) in SM90_SPLIT_HEAD_DIMS):
         return "sm90"
     return "mma"
 
 
 def bwd(q, k, v, dout, lse, delta, dlse, tables, *, causal: bool):
-    """(dq, dk, dv) [B, S, H, D] of attention over q, k, v; dout
-    [B, S, H, D]; lse, delta = rowsum(dO * O) and dlse (the lse
+    """(dq, dk [B, S, H, D], dv [B, S, H, Dv]) of attention over q, k, v;
+    dout [B, S, H, Dv]; lse, delta = rowsum(dO * O) and dlse (the lse
     cotangent) [B, H, S] fp32; tables as fwd's."""
     if _device_of(q) == "cpu":
         return bwd_plain(q, k, v, dout, lse, delta, dlse, tables,
                          causal=causal)
     q, k, v, tables = _kernel_inputs(q, k, v, tables)
-    route = bwd_route(q.dtype, q.shape[-1])
-    dout, lse, delta, dlse = _bwd_inputs(q, dout, lse, delta, dlse)
+    route = bwd_route(q.dtype, q.shape[-1], v.shape[-1])
+    dout, lse, delta, dlse = _bwd_inputs(q, v, dout, lse, delta, dlse)
     # dQ's fp32 accumulator: every K tile's CTA adds into it.
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dq, dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
-                  for _ in range(3))
+    dq, dk = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+              for _ in range(2))
+    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         _call(BWD_KERNELS[route], q.data_ptr(), k.data_ptr(), v.data_ptr(),
               dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
               dlse.data_ptr(), *_table_ptrs(tables), dq_acc.data_ptr(),
               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-              *_dims(q, causal, tables), _stream(q))
+              *_dims(q, causal, tables, v), _stream(q))
     bwd.launches += 1
     bwd.route_launches[route] += 1
     return dq, dk, dv

@@ -1,7 +1,7 @@
 """Launch the MoE FFN's routing and row-copy kernels (csrc/moe_route.cu).
 
-Three wrappers, one per C entry point, each with its plain PyTorch
-version beside it:
+Six wrappers, one per C entry point, each with its plain PyTorch
+version beside it. For the top-1 route (moe.route_top1):
 
 - ``route`` (``moe_route``): each token's position within its expert in
   token order, continued from ``offset`` (the lower data ranks' counts),
@@ -15,6 +15,19 @@ version beside it:
   rounded once to the rows' dtype.
 - ``row_dot`` (``moe_row_dot``): out[t] = sum_d a[t, d] * b[idx[t], d] in
   fp32, or 0 where idx[t] < 0.
+
+For the top-k dropless route over a rank's held experts (moe.route_topk):
+
+- ``route_topk`` (``moe_route_topk``): each (token, k) pair's row in the
+  held experts' [N, D] buffer (pairs in (b, s, k) order, each expert's
+  rows in that order, experts one after another), the pair and the token
+  of each row, the experts' row offsets and (N, the largest expert's
+  rows). One CTA scans the pairs.
+- ``combine_rows`` (``moe_combine_rows``): out[t] = sum_k gate[t, k] *
+  src[idx[t, k]] over the held pairs (the plain sum without gates), in
+  fp32, rounded once.
+- ``pair_dot`` (``moe_pair_dot``): out[p] = sum_d a[p // k, d] * b[idx[p],
+  d] in fp32, or 0 where idx[p] < 0.
 
 The source's header says what bounds the kernels on the H100 and what
 their design does about it; they replace no TPU kernel (the reference's
@@ -48,7 +61,16 @@ ARGTYPES = {
     "moe_gather_rows": [_PTR] * 4 + [_INT] * 4 + [_PTR],
     # a, b, idx, out; rows, D, element bytes.
     "moe_row_dot": [_PTR] * 4 + [_INT] * 3 + [_PTR],
+    # expert, slot, pair_of_row, token_of_row, offsets, stats; pairs, k,
+    # the rank's experts [e_lo, e_hi).
+    "moe_route_topk": [_PTR] * 6 + [_INT] * 4 + [_PTR],
+    # src, idx, gate, dst; rows, k, D, element bytes.
+    "moe_combine_rows": [_PTR] * 4 + [_INT] * 4 + [_PTR],
+    # a, b, idx, out; pairs, k, D, element bytes.
+    "moe_pair_dot": [_PTR] * 4 + [_INT] * 4 + [_PTR],
 }
+# The most experts one route_topk call holds (csrc/moe_route.cu kMaxHeld).
+MAX_HELD = 16
 fk.register("moe_route", ARGTYPES)
 
 
@@ -96,6 +118,47 @@ def gather_rows_plain(src, idx, scale=None, scale_by_src: bool = False):
 def row_dot_plain(a, b, idx):
     """row_dot's function, summed by torch.sum in fp32."""
     return (a.float() * gather_rows_plain(b, idx).float()).sum(-1)
+
+
+def route_topk_plain(expert, k: int, lo: int, hi: int):
+    """route_topk's function: a cumsum of the held experts' one-hot along
+    the pairs, each expert's rows after the lower experts'."""
+    e = expert.reshape(-1).long()
+    n, held = e.numel(), hi - lo
+    local = e - lo
+    inside = (local >= 0) & (local < held)
+    onehot = F.one_hot(torch.where(inside, local, held), held + 1)[:, :held]
+    counts = onehot.sum(0)
+    start = counts.cumsum(0) - counts
+    pos = (onehot.cumsum(0) * onehot).sum(1) - 1
+    slot = torch.where(inside, start[local.clamp(0, held - 1)] + pos, -1)
+    pair_of_row = torch.full((n,), -1, dtype=torch.long, device=e.device)
+    pair_of_row[slot[inside]] = torch.arange(n, device=e.device)[inside]
+    token_of_row = torch.where(pair_of_row >= 0, pair_of_row // k, -1)
+    offsets = torch.cat([start, counts.sum().reshape(1)])
+    stats = torch.stack([counts.sum(), counts.max()])
+    return (slot.int(), pair_of_row.int(), token_of_row.int(), offsets.int(),
+            stats.int())
+
+
+def combine_rows_plain(src, idx, gate, k: int):
+    """combine_rows' function as the kernel rounds it: each token's k
+    rows in order, each added as one fused multiply-add in fp32 (the
+    fp64 sum of the fp32 total and the product, which fp64 holds
+    exactly, rounded once to fp32), the total rounded to src's dtype."""
+    rows = gather_rows_plain(src, idx).double().view(-1, k, src.shape[1])
+    gates = (torch.ones(idx.numel(), dtype=torch.float64, device=src.device)
+             if gate is None else gate.float().double()).view(-1, k, 1)
+    acc = torch.zeros(rows.shape[0], src.shape[1], device=src.device)
+    for j in range(k):
+        acc = (acc.double() + gates[:, j] * rows[:, j]).float()
+    return acc.to(src.dtype)
+
+
+def pair_dot_plain(a, b, idx, k: int):
+    """pair_dot's function, summed by torch.sum in fp32."""
+    a_rows = a.float().repeat_interleave(k, 0)
+    return (a_rows * gather_rows_plain(b, idx).float()).sum(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -192,8 +255,82 @@ def row_dot(a, b, idx):
     return out
 
 
+def route_topk(expert, k: int, lo: int, hi: int):
+    """(slot [P], pair_of_row [P], token_of_row [P], offsets [hi - lo + 1],
+    stats [2]), int32, of expert [T, k] (each token's k experts; P = T·k
+    pairs in (b, s, k) order) over the held experts [lo, hi): each pair's
+    row in the held experts' buffer (-1 where not held), rows [0, N) the
+    pair and token they hold (the rest unspecified), each held expert's
+    first row then N, and (N, the largest held expert's rows)."""
+    if not (0 <= lo < hi and hi - lo <= MAX_HELD):
+        raise ValueError(f"held experts [{lo}, {hi}): between 1 and "
+                         f"{MAX_HELD} of them")
+    if fk._device_of(expert) == "cpu":
+        return route_topk_plain(expert, k, lo, hi)
+    expert = expert.reshape(-1).to(torch.int32).contiguous()
+    n = expert.numel()
+    slot, pair_of_row, token_of_row = (
+        torch.empty(n, dtype=torch.int32, device=expert.device)
+        for _ in range(3))
+    offsets = torch.empty(hi - lo + 1, dtype=torch.int32,
+                          device=expert.device)
+    stats = torch.empty(2, dtype=torch.int32, device=expert.device)
+    with torch.cuda.device(expert.device):
+        fk._call("moe_route_topk", expert.data_ptr(), slot.data_ptr(),
+                 pair_of_row.data_ptr(), token_of_row.data_ptr(),
+                 offsets.data_ptr(), stats.data_ptr(), n, k, lo, hi,
+                 fk._stream(expert))
+    route_topk.launches += 1
+    return slot, pair_of_row, token_of_row, offsets, stats
+
+
+def combine_rows(src, idx, gate, k: int):
+    """out [len(idx) // k, D] of src [N, D]: row t is sum_j gate[t·k + j] ·
+    src[idx[t·k + j]] over the j with idx >= 0 (gate None: the plain
+    sum), in fp32 and rounded once; zeros where none is."""
+    if idx.numel() % k:
+        raise ValueError(f"{idx.numel()} pairs for k = {k}")
+    if fk._device_of(src) == "cpu":
+        return combine_rows_plain(src, idx, gate, k)
+    src = _rows(src)
+    n = idx.numel() // k
+    idx = _index(idx, n * k)
+    if gate is not None:
+        gate = gate.float().contiguous()
+        if gate.shape != (n * k,):
+            raise ValueError(f"gate of shape {tuple(gate.shape)}, want "
+                             f"({n * k},)")
+    dst = torch.empty((n, src.shape[1]), dtype=src.dtype, device=src.device)
+    with torch.cuda.device(src.device):
+        fk._call("moe_combine_rows", src.data_ptr(), idx.data_ptr(),
+                 None if gate is None else gate.data_ptr(), dst.data_ptr(),
+                 n, k, src.shape[1], ROW_DTYPES[src.dtype], fk._stream(src))
+    combine_rows.launches += 1
+    return dst
+
+
+def pair_dot(a, b, idx, k: int):
+    """out [len(idx)] fp32 of a [T, D] and b [N, D]: sum_d a[p // k, d] ·
+    b[idx[p], d], or 0 where idx[p] < 0."""
+    if fk._device_of(a) == "cpu":
+        return pair_dot_plain(a, b, idx, k)
+    a, b = _rows(a), _rows(b)
+    if a.dtype != b.dtype or a.shape[1] != b.shape[1]:
+        raise ValueError(f"rows differ: {a.dtype} {tuple(a.shape)}, "
+                         f"{b.dtype} {tuple(b.shape)}")
+    idx = _index(idx, a.shape[0] * k)
+    out = torch.empty(idx.numel(), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        fk._call("moe_pair_dot", a.data_ptr(), b.data_ptr(), idx.data_ptr(),
+                 out.data_ptr(), idx.numel(), k, a.shape[1],
+                 ROW_DTYPES[a.dtype], fk._stream(a))
+    pair_dot.launches += 1
+    return out
+
+
 WRAPPERS = {"moe_route": route, "moe_gather_rows": gather_rows,
-            "moe_row_dot": row_dot}
+            "moe_row_dot": row_dot, "moe_route_topk": route_topk,
+            "moe_combine_rows": combine_rows, "moe_pair_dot": pair_dot}
 
 
 def reset_launches() -> None:

@@ -1,5 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a), bf16 at D = 64 and 128,
-// as one fused pass: each CTA keeps one 128-key K/V tile stationary and
+// Flash-attention backward for Hopper (sm_90a), bf16 at head dims (q.k,
+// v) = (64, 64), (128, 128) and (192, 128), as one fused pass: each CTA keeps one 128-key K/V tile stationary and
 // streams the 64-row Q/dO tiles that attend to it, computing dK and dV in
 // registers and adding its dQ partials into an fp32 accumulator; a second
 // launch in the same C entry turns the accumulator into dq.
@@ -56,6 +56,15 @@
 //    the K tile, so the heaviest CTAs of every head launch first; each CTA
 //    streams its Q tiles from the diagonal down.
 //
+// Latent attention (DeepSeek-V3's MLA, (192, 128); no rope, which the
+// caller applies to the 64 roped dims): dK holds 96 registers a consumer
+// thread where dV holds 64, so P^T is packed to bf16 only after dS^T (one
+// fewer 16-register array live while S^T and dP^T both are); dK += dS^T.Q
+// is one m64n192 wgmma; dQ's three 64-column boxes go to consumer 0 (boxes
+// 0 and 2) and consumer 1 (box 1). Shared memory: K 48 KB + V 32 KB, two
+// stages of Q 24 KB + dO 16 KB, and the same dS^T, dQ and row-vector
+// buffers: 226 KB. The scale is 1/sqrt(Dqk).
+//
 // Rounding points are bwd_dq_plain's and bwd_dkv_plain's: roped q/k
 // rounded to bf16 before the dots, scores scaled after them, masked scores
 // -1e30 (on the diagonal and ragged tiles; queries and keys >= S are
@@ -107,15 +116,19 @@ struct Args {
 // Shared memory: K and V tiles, kStages x (Q tile, dO tile, the Q rows'
 // rope-table halves), two dS^T tiles, the two consumers' dQ staging,
 // kStages x (lse * log2(e), dlse - delta of the stage's rows), then the
-// barriers. 226 KB at D=128.
-template <int D>
+// barriers. Only an instance whose q.k and v share a head dim ropes
+// (kRope). 226 KB at (128, 128) and at (192, 128).
+template <int DK, int DV>
 struct Smem {
-  static constexpr int kKv = (D / 64) * kKvBox;     // K or V tile
-  static constexpr int kQt = (D / 64) * kQBox;      // Q or dO tile
+  static constexpr bool kRope = DK == DV;
+  static constexpr int kKv = (DK / 64) * kKvBox;    // K tile
+  static constexpr int kV = (DV / 64) * kKvBox;     // V tile
+  static constexpr int kQt = (DK / 64) * kQBox;     // Q tile
+  static constexpr int kDo = (DV / 64) * kQBox;     // dO tile
   // cos_t then sinm_t, the first D/2 columns of 64 rows, unswizzled.
-  static constexpr int kTables = 2 * kQ * D;
-  static constexpr int kStage = 2 * kQt + kTables;
-  static constexpr int kStage0 = 2 * kKv;
+  static constexpr int kTables = kRope ? 2 * kQ * DK : 0;
+  static constexpr int kStage = kQt + kDo + kTables;
+  static constexpr int kStage0 = kKv + kV;
   static constexpr int kDs = kStage0 + kStages * kStage;
   static constexpr int kDq = kDs + 2 * kDsTile;
   static constexpr int kRowVecs = kDq + 2 * kDqTile;  // 2 x 64 fp32 a stage
@@ -126,7 +139,8 @@ struct Smem {
 };
 
 // S^T (or dP^T) = A . B^T for one consumer: A its 64 rows of the K (or V)
-// tile, B the stage's 64 Q (or dO) rows, both K-major; D/16 k-steps.
+// tile, B the stage's 64 Q (or dO) rows, both K-major; D/16 k-steps (D
+// the operands' head dim: Dqk for S^T, Dv for dP^T).
 template <int D>
 __device__ __forceinline__ void kq_product(float (&acc)[32], uint64_t a_desc,
                                            uint64_t b_desc) {
@@ -149,7 +163,8 @@ __device__ __forceinline__ void rs_product(float (&acc)[D / 2],
 #pragma unroll
   for (int kk = 0; kk < kQ / 16; ++kk) {
     const uint64_t d = sm90::desc_add(b_desc, kk * 16 * 128);
-    if constexpr (D == 128) sm90::wgmma_rs_m64n128(acc, &frag[4 * kk], d);
+    if constexpr (D == 192) sm90::wgmma_rs_m64n192(acc, &frag[4 * kk], d);
+    else if constexpr (D == 128) sm90::wgmma_rs_m64n128(acc, &frag[4 * kk], d);
     else sm90::wgmma_rs_m64n64(acc, &frag[4 * kk], d);
   }
 }
@@ -166,7 +181,7 @@ __device__ __forceinline__ void dq_product(float (&acc)[32], uint64_t ds_desc,
   }
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
@@ -178,8 +193,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const __grid_constant__ CUtensorMap sinm_map,
                           const __grid_constant__ CUtensorMap dq_map,
                           const Args a) {
-  using L = Smem<D>;
-  constexpr int kBoxes = D / 64;
+  using L = Smem<DK, DV>;
+  constexpr int D = DK;             // the rope paths' head dim (DK == DV)
+  constexpr int kBoxes = DK / 64;   // of K, Q, dK and dQ
+  constexpr int kVBoxes = DV / 64;  // of V, dO and dV
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -222,29 +239,29 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::regs_dec<kProducerRegs>();
     const int warp = tid / 32, lane = tid % 32;
     if (tid == 0) {
-      sm90::mbar_arrive_expect_tx(kv_full, 2 * L::kKv);
-      for (int c = 0; c < kBoxes; ++c) {
+      sm90::mbar_arrive_expect_tx(kv_full, L::kKv + L::kV);
+      for (int c = 0; c < kBoxes; ++c)
         sm90::tma_load_4d(k_tile + c * kKvBox, &k_map, kv_full, c * 64, h, k0,
                           b);
+      for (int c = 0; c < kVBoxes; ++c)
         sm90::tma_load_4d(v_tile + c * kKvBox, &v_map, kv_full, c * 64, h, k0,
                           b);
-      }
       for (int it = 0; it < n_it; ++it) {
         const int s = it % kStages, q0 = (qt0 + it) * kQ;
         uint8_t* st = stage(it);
         sm90::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
         sm90::mbar_arrive_expect_tx(&full[s],
-                                    2 * L::kQt + (a.rope ? L::kTables : 0));
-        for (int c = 0; c < kBoxes; ++c) {
+                                    L::kQt + L::kDo + (a.rope ? L::kTables : 0));
+        for (int c = 0; c < kBoxes; ++c)
           sm90::tma_load_4d(st + c * kQBox, &q_map, &full[s], c * 64, h, q0,
                             b);
+        for (int c = 0; c < kVBoxes; ++c)
           sm90::tma_load_4d(st + L::kQt + c * kQBox, &do_map, &full[s],
                             c * 64, h, q0, b);
-        }
-        if (a.rope) {
-          sm90::tma_load_2d(st + 2 * L::kQt, &cos_map, &full[s], 0, q0);
-          sm90::tma_load_2d(st + 2 * L::kQt + kQ * D, &sinm_map, &full[s], 0,
-                            q0);
+        if constexpr (L::kRope) if (a.rope) {
+          uint8_t* tables = st + L::kQt + L::kDo;
+          sm90::tma_load_2d(tables, &cos_map, &full[s], 0, q0);
+          sm90::tma_load_2d(tables + kQ * D, &sinm_map, &full[s], 0, q0);
         }
       }
     } else if (warp == 1) {
@@ -273,11 +290,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int key_l = 64 * w + 16 * warp + g;  // tile row of fragment row g
   const int key_g = k0 + key_l, key_g8 = key_g + 8;
-  // dQ's columns: box w at D=128; all of them on consumer 0 at D=64.
-  const bool computes_dq = D == 128 || w == 0;
+  // dQ's columns: box w at D=128; all of them on consumer 0 at D=64;
+  // boxes 0 and 2 on consumer 0 and box 1 on consumer 1 at Dqk=192.
+  const bool computes_dq = DK >= 128 || w == 0;
 
   sm90::mbar_wait(kv_full, 0);
-  if (a.rope) {
+  if constexpr (L::kRope) if (a.rope) {
     sm90::rope_rows<D, kKvBox, 64>(
         k_tile, 64 * w, k0, a.S, tid,
         [&](int pos, int, int j, uint4& c, uint4& s) {
@@ -291,11 +309,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint64_t kw_desc = sm90::desc_sw128(k_tile + w * 64 * 128, 16, 1024);
   const uint64_t vw_desc = sm90::desc_sw128(v_tile + w * 64 * 128, 16, 1024);
   const uint64_t kdq_desc =
-      sm90::desc_sw128(k_tile + (D == 128 ? w : 0) * kKvBox, kKvBox, 1024);
+      sm90::desc_sw128(k_tile + (DK >= 128 ? w : 0) * kKvBox, kKvBox, 1024);
 
-  float dk[D / 2], dv[D / 2];
+  float dk[DK / 2], dv[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  for (int i = 0; i < DK / 2; ++i) dk[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
 
   for (int it = 0; it < n_it; ++it) {
     const int s = it % kStages, phase = (it / kStages) & 1;
@@ -311,7 +331,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint8_t* ds_s = smem + L::kDs + (it & 1) * kDsTile;
 
     sm90::mbar_wait(&full[s], phase);
-    if (a.rope) {
+    if constexpr (L::kRope) if (a.rope) {
       // Rows [32w, 32w + 32) of Q, from the table halves of the stage.
       const uint8_t* tables = q_s + 2 * L::kQt;
       sm90::rope_rows<D, kQBox, 32>(
@@ -329,9 +349,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     // S^T and dP^T: 64 keys x 64 queries each.
     float sc[32], dp[32];
     sm90::wgmma_fence();
-    kq_product<D>(sc, kw, sm90::desc_sw128(q_s, 16, 1024));
+    kq_product<DK>(sc, kw, sm90::desc_sw128(q_s, 16, 1024));
     sm90::wgmma_commit();
-    kq_product<D>(dp, vw, sm90::desc_sw128(do_s, 16, 1024));
+    kq_product<DV>(dp, vw, sm90::desc_sw128(do_s, 16, 1024));
     sm90::wgmma_commit();
     // P^T while dP^T still runs. Fragment: sc[4j + e] is key row g (e < 2)
     // or g + 8, query q0 + 8j + 2t + (e & 1).
@@ -355,8 +375,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     uint32_t pa[16], da[16];  // P^T and dS^T as bf16 A fragments
+    auto pack_p = [&]() {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) pa[i] = flash::pack_bf16(sc[2 * i], sc[2 * i + 1]);
+      for (int i = 0; i < 16; ++i)
+        pa[i] = flash::pack_bf16(sc[2 * i], sc[2 * i + 1]);
+    };
+    if constexpr (DK == DV) pack_p();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(dp);
 #pragma unroll
@@ -368,6 +392,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 #pragma unroll
     for (int i = 0; i < 16; ++i) da[i] = flash::pack_bf16(dp[2 * i], dp[2 * i + 1]);
+    if constexpr (DK != DV) pack_p();
     // dS^T into shared memory (rows = keys, 64 query columns, swizzled as
     // one 128-row box) for dQ = dS . K; both consumers' halves meet there.
 #pragma unroll
@@ -388,8 +413,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::fence_regs(pa);
     sm90::fence_regs(da);
     sm90::wgmma_fence();
-    rs_product<D>(dv, pa, sm90::desc_sw128(do_s, kQBox, 1024));
-    rs_product<D>(dk, da, sm90::desc_sw128(q_s, kQBox, 1024));
+    rs_product<DV>(dv, pa, sm90::desc_sw128(do_s, kQBox, 1024));
+    rs_product<DK>(dk, da, sm90::desc_sw128(q_s, kQBox, 1024));
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(dv);
@@ -398,9 +423,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::fence_regs(da);
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&empty[s]);  // Q, dO, lse/corr read
-    if (computes_dq) {
+    // dQ of 64 columns from box c of K (descriptor kdq_c), added at
+    // column c0.
+    auto dq_box = [&](uint64_t kdq_c, int c0) {
       sm90::wgmma_fence();
-      dq_product(dq, sm90::desc_sw128(ds_s, kDsTile, 1024), kdq);
+      dq_product(dq, sm90::desc_sw128(ds_s, kDsTile, 1024), kdq_c);
       sm90::wgmma_commit();
       sm90::wgmma_wait<0>();
       sm90::fence_regs(dq);
@@ -408,7 +435,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // (fragment rows g, g + 8; columns 8j + 2t), staged as two swizzled
       // 16 x 32 fp32 boxes, then added into the accumulator by TMA (rows
       // past S are dropped by the map). Lane 0 first waits until the
-      // previous tile's reduce has read the staging.
+      // previous reduce has read the staging.
       uint8_t* dq_s = smem + L::kDq + w * kDqTile + warp * kDqBox;
       if (lane == 0) sm90::bulk_wait_read();
       __syncwarp();
@@ -425,13 +452,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::fence_proxy_async();
       __syncwarp();
       if (lane == 0) {
-        const int c0 = D == 128 ? 64 * w : 0;
         sm90::tma_reduce_add_4d(&dq_map, dq_s, c0, h, q0 + 16 * warp, b);
         sm90::tma_reduce_add_4d(&dq_map, dq_s + 4 * kDqBox, c0 + 32, h,
                                 q0 + 16 * warp, b);
         sm90::bulk_commit();
       }
-    }
+    };
+    if (computes_dq) dq_box(kdq, 64 * w);
+    if constexpr (kBoxes == 3)
+      if (w == 0) dq_box(sm90::desc_add(kdq, 2 * kKvBox), 128);
   }
   if (computes_dq && lane == 0) sm90::bulk_wait_read();
 
@@ -441,8 +470,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // tiles, swizzled as the output maps' 64-row boxes, then stored by TMA
   // (rows past S are not written).
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] *= a.sm_scale;
-  if (a.rope) {
+  for (int i = 0; i < DK / 2; ++i) dk[i] *= a.sm_scale;
+  if constexpr (L::kRope) if (a.rope) {
 #pragma unroll
     for (int jt = 0; jt < D / 16; ++jt) {
 #pragma unroll
@@ -467,27 +496,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   // The other consumer's dS . K products read every row of K.
   sm90::named_sync(kBothConsumers, 256);
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  // 64 keys x (columns of 4 j) of `acc`, rounded into `tile`'s rows.
+  auto stage_rows = [&](uint8_t* tile, auto& acc, int j) {
     const int lo = sm90::swz_off(key_l, j, kKvBox) + 4 * t;
     const int hi = sm90::swz_off(key_l + 8, j, kKvBox) + 4 * t;
-    *reinterpret_cast<uint32_t*>(k_tile + lo) =
-        flash::pack_bf16(dk[4 * j], dk[4 * j + 1]);
-    *reinterpret_cast<uint32_t*>(k_tile + hi) =
-        flash::pack_bf16(dk[4 * j + 2], dk[4 * j + 3]);
-    *reinterpret_cast<uint32_t*>(v_tile + lo) =
-        flash::pack_bf16(dv[4 * j], dv[4 * j + 1]);
-    *reinterpret_cast<uint32_t*>(v_tile + hi) =
-        flash::pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
-  }
+    *reinterpret_cast<uint32_t*>(tile + lo) =
+        flash::pack_bf16(acc[4 * j], acc[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(tile + hi) =
+        flash::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+  };
+#pragma unroll
+  for (int j = 0; j < DK / 8; ++j) stage_rows(k_tile, dk, j);
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j) stage_rows(v_tile, dv, j);
   sm90::fence_proxy_async();
   sm90::named_sync(1 + w, 128);
   if (tid == 0) {
-    for (int c = 0; c < kBoxes; ++c) {
-      const int off = c * kKvBox + w * 64 * 128;
-      sm90::tma_store_4d(&dk_map, k_tile + off, c * 64, h, k0 + 64 * w, b);
-      sm90::tma_store_4d(&dv_map, v_tile + off, c * 64, h, k0 + 64 * w, b);
-    }
+    for (int c = 0; c < kBoxes; ++c)
+      sm90::tma_store_4d(&dk_map, k_tile + c * kKvBox + w * 64 * 128, c * 64,
+                         h, k0 + 64 * w, b);
+    for (int c = 0; c < kVBoxes; ++c)
+      sm90::tma_store_4d(&dv_map, v_tile + c * kKvBox + w * 64 * 128, c * 64,
+                         h, k0 + 64 * w, b);
     sm90::tma_store_wait();
   }
 }
@@ -536,29 +566,33 @@ __global__ void __launch_bounds__(256)
       make_uint2(flash::pack_bf16(hi[0], hi[1]), flash::pack_bf16(hi[2], hi[3]));
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    const float* dlse, const void* cos_t, const void* sinm_t,
                    float* dq_acc, void* dq, void* dk, void* dv, int B, int S,
                    int H, long long in_b, long long in_s, long long in_h,
-                   int causal, int rope, cudaStream_t stream) {
-  // q (64-row boxes), k, v (128-row boxes) in the callers' strides; dout,
-  // dk, dv [B, S, H, D] contiguous in 64-row boxes.
-  const long long out_b = (long long)S * H * D, out_s = (long long)H * D;
+                   long long v_b, long long v_s, long long v_h, int causal,
+                   int rope, cudaStream_t stream) {
+  if (rope && !Smem<DK, DV>::kRope) return cudaErrorInvalidValue;
+  // q (64-row boxes), k (128-row boxes) in the callers' strides, v
+  // (128-row boxes) in its own; dout, dv [B, S, H, DV] and dk [B, S, H,
+  // DK] contiguous in 64-row boxes.
+  const long long k_b = (long long)S * H * DK, k_s = (long long)H * DK;
+  const long long o_b = (long long)S * H * DV, o_s = (long long)H * DV;
   CUtensorMap maps[9] = {};
-  if (!(sm90::encode_bshd(&maps[0], q, B, S, H, D, in_b, in_s, in_h, kQ) &&
-        sm90::encode_bshd(&maps[1], k, B, S, H, D, in_b, in_s, in_h, kKeys) &&
-        sm90::encode_bshd(&maps[2], v, B, S, H, D, in_b, in_s, in_h, kKeys) &&
-        sm90::encode_bshd(&maps[3], dout, B, S, H, D, out_b, out_s, D, kQ) &&
-        sm90::encode_bshd(&maps[4], dk, B, S, H, D, out_b, out_s, D, 64) &&
-        sm90::encode_bshd(&maps[5], dv, B, S, H, D, out_b, out_s, D, 64) &&
+  if (!(sm90::encode_bshd(&maps[0], q, B, S, H, DK, in_b, in_s, in_h, kQ) &&
+        sm90::encode_bshd(&maps[1], k, B, S, H, DK, in_b, in_s, in_h, kKeys) &&
+        sm90::encode_bshd(&maps[2], v, B, S, H, DV, v_b, v_s, v_h, kKeys) &&
+        sm90::encode_bshd(&maps[3], dout, B, S, H, DV, o_b, o_s, DV, kQ) &&
+        sm90::encode_bshd(&maps[4], dk, B, S, H, DK, k_b, k_s, DK, 64) &&
+        sm90::encode_bshd(&maps[5], dv, B, S, H, DV, o_b, o_s, DV, 64) &&
         sm90::encode_bshd_box(&maps[8], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
-                              dq_acc, B, S, H, D, out_b, out_s, D, 16)))
+                              dq_acc, B, S, H, DK, k_b, k_s, DK, 16)))
     return cudaErrorInvalidValue;
   // The tables' first halves (Smem says why), 64 positions per box.
-  if (rope && !(sm90::encode_rows(&maps[6], cos_t, S, D / 2, D, kQ) &&
-                sm90::encode_rows(&maps[7], sinm_t, S, D / 2, D, kQ)))
+  if (rope && !(sm90::encode_rows(&maps[6], cos_t, S, DK / 2, DK, kQ) &&
+                sm90::encode_rows(&maps[7], sinm_t, S, DK / 2, DK, kQ)))
     return cudaErrorInvalidValue;
   Args a;
   a.cos_t = static_cast<const bf16*>(cos_t);
@@ -572,23 +606,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   a.n_qt = (S + kQ - 1) / kQ;
   a.causal = causal;
   a.rope = rope;
-  // 1/sqrt(D) rounded once from double, as the TPU kernels' Python float.
-  a.sm_scale = static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
+  // 1/sqrt(Dqk) rounded once from double, as the TPU kernels' Python
+  // float.
+  a.sm_scale = static_cast<float>(1.0 / sqrt(static_cast<double>(DK)));
   a.scale_log2 = a.sm_scale * kLog2e;
-  const int smem = Smem<D>::kAlloc;
+  const int smem = Smem<DK, DV>::kAlloc;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_bwd_sm90_kernel<DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (S + kKeys - 1) / kKeys);
-  flash_bwd_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_sm90_kernel<DK, DV><<<grid, kThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7],
       maps[8], a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long rows = (long long)B * S * H;
-  const long long threads = rows * (D / 8);
-  flash_bwd_dq_epilogue<D><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
+  const long long threads = rows * (DK / 8);
+  flash_bwd_dq_epilogue<DK><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
       dq_acc, a.cos_t, a.sinm_t, static_cast<bf16*>(dq), rows, S, H, rope,
       a.sm_scale);
   return cudaGetLastError();
@@ -596,38 +631,43 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace bwd_sm90
 
-// q, k, v [B, S, H, D] sharing strides (in_b, in_s, in_h), D stride 1,
-// 16-byte-aligned base and strides; dout [B, S, H, D] contiguous; lse,
-// delta, dlse [B, H, S] fp32; cos_t/sinm_t [S, D]; dq_acc [B, S, H, D]
-// fp32 scratch, zeroed by the caller; dq, dk, dv [B, S, H, D] contiguous
-// bf16 out. Takes bf16 (elem_bytes 2) at D 64 and 128 only; anything else
-// returns cudaErrorInvalidValue, as does a tensor map the driver refuses.
-// Returns the first CUDA error of its two launches (0 on success);
-// allocates nothing, never syncs.
+// q, k [B, S, H, D] sharing strides (in_b, in_s, in_h), v [B, S, H, Dv]
+// in strides (v_b, v_s, v_h), D stride 1, 16-byte-aligned bases and
+// strides; dout [B, S, H, Dv] contiguous; lse, delta, dlse [B, H, S] fp32;
+// cos_t/sinm_t [S, D]; dq_acc [B, S, H, D] fp32 scratch, zeroed by the
+// caller; dq, dk [B, S, H, D] and dv [B, S, H, Dv] contiguous bf16 out.
+// Takes bf16 (elem_bytes 2) at (D, Dv) = (64, 64), (128, 128) and (192,
+// 128) (rope only where D == Dv); anything else returns
+// cudaErrorInvalidValue, as does a tensor map the driver refuses. Returns
+// the first CUDA error of its two launches (0 on success); allocates
+// nothing, never syncs.
 extern "C" int flash_bwd_sm90(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, const void* dlse,
                               const void* cos_t, const void* sinm_t,
                               void* dq_acc, void* dq, void* dk, void* dv,
-                              int B, int S, int H, int D, long long in_b,
-                              long long in_s, long long in_h, int causal,
-                              int rope, int elem_bytes, void* stream) {
+                              int B, int S, int H, int D, int Dv,
+                              long long in_b, long long in_s, long long in_h,
+                              long long v_b, long long v_s, long long v_h,
+                              int causal, int rope, int elem_bytes,
+                              void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
   const float* dlse_f = static_cast<const float*>(dlse);
   float* acc = static_cast<float*>(dq_acc);
   if (elem_bytes != 2) return static_cast<int>(cudaErrorInvalidValue);
-  switch (D) {
-    case 64:
-      return static_cast<int>(bwd_sm90::launch<64>(
-          q, k, v, dout, lse_f, delta_f, dlse_f, cos_t, sinm_t, acc, dq, dk,
-          dv, B, S, H, in_b, in_s, in_h, causal, rope, st));
-    case 128:
-      return static_cast<int>(bwd_sm90::launch<128>(
-          q, k, v, dout, lse_f, delta_f, dlse_f, cos_t, sinm_t, acc, dq, dk,
-          dv, B, S, H, in_b, in_s, in_h, causal, rope, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (D == 64 && Dv == 64)
+    return static_cast<int>(bwd_sm90::launch<64, 64>(
+        q, k, v, dout, lse_f, delta_f, dlse_f, cos_t, sinm_t, acc, dq, dk, dv,
+        B, S, H, in_b, in_s, in_h, v_b, v_s, v_h, causal, rope, st));
+  if (D == 128 && Dv == 128)
+    return static_cast<int>(bwd_sm90::launch<128, 128>(
+        q, k, v, dout, lse_f, delta_f, dlse_f, cos_t, sinm_t, acc, dq, dk, dv,
+        B, S, H, in_b, in_s, in_h, v_b, v_s, v_h, causal, rope, st));
+  if (D == 192 && Dv == 128)
+    return static_cast<int>(bwd_sm90::launch<192, 128>(
+        q, k, v, dout, lse_f, delta_f, dlse_f, cos_t, sinm_t, acc, dq, dk, dv,
+        B, S, H, in_b, in_s, in_h, v_b, v_s, v_h, causal, rope, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,14 +1,17 @@
-// Flash-attention forward for Hopper (sm_90a), bf16 at D = 64 and 128:
-// causal or full attention of one 128-row Q tile against every 128-key
-// K/V tile it needs, with RoPE fused, writing O and the per-row
-// logsumexp. TMA loads into a ring of shared-memory stages, a producer
-// warpgroup and two consumer warpgroups running wgmma.
+// Flash-attention forward for Hopper (sm_90a), bf16 at head dims (q.k, v)
+// = (64, 64), (128, 128) and (192, 128): causal or full attention of one
+// 128-row Q tile against every 128-key K/V tile it needs, with RoPE fused
+// where q.k and v share a head dim, writing O and the per-row logsumexp.
+// TMA loads into a ring of shared-memory stages, a producer warpgroup and
+// two consumer warpgroups running wgmma.
 //
 // Replaces tpu_dra/workloads/flashattention.py:_fwd_kernel (reached
 // through _fwd_call) and _fwd_stream_kernel (_fwd_call_stream) for bf16
 // at D 64 and 128, which carries every forward of the flagship,
-// long_ctx and long_ctx_xl paths. fp32 inputs and the other bf16 head
-// dims stay on flash_fwd.cu (_flash_kernels.fwd_route says which).
+// long_ctx and long_ctx_xl paths, and carries the latent attention of the
+// DeepSeek-V3 family (dsv3_model.py), which the reference does not have.
+// fp32 inputs and the other bf16 head dims stay on flash_fwd.cu
+// (_flash_kernels.fwd_route says which).
 //
 // What bounds it on the H100 (989 TFLOP/s bf16, 3.35 TB/s): at the
 // flagship shape (B8 S1023 H16 D128, causal) 34 GFLOP against 135 MB of
@@ -47,6 +50,13 @@
 //    explicit ping-pong between them, FA3's named-barrier turns, and a
 //    persistent block per SM walking the tiles measured no faster over
 //    both paths' shapes; PERF.md.)
+//
+// Latent attention (DeepSeek-V2/V3's MLA, (192, 128)): q and k carry 128
+// "nope" and 64 roped dims, v 128; the caller ropes the 64 dims, so this
+// instance takes no tables (rope refused). Q.K^T runs 12 k-steps where the
+// (128, 128) instance runs 8; S, O and P hold the same registers (the key
+// tile and v's width are the same), and Q (48 KB) + 2 x (K 48 KB, V 32 KB)
+// = 208 KB of shared memory. The scale is 1/sqrt(Dqk).
 //
 // Rounding points are the TPU kernels': roped q/k rounded to bf16 before
 // the dot, scores scaled after it, masked scores -1e30 (only on the
@@ -87,11 +97,15 @@ struct Args {
 // cos_t then of sinm_t for the stage's 128 positions, unswizzled (D bytes
 // a row): the kernel reads only those halves, since cos_t's second half
 // repeats its first and sinm_t's is its negation (the port's
-// _rope_tables builds them so). 224 KB at D=128.
-template <int D>
+// _rope_tables builds them so). Only an instance whose q.k and v share a
+// head dim ropes (kRope). 224 KB at (128, 128), 208 KB at (192, 128).
+template <int DK, int DV>
 struct Smem {
-  static constexpr int kTile = (D / 64) * kBoxBytes;  // also both half tables
-  static constexpr int kStage = 3 * kTile;
+  static constexpr bool kRope = DK == DV;
+  static constexpr int kTile = (DK / 64) * kBoxBytes;  // Q or K
+  static constexpr int kVTile = (DV / 64) * kBoxBytes;
+  static constexpr int kTables = kRope ? kTile : 0;     // both half tables
+  static constexpr int kStage = kTile + kVTile + kTables;
   static constexpr int kBarrierOff = kTile + kStages * kStage;
   static constexpr int kBytes = kBarrierOff + 8 * (1 + 5 * kStages);
   static constexpr int kAlloc = kBytes + 1024;  // base rounded up to 1 KB
@@ -114,7 +128,7 @@ __device__ __forceinline__ void rope_q(uint8_t* q_tile, int r0, int q0, int S,
 template <int D>
 __device__ __forceinline__ void rope_k(uint8_t* k_tile, int r0, int k0, int S,
                                        int tid) {
-  const uint8_t* tables = k_tile + 2 * Smem<D>::kTile;
+  const uint8_t* tables = k_tile + Smem<D, D>::kTile + Smem<D, D>::kVTile;
   sm90::rope_rows<D, kBoxBytes, 64>(
       k_tile, r0, k0, S, tid, [&](int, int r, int j, uint4& c, uint4& s) {
         const uint8_t* at = tables + r * D + j * 16;
@@ -136,7 +150,7 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 2],
   }
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
@@ -145,8 +159,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const __grid_constant__ CUtensorMap cos_map,
                           const __grid_constant__ CUtensorMap sinm_map,
                           const Args a) {
-  using L = Smem<D>;
-  constexpr int kBoxes = D / 64;
+  using L = Smem<DK, DV>;
+  constexpr int kBoxes = DK / 64;   // of Q and K
+  constexpr int kVBoxes = DV / 64;  // of V and O
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -195,15 +210,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int s = it % kStages;
         uint8_t* k_tile = smem + L::kTile + s * L::kStage;
         sm90::mbar_wait(&empty_k[s], ((it / kStages) & 1) ^ 1);
-        sm90::mbar_arrive_expect_tx(&full_k[s], (a.rope ? 2 : 1) * L::kTile);
+        sm90::mbar_arrive_expect_tx(&full_k[s],
+                                    L::kTile + (a.rope ? L::kTables : 0));
         for (int c = 0; c < kBoxes; ++c)
           sm90::tma_load_4d(k_tile + c * kBoxBytes, &k_map, &full_k[s],
                             c * 64, h, it * kRows, b);
-        if (a.rope) {
-          uint8_t* tables = k_tile + 2 * L::kTile;
-          sm90::tma_load_2d(tables, &cos_map, &full_k[s], 0, it * kRows);
-          sm90::tma_load_2d(tables + L::kTile / 2, &sinm_map, &full_k[s], 0,
-                            it * kRows);
+        if constexpr (L::kRope) {
+          if (a.rope) {
+            uint8_t* tables = k_tile + L::kTile + L::kVTile;
+            sm90::tma_load_2d(tables, &cos_map, &full_k[s], 0, it * kRows);
+            sm90::tma_load_2d(tables + L::kTables / 2, &sinm_map, &full_k[s],
+                              0, it * kRows);
+          }
         }
       };
       // V of tile it, once P.V(it - kStages) has released the stage.
@@ -211,8 +229,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int s = it % kStages;
         uint8_t* v_tile = smem + 2 * L::kTile + s * L::kStage;
         sm90::mbar_wait(&empty_v[s], ((it / kStages) & 1) ^ 1);
-        sm90::mbar_arrive_expect_tx(&full_v[s], L::kTile);
-        for (int c = 0; c < kBoxes; ++c)
+        sm90::mbar_arrive_expect_tx(&full_v[s], L::kVTile);
+        for (int c = 0; c < kVBoxes; ++c)
           sm90::tma_load_4d(v_tile + c * kBoxBytes, &v_map, &full_v[s],
                             c * 64, h, it * kRows, b);
       };
@@ -240,24 +258,26 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int s = it % kStages;
     uint8_t* k_tile = smem + L::kTile + s * L::kStage;
     sm90::mbar_wait(&full_k[s], (it / kStages) & 1);
-    rope_k<D>(k_tile, 64 * w, it * kRows, a.S, tid);
+    if constexpr (L::kRope) rope_k<DK>(k_tile, 64 * w, it * kRows, a.S, tid);
     sm90::fence_proxy_async();
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&k_ready[s]);
   };
 
   sm90::mbar_wait(q_full, 0);
-  if (a.rope) {
-    rope_q<D>(q_tile, 64 * w, q0, a.S, a.cos_t, a.sinm_t, tid);
-    sm90::fence_proxy_async();
-    sm90::named_sync(1 + w, 128);
-    rotate_k(0);
+  if constexpr (L::kRope) {
+    if (a.rope) {
+      rope_q<DK>(q_tile, 64 * w, q0, a.S, a.cos_t, a.sinm_t, tid);
+      sm90::fence_proxy_async();
+      sm90::named_sync(1 + w, 128);
+      rotate_k(0);
+    }
   }
   const uint64_t q_desc = sm90::desc_sw128(q_tile + w * kHalfBoxBytes, 16, 1024);
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m_run[2] = {kNegInf, kNegInf};  // in log2 units (scaled scores)
   float l_run[2] = {0.f, 0.f};          // this thread's share of the sums
   float sc[64];     // S of the current tile, then its p in fp32
@@ -272,11 +292,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::mbar_wait(&full_k[it % kStages], (it / kStages) & 1);
     if (a.rope) sm90::mbar_wait(&k_ready[it % kStages], (it / kStages) & 1);
   };
-  // S = Q . K^T of tile `it`: 64 rows x 128 keys, D/16 k-steps (issued).
+  // S = Q . K^T of tile `it`: 64 rows x 128 keys, DK/16 k-steps (issued).
   auto issue_qk = [&](int it) {
     const uint64_t k_desc = sm90::desc_sw128(stage(it), 16, 1024);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
       const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
       sm90::wgmma_ss_m64n128(sc, sm90::desc_add(q_desc, off),
                              sm90::desc_add(k_desc, off), kk > 0);
@@ -284,8 +304,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   };
   // O += P . V of tile `it`, V MN-major (LBO: the next 64 columns of D).
   auto issue_pv = [&](int it) {
-    pv_product<D>(o, pa, sm90::desc_sw128(stage(it) + L::kTile, kBoxBytes,
-                                          1024));
+    pv_product<DV>(o, pa, sm90::desc_sw128(stage(it) + L::kTile, kBoxBytes,
+                                           1024));
   };
   // Scale (base 2), mask and exponentiate tile `it` in sc; corr is the
   // factor the running O and sums take, rs this tile's row sums.
@@ -347,7 +367,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     l_run[0] = l_run[0] * corr[0] + rs[0];
     l_run[1] = l_run[1] * corr[1] + rs[1];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    for (int i = 0; i < DV / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 #pragma unroll
     for (int i = 0; i < 32; ++i)
       pa[i] = flash::pack_bf16(sc[2 * i], sc[2 * i + 1]);
@@ -406,7 +426,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const float l0 = flash::quad_sum(l_run[0]), l1 = flash::quad_sum(l_run[1]);
   sm90::named_sync(1 + w, 128);  // every warp's Q.K^T reads are done
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DV / 8; ++j) {
     uint8_t* lo = q_tile + sm90::swz_off(row_l, j, kBoxBytes) + 4 * t;
     uint8_t* hi = q_tile + sm90::swz_off(row_l + 8, j, kBoxBytes) + 4 * t;
     *reinterpret_cast<uint32_t*>(lo) =
@@ -417,7 +437,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   sm90::fence_proxy_async();
   sm90::named_sync(1 + w, 128);
   if (tid == 0) {
-    for (int c = 0; c < kBoxes; ++c)
+    for (int c = 0; c < kVBoxes; ++c)
       sm90::tma_store_4d(&o_map, q_tile + c * kBoxBytes + w * kHalfBoxBytes,
                          c * 64, h, q0 + 64 * w, b);
     sm90::tma_store_wait();
@@ -429,24 +449,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D>
+template <int DK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* cos_t, const void* sinm_t, void* o, float* lse,
                    int B, int S, int H, long long in_b, long long in_s,
-                   long long in_h, int causal, int rope, cudaStream_t stream) {
+                   long long in_h, long long v_b, long long v_s, long long v_h,
+                   int causal, int rope, cudaStream_t stream) {
+  if (rope && !Smem<DK, DV>::kRope) return cudaErrorInvalidValue;
   CUtensorMap maps[6] = {};
-  const void* bases[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i)
-    if (!sm90::encode_bshd(&maps[i], bases[i], B, S, H, D, in_b, in_s, in_h,
-                           kRows))
-      return cudaErrorInvalidValue;
-  // o: [B, S, H, D] contiguous, stored 64 rows (one consumer) per box.
-  if (!sm90::encode_bshd(&maps[3], o, B, S, H, D, (long long)S * H * D,
-                         (long long)H * D, D, 64))
+  if (!(sm90::encode_bshd(&maps[0], q, B, S, H, DK, in_b, in_s, in_h, kRows) &&
+        sm90::encode_bshd(&maps[1], k, B, S, H, DK, in_b, in_s, in_h, kRows) &&
+        sm90::encode_bshd(&maps[2], v, B, S, H, DV, v_b, v_s, v_h, kRows)))
+    return cudaErrorInvalidValue;
+  // o: [B, S, H, DV] contiguous, stored 64 rows (one consumer) per box.
+  if (!sm90::encode_bshd(&maps[3], o, B, S, H, DV, (long long)S * H * DV,
+                         (long long)H * DV, DV, 64))
     return cudaErrorInvalidValue;
   // The tables' first halves (Smem says why), 128 positions per box.
-  if (rope && !(sm90::encode_rows(&maps[4], cos_t, S, D / 2, D, kRows) &&
-                sm90::encode_rows(&maps[5], sinm_t, S, D / 2, D, kRows)))
+  if (rope && !(sm90::encode_rows(&maps[4], cos_t, S, DK / 2, DK, kRows) &&
+                sm90::encode_rows(&maps[5], sinm_t, S, DK / 2, DK, kRows)))
     return cudaErrorInvalidValue;
   Args a;
   a.cos_t = static_cast<const bf16*>(cos_t);
@@ -457,49 +478,52 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   a.n_tiles = (S + kRows - 1) / kRows;
   a.causal = causal;
   a.rope = rope;
-  // 1/sqrt(D) rounded once from double, as the TPU kernels' Python float,
-  // then carried into base 2.
-  a.scale_log2 = static_cast<float>(1.0 / sqrt(static_cast<double>(D))) *
+  // 1/sqrt(Dqk) rounded once from double, as the TPU kernels' Python
+  // float, then carried into base 2.
+  a.scale_log2 = static_cast<float>(1.0 / sqrt(static_cast<double>(DK))) *
                  1.4426950408889634f;
-  const int smem = Smem<D>::kAlloc;
+  const int smem = Smem<DK, DV>::kAlloc;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_fwd_sm90_kernel<DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.n_tiles, B * H);
-  flash_fwd_sm90_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_sm90_kernel<DK, DV><<<grid, kThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], a);
   return cudaGetLastError();
 }
 
 }  // namespace flash_sm90
 
-// The same C interface as flash_fwd (flash_fwd.cu): q, k, v [B, S, H, D]
-// sharing strides (in_b, in_s, in_h), D stride 1, 16-byte-aligned base
-// and strides; o [B, S, H, D] contiguous; lse [B, H, S] fp32; cos_t/sinm_t
-// [S, D]. Takes bf16 (elem_bytes 2) at D 64 and 128 only; anything else
-// returns cudaErrorInvalidValue, as does a tensor map the driver refuses.
-// Returns the CUDA error of the launch (0 on success); allocates nothing,
-// never syncs.
+// The same C interface as flash_fwd (flash_fwd.cu): q, k [B, S, H, D]
+// sharing strides (in_b, in_s, in_h), v [B, S, H, Dv] in strides (v_b,
+// v_s, v_h), D stride 1, 16-byte-aligned bases and strides; o [B, S, H,
+// Dv] contiguous; lse [B, H, S] fp32; cos_t/sinm_t [S, D]. Takes bf16
+// (elem_bytes 2) at (D, Dv) = (64, 64), (128, 128) and (192, 128) (rope
+// only where D == Dv); anything else returns cudaErrorInvalidValue, as
+// does a tensor map the driver refuses. Returns the CUDA error of the
+// launch (0 on success); allocates nothing, never syncs.
 extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v,
                               const void* cos_t, const void* sinm_t, void* o,
-                              void* lse, int B, int S, int H, int D,
+                              void* lse, int B, int S, int H, int D, int Dv,
                               long long in_b, long long in_s, long long in_h,
+                              long long v_b, long long v_s, long long v_h,
                               int causal, int rope, int elem_bytes,
                               void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
   if (elem_bytes != 2) return static_cast<int>(cudaErrorInvalidValue);
-  switch (D) {
-    case 64:
-      return static_cast<int>(flash_sm90::launch<64>(
-          q, k, v, cos_t, sinm_t, o, lse_f, B, S, H, in_b, in_s, in_h, causal,
-          rope, st));
-    case 128:
-      return static_cast<int>(flash_sm90::launch<128>(
-          q, k, v, cos_t, sinm_t, o, lse_f, B, S, H, in_b, in_s, in_h, causal,
-          rope, st));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (D == 64 && Dv == 64)
+    return static_cast<int>(flash_sm90::launch<64, 64>(
+        q, k, v, cos_t, sinm_t, o, lse_f, B, S, H, in_b, in_s, in_h, v_b, v_s,
+        v_h, causal, rope, st));
+  if (D == 128 && Dv == 128)
+    return static_cast<int>(flash_sm90::launch<128, 128>(
+        q, k, v, cos_t, sinm_t, o, lse_f, B, S, H, in_b, in_s, in_h, v_b, v_s,
+        v_h, causal, rope, st));
+  if (D == 192 && Dv == 128)
+    return static_cast<int>(flash_sm90::launch<192, 128>(
+        q, k, v, cos_t, sinm_t, o, lse_f, B, S, H, in_b, in_s, in_h, v_b, v_s,
+        v_h, causal, rope, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

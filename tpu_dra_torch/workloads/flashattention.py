@@ -7,7 +7,8 @@ shared memory with the online-softmax recurrence and saves the per-row
 logsumexp; the backward recomputes probabilities tile by tile from
 (q, k, lse) in one fused kernel per K/V tile (dK/dV in registers, dQ
 added into an fp32 accumulator), for bf16 at D 64 and 128 (every model
-path) and for the other inputs alike. The kernels are CUDA C++
+path), at q.k 192 / v 128 (latent attention, mla.py: the caller ropes the
+roped dims, so rope=False) and for the other inputs alike. The kernels are CUDA C++
 (``csrc/``, built and launched by ``_flash_kernels``); this module holds
 their contract: rope tables, the joint autograd over (out, lse), and the
 ``attend`` dispatch the model calls.

@@ -88,6 +88,9 @@ class ModelConfig:
     seq_axis: str = ""
     # Per-block rematerialization: "none" | "dots" | "full".
     remat: str = "none"
+    # RMSNorm's epsilon (the reference's 1e-6; the DeepSeek-V3 family's
+    # 1e-5).
+    norm_eps: float = 1e-6
 
     @property
     def d_head(self) -> int:
@@ -251,11 +254,12 @@ def unshard_params(shards: List[Params], cfg: ModelConfig,
 # Model
 # ---------------------------------------------------------------------------
 
-def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """fp32 variance, eps 1e-6, rounded to x.dtype before the scale — the
-    reference's rounding points."""
+def _rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """fp32 variance, eps (the config's norm_eps), rounded to x.dtype
+    before the scale — the reference's rounding points."""
     var = x.float().square().mean(-1, keepdim=True)
-    return (x * torch.rsqrt(var + 1e-6)).to(x.dtype) * scale.to(x.dtype)
+    return (x * torch.rsqrt(var + eps)).to(x.dtype) * scale.to(x.dtype)
 
 
 # What "dots" saves: the matmul outputs (jax's dots_saveable).
@@ -306,7 +310,7 @@ class Block(nn.Module):
         b, s, _ = x.shape
         heads = cfg.n_heads // self.tp_size
         width = heads * cfg.d_head
-        h = _dist.copy_to(_rmsnorm(x, self.ln1_scale), self.tp)
+        h = _dist.copy_to(_rmsnorm(x, self.ln1_scale, cfg.norm_eps), self.tp)
         qkv = h @ self.wqkv.to(cfg.dtype)
         # Views of the fused projection: the kernels read them in place.
         q, k, v = (t.view(b, s, heads, cfg.d_head)
@@ -326,7 +330,7 @@ class Block(nn.Module):
 
     def ffn(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        h = _dist.copy_to(_rmsnorm(x, self.ln2_scale), self.tp)
+        h = _dist.copy_to(_rmsnorm(x, self.ln2_scale, cfg.norm_eps), self.tp)
         # jax.nn.gelu's default is the tanh approximation.
         up = F.gelu(h @ self.w_up.to(cfg.dtype), approximate="tanh")
         return x + _dist.reduce_from(up @ self.w_down.to(cfg.dtype), self.tp)
@@ -374,7 +378,8 @@ class TransformerLM(nn.Module):
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = _rmsnorm(x, torch.ones(cfg.d_model, device=x.device))
+        x = _rmsnorm(x, torch.ones(cfg.d_model, device=x.device),
+                     cfg.norm_eps)
         x = _dist.copy_to(x, self.tp)
         return (x @ self.unembed.to(cfg.dtype)).float()
 

@@ -17,6 +17,16 @@ rank holds its local experts and the FULL (replicated) activations,
 routes over all experts, fills only its experts' slots (a foreign
 token's combine row is zero) and one all-reduce combines.
 
+The DeepSeek-V3 family's layer (``topk_ffn``, dsv3_model.py) routes each
+token to its top-k of many fine-grained experts by sigmoid scores with a
+selection bias, and drops nothing: every (token, k) pair whose expert is
+held gets a row of an [N, D] buffer, the held experts' rows one after
+another (``route_topk``), one grouped GEMM per projection runs them, a
+k-way gate-weighted combine sums them back, and a shared expert sees
+every token. The layer is told the experts it holds (``experts``, a
+range of the router's), as expert parallelism would give them, with no
+process group: what the absent experts add is left out.
+
 Under data parallelism (the MoE LM's 'data' axis) routing stays global,
 as the reference's step computes it over the global batch: the capacity
 counts the global batch, positions continue from the lower data ranks'
@@ -247,3 +257,172 @@ def shard_moe_params(params: Dict, mesh, axis_name: str = "expert") -> Dict:
             **{k: _dist.shard(params[k], mesh, axis_name, 0).contiguous()
                for k in ("w_up", "w_down")}}
 
+
+
+# ---------------------------------------------------------------------------
+# Top-k, dropless, over the held experts (the DeepSeek-V3 family)
+# ---------------------------------------------------------------------------
+
+class RouteK(NamedTuple):
+    """route_topk's result for h [B,S,D] over the held experts."""
+    slot: torch.Tensor          # [B·S·K] int32: the pair's row, or -1
+    token_of_row: torch.Tensor  # [N] int32: the token of each row
+    gate_of_row: torch.Tensor   # [N] fp32: the gate of each row's pair
+    gates: torch.Tensor         # [B·S·K] fp32: g_i of every pair
+    ends: torch.Tensor          # [E_held] int32: each expert's row end
+    rows: list                  # [E_held + 1] host ints: the row offsets
+    aux: torch.Tensor           # the sequence-wise balance loss
+
+
+def route_topk(h: torch.Tensor, router_w: torch.Tensor,
+               bias: torch.Tensor, top_k: int, experts: range,
+               scale: float) -> RouteK:
+    """Route h [B,S,D] to each token's top-k experts, dropping none.
+
+    Scores s = sigmoid(h W_r) in fp32 over all E experts; the selected
+    experts are the top k of s + bias (the bias only selects); the gates
+    are scale · s_i / sum of the k selected s. Each (token, k) pair whose
+    expert lies in `experts` gets a row of the held experts' buffer
+    (_moe_kernels.route_topk), the rest none. The sequence-wise balance
+    loss (DeepSeek-V3, arXiv:2412.19437 eq. 17-20) is, per sequence of T
+    positions, sum_i f_i P_i with f_i = E / (k T) · #{t: i selected at t}
+    and P_i the mean over t of s_i / sum_j s_j, averaged over sequences.
+
+    The layer synchronises with the host once here: the held experts' row
+    offsets (E_held + 1 ints) size the buffer and the grouped GEMMs.
+    Under torch.profiler the call is the range ``moe.route`` and counts
+    ``moe.assigned`` (held pairs), ``moe.load_max`` (the largest held
+    expert's rows) and ``moe.tokens_held`` (tokens with a held pair) on
+    the device, and ``moe.routed`` (B x S),
+    ``moe.held`` (the experts held) and ``moe.selected`` (B x S x k) on
+    the host."""
+    b, s, _ = h.shape
+    n_experts = router_w.shape[-1]
+    with trace.device_span("moe.route"):
+        scores = torch.sigmoid(h.float() @ router_w.float())        # [B,S,E]
+        with torch.no_grad():
+            chosen = torch.topk(scores + bias.float(), top_k, dim=-1).indices
+        picked = scores.gather(-1, chosen)
+        gates = (scale * picked / picked.sum(-1, keepdim=True)).reshape(-1)
+        slot, pair_of_row, token_of_row, offsets, stats = mk.route_topk(
+            chosen, top_k, experts.start, experts.stop)
+        rows = offsets.tolist()
+        n_rows = rows[-1]
+        pair_of_row = pair_of_row[:n_rows]
+        if trace.recording():
+            trace.count("moe.assigned", stats[0])
+            trace.count("moe.load_max", stats[1])
+            trace.count("moe.tokens_held",
+                        slot.view(-1, top_k).ge(0).any(1).sum())
+            trace.count("moe.routed", b * s)
+            trace.count("moe.held", len(experts))
+            trace.count("moe.selected", b * s * top_k)
+        with torch.no_grad():
+            share = torch.zeros(b, n_experts, device=h.device).scatter_add_(
+                1, chosen.reshape(b, -1),
+                torch.ones(b, s * top_k, device=h.device))
+            share = share * (n_experts / (top_k * s))
+        prob = (scores / scores.sum(-1, keepdim=True)).mean(1)      # [B,E]
+        aux = (share * prob).sum(-1).mean()
+        return RouteK(slot, token_of_row[:n_rows],
+                      gates.detach()[pair_of_row.long()], gates,
+                      offsets[1:], rows, aux)
+
+
+class _DispatchK(torch.autograd.Function):
+    """buf [N, D] of x [T, D]: row r holds x[token_of_row[r]]; dx[t] is
+    the sum of dbuf over the token's held pairs (rows slot[t·k + j])."""
+
+    @staticmethod
+    def forward(ctx, x, token_of_row, slot, k):
+        ctx.save_for_backward(slot)
+        ctx.k = k
+        return mk.gather_rows(x, token_of_row)
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        with trace.device_span("moe.dispatch"):
+            slot, = ctx.saved_tensors
+            return mk.combine_rows(dbuf, slot, None, ctx.k), None, None, None
+
+
+class _CombineK(torch.autograd.Function):
+    """out [T, D] of y [N, D] and gates [T·k] fp32: out[t] = sum_j
+    gates[t·k + j] · y[slot[t·k + j]] over the held pairs, in fp32 and
+    rounded once. dy[r] = gate_of_row[r] · dout[token_of_row[r]];
+    dgates[p] = dout[p // k] · y[slot[p]] in fp32."""
+
+    @staticmethod
+    def forward(ctx, y, gates, slot, token_of_row, gate_of_row, k):
+        ctx.save_for_backward(y, slot, token_of_row, gate_of_row)
+        ctx.k = k
+        return mk.combine_rows(y, slot, gates.detach(), k)
+
+    @staticmethod
+    def backward(ctx, dout):
+        with trace.device_span("moe.combine"):
+            y, slot, token_of_row, gate_of_row = ctx.saved_tensors
+            dout = dout.to(y.dtype)
+            d_y = d_gates = None
+            if ctx.needs_input_grad[0]:
+                d_y = mk.gather_rows(dout, token_of_row, gate_of_row)
+            if ctx.needs_input_grad[1]:
+                d_gates = mk.pair_dot(dout, y, slot, ctx.k)
+            return d_y, d_gates, None, None, None, None
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor,
+               rows: list) -> torch.Tensor:
+    """[N, out] of x [N, in] and w [G, in, out]: rows [rows[g],
+    rows[g + 1]) of x times w[g], one grouped GEMM (torch._grouped_mm,
+    with `ends` the groups' row ends on the device) on a card, a loop of
+    plain products on the CPU."""
+    if x.device.type == "cuda":
+        return torch._grouped_mm(x, w, offs=ends)
+    return torch.cat([x[a:b] @ w[g] for g, (a, b)
+                      in enumerate(zip(rows[:-1], rows[1:]))]
+                     + [x.new_zeros(0, w.shape[-1])])
+
+
+def swiglu(x: torch.Tensor, w_gate_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """(silu(x W_g) · x W_u) W_d with W_gate_up = [W_g | W_u], [in, 2F]."""
+    gate, up = (x @ w_gate_up).chunk(2, dim=-1)
+    return (F.silu(gate) * up) @ w_down
+
+
+def topk_ffn(params: Dict, h: torch.Tensor, *, top_k: int, experts: range,
+             scale: float, compute_dtype=torch.bfloat16):
+    """The DeepSeek-V3 MoE FFN on the normed h [B,S,D] over the held
+    `experts`: (shared(h) + sum over the held selected experts of g_i ·
+    E_i(h), the balance loss), in `compute_dtype` with the router in
+    fp32. `params`: router [D, E] and bias [E] (fp32), the held experts'
+    w_gate, w_up [E_held, D, F] and w_down [E_held, F, D], and the shared
+    expert's shared_gate, shared_up [D, F_s] and shared_down [F_s, D].
+
+    Ranges under torch.profiler: ``moe.route``, ``moe.dispatch`` (tokens
+    gathered into their rows; again in the backward), ``moe.experts``
+    (two grouped GEMMs and the SwiGLU), ``moe.combine`` (the k-way
+    gate-weighted sum; again in the backward) and ``moe.shared``; the
+    counter ``moe.row_bytes`` is the bytes of one token's row."""
+    cd = compute_dtype
+    b, s, d = h.shape
+    route = route_topk(h, params["router"], params["bias"], top_k, experts,
+                       scale)
+    x = h.to(cd).reshape(b * s, d)
+    trace.count("moe.row_bytes", d * x.element_size())
+    with trace.device_span("moe.dispatch"):
+        buf = _DispatchK.apply(x, route.token_of_row, route.slot, top_k)
+    with trace.device_span("moe.experts"):
+        w_in = torch.cat([params["w_gate"], params["w_up"]], -1).to(cd)
+        gate, up = grouped_mm(buf, w_in, route.ends, route.rows).chunk(2, -1)
+        y = grouped_mm(F.silu(gate) * up, params["w_down"].to(cd),
+                       route.ends, route.rows)
+    with trace.device_span("moe.combine"):
+        routed = _CombineK.apply(y, route.gates, route.slot,
+                                 route.token_of_row, route.gate_of_row, top_k)
+    with trace.device_span("moe.shared"):
+        shared = swiglu(x, torch.cat([params["shared_gate"],
+                                      params["shared_up"]], -1).to(cd),
+                        params["shared_down"].to(cd))
+    return (routed + shared).view(b, s, d), route.aux

@@ -90,7 +90,7 @@ class MoEBlock(_dense.Block):
     def forward(self, x: torch.Tensor):
         cfg = self.cfg
         x = self.attention_sublayer(x)
-        h = _dense._rmsnorm(x, self.ln2_scale)
+        h = _dense._rmsnorm(x, self.ln2_scale, cfg.norm_eps)
         out, aux = expert_parallel_ffn(
             {"router": self.moe.router, "w_up": self.moe.w_up,
              "w_down": self.moe.w_down}, h, group=self.tp,
