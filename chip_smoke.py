@@ -58,7 +58,8 @@ Phases, each printing one JSON line ({"phase": ...}):
                   forward, a Q tile in the backward), which must exceed
                   TOL_REL; and the fused backward's reproducibility (dk,
                   dv bitwise over two runs; dq, whose fp32 atomics add in
-                  no fixed order, within TOL_REPRO);
+                  no fixed order, within TOL_REPRO), at the flagship
+                  shape and, for the (64, 64) instance, at B2 S1023 H2;
 4. kernels_fp32 — the same on fp32 inputs (the mma.sync kernels) at the
                   reference's streaming tier's shapes (its
                   TestStreamingKernels' B2 S384 H2 D16, causal x rope,
@@ -82,7 +83,8 @@ Phases, each printing one JSON line ({"phase": ...}):
                   its 64 dims before them, dlse nonzero) at (q.k, v) head
                   dims (192, 128) and, beside them, (128, 128), each
                   kernel run once at the full shape and its plain
-                  version two heads at a time, within TOL_REL/TOL_LSE;
+                  version two heads at a time, within TOL_REL/TOL_LSE,
+                  and each instance's reproducibility reading;
 6. times        — the forward and the backward (one call of each
                   wrapper: one fused backward kernel on either route) at
                   the main path's shape (B8 S1023 H16 D128, causal,
@@ -850,7 +852,8 @@ def check_repro(args, causal, first, tol) -> dict:
 def phase_kernels() -> dict:
     """Small cases at D=64 and 128 (S=40, 320 and 384, causal and not,
     rope and not; S=1023 causal: every branch of flash_fwd_sm90 and
-    flash_bwd_sm90, ragged Q and K tiles included) and D=32 (bf16 through
+    flash_bwd_sm90, ragged Q and K tiles included; the (64, 64) instance's
+    reproducibility reading at S=1023 with rope) and D=32 (bf16 through
     the mma.sync kernels), then the flagship attention shape with dlse
     zero (the model's path) and with a planted fault and the
     reproducibility reading. Returns the flagship shape's readings."""
@@ -858,7 +861,8 @@ def phase_kernels() -> dict:
              for r in (True, False)]
     cases += [(1023, True, True), (1023, True, False)]
     for i, (s, causal, rope) in enumerate(cases):
-        check_case(s, causal, rope, seed=i, **SMALL)
+        check_case(s, causal, rope, seed=i,
+                   repro=(s, causal, rope) == (1023, True, True), **SMALL)
         check_case(s, causal, rope, seed=200 + i,
                    **{**SMALL, "d": FLAGSHIP_ATTN["d"]})
     for i, (causal, rope) in enumerate(((True, True), (False, False))):
@@ -1313,13 +1317,14 @@ def mla_kernel_rows(checks: dict, times: dict, launches: dict) -> list:
 def phase_kernels_mla() -> dict:
     """bf16 at the Moonlight cell's attention (MLA_ATTN at S=MLA_S,
     causal, no rope in the kernels, dlse nonzero) at each of
-    MLA_HEAD_DIMS, the plain versions PLAIN_HEADS heads at a time.
-    Returns {"DqkxDv": readings}."""
+    MLA_HEAD_DIMS, the plain versions PLAIN_HEADS heads at a time, with
+    each instance's reproducibility reading. Returns {"DqkxDv":
+    readings}."""
     out = {}
     for i, (dqk, dv) in enumerate(MLA_HEAD_DIMS):
         out[f"{dqk}x{dv}"] = check_case(MLA_S, True, False, seed=500 + i,
                                         chunk=PLAIN_HEADS, d=dqk, dv=dv,
-                                        **MLA_ATTN)
+                                        repro=True, **MLA_ATTN)
         _free()
     return out
 

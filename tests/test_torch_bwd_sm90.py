@@ -21,7 +21,15 @@ the CPU, in the test file only:
   tile in ascending order (the kernel's atomics add them in no fixed
   order, which moves dq by fp32 rounding only);
 - dK and dQ scaled, inverse-rotated in fp32 and rounded to bf16 once, dV
-  rounded once.
+  rounded once;
+- at (q.k, v) = (192, 128), the latent-attention instance (no rope),
+  the same steps with the scale 1/sqrt(192): the kernel splits dQ's
+  columns 96 and 96 between its two consumers, each summing all 128 keys
+  of the tile, so each (K tile, Q tile) still adds one partial.
+
+Which products the kernel issues together, and which warp issues dQ's
+reduce-adds, move no rounding point, so the emulation does not model
+them.
 
 Tolerance against the reference (bf16 inputs): dq, dk, dv
 ||diff|| / ||ref|| <= 5e-3, chip_smoke.py's kernel bound. Both sides
@@ -154,9 +162,9 @@ def _rotate_from_halves(x, cos_half, sinm_half):
 
 
 def emulate_bwd_sm90(q, k, v, dout, lse, delta, dlse, tables, causal):
-    """(dq, dk, dv) [B, S, H, D] bf16: flash_bwd_sm90's arithmetic on bf16
-    [B, S, H, D] inputs, lse/delta/dlse [B, H, S] fp32 (module
-    docstring)."""
+    """(dq, dk [B, S, H, Dqk], dv [B, S, H, Dv]) bf16: flash_bwd_sm90's
+    arithmetic on bf16 q, k [B, S, H, Dqk] and v, dout [B, S, H, Dv]
+    inputs, lse/delta/dlse [B, H, S] fp32 (module docstring)."""
     b, s, h, d = q.shape
     if tables is not None:
         cos_half, sinm_half = (t[:, : d // 2] for t in tables)
@@ -165,7 +173,7 @@ def emulate_bwd_sm90(q, k, v, dout, lse, delta, dlse, tables, causal):
     n_k, n_q = -(-s // KEYS) * KEYS, -(-s // ROWS) * ROWS
 
     def heads(x, n):   # [B, S, H, D] -> [B*H, n, D] fp32, zero rows past S
-        x = x.float().permute(0, 2, 1, 3).reshape(b * h, s, d)
+        x = x.float().permute(0, 2, 1, 3).reshape(b * h, s, x.shape[-1])
         return torch.nn.functional.pad(x, (0, 0, 0, n - s))
 
     def rows(x, n):    # [B, H, S] -> [B*H, n], zero past S
@@ -179,7 +187,7 @@ def emulate_bwd_sm90(q, k, v, dout, lse, delta, dlse, tables, causal):
     scale_log2 = sm_scale * torch.tensor(LOG2E, dtype=torch.float32)
     dq_acc = torch.zeros(b * h, n_q, d)
     dk = torch.zeros(b * h, n_k, d)
-    dv = torch.zeros(b * h, n_k, d)
+    dv = torch.zeros(b * h, n_k, v.shape[-1])
 
     def bf16(x):
         return x.to(torch.bfloat16).float()
@@ -201,7 +209,7 @@ def emulate_bwd_sm90(q, k, v, dout, lse, delta, dlse, tables, causal):
             dq_acc[:, qs] += bf16(ds).transpose(1, 2) @ kh[:, keys]
 
     def finish(acc, scale):   # [B*H, n, D] fp32 -> [B, S, H, D] bf16
-        x = acc[:, :s].reshape(b, h, s, d).permute(0, 2, 1, 3)
+        x = acc[:, :s].reshape(b, h, s, acc.shape[-1]).permute(0, 2, 1, 3)
         if scale:
             x = x * sm_scale
             if tables is not None:
@@ -277,4 +285,28 @@ class TestEmulatedArithmetic:
         got = emulate_bwd_sm90(*args, causal=True)
         want = fk.bwd_plain(*args, causal=True)
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert _rel(g, w) <= TOL, f"{name} {_rel(g, w)}"
+
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("s", [40, 320, 384])
+    def test_split_head_dims_match_plain_version(self, s, causal):
+        """(q.k, v) = (192, 128), MLA's instance (no rope), against
+        bwd_plain at ragged (40, 320) and tile-multiple (384) S."""
+        rs = np.random.RandomState(3000 + s + causal)
+
+        def randn(*shape):
+            return torch.from_numpy(rs.standard_normal(shape)
+                                    .astype(np.float32)).to(torch.bfloat16)
+
+        q, k = randn(B, s, H, 192), randn(B, s, H, 192)
+        v, dout = randn(B, s, H, 128), randn(B, s, H, 128)
+        dlse = torch.from_numpy((rs.standard_normal((B, H, s)) * 0.1)
+                                .astype(np.float32))
+        o, lse = fk.fwd_plain(q, k, v, None, causal=causal)
+        delta = (dout.float() * o.float()).sum(-1).transpose(1, 2)
+        args = (q, k, v, dout, lse, delta, dlse, None)
+        got = emulate_bwd_sm90(*args, causal=causal)
+        want = fk.bwd_plain(*args, causal=causal)
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert g.dtype == torch.bfloat16 and g.shape == w.shape, name
             assert _rel(g, w) <= TOL, f"{name} {_rel(g, w)}"

@@ -1,8 +1,9 @@
 // Flash-attention backward for Hopper (sm_90a), bf16 at head dims (q.k,
-// v) = (64, 64), (128, 128) and (192, 128), as one fused pass: each CTA keeps one 128-key K/V tile stationary and
-// streams the 64-row Q/dO tiles that attend to it, computing dK and dV in
-// registers and adding its dQ partials into an fp32 accumulator; a second
-// launch in the same C entry turns the accumulator into dq.
+// v) = (64, 64), (128, 128) and (192, 128), as one fused pass: each CTA
+// keeps one 128-key K/V tile stationary and streams the 64-row Q/dO tiles
+// that attend to it, computing dK and dV in registers and adding its dQ
+// partials into an fp32 accumulator; a second launch in the same C entry
+// turns the accumulator into dq.
 //
 // Replaces tpu_dra/workloads/flashattention.py:_bwd_dq_kernel and
 // _bwd_dkv_kernel (reached through _flash_bwd_rule) and
@@ -21,49 +22,83 @@
 //
 // Design:
 // 1. One pass. Per K/V tile and streamed Q tile: S^T = K.Q^T and
-//    dP^T = V.dO^T (wgmma m64n64k16, both operands K-major in shared
-//    memory), P^T = 2^(s * scale * log2(e) - lse * log2(e)), dS^T = P^T *
-//    (dP^T + dlse - delta), dV += P^T.dO and dK += dS^T.Q (wgmma with P^T
-//    and dS^T from registers, re-packed as bf16 A fragments, and dO / Q
-//    read MN-major), and dQ = dS.K (wgmma with dS^T read back from shared
-//    memory as a transposed A and the stationary K as an MN-major B).
+//    dP^T = V.dO^T (wgmma, both operands K-major in shared memory), P^T =
+//    2^(s * scale * log2(e) - lse * log2(e)), dS^T = P^T * (dP^T + dlse -
+//    delta), dV += P^T.dO and dK += dS^T.Q (wgmma with P^T and dS^T from
+//    registers, re-packed as bf16 A fragments, and dO / Q read MN-major),
+//    and dQ = dS.K (wgmma with dS^T read back from shared memory as a
+//    transposed A and the stationary K as an MN-major B).
 // 2. Warp specialisation. Warpgroup 0 produces: one thread issues TMA
-//    loads (128-byte swizzle, zero fill past S) of K and V once and of Q,
-//    dO and the Q rows' rope-table halves into a ring of kStages stages;
-//    warp 1 stages lse * log2(e) and dlse - delta of the stage's rows.
-//    Warpgroups 1 and 2 consume, 64 keys each, holding their dK and dV
-//    accumulators in registers (setmaxnreg 24 / 240). Each consumer
-//    computes half of dQ's columns (D=128; at D=64 consumer 0 all of
-//    them), so both consumers' dS^T halves meet in shared memory (two
-//    buffers, one named barrier per tile). The consumers run in step:
-//    the products read both operands of S^T, dP^T and dQ from shared
-//    memory, whose bandwidth the two consumers share, so letting them
-//    drift a tile apart (dQ of tile i deferred into tile i + 1, Q(i + 1)
-//    rotated during tile i) measured slower, and spilled (PERF.md).
-// 3. dQ reduction. Every CTA adds its [64 x D] dQ partial of each Q tile
-//    into the [B, S, H, D] fp32 accumulator: each consumer warp stages its
-//    16 rows in swizzled shared memory and issues TMA reduce-adds
-//    (cp.reduce.async.bulk.tensor .add.f32, the reduction done in L2, rows
-//    past S dropped by the map); the epilogue kernel scales,
-//    inverse-rotates and rounds it once. The reductions make dq's sums run
-//    in an order that changes from run to run; dk and dv are summed by one
-//    CTA in a fixed order and are reproducible bit for bit.
-// 4. RoPE. K is rotated once per CTA, in place (tables from L2); each
+//    loads (zero fill past S) of K and V once and of Q, dO and the Q
+//    rows' rope-table halves into a ring of kStages stages; warp 1 stages
+//    lse * log2(e) and dlse - delta of the stage's rows; warp 2 writes dQ
+//    (item 4). Warpgroups 1 and 2 consume, 64 keys each, holding their dK
+//    and dV accumulators in registers (setmaxnreg 24 / 240); every
+//    pointer into shared memory stays a shared one (LDS/STS).
+// 3. The consumers' schedule. Within a Q tile each product is issued as
+//    soon as its operands exist, so CUDA-core work runs while a product
+//    holds the tensor cores: S^T and dP^T together; P^T while dP^T runs
+//    (its exponentials pinned before dP^T's wait); dS^T; dV as soon as
+//    P^T is packed, running through dS^T's store and the barrier where
+//    both consumers' dS^T halves meet; then dQ and dK back to back, one
+//    wait for dQ, dQ's staging while dK runs, and dK's wait at the tile's
+//    end. The mask's compares run only on the diagonal's and ragged
+//    tiles (a branch, not predicated code that would issue on every
+//    tile). The consumers stay in step and every product stays within its
+//    tile: an earlier design that let them drift a tile apart (dQ of tile
+//    i deferred into tile i + 1, Q(i + 1) rotated during tile i), and one
+//    that let dK run on through the next tile's Q rotation, each held a
+//    second tile's registers, spilled and measured slower (PERF.md). dS^T
+//    has two buffers where shared memory allows, so a consumer stores the
+//    next tile's while the other may still read this one's; at (192, 128)
+//    one, freed by an mbarrier (ds_free) once both have read it.
+// 4. dQ reduction, off the consumers. Every CTA adds its [64 x D] dQ
+//    partial of each Q tile into the [B, S, H, D] fp32 accumulator: the
+//    consumers stage it in swizzled shared memory (64-row by 32-column
+//    fp32 boxes) and arrive on an mbarrier; warp 2 of the producer issues
+//    one TMA reduce-add per box (cp.reduce.async.bulk.tensor .add.f32,
+//    the reduction done in L2, rows past S dropped by the map), waits for
+//    their reads and frees the staging. No consumer waits for a reduce.
+//    The epilogue kernel scales, inverse-rotates and rounds the
+//    accumulator once. The reductions make dq's sums run in an order that
+//    changes from run to run; dk and dv are summed by one CTA in a fixed
+//    order and are reproducible bit for bit.
+// 5. RoPE. K is rotated once per CTA, in place (tables from L2); each
 //    streamed Q tile is rotated in place by both consumers, 32 rows each,
 //    from the table halves that arrive with it (the forward's scheme; only
 //    the first D/2 columns of each table are read).
-// 5. Causal order. K tile 0 sees the most Q tiles: the grid's y axis is
-//    the K tile, so the heaviest CTAs of every head launch first; each CTA
-//    streams its Q tiles from the diagonal down.
+// 6. Launch order. Every CTA of a head streams that head's Q and dO and
+//    adds into its dQ rows, so the grid runs heads in groups (launch says
+//    how many: as many as keep their Q, dO and dQ accumulator within half
+//    of L2, at least two), each group's K tiles heaviest first (K tile 0
+//    sees the most Q tiles when causal) with its heads side by side. With
+//    every head's first K tile launched together, as before, at B6 S8191
+//    H16 the reduce-adds and the streamed tiles missed L2 and the kernel
+//    took twice as long. Each CTA streams its Q tiles from the diagonal
+//    down.
+//
+// Registers per consumer thread (of 240) at (128, 128): dK 64 + dV 64 +
+// S^T 32 + dP^T 32 = 192 while S^T and dP^T run, dK 64 + dV 64 + dQ 32 +
+// P^T's and dS^T's fragments 32 = 192 while dQ and dK do. dQ's columns
+// are split evenly, 64 a consumer (at D=64 consumer 0 computes all 64).
 //
 // Latent attention (DeepSeek-V3's MLA, (192, 128); no rope, which the
 // caller applies to the 64 roped dims): dK holds 96 registers a consumer
-// thread where dV holds 64, so P^T is packed to bf16 only after dS^T (one
-// fewer 16-register array live while S^T and dP^T both are); dK += dS^T.Q
-// is one m64n192 wgmma; dQ's three 64-column boxes go to consumer 0 (boxes
-// 0 and 2) and consumer 1 (box 1). Shared memory: K 48 KB + V 32 KB, two
-// stages of Q 24 KB + dO 16 KB, and the same dS^T, dQ and row-vector
-// buffers: 226 KB. The scale is 1/sqrt(Dqk).
+// thread where dV holds 64, so S^T's and dP^T's whole accumulators would
+// make 224, and ptxas then serialises every product. So S^T and dP^T run
+// in two halves of 32 queries (200 with the first half's P^T fragments,
+// which dV reads while the second half is issued). dQ is split evenly,
+// 96 columns a consumer (one m64n96 product each): K is loaded in
+// 32-column boxes with the 64-byte swizzle, so each half of dQ's columns
+// is whole boxes of K. dQ's 48 registers leave no room for dS^T's
+// fragments beside dK and dV (96 + 64 + 48 + 32 > 200, the budget after
+// addresses), so dK += dS^T.Q reads dS^T from the shared-memory copy
+// stored for dQ (one m64n192 product with both operands in shared
+// memory), and dV is waited for before dQ and dK issue: 208. Every such
+// choice follows from (Dqk, Dv) at compile time (Smem). Shared memory:
+// K 48 KB + V 32 KB, two stages of Q 24 KB + dO 16 KB, one dS^T buffer
+// of 16 KB, dQ's staging 48 KB and the row vectors: 226 KB. The scale is
+// 1/sqrt(Dqk).
 //
 // Rounding points are bwd_dq_plain's and bwd_dkv_plain's: roped q/k
 // rounded to bf16 before the dots, scores scaled after them, masked scores
@@ -89,10 +124,9 @@ constexpr int kConsumerWarps = 8;
 constexpr int kKvBox = kKeys * 128;  // 128 rows x 64 bf16 columns
 constexpr int kQBox = kQ * 128;      // 64 rows x 64 bf16 columns
 constexpr int kDsTile = kKeys * 128; // dS^T: 128 keys x 64 queries, bf16
-// A consumer warp's dQ rows (16) by 32 fp32 columns, 128-byte swizzled:
-// the box of one TMA reduce-add; a consumer stages 4 warps x 2 of them.
-constexpr int kDqBox = 16 * 128;
-constexpr int kDqTile = 8 * kDqBox;
+// dQ's staging: a tile's 64 rows by 32 fp32 columns, 128-byte swizzled:
+// the box of one TMA reduce-add.
+constexpr int kDqBox = kQ * 128;
 // 24 x 128 + 240 x 256 = 168 x 384: the registers the block starts with
 // under __launch_bounds__(384, 1).
 constexpr int kProducerRegs = 24;
@@ -108,20 +142,40 @@ struct Args {
   const float* dlse;
   float* dq_acc;       // [B, S, H, D] fp32, zeroed by the caller
   int S, H, n_qt;      // n_qt = ceil(S / 64)
+  int n_kt, n_bh;      // K tiles per head, heads (B * H)
+  int group;           // heads whose K tiles run side by side (launch)
   int causal, rope;
   float scale_log2;    // sm_scale * log2(e)
   float sm_scale;
 };
 
 // Shared memory: K and V tiles, kStages x (Q tile, dO tile, the Q rows'
-// rope-table halves), two dS^T tiles, the two consumers' dQ staging,
-// kStages x (lse * log2(e), dlse - delta of the stage's rows), then the
-// barriers. Only an instance whose q.k and v share a head dim ropes
-// (kRope). 226 KB at (128, 128) and at (192, 128).
+// rope-table halves), one or two dS^T tiles, dQ's staging, kStages x (lse *
+// log2(e), dlse - delta of the stage's rows), then the barriers. Only an
+// instance whose q.k and v share a head dim ropes (kRope). 226 KB at
+// (128, 128) and at (192, 128).
 template <int DK, int DV>
 struct Smem {
   static constexpr bool kRope = DK == DV;
-  static constexpr int kKv = (DK / 64) * kKvBox;    // K tile
+  // dQ's columns a consumer computes: half each from D=128, all on
+  // consumer 0 at D=64.
+  static constexpr int kDqCols = DK >= 128 ? DK / 2 : DK;
+  static constexpr int kDqWarps = DK >= 128 ? kConsumerWarps : 4;
+  // K's TMA boxes: 64 columns, 128-byte swizzled, or 32 columns with the
+  // 64-byte swizzle where a consumer's dQ columns are not whole 64-column
+  // boxes (96 at Dqk=192): dQ = dS.K then reads whole boxes of K.
+  static constexpr int kKCols = kDqCols % 64 == 0 ? 64 : 32;
+  static constexpr int kKBox = kKeys * kKCols * 2;
+  // dK += dS^T.Q reads dS^T from shared memory where its A fragments do
+  // not fit beside the dK, dV and dQ accumulators and P^T's fragments
+  // (the consumer's registers less 40 for addresses and indices).
+  static constexpr bool kDkFromSmem =
+      DK / 2 + DV / 2 + kDqCols / 2 + 32 > kConsumerRegs - 40;
+  // S^T and dP^T run in two halves of 32 queries where their whole
+  // accumulators do not fit beside dK's and dV's in the same budget (224
+  // registers at (192, 128): ptxas would serialise every product).
+  static constexpr bool kHalves = DK / 2 + DV / 2 + 64 > kConsumerRegs - 40;
+  static constexpr int kKv = DK * kKeys * 2;        // K tile
   static constexpr int kV = (DV / 64) * kKvBox;     // V tile
   static constexpr int kQt = (DK / 64) * kQBox;     // Q tile
   static constexpr int kDo = (DV / 64) * kQBox;     // dO tile
@@ -130,38 +184,57 @@ struct Smem {
   static constexpr int kStage = kQt + kDo + kTables;
   static constexpr int kStage0 = kKv + kV;
   static constexpr int kDs = kStage0 + kStages * kStage;
-  static constexpr int kDq = kDs + 2 * kDsTile;
-  static constexpr int kRowVecs = kDq + 2 * kDqTile;  // 2 x 64 fp32 a stage
+  // Two dS^T buffers where they fit, one at (192, 128): a consumer then
+  // stores tile i + 1's once both consumers' products have read tile i's
+  // (an mbarrier, ds_free).
+  static constexpr int kAfterDs =
+      (DK / 32) * kDqBox + kStages * 2 * kQ * 4 + 8 * (4 + 3 * kStages) + 1024;
+  static constexpr int kDsBufs = kDs + 2 * kDsTile + kAfterDs <= 232448 ? 2 : 1;
+  static constexpr int kDq = kDs + kDsBufs * kDsTile;
+  static constexpr int kRowVecs = kDq + (DK / 32) * kDqBox;  // 2 x 64 fp32 a stage
   static constexpr int kBarrierOff = kRowVecs + kStages * 2 * kQ * 4;
-  static constexpr int kBytes = kBarrierOff + 8 * (1 + 3 * kStages);
+  static constexpr int kBytes = kBarrierOff + 8 * (4 + 3 * kStages);
   static constexpr int kAlloc = kBytes + 1024;  // base rounded up to 1 KB
   static_assert(kAlloc <= 232448, "227 KB of shared memory per block");
 };
 
+// A descriptor over a tile of kCols-column boxes (the swizzle of that
+// width).
+template <int kCols>
+__device__ __forceinline__ uint64_t desc_box(const void* p, uint32_t lbo,
+                                             uint32_t sbo) {
+  if constexpr (kCols == 64) return sm90::desc_sw128(p, lbo, sbo);
+  else return sm90::desc_sw64(p, lbo, sbo);
+}
+
 // S^T (or dP^T) = A . B^T for one consumer: A its 64 rows of the K (or V)
-// tile, B the stage's 64 Q (or dO) rows, both K-major; D/16 k-steps (D
-// the operands' head dim: Dqk for S^T, Dv for dP^T).
-template <int D>
-__device__ __forceinline__ void kq_product(float (&acc)[32], uint64_t a_desc,
+// tile in kACols-column boxes, B N of the stage's Q (or dO) rows, both
+// K-major; D/16 k-steps (D the operands' head dim: Dqk for S^T, Dv for
+// dP^T).
+template <int D, int kACols, int N = kQ>
+__device__ __forceinline__ void kq_product(float (&acc)[N / 2], uint64_t a_desc,
                                            uint64_t b_desc) {
+  constexpr int kSteps = kACols / 16;  // k-steps in one box of A
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    const uint32_t in_box = (kk % 4) * 32;
-    sm90::wgmma_ss_m64n64<0, 0>(
-        acc, sm90::desc_add(a_desc, (kk / 4) * kKvBox + in_box),
-        sm90::desc_add(b_desc, (kk / 4) * kQBox + in_box), kk > 0);
+    const uint64_t da = sm90::desc_add(
+        a_desc, (kk / kSteps) * kKeys * kACols * 2 + (kk % kSteps) * 32);
+    const uint64_t db =
+        sm90::desc_add(b_desc, (kk / 4) * kQBox + (kk % 4) * 32);
+    if constexpr (N == 32) sm90::wgmma_ss_m64n32<0, 0>(acc, da, db, kk > 0);
+    else sm90::wgmma_ss_m64n64<0, 0>(acc, da, db, kk > 0);
   }
 }
 
 // acc (64 keys x D) += A . B: A the 64 x 64 P^T or dS^T as 4 k-steps of
 // bf16 A fragments, B the stage's dO or Q tile read MN-major (LBO: the
-// next 64 columns of D).
-template <int D>
+// next 64 columns of D); k-steps [K0, K1) of them.
+template <int D, int K0 = 0, int K1 = kQ / 16>
 __device__ __forceinline__ void rs_product(float (&acc)[D / 2],
                                            const uint32_t (&frag)[16],
                                            uint64_t b_desc) {
 #pragma unroll
-  for (int kk = 0; kk < kQ / 16; ++kk) {
+  for (int kk = K0; kk < K1; ++kk) {
     const uint64_t d = sm90::desc_add(b_desc, kk * 16 * 128);
     if constexpr (D == 192) sm90::wgmma_rs_m64n192(acc, &frag[4 * kk], d);
     else if constexpr (D == 128) sm90::wgmma_rs_m64n128(acc, &frag[4 * kk], d);
@@ -169,15 +242,31 @@ __device__ __forceinline__ void rs_product(float (&acc)[D / 2],
   }
 }
 
-// dQ (64 queries x 64 columns) = dS . K: dS^T's 128 key rows read as a
-// transposed A, K's rows as an MN-major B; 8 k-steps of 16 keys.
-__device__ __forceinline__ void dq_product(float (&acc)[32], uint64_t ds_desc,
+// dK (64 keys x 192) += dS^T . Q with dS^T read from shared memory: A
+// this consumer's 64 rows of the dS^T tile, K-major; B the stage's Q tile,
+// MN-major.
+__device__ __forceinline__ void ss_dk_product(float (&acc)[96],
+                                              uint64_t a_desc,
+                                              uint64_t b_desc) {
+#pragma unroll
+  for (int kk = 0; kk < kQ / 16; ++kk)
+    sm90::wgmma_ss_m64n192<0, 1>(acc, sm90::desc_add(a_desc, kk * 32),
+                                 sm90::desc_add(b_desc, kk * 16 * 128), 1);
+}
+
+// dQ (64 queries x N columns) = dS . K: dS^T's 128 key rows read as a
+// transposed A, K's rows (kBCols-column boxes) as an MN-major B; 8 k-steps
+// of 16 keys.
+template <int N, int kBCols>
+__device__ __forceinline__ void dq_product(float (&acc)[N / 2],
+                                           uint64_t ds_desc,
                                            uint64_t k_desc) {
 #pragma unroll
   for (int kk = 0; kk < kKeys / 16; ++kk) {
-    const uint32_t off = kk * 16 * 128;
-    sm90::wgmma_ss_m64n64<1, 1>(acc, sm90::desc_add(ds_desc, off),
-                                sm90::desc_add(k_desc, off), kk > 0);
+    const uint64_t da = sm90::desc_add(ds_desc, kk * 16 * 128);
+    const uint64_t db = sm90::desc_add(k_desc, kk * 16 * kBCols * 2);
+    if constexpr (N == 96) sm90::wgmma_ss_m64n96<1, 1>(acc, da, db, kk > 0);
+    else sm90::wgmma_ss_m64n64<1, 1>(acc, da, db, kk > 0);
   }
 }
 
@@ -195,21 +284,32 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const Args a) {
   using L = Smem<DK, DV>;
   constexpr int D = DK;             // the rope paths' head dim (DK == DV)
-  constexpr int kBoxes = DK / 64;   // of K, Q, dK and dQ
   constexpr int kVBoxes = DV / 64;  // of V, dO and dV
+  constexpr int kDqCols = L::kDqCols;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // The base rounded up to 1 KB by an offset from smem_raw, so that every
+  // pointer into it stays a shared-memory one (LDS/STS, not generic).
+  uint8_t* smem =
+      smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* k_tile = smem;
   uint8_t* v_tile = smem + L::kKv;
+  uint8_t* dq_stage = smem + L::kDq;
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBarrierOff);
   uint64_t* kv_full = bars;                // K and V landed
-  uint64_t* full = bars + 1;               // Q, dO, tables, lse/corr landed
+  uint64_t* dq_full = bars + 1;            // the tile's dQ staged
+  uint64_t* dq_empty = bars + 2;           // its reduce-adds read it
+  uint64_t* ds_free = bars + 3;            // both consumers done with dS^T
+  uint64_t* full = bars + 4;               // Q, dO, tables, lse/corr landed
   uint64_t* q_ready = full + kStages;      // Q rotated by both consumers
   uint64_t* empty = q_ready + kStages;     // both consumers done with it
 
-  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.y * kKeys;
+  // The CTA's head and K tile: heads in groups of a.group, each group's K
+  // tiles heaviest first (the diagonal's; causal), its heads side by side.
+  const int g0 = blockIdx.x / (a.group * a.n_kt) * a.group;
+  const int in_group = blockIdx.x - g0 * a.n_kt;
+  const int heads = min(a.group, a.n_bh - g0);
+  const int bh = g0 + in_group % heads, b = bh / a.H, h = bh % a.H;
+  const int k0 = in_group / heads * kKeys;
   const int qt0 = a.causal ? k0 / kQ : 0;  // the diagonal's Q tile
   const int n_it = a.n_qt - qt0;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
@@ -224,6 +324,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(kv_full, 1);
+    sm90::mbar_init(dq_full, L::kDqWarps);
+    sm90::mbar_init(dq_empty, 1);
+    sm90::mbar_init(ds_free, kConsumerWarps);
     for (int s = 0; s < kStages; ++s) {
       sm90::mbar_init(&full[s], 1 + 32);
       sm90::mbar_init(&q_ready[s], kConsumerWarps);
@@ -240,9 +343,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int warp = tid / 32, lane = tid % 32;
     if (tid == 0) {
       sm90::mbar_arrive_expect_tx(kv_full, L::kKv + L::kV);
-      for (int c = 0; c < kBoxes; ++c)
-        sm90::tma_load_4d(k_tile + c * kKvBox, &k_map, kv_full, c * 64, h, k0,
-                          b);
+      for (int c = 0; c < DK / L::kKCols; ++c)
+        sm90::tma_load_4d(k_tile + c * L::kKBox, &k_map, kv_full,
+                          c * L::kKCols, h, k0, b);
       for (int c = 0; c < kVBoxes; ++c)
         sm90::tma_load_4d(v_tile + c * kKvBox, &v_map, kv_full, c * 64, h, k0,
                           b);
@@ -252,7 +355,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
         sm90::mbar_arrive_expect_tx(&full[s],
                                     L::kQt + L::kDo + (a.rope ? L::kTables : 0));
-        for (int c = 0; c < kBoxes; ++c)
+        for (int c = 0; c < DK / 64; ++c)
           sm90::tma_load_4d(st + c * kQBox, &q_map, &full[s], c * 64, h, q0,
                             b);
         for (int c = 0; c < kVBoxes; ++c)
@@ -280,6 +383,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         sm90::mbar_arrive(&full[s]);
       }
+    } else if (warp == 2 && lane == 0) {
+      // The dQ writer: each tile's staged partial added into the
+      // accumulator, one reduce-add per 32 columns; the staging is free
+      // again once they have read it.
+      for (int it = 0; it < n_it; ++it) {
+        const int q0 = (qt0 + it) * kQ;
+        sm90::mbar_wait(dq_full, it & 1);
+        for (int c = 0; c < DK / 32; ++c)
+          sm90::tma_reduce_add_4d(&dq_map, dq_stage + c * kDqBox, c * 32, h,
+                                  q0, b);
+        sm90::bulk_commit();
+        sm90::bulk_wait_read();
+        sm90::mbar_arrive(dq_empty);
+      }
     }
     return;
   }
@@ -290,9 +407,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int key_l = 64 * w + 16 * warp + g;  // tile row of fragment row g
   const int key_g = k0 + key_l, key_g8 = key_g + 8;
-  // dQ's columns: box w at D=128; all of them on consumer 0 at D=64;
-  // boxes 0 and 2 on consumer 0 and box 1 on consumer 1 at Dqk=192.
+  // dQ's columns [dq_c0, dq_c0 + kDqCols): half each from D=128; all of
+  // them on consumer 0 at D=64.
   const bool computes_dq = DK >= 128 || w == 0;
+  const int dq_c0 = DK >= 128 ? w * kDqCols : 0;
 
   sm90::mbar_wait(kv_full, 0);
   if constexpr (L::kRope) if (a.rope) {
@@ -306,10 +424,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::fence_proxy_async();
   }
   sm90::named_sync(1 + w, 128);  // this consumer's K rows rotated
-  const uint64_t kw_desc = sm90::desc_sw128(k_tile + w * 64 * 128, 16, 1024);
+  constexpr uint32_t kKSbo = 8 * L::kKCols * 2;  // 8 rows of a K box
+  const uint64_t kw_desc =
+      desc_box<L::kKCols>(k_tile + w * 64 * L::kKCols * 2, 16, kKSbo);
   const uint64_t vw_desc = sm90::desc_sw128(v_tile + w * 64 * 128, 16, 1024);
-  const uint64_t kdq_desc =
-      sm90::desc_sw128(k_tile + (DK >= 128 ? w : 0) * kKvBox, kKvBox, 1024);
+  const uint64_t kdq_desc = desc_box<L::kKCols>(
+      k_tile + (dq_c0 / L::kKCols) * L::kKBox, L::kKBox, kKSbo);
 
   float dk[DK / 2], dv[DV / 2];
 #pragma unroll
@@ -328,12 +448,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint8_t* do_s = q_s + L::kQt;
     const float* lse2 = row_vecs(it);
     const float* corr = lse2 + kQ;
-    uint8_t* ds_s = smem + L::kDs + (it & 1) * kDsTile;
+    uint8_t* ds_s = smem + L::kDs + (it % L::kDsBufs) * kDsTile;
 
     sm90::mbar_wait(&full[s], phase);
     if constexpr (L::kRope) if (a.rope) {
       // Rows [32w, 32w + 32) of Q, from the table halves of the stage.
-      const uint8_t* tables = q_s + 2 * L::kQt;
+      const uint8_t* tables = q_s + L::kQt + L::kDo;
       sm90::rope_rows<D, kQBox, 32>(
           q_s, 32 * w, q0, a.S, tid,
           [&](int, int r, int j, uint4& c, uint4& sn) {
@@ -346,123 +466,193 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (lane == 0) sm90::mbar_arrive(&q_ready[s]);
       sm90::mbar_wait(&q_ready[s], phase);
     }
-    // S^T and dP^T: 64 keys x 64 queries each.
-    float sc[32], dp[32];
-    sm90::wgmma_fence();
-    kq_product<DK>(sc, kw, sm90::desc_sw128(q_s, 16, 1024));
-    sm90::wgmma_commit();
-    kq_product<DV>(dp, vw, sm90::desc_sw128(do_s, 16, 1024));
-    sm90::wgmma_commit();
-    // P^T while dP^T still runs. Fragment: sc[4j + e] is key row g (e < 2)
-    // or g + 8, query q0 + 8j + 2t + (e & 1).
+    // S^T and dP^T: 64 keys x 64 queries each (two halves of 32 queries
+    // where kHalves).
+    uint32_t pa[16], da[16];  // P^T and dS^T as bf16 A fragments
     const bool masked = (a.causal && q0 < k0 + kKeys) || q0 + kQ > a.S ||
                         k0 + kKeys > a.S;
-    sm90::wgmma_wait<1>();
-    sm90::fence_regs(sc);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+    // P^T in place of n-tile jl of S^T's accumulator `st` (n-tile jg of the
+    // tile: st[4 jl + e] is key row g (e < 2) or g + 8, query q0 + 8 jg +
+    // 2t + (e & 1)), masked where `mask`.
+    auto p_tile = [&](auto& st, int jl, int jg, bool mask) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * jg + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = __fmaf_rn(sc[4 * j + e], a.scale_log2, -(e & 1 ? l2.y : l2.x));
-        if (masked) {
-          const int query = q0 + 8 * j + 2 * t + (e & 1);
+        float x = __fmaf_rn(st[4 * jl + e], a.scale_log2, -(e & 1 ? l2.y : l2.x));
+        if (mask) {
+          const int query = q0 + 8 * jg + 2 * t + (e & 1);
           const int key = e < 2 ? key_g : key_g8;
           if ((a.causal && query < key) || query >= a.S || key >= a.S)
             x = kNegInf;
         }
-        sc[4 * j + e] = sm90::ex2(x);
+        st[4 * jl + e] = sm90::ex2(x);
       }
-    }
-    uint32_t pa[16], da[16];  // P^T and dS^T as bf16 A fragments
-    auto pack_p = [&]() {
-#pragma unroll
-      for (int i = 0; i < 16; ++i)
-        pa[i] = flash::pack_bf16(sc[2 * i], sc[2 * i + 1]);
     };
-    if constexpr (DK == DV) pack_p();
-    sm90::wgmma_wait<0>();
-    sm90::fence_regs(dp);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float2 cr = *reinterpret_cast<const float2*>(corr + 8 * j + 2 * t);
+    // dS^T in place of n-tile jl of dP^T's accumulator `dpt` from P^T's
+    // `pt`, then P^T's and dS^T's fragments of the tile's n-tile jg.
+    auto ds_tile = [&](auto& pt, auto& dpt, int jl, int jg) {
+      const float2 cr = *reinterpret_cast<const float2*>(corr + 8 * jg + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] + (e & 1 ? cr.y : cr.x));
-    }
+        dpt[4 * jl + e] =
+            pt[4 * jl + e] * (dpt[4 * jl + e] + (e & 1 ? cr.y : cr.x));
 #pragma unroll
-    for (int i = 0; i < 16; ++i) da[i] = flash::pack_bf16(dp[2 * i], dp[2 * i + 1]);
-    if constexpr (DK != DV) pack_p();
-    // dS^T into shared memory (rows = keys, 64 query columns, swizzled as
-    // one 128-row box) for dQ = dS . K; both consumers' halves meet there.
+      for (int i = 0; i < 2; ++i) {
+        pa[2 * jg + i] = flash::pack_bf16(pt[4 * jl + 2 * i], pt[4 * jl + 2 * i + 1]);
+        da[2 * jg + i] = flash::pack_bf16(dpt[4 * jl + 2 * i], dpt[4 * jl + 2 * i + 1]);
+      }
+    };
+    // dS^T's fragments of n-tiles [j0, j1) into shared memory (rows =
+    // keys, 64 query columns, swizzled as one 128-row box) for dQ = dS . K;
+    // with one buffer, once both consumers' products of the previous tile
+    // have read it (with two, the other buffer's readers finished a tile
+    // ago).
+    auto store_ds = [&](int j0, int j1) {
+      if constexpr (L::kDsBufs == 1)
+        if (j0 == 0) sm90::mbar_wait(ds_free, (it & 1) ^ 1);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      *reinterpret_cast<uint32_t*>(ds_s + sm90::swz_off(key_l, j, kDsTile) +
-                                   4 * t) = da[2 * j];
-      *reinterpret_cast<uint32_t*>(ds_s + sm90::swz_off(key_l + 8, j, kDsTile) +
-                                   4 * t) = da[2 * j + 1];
+      for (int j = j0; j < j1; ++j) {
+        *reinterpret_cast<uint32_t*>(ds_s + sm90::swz_off(key_l, j, kDsTile) +
+                                     4 * t) = da[2 * j];
+        *reinterpret_cast<uint32_t*>(
+            ds_s + sm90::swz_off(key_l + 8, j, kDsTile) + 4 * t) = da[2 * j + 1];
+      }
+    };
+    const uint64_t do_mn = sm90::desc_sw128(do_s, kQBox, 1024);
+    if constexpr (!L::kHalves) {
+      float sc[32], dp[32];
+      sm90::wgmma_fence();
+      kq_product<DK, L::kKCols>(sc, kw, sm90::desc_sw128(q_s, 16, 1024));
+      sm90::wgmma_commit();
+      kq_product<DV, 64>(dp, vw, sm90::desc_sw128(do_s, 16, 1024));
+      sm90::wgmma_commit();
+      // P^T while dP^T runs (pinned before its wait). Two loops, not one
+      // with a predicated mask: the mask's compares would issue on every
+      // tile, where only the diagonal's and ragged ones need them.
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(sc);
+      if (masked) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) p_tile(sc, j, j, true);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) p_tile(sc, j, j, false);
+      }
+      sm90::fence_regs(sc);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) ds_tile(sc, dp, j, j);
+      // dV += P^T . dO as soon as P^T is packed: it runs through dS^T's
+      // store and the barrier. (Packed before dS^T, P^T's fragments would
+      // sit beside S^T, dP^T, dK and dV, and the consumer spills.)
+      sm90::wgmma_fence();
+      rs_product<DV>(dv, pa, do_mn);
+      sm90::wgmma_commit();
+      store_ds(0, 8);
+    } else {
+      // Per half: S^T and dP^T, P^T and dS^T (one loop, the mask
+      // predicated: two would spill), then the half's two k-steps of dV,
+      // which run while the next half is issued.
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float sh[16], dh[16];
+        // The half's descriptors made here, not hoisted (they would spill).
+        uint64_t kwh = kw, vwh = vw,
+                 qh = sm90::desc_sw128(q_s + hf * 32 * 128, 16, 1024),
+                 doh = sm90::desc_sw128(do_s + hf * 32 * 128, 16, 1024);
+        asm volatile("" : "+l"(kwh), "+l"(vwh), "+l"(qh), "+l"(doh));
+        sm90::wgmma_fence();
+        kq_product<DK, L::kKCols, 32>(sh, kwh, qh);
+        sm90::wgmma_commit();
+        kq_product<DV, 64, 32>(dh, vwh, doh);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(pa);
+        sm90::fence_regs(sh);
+        sm90::fence_regs(dh);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          p_tile(sh, j, 4 * hf + j, masked);
+          ds_tile(sh, dh, j, 4 * hf + j);
+        }
+        sm90::wgmma_fence();
+        if (hf == 0) rs_product<DV, 0, 2>(dv, pa, do_mn);
+        else rs_product<DV, 2, 4>(dv, pa, do_mn);
+        sm90::wgmma_commit();
+        store_ds(4 * hf, 4 * hf + 4);
+      }
     }
     sm90::fence_proxy_async();
-    // Both dS^T halves stored (and, on the first tile, both halves of K
-    // rotated). The other buffer's readers finished a tile ago.
+    // Both consumers' dS^T stored (and, on the first tile, both halves of
+    // K rotated).
     sm90::named_sync(kBothConsumers, 256);
 
-    // dV and dK, then dQ: waiting for the first before issuing the second
-    // keeps P^T, dS^T and the dQ accumulator out of each other's registers.
-    float dq[32];
-    sm90::fence_regs(pa);
-    sm90::fence_regs(da);
-    sm90::wgmma_fence();
-    rs_product<DV>(dv, pa, sm90::desc_sw128(do_s, kQBox, 1024));
-    rs_product<DK>(dk, da, sm90::desc_sw128(q_s, kQBox, 1024));
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-    sm90::fence_regs(dv);
-    sm90::fence_regs(dk);
-    sm90::fence_regs(pa);
-    sm90::fence_regs(da);
-    __syncwarp();
-    if (lane == 0) sm90::mbar_arrive(&empty[s]);  // Q, dO, lse/corr read
-    // dQ of 64 columns from box c of K (descriptor kdq_c), added at
-    // column c0.
-    auto dq_box = [&](uint64_t kdq_c, int c0) {
-      sm90::wgmma_fence();
-      dq_product(dq, sm90::desc_sw128(ds_s, kDsTile, 1024), kdq_c);
+    // dQ, then dK, back to back.
+    if constexpr (L::kDkFromSmem) {
+      sm90::wgmma_wait<0>();  // dV: P^T's fragments free for dQ's sums
+      sm90::fence_regs(dv);
+      sm90::fence_regs(pa);
+    }
+    float dq[kDqCols / 2];
+    auto issue_dq = [&]() {
+      dq_product<kDqCols, L::kKCols>(dq, sm90::desc_sw128(ds_s, kDsTile, 1024),
+                                     kdq);
       sm90::wgmma_commit();
+    };
+    sm90::wgmma_fence();
+    if constexpr (DK >= 128) issue_dq();
+    if constexpr (L::kDkFromSmem)
+      ss_dk_product(dk, sm90::desc_sw128(ds_s + w * 64 * 128, 16, 1024),
+                    sm90::desc_sw128(q_s, kQBox, 1024));
+    else
+      rs_product<DK>(dk, da, sm90::desc_sw128(q_s, kQBox, 1024));
+    sm90::wgmma_commit();
+    if constexpr (DK >= 128) {
+      sm90::wgmma_wait<1>();  // dV and dQ; dK still runs
+    } else {
+      // Consumer 0 alone computes dQ, in a branch, where a product must
+      // find none in flight (ptxas would serialise every product).
       sm90::wgmma_wait<0>();
+      if (computes_dq) {
+        sm90::wgmma_fence();
+        issue_dq();
+        sm90::wgmma_wait<0>();
+      }
+    }
+    if constexpr (!L::kDkFromSmem) {
+      sm90::fence_regs(dv);
+      sm90::fence_regs(pa);
+    }
+    if (computes_dq) {
       sm90::fence_regs(dq);
-      // This warp's dQ partial, rows q0 + 16 warp + [0, 16) by 64 columns
-      // (fragment rows g, g + 8; columns 8j + 2t), staged as two swizzled
-      // 16 x 32 fp32 boxes, then added into the accumulator by TMA (rows
-      // past S are dropped by the map). Lane 0 first waits until the
-      // previous reduce has read the staging.
-      uint8_t* dq_s = smem + L::kDq + w * kDqTile + warp * kDqBox;
-      if (lane == 0) sm90::bulk_wait_read();
-      __syncwarp();
+      // This warp's dQ partial, rows q0 + 16 warp + [0, 16) by kDqCols
+      // columns (fragment rows g, g + 8; columns 8j + 2t), staged into the
+      // swizzled 64 x 32 boxes once the writer has read the previous tile's.
+      sm90::mbar_wait(dq_empty, (it & 1) ^ 1);
+      uint8_t* dq_s = dq_stage + (dq_c0 / 32) * kDqBox + (16 * warp + g) * 128 +
+                      (t & 1) * 8;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kDqCols / 8; ++j) {
         const int chunk = 2 * (j % 4) + t / 2;  // 16-byte chunk in its box
-        uint8_t* box = dq_s + (j / 4) * 4 * kDqBox + ((chunk ^ g) << 4) +
-                       (t & 1) * 8;
-        *reinterpret_cast<float2*>(box + g * 128) =
-            make_float2(dq[4 * j], dq[4 * j + 1]);
-        *reinterpret_cast<float2*>(box + (g + 8) * 128) =
+        uint8_t* at = dq_s + (j / 4) * kDqBox + ((chunk ^ g) << 4);
+        *reinterpret_cast<float2*>(at) = make_float2(dq[4 * j], dq[4 * j + 1]);
+        *reinterpret_cast<float2*>(at + 8 * 128) =
             make_float2(dq[4 * j + 2], dq[4 * j + 3]);
       }
       sm90::fence_proxy_async();
       __syncwarp();
-      if (lane == 0) {
-        sm90::tma_reduce_add_4d(&dq_map, dq_s, c0, h, q0 + 16 * warp, b);
-        sm90::tma_reduce_add_4d(&dq_map, dq_s + 4 * kDqBox, c0 + 32, h,
-                                q0 + 16 * warp, b);
-        sm90::bulk_commit();
-      }
-    };
-    if (computes_dq) dq_box(kdq, 64 * w);
-    if constexpr (kBoxes == 3)
-      if (w == 0) dq_box(sm90::desc_add(kdq, 2 * kKvBox), 128);
+      if (lane == 0) sm90::mbar_arrive(dq_full);
+    }
+    sm90::wgmma_wait<0>();  // dK
+    sm90::fence_regs(dk);
+    if constexpr (!L::kDkFromSmem) sm90::fence_regs(da);
+    __syncwarp();
+    if (lane == 0) {
+      sm90::mbar_arrive(&empty[s]);  // Q, dO, lse/corr read
+      if constexpr (L::kDsBufs == 1) sm90::mbar_arrive(ds_free);
+    }
   }
-  if (computes_dq && lane == 0) sm90::bulk_wait_read();
 
   // Epilogue: dK scaled and inverse-rotated in fp32 (tables at the key
   // positions; column j's partner j + D/2 sits in the same thread), dK and
@@ -512,7 +702,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   sm90::fence_proxy_async();
   sm90::named_sync(1 + w, 128);
   if (tid == 0) {
-    for (int c = 0; c < kBoxes; ++c)
+    for (int c = 0; c < DK / 64; ++c)
       sm90::tma_store_4d(&dk_map, k_tile + c * kKvBox + w * 64 * 128, c * 64,
                          h, k0 + 64 * w, b);
     for (int c = 0; c < kVBoxes; ++c)
@@ -575,20 +765,22 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    long long v_b, long long v_s, long long v_h, int causal,
                    int rope, cudaStream_t stream) {
   if (rope && !Smem<DK, DV>::kRope) return cudaErrorInvalidValue;
-  // q (64-row boxes), k (128-row boxes) in the callers' strides, v
-  // (128-row boxes) in its own; dout, dv [B, S, H, DV] and dk [B, S, H,
-  // DK] contiguous in 64-row boxes.
+  // q (64-row boxes), k (128-row boxes of Smem's kKCols columns) in the
+  // callers' strides, v (128-row boxes) in its own; dout, dv [B, S, H, DV]
+  // and dk [B, S, H, DK] contiguous in 64-row boxes; dQ's accumulator in
+  // boxes of a tile's 64 rows by 32 columns.
   const long long k_b = (long long)S * H * DK, k_s = (long long)H * DK;
   const long long o_b = (long long)S * H * DV, o_s = (long long)H * DV;
   CUtensorMap maps[9] = {};
   if (!(sm90::encode_bshd(&maps[0], q, B, S, H, DK, in_b, in_s, in_h, kQ) &&
-        sm90::encode_bshd(&maps[1], k, B, S, H, DK, in_b, in_s, in_h, kKeys) &&
+        sm90::encode_bshd(&maps[1], k, B, S, H, DK, in_b, in_s, in_h, kKeys,
+                          Smem<DK, DV>::kKCols * 2) &&
         sm90::encode_bshd(&maps[2], v, B, S, H, DV, v_b, v_s, v_h, kKeys) &&
         sm90::encode_bshd(&maps[3], dout, B, S, H, DV, o_b, o_s, DV, kQ) &&
         sm90::encode_bshd(&maps[4], dk, B, S, H, DK, k_b, k_s, DK, 64) &&
         sm90::encode_bshd(&maps[5], dv, B, S, H, DV, o_b, o_s, DV, 64) &&
         sm90::encode_bshd_box(&maps[8], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
-                              dq_acc, B, S, H, DK, k_b, k_s, DK, 16)))
+                              dq_acc, B, S, H, DK, k_b, k_s, DK, kQ)))
     return cudaErrorInvalidValue;
   // The tables' first halves (Smem says why), 64 positions per box.
   if (rope && !(sm90::encode_rows(&maps[6], cos_t, S, DK / 2, DK, kQ) &&
@@ -604,6 +796,17 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   a.S = S;
   a.H = H;
   a.n_qt = (S + kQ - 1) / kQ;
+  a.n_kt = (S + kKeys - 1) / kKeys;
+  a.n_bh = B * H;
+  // Heads in flight together: every CTA of a head reads the head's Q and
+  // dO and adds into its dQ rows, so as many heads as keep those within
+  // half of L2 (25 MB) share the card at a time, and the reads and the
+  // reduce-adds hit L2; at least two (one head's tail beside the next
+  // head's heavy tiles), a power of two.
+  const long long head_bytes = (long long)S * (DK * 4 + (DK + DV) * 2);
+  a.group = 2;
+  while (a.group * 2 <= B * H && a.group * 2 * head_bytes <= (25ll << 20))
+    a.group *= 2;
   a.causal = causal;
   a.rope = rope;
   // 1/sqrt(Dqk) rounded once from double, as the TPU kernels' Python
@@ -615,7 +818,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       flash_bwd_sm90_kernel<DK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (S + kKeys - 1) / kKeys);
+  const dim3 grid(a.n_kt * a.n_bh);
   flash_bwd_sm90_kernel<DK, DV><<<grid, kThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7],
       maps[8], a);

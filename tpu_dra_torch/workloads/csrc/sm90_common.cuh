@@ -27,6 +27,10 @@
 //   MN-major (rows = k, 64 n per box; V in P.V, transposed):
 //     SBO = 1024 (8 k-rows), LBO = the box size (the next 64 n); the
 //     k-step of 16 rows moves the start by 16 * 128 bytes.
+// A box of 32 bf16 columns (64 bytes) takes the 64-byte swizzle: chunk c
+// (0..3) of row r at r * 64 + ((c ^ ((r / 2) % 4)) * 16), from a 512-byte-
+// aligned base, and descriptors as above with rows of 64 bytes (SBO 512,
+// two k-steps of 16 per box K-major, 32 n per box MN-major).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: nothing links libcuda
@@ -207,6 +211,15 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
+// The same over a 64-byte-swizzled operand (512-byte-aligned box).
+__device__ __forceinline__ uint64_t desc_sw64(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  const uint32_t a = smem_u32(p);
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (2ull << 62);
+}
+
 // A descriptor moved by `bytes` (a multiple of 16) in shared memory.
 __device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
   return desc + (bytes >> 4);
@@ -285,6 +298,85 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TransA), "n"(TransB));
+}
+
+// d = A . B (scale_d 0) or d += A . B (scale_d 1), m64n32k16, both
+// operands in shared memory, K-major (0) or MN-major (1) as
+// wgmma_ss_m64n64 reads them. d's registers follow m64n64's pattern over
+// 4 n-tiles.
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_ss_m64n32(float (&d)[16], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TransA), "n"(TransB));
+}
+
+// d = A . B (scale_d 0) or d += A . B (scale_d 1), m64n96k16, both
+// operands in shared memory, each K-major (0) or MN-major (1) as
+// wgmma_ss_m64n64 reads them. d's registers follow m64n64's pattern over
+// 12 n-tiles.
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_ss_m64n96(float (&d)[48], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, %51, %52;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TransA), "n"(TransB));
+}
+
+// d = A . B (scale_d 0) or d += A . B (scale_d 1), m64n192k16, both
+// operands in shared memory, each K-major (0) or MN-major (1) as
+// wgmma_ss_m64n64 reads them. d's registers follow m64n64's pattern over
+// 24 n-tiles.
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma_ss_m64n192(float (&d)[96], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, %99, %100;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "l"(da), "l"(db), "r"(scale_d), "n"(TransA), "n"(TransB));
 }
 
@@ -485,14 +577,15 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A map over the [B, S, H, D] view at `base` with element strides (sb,
-// ss, sh) and D stride 1, as dims (D, H, S, B), whose box is 128 bytes
-// of columns (64 bf16 or 32 fp32) by `rows` rows of one (b, h), 128-byte
-// swizzled. Rows past S load as zeros and are not stored. Strides must
-// be multiples of 16 bytes. Returns false if the driver refuses it.
+// ss, sh) and D stride 1, as dims (D, H, S, B), whose box is `box_bytes`
+// (128 or 64) bytes of columns (128: 64 bf16 or 32 fp32) by `rows` rows
+// of one (b, h), swizzled at that width. Rows past S load as zeros and
+// are not stored. Strides must be multiples of 16 bytes. Returns false
+// if the driver refuses it.
 inline bool encode_bshd_box(CUtensorMap* map, CUtensorMapDataType type,
                             int elem_bytes, const void* base, int B, int S,
                             int H, int D, long long sb, long long ss,
-                            long long sh, int rows) {
+                            long long sh, int rows, int box_bytes = 128) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
@@ -500,21 +593,24 @@ inline bool encode_bshd_box(CUtensorMap* map, CUtensorMapDataType type,
   const cuuint64_t strides[3] = {(cuuint64_t)(sh * elem_bytes),
                                  (cuuint64_t)(ss * elem_bytes),
                                  (cuuint64_t)(sb * elem_bytes)};
-  const cuuint32_t box[4] = {(cuuint32_t)(128 / elem_bytes), 1,
+  const cuuint32_t box[4] = {(cuuint32_t)(box_bytes / elem_bytes), 1,
                              (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE,
+            box_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                            : CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// bf16 [B, S, H, D]: boxes of 64 columns by `rows` rows.
+// bf16 [B, S, H, D]: boxes of 64 (or box_bytes / 2) columns by `rows`
+// rows.
 inline bool encode_bshd(CUtensorMap* map, const void* base, int B, int S,
                         int H, int D, long long sb, long long ss, long long sh,
-                        int rows) {
+                        int rows, int box_bytes = 128) {
   return encode_bshd_box(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, B, S,
-                         H, D, sb, ss, sh, rows);
+                         H, D, sb, ss, sh, rows, box_bytes);
 }
 
 // A bf16 map over the first `cols` columns of a row-major [rows, pitch]
