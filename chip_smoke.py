@@ -101,19 +101,20 @@ Phases, each printing one JSON line ({"phase": ...}):
                   drawn skewed so some overflow, capacity 1280, D 2048
                   bf16), each call as moe.py makes it, against its plain
                   version on the same card tensors: moe_route's five
-                  outputs and moe_gather_rows' four uses (dispatch and
-                  combine, forward and backward) bit for bit,
-                  moe_row_dot (the gate's gradient) within
-                  MOE_ROW_DOT_TOL of its largest value; CUDA-event time
-                  of each against its plain version's and its
-                  compulsory bytes over the memory rate;
+                  outputs, moe_gather_rows' two uses (the dispatch and
+                  the combine's backward) and moe_combine_rows' two at
+                  k = 1 (the combine and the dispatch's backward) bit
+                  for bit, moe_pair_dot at k = 1 (the gate's gradient)
+                  within MOE_PAIR_DOT_TOL of its largest value;
+                  CUDA-event time of each against its plain version's
+                  and its compulsory bytes over the memory rate;
                   moe_topk_kernels the same for the top-k layer at the
                   Moonlight cell's routing (T 49146 tokens, each to 6
                   distinct of 64 experts, 8 held, D 2048 bf16):
                   moe_route_topk's outputs, moe_gather_rows' two uses and
                   moe_combine_rows' two (the combine and the dispatch's
                   backward) bit for bit, moe_pair_dot (the gates'
-                  gradient) within MOE_ROW_DOT_TOL;
+                  gradient) within MOE_PAIR_DOT_TOL;
 7. claim_path   — the device plane through the kubelet plugin: the
                   node's GPUs discovered through NVML (NativeBackend, the
                   host driver's libnvidia-ml.so.1; its count, names and
@@ -310,8 +311,8 @@ Phases, each printing one JSON line ({"phase": ...}):
                   experts, an MoE FFN every second block), step time,
                   tokens/s, peak memory, launch counts as in main, and
                   the MoE kernels' launches: per MoE block and step
-                  call one moe_route, four moe_gather_rows and one
-                  moe_row_dot;
+                  call one moe_route, two moe_gather_rows, two
+                  moe_combine_rows and one moe_pair_dot;
    dsv3         — a bf16 step of the DeepSeek-V3 family at Moonlight's
                   widths (one dense and two MoE blocks, 8 of 64 experts
                   held, top-6, B2 S2048) with the launch counts zeroed
@@ -320,7 +321,7 @@ Phases, each printing one JSON line ({"phase": ...}):
                   v 128), none through the mma.sync one; per MoE block
                   and step call one moe_route_topk, two moe_gather_rows,
                   two moe_combine_rows and one moe_pair_dot, and no
-                  moe_route or moe_row_dot;
+                  moe_route;
 12. ring_local  — an N=4 ring emulated in one process at long_ctx_xl's
                   attention shape (B1 S16384 H16 D128 bf16, s_local 4096,
                   rope off) through the ring's own per-step partial and
@@ -335,8 +336,9 @@ Phases, each printing one JSON line ({"phase": ...}):
                   and launch counts, "train" the flagship as the DP x TP
                   step at a (1, 1) grid (n_layers x steps launches of
                   each Hopper kernel, none of the MoE kernels), "moe"
-                  the expert-parallel FFN's forward (one moe_route and
-                  two moe_gather_rows per call, no moe_row_dot); psum: bench_psum over the same
+                  the expert-parallel FFN's forward (one moe_route,
+                  one moe_gather_rows and one moe_combine_rows per
+                  call); psum: bench_psum over the same
                   env (0.0 with its skip_reason on one GPU, the local
                   memory-bandwidth proxy against the card's 3.35 TB/s);
 14. parity      — a reduced TransformerLM on the card, two seeds, the
@@ -351,13 +353,14 @@ kernel and route: rows 1-3 at the main path, rows 4-6, the streaming
 tier, at S=16384, both through the Hopper kernels; then the mma.sync
 route's rows 1-3, flash_fwd and flash_bwd_mma, with parity_fp32's
 launches and times_fp32's times; each route's dq and dkv rows name its
-one fused backward and its time; then one row per MoE kernel, which
-replaces no TPU kernel, with moe's launches and moe_kernels' times,
-summed over one MoE block's launches of the kernel, the top-k layer's
-with dsv3's launches and moe_topk_kernels' times, its gathers as
-moe_gather_rows_topk; then the Hopper kernels at the Moonlight cell's
-attention, flash_{fwd,bwd}_mla_192x128 with dsv3's launches and
-flash_{fwd,bwd}_mla_128x128, which no model path here runs, with
+one fused backward and its time; then one row per MoE layer ("layer":
+"top1", "topk") and kernel, which replaces no TPU kernel, with its
+times summed over one MoE block's launches of the kernel, the top-1
+layer's with moe's launches and moe_kernels' times, the top-k layer's
+with dsv3's launches and moe_topk_kernels' times; then the Hopper
+kernels at the Moonlight cell's attention, flash_{fwd,bwd}_mla_192x128
+with dsv3's launches and flash_{fwd,bwd}_mla_128x128, which no model
+path here runs, with
 kernels_mla's errors and times_mla's times), the nvidia-smi
 name/power-limit line,
 and last
@@ -470,30 +473,32 @@ TPU_KERNELS = [
 # tokens, 8 experts, capacity factor 1.25, d_model 2048, bf16), where
 # moe_kernels holds the MoE FFN's kernels against their plain versions.
 MOE_TOKENS, MOE_EXPERTS, MOE_D, MOE_CAPACITY_FACTOR = 8 * 1024, 8, 2048, 1.25
-# moe_row_dot sums D fp32 products in another order than torch.sum.
-MOE_ROW_DOT_TOL = 1e-5
+# moe_pair_dot sums D fp32 products in another order than torch.sum.
+MOE_PAIR_DOT_TOL = 1e-5
 MOE_REPLACES = ("replaces no TPU kernel (the reference's dense one-hot "
                 "dispatch and combine einsums, tpu_dra/workloads/moe.py)")
 TOPK_REPLACES = ("replaces no TPU kernel (the JAX package has no top-k "
                  "layer)")
-# Launches per MoE block and step call: the route; dispatch and combine,
-# forward and backward; the gate's gradient.
-MOE_BLOCK_LAUNCHES = {"moe_route": 1, "moe_gather_rows": 4, "moe_row_dot": 1}
+# Launches per MoE block and step call of each routing's layer: its
+# route; the dispatch (a gather) and its backward (a k-way sum, k = 1 at
+# top-1); the combine (a k-way sum) and its backward (a gather and the
+# gates' pair dot).
+_MOE_ROW_LAUNCHES = {"moe_gather_rows": 2, "moe_combine_rows": 2,
+                     "moe_pair_dot": 1}
+MOE_BLOCK_LAUNCHES = {
+    "top1": {"moe_route": 1, "moe_route_topk": 0, **_MOE_ROW_LAUNCHES},
+    "topk": {"moe_route": 0, "moe_route_topk": 1, **_MOE_ROW_LAUNCHES},
+}
 # The Moonlight cell's routing (B6 x S8191 tokens, each to 6 of 64
 # experts, experts [0, 8) held, d_model 2048, bf16), where moe_kernels
 # holds the top-k layer's kernels against their plain versions.
 TOPK_TOKENS, TOPK_K, TOPK_EXPERTS, TOPK_HELD = 6 * 8191, 6, 64, 8
-# Launches per MoE block and step call of the top-k layer: the route;
-# the dispatch (a gather) and its backward (a k-way sum); the combine (a
-# k-way sum) and its backward (a gather and the gates' pair dot). The
-# kernels line names its gathers moe_gather_rows_topk.
-TOPK_BLOCK_LAUNCHES = {"moe_route_topk": 1, "moe_gather_rows_topk": 2,
-                       "moe_combine_rows": 2, "moe_pair_dot": 1}
-
-
-def _topk_wrapper(row: str) -> str:
-    """The _moe_kernels wrapper of a TOPK_BLOCK_LAUNCHES row."""
-    return "moe_gather_rows" if row == "moe_gather_rows_topk" else row
+# The kernel each call of phase_moe_kernels launches, either layer's.
+MOE_CALL_KERNELS = {"dispatch_fwd": "moe_gather_rows",
+                    "combine_bwd": "moe_gather_rows",
+                    "combine_fwd": "moe_combine_rows",
+                    "dispatch_bwd": "moe_combine_rows",
+                    "gate_grad": "moe_pair_dot"}
 
 
 # The dsv3 phase's train step: the DeepSeek-V3 family at Moonlight's
@@ -606,7 +611,7 @@ def phase_build() -> None:
     import threading
 
     from tpu_dra_torch.cddaemon import binary
-    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _cuda
 
     daemon = {}
 
@@ -622,7 +627,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     thread = threading.Thread(target=build_daemon)
     thread.start()
-    libs = fk.build()
+    libs = _cuda.build()
     thread.join()
     seconds = time.perf_counter() - t0
     if "error" in daemon:
@@ -768,8 +773,8 @@ def check_case(s, causal, rope, b, h, d, seed, dtype=None, chunk=None,
     res = {
         "s": s, "causal": causal, "rope": rope, "b": b, "h": h, "d": d,
         "dv": d_v, "dtype": str(dtype).removeprefix("torch."),
-        "fwd_kernel": fk.FWD_KERNELS[fk.fwd_route(dtype, d, d_v)],
-        "bwd_kernels": fk.BWD_KERNELS[fk.bwd_route(dtype, d, d_v)],
+        "fwd_kernel": fk.FWD_KERNELS[fk.route(dtype, d, d_v)],
+        "bwd_kernels": fk.BWD_KERNELS[fk.route(dtype, d, d_v)],
         "dlse": "zero" if zero_dlse else "nonzero", "finite": finite,
         "plain_heads_per_pass": chunk, "lse_abs": diffs["lse"].abs,
         **{f"{n}_rel": diffs[n].rel for n in names if n != "lse"},
@@ -812,8 +817,8 @@ def check_fwd_repro(args, causal, first) -> dict:
     res = {"repro_out_equal": bool(torch.equal(o, first[0])),
            "repro_lse_equal": bool(torch.equal(lse, first[1]))}
     emit("fwd_repro", s=q.shape[1], dtype=str(q.dtype),
-         fwd_kernel=fk.FWD_KERNELS[fk.fwd_route(q.dtype, q.shape[-1],
-                                                args[2].shape[-1])],
+         fwd_kernel=fk.FWD_KERNELS[fk.route(q.dtype, q.shape[-1],
+                                            args[2].shape[-1])],
          **res)
     check(res["repro_out_equal"] and res["repro_lse_equal"],
           f"the forward's out/lse differ between two runs: {res}")
@@ -838,9 +843,9 @@ def check_repro(args, causal, first, tol) -> dict:
                                  / dq0.float().norm()),
            "repro_dq_values_changed": int((dq != dq0).sum())}
     emit("repro", s=args[0].shape[1], dtype=str(args[0].dtype),
-         bwd_kernel=fk.BWD_KERNELS[fk.bwd_route(args[0].dtype,
-                                                args[0].shape[-1],
-                                                args[2].shape[-1])],
+         bwd_kernel=fk.BWD_KERNELS[fk.route(args[0].dtype,
+                                            args[0].shape[-1],
+                                            args[2].shape[-1])],
          tol=tol, **res)
     check(res["repro_dk_equal"] and res["repro_dv_equal"],
           f"dk/dv differ between two runs: {res}")
@@ -1081,7 +1086,7 @@ def time_kernels(label, b, s, h, d, peak_flops, peak_bytes, dtype=None,
                   "library_ms": library[name], **bnd[name]} for name in ms}
     emit(label, shape=dict(b=b, s=s, h=h, d=d, dv=dv or d, causal=True,
                            rope=rope, dtype=str(dtype).removeprefix("torch.")),
-         bwd_kernels=fk.BWD_KERNELS[fk.bwd_route(dtype, d, dv)],
+         bwd_kernels=fk.BWD_KERNELS[fk.route(dtype, d, dv)],
          plain_shape=dict(b=b, s=s, h=plain_h, d=d),
          sdpa_fwd_ms=sdpa_fwd, sdpa_bwd_ms=sdpa_bwd,
          peak_flops=peak_flops, peak_bytes_per_s=peak_bytes, kernels=res)
@@ -1092,7 +1097,7 @@ def _moe_call_times(calls: dict, peak_bytes: float) -> dict:
     """Each of `calls` ({call: (kernel, its plain version, compulsory
     bytes, how it is held)}) run once against its plain version on the
     same card tensors ("equal": bit for bit; "dot": within
-    MOE_ROW_DOT_TOL of the plain version's largest value; "held": by the
+    MOE_PAIR_DOT_TOL of the plain version's largest value; "held": by the
     caller), then timed (CUDA events) beside its plain version. Returns
     {call: {ms, plain_ms, bytes, bound_ms, max_abs_err}}."""
     import torch
@@ -1104,7 +1109,7 @@ def _moe_call_times(calls: dict, peak_bytes: float) -> dict:
             a, b = kernel(), plain()
             if how == "dot":
                 err = float((a - b).abs().max())
-                check(err <= MOE_ROW_DOT_TOL * float(b.abs().max()),
+                check(err <= MOE_PAIR_DOT_TOL * float(b.abs().max()),
                       f"{call} off its plain version by {err}")
             else:
                 check(torch.equal(a, b),
@@ -1134,13 +1139,13 @@ def phase_moe_kernels(peak_bytes: float) -> dict:
     plain versions' times and each call's compulsory bytes (every input
     element the result depends on read once, every output written once)
     over `peak_bytes`: the top-1 layer's at the MoE LM cell's routing
-    shapes (route and gathers bit for bit, row_dot within
-    MOE_ROW_DOT_TOL of its largest value), then the top-k layer's at the
-    Moonlight cell's (TOPK_*: route_topk, the gathers and combine_rows
-    bit for bit, pair_dot within MOE_ROW_DOT_TOL). Returns {kernel: {ms,
-    plain_ms, bound_ms, bytes, max_abs_err}}, summed over one MoE block's
-    launches of the kernel (the top-k layer's gathers as
-    moe_gather_rows_topk)."""
+    shapes (k = 1: route, gather_rows and combine_rows bit for bit,
+    pair_dot within MOE_PAIR_DOT_TOL of its largest value), then the
+    top-k layer's at the Moonlight cell's (TOPK_*: route_topk, the
+    gathers and combine_rows bit for bit, pair_dot within
+    MOE_PAIR_DOT_TOL). Returns {"top1" | "topk": {kernel: {ms, plain_ms,
+    bound_ms, bytes, max_abs_err}}}, summed over one MoE block's
+    launches of the kernel."""
     import torch
 
     from tpu_dra_torch.workloads import _moe_kernels as mk
@@ -1170,8 +1175,11 @@ def phase_moe_kernels(peak_bytes: float) -> dict:
         return torch.randn(rows, d, generator=gen, device="cuda").bfloat16()
 
     x, dout, out_buf, dbuf = randn(t), randn(t), randn(n_slots), randn(n_slots)
-    # The gate as _Combine scales by it: rounded to the rows' dtype.
-    scale = torch.rand(t, generator=gen, device="cuda").bfloat16().float()
+    # The gate as the top-1 layer scales by it: rounded to the rows'
+    # dtype; and each slot's token's.
+    scale, gate_of_slot = moe.top1_scales(
+        torch.rand(t, generator=gen, device="cuda"), token_of_slot,
+        torch.bfloat16)
     row, idx4 = d * x.element_size(), 4
     # call: (kernel, plain version, compulsory bytes, how it is held)
     calls = {
@@ -1184,28 +1192,23 @@ def phase_moe_kernels(peak_bytes: float) -> dict:
             lambda: mk.gather_rows_plain(x, token_of_slot),
             (n_kept + n_slots) * row + idx4 * n_slots, "equal"),
         "dispatch_bwd": (
-            lambda: mk.gather_rows(dbuf, slot),
-            lambda: mk.gather_rows_plain(dbuf, slot),
+            lambda: mk.combine_rows(dbuf, slot, None, 1),
+            lambda: mk.combine_rows_plain(dbuf, slot, None, 1),
             (n_kept + t) * row + idx4 * t, "equal"),
         "combine_fwd": (
-            lambda: mk.gather_rows(out_buf, slot, scale),
-            lambda: mk.gather_rows_plain(out_buf, slot, scale),
+            lambda: mk.combine_rows(out_buf, slot, scale, 1),
+            lambda: mk.combine_rows_plain(out_buf, slot, scale, 1),
             (n_kept + t) * row + 2 * idx4 * t, "equal"),
         "combine_bwd": (
-            lambda: mk.gather_rows(dout, token_of_slot, scale,
-                                   scale_by_src=True),
-            lambda: mk.gather_rows_plain(dout, token_of_slot, scale,
-                                         scale_by_src=True),
-            (n_kept + n_slots) * row + idx4 * (n_slots + n_kept), "equal"),
-        "gate_grad": (lambda: mk.row_dot(dout, out_buf, slot),
-                      lambda: mk.row_dot_plain(dout, out_buf, slot),
+            lambda: mk.gather_rows(dout, token_of_slot, gate_of_slot),
+            lambda: mk.gather_rows_plain(dout, token_of_slot, gate_of_slot),
+            (n_kept + n_slots) * row + 2 * idx4 * n_slots, "equal"),
+        "gate_grad": (lambda: mk.pair_dot(dout, out_buf, slot, 1),
+                      lambda: mk.pair_dot_plain(dout, out_buf, slot, 1),
                       2 * n_kept * row + 2 * idx4 * t, "dot"),
     }
     res = _moe_call_times(calls, peak_bytes)
-    out = _by_kernel(res, {call: {"route": "moe_route",
-                                  "gate_grad": "moe_row_dot"}.get(
-                                      call, "moe_gather_rows")
-                           for call in res})
+    out = _by_kernel(res, {**MOE_CALL_KERNELS, "route": "moe_route"})
     emit("moe_kernels", shape=dict(tokens=t, experts=n_exp, capacity=cap,
                                    d=d, dtype="bfloat16", kept=n_kept),
          peak_bytes_per_s=peak_bytes, calls=res, kernels=out)
@@ -1257,34 +1260,31 @@ def phase_moe_kernels(peak_bytes: float) -> dict:
                       u * row + n * row + 2 * idx4 * pairs, "dot"),
     }
     res = _moe_call_times(calls, peak_bytes)
-    topk = _by_kernel(res, {
-        "route": "moe_route_topk", "dispatch_fwd": "moe_gather_rows_topk",
-        "combine_bwd": "moe_gather_rows_topk",
-        "combine_fwd": "moe_combine_rows", "dispatch_bwd": "moe_combine_rows",
-        "gate_grad": "moe_pair_dot"})
+    topk = _by_kernel(res, {**MOE_CALL_KERNELS, "route": "moe_route_topk"})
     emit("moe_topk_kernels", shape=dict(tokens=t, k=k, experts=TOPK_EXPERTS,
                                         held=[0, held], d=d, dtype="bfloat16",
                                         pairs_held=n, tokens_held=u),
          peak_bytes_per_s=peak_bytes, calls=res, kernels=topk)
     del x, dout, y, dbuf, calls
     _free()
-    return {**out, **topk}
+    return {"top1": out, "topk": topk}
 
 
 def moe_kernel_rows(times: dict, launches: dict) -> list:
-    """The kernels line's rows of the MoE kernels: phase_moe_kernels'
-    `times` (summed over one MoE block's launches, `timed_launches`) and
-    the launches phase_moe (top-1) and phase_dsv3 (top-k) counted."""
-    per_block = {**MOE_BLOCK_LAUNCHES, **TOPK_BLOCK_LAUNCHES}
-    return [{"name": name, "route": "cuda", "source": SOURCES["moe_route"],
-             "replaces": (TOPK_REPLACES if name in TOPK_BLOCK_LAUNCHES
-                          else MOE_REPLACES),
-             "launches": launches[name],
+    """The kernels line's rows of the MoE kernels, per layer ("top1",
+    "topk"): phase_moe_kernels' `times` (summed over one MoE block's
+    launches, `timed_launches`) and the launches phase_moe (top-1) and
+    phase_dsv3 (top-k) counted, {layer: {kernel: n}}."""
+    replaces = {"top1": MOE_REPLACES, "topk": TOPK_REPLACES}
+    return [{"name": name, "layer": layer, "route": "cuda",
+             "source": SOURCES["moe_route"], "replaces": replaces[layer],
+             "launches": launches[layer][name],
              "max_abs_err": t["max_abs_err"], "ms": t["ms"],
              "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
              "bound_by": "bytes", "library_ms": None,
-             "timed_launches": per_block[name]}
-            for name, t in times.items()]
+             "timed_launches": MOE_BLOCK_LAUNCHES[layer][name]}
+            for layer, kernels in times.items()
+            for name, t in kernels.items()]
 
 
 def mla_kernel_rows(checks: dict, times: dict, launches: dict) -> list:
@@ -1358,29 +1358,34 @@ def phase_times_fp32(peak_flops: float, peak_bytes: float) -> dict:
                         inner=3, **LONG_CHECK)
 
 
+def kernel_launches(entries, counts=None) -> dict:
+    """{entry: launches} of the C entry points `entries` (a kernel
+    module's ARGTYPES) since the last reset, or in `counts` (_cuda's
+    launches as another process read them)."""
+    from tpu_dra_torch.workloads import _cuda
+
+    counts = _cuda.launches() if counts is None else counts
+    return {name: counts.get(name, 0) for name in entries}
+
+
 def check_path_launches(where: str, want: int, counts=None,
                         forward_runs: int = 1) -> dict:
-    """The launch counts since the last reset on a bf16 model path (or
-    `counts`, (per wrapper, per kernel) as another process read them):
-    the backward wrapper `want` times (n_layers x step calls) and the
-    forward wrapper `forward_runs` x `want` times (2 where remat
-    recomputes each block's forward in the backward), every forward
-    through flash_fwd_sm90, every backward through flash_bwd_sm90 and
-    none through the mma.sync kernels. Returns the per-kernel counts."""
+    """The attention kernels' launch counts since the last reset on a
+    bf16 model path (or in `counts`, as another process read them): every
+    forward through flash_fwd_sm90, `forward_runs` x `want` times (want =
+    n_layers x step calls; forward_runs 2 where remat recomputes each
+    block's forward in the backward), every backward through
+    flash_bwd_sm90, `want` times, and none through the mma.sync kernels.
+    Returns the attention kernels' counts."""
     from tpu_dra_torch.workloads import _flash_kernels as fk
 
-    per_wrapper, per_kernel = counts or (fk.launches(), fk.kernel_launches())
-    expected = {"flash_fwd": forward_runs * want, "flash_bwd": want}
-    for name, n_want in expected.items():
-        n = per_wrapper[name]
-        check(n == n_want, f"{name} launched {n} times in {where}, want "
-                           f"{n_want} (n_layers x steps = {want})")
+    per_kernel = kernel_launches(fk.ARGTYPES, counts)
     kernel_want = {MODEL_PATH_KERNELS[0]: forward_runs * want,
                    MODEL_PATH_KERNELS[1]: want}
     for name, n in per_kernel.items():
         expect = kernel_want.get(name, 0)
         check(n == expect, f"kernel {name} launched {n} times in {where}, "
-                           f"want {expect}")
+                           f"want {expect} (n_layers x steps = {want})")
     return per_kernel
 
 
@@ -1530,12 +1535,12 @@ def phase_claim_path() -> dict:
         framed_stubs, kubelet_stubs, self_probe,
     )
     from tpu_dra_torch.native import gpuinfo
-    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _cuda
     from tpu_dra_torch.workloads.meshbuild import normalize_uuid
 
     backend = gpuinfo.NativeBackend()   # an NVML that fails raises here
     scratch = tempfile.mkdtemp(prefix="claim_path_",
-                               dir=fk.BUILD_DIR.parent)
+                               dir=_cuda.BUILD_DIR.parent)
     driver = None
     try:
         inventory = _nvml_inventory(backend)
@@ -1614,7 +1619,7 @@ def phase_claim_path() -> dict:
             # The child is the container: this process's environment with
             # the claim's CDI env applied over it. CUDA is initialised
             # here, so CUDA_VISIBLE_DEVICES must reach a fresh process.
-            libs_before = sorted(os.listdir(fk.BUILD_DIR))
+            libs_before = sorted(os.listdir(_cuda.BUILD_DIR))
             proc = subprocess.run(
                 [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
                  CLAIM_CHILD], env={**os.environ, **edits["env"]}, cwd=ROOT,
@@ -1623,7 +1628,7 @@ def phase_claim_path() -> dict:
                   f"claim child exited {proc.returncode}:\n{proc.stdout}\n"
                   f"{proc.stderr[-4000:]}")
             child = json.loads(proc.stdout.strip().splitlines()[-1])
-            check(sorted(os.listdir(fk.BUILD_DIR)) == libs_before,
+            check(sorted(os.listdir(_cuda.BUILD_DIR)) == libs_before,
                   "the claim child built kernels")
             check(all(math.isfinite(x) for x in child["losses"]),
                   f"non-finite claim-path loss {child['losses']}")
@@ -1632,7 +1637,7 @@ def phase_claim_path() -> dict:
                   f"{gpu['uuid']}")
             counts = check_path_launches(
                 "the claim path", child["n_layers"] * child["steps"],
-                (child["launches"], child["kernel_launches"]))
+                child["launches"])
             unprepare_ms = undo()
         finally:
             client.close()
@@ -1786,10 +1791,10 @@ def phase_compute_domain() -> dict:
     from tpu_dra_torch.kubeletplugin.server import framed_stubs
     from tpu_dra_torch.native import gpuinfo
     from tpu_dra_torch.testing import DomainSim
-    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _cuda
     from tpu_dra_torch.workloads.meshbuild import normalize_uuid
 
-    scratch = tempfile.mkdtemp(prefix="cd_", dir=fk.BUILD_DIR.parent)
+    scratch = tempfile.mkdtemp(prefix="cd_", dir=_cuda.BUILD_DIR.parent)
     backend = gpuinfo.NativeBackend()
     driver = None
     try:
@@ -1863,7 +1868,7 @@ def phase_compute_domain() -> dict:
                   f"{child['n_devices']}; the env names {rendezvous}")
             counts = check_path_launches(
                 "the compute-domain child", child["n_layers"] * child["steps"],
-                (child["launches"], child["kernel_launches"]))
+                child["launches"])
             left = sim.teardown(cd, prov["claims"])
             check(left["cd_deleted"] and not left["labeled_nodes"]
                   and not left["daemonsets"] and not left["templates"]
@@ -2057,7 +2062,7 @@ def phase_cluster(claim_path_child: dict) -> dict:
               f"{gpu['uuid']}")
         counts = check_path_launches(
             "the cluster pod", child["n_layers"] * child["steps"],
-            (child["launches"], child["kernel_launches"]))
+            child["launches"])
         cluster.api.delete(PODS, "pod0", pns)
         check(_wait(lambda: not cluster.api.list(RESOURCECLAIMS,
                                                  namespace=pns), 60, 0.1),
@@ -2152,7 +2157,7 @@ def phase_e2e() -> dict:
         f"the e2e training pod: {train['device']}, {train['losses']}")
     counts = check_path_launches(
         "the e2e training pod", train["n_layers"] * train["steps"],
-        (train["launches"], train["kernel_launches"]))
+        train["launches"])
     res = {"suites_s": {n: r["seconds"] for n, r in records.items()},
            "stress_churn_p95_s": records["stress"]["churn_p95_s"],
            "cd_failover": {k: records["cd_failover"][k] for k in (
@@ -2176,7 +2181,7 @@ def phase_hot_restart() -> dict:
     drain seconds and the RPCs' p50 and p99."""
     from tpu_dra_torch import bench
     from tpu_dra_torch.native import gpuinfo
-    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _cuda
 
     t_phase = time.perf_counter()
     backend = gpuinfo.NativeBackend()
@@ -2184,7 +2189,7 @@ def phase_hot_restart() -> dict:
         res = bench.bench_hot_restart(
             backend, duration_s=HOT_RESTART_S, workers=HOT_RESTART_WORKERS,
             gpus_per_worker=1, n_restarts=HOT_RESTARTS,
-            scratch=fk.BUILD_DIR.parent)
+            scratch=_cuda.BUILD_DIR.parent)
     finally:
         backend.close()
     check(res["hot_restart_failed_rpcs"] == 0,
@@ -2517,7 +2522,7 @@ def phase_race() -> dict:
     from tpu_dra_torch.k8s import informer
     from tpu_dra_torch.native import gpuinfo
     from tpu_dra_torch.race import runner, tsan_drive
-    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _cuda
 
     t_phase = time.perf_counter()
     os.makedirs(RACE_DIR, exist_ok=True)
@@ -2551,7 +2556,7 @@ def phase_race() -> dict:
             hot = bench.bench_hot_restart(
                 backend, duration_s=HOT_RESTART_S,
                 workers=HOT_RESTART_WORKERS, gpus_per_worker=1,
-                n_restarts=HOT_RESTARTS, scratch=fk.BUILD_DIR.parent)
+                n_restarts=HOT_RESTARTS, scratch=_cuda.BUILD_DIR.parent)
         finally:
             backend.close()
         drives["hot_restart_nvml"] = {
@@ -2656,8 +2661,7 @@ def _shared_child_argv() -> list:
 def _check_tenant_launches(where: str, tenants) -> list:
     """check_path_launches on each tenant's counts (its timed steps)."""
     return [check_path_launches(f"{where} tenant {t['pid']}",
-                                t["n_layers"] * t["steps"],
-                                (t["launches"], t["kernel_launches"]))
+                                t["n_layers"] * t["steps"], t["launches"])
             for t in tenants]
 
 
@@ -2669,11 +2673,11 @@ def phase_shared_claim(backend, gpu) -> dict:
     kernels. Returns bench_shared_claim's readings."""
     from tpu_dra_torch import bench
     from tpu_dra_torch.native import gpuinfo
-    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _cuda
 
     res = bench.bench_shared_claim(
         backend, child_argv=_shared_child_argv(), gpu_index=gpu["index"],
-        scratch=str(fk.BUILD_DIR.parent))
+        scratch=str(_cuda.BUILD_DIR.parent))
     solo = bench._tenant_reading(res["solo"])
     _check_tenant_launches("shared_claim solo", [solo])
     _check_tenant_launches("shared_claim", res["tenants"])
@@ -2708,13 +2712,13 @@ def phase_mps(backend, gpu, shared) -> dict:
     container runtime: their env's mount paths are the host's."""
     from tpu_dra_torch import bench
     from tpu_dra_torch.native import gpuinfo
-    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _cuda
 
     config = bench.mps_shared_config(shared["solo"]["max_memory_allocated"])
     res = bench.bench_shared_claim(
         backend, config=config, solo=shared["solo"],
         child_argv=_shared_child_argv(), gpu_index=gpu["index"],
-        scratch=str(fk.BUILD_DIR.parent))
+        scratch=str(_cuda.BUILD_DIR.parent))
     line = bench.shared_claim_line(res)
     check(res["outcome"] in ("a", "b", "c"), f"mps outcome {res}")
     if res["ran"]:
@@ -2743,7 +2747,7 @@ def phase_mig(backend, gpu) -> dict:
     here: that needs a GPU reset."""
     from tpu_dra_torch import bench
     from tpu_dra_torch.native import gpuinfo
-    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _cuda
 
     g = backend.get_gpu(gpu["index"])
     profiles, error = [], None
@@ -2769,7 +2773,7 @@ def phase_mig(backend, gpu) -> dict:
                   "reset, which would take the card from every other "
                   "phase)")
         return res
-    bd = bench._BenchDriver(backend, scratch=str(fk.BUILD_DIR.parent))
+    bd = bench._BenchDriver(backend, scratch=str(_cuda.BUILD_DIR.parent))
     try:
         name = next(n for n, d in bd.state.allocatable.items()
                     if d.gpu.index == g.index and d.mig is not None
@@ -2841,12 +2845,11 @@ def phase_device_sharing() -> dict:
 
 def phase_main_path() -> tuple[dict, dict]:
     from tpu_dra_torch import bench
-    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _cuda
 
-    fk.reset_launches()
+    _cuda.reset_launches()
     res = bench.bench_mfu(steps=5)
-    emit("main", launches=fk.launches(),
-         kernel_launches=fk.kernel_launches(), **res)
+    emit("main", launches=_cuda.launches(), **res)
     check(math.isfinite(res["loss"]), f"non-finite loss {res['loss']}")
     counts = check_path_launches("the main path",
                                  res["n_layers"] * res["step_calls"])
@@ -2858,16 +2861,15 @@ def phase_long_context() -> tuple[dict, dict]:
     phase calls it, each with the launch counts zeroed just before and
     read just after. Returns the S=16384 run's counts and its reading."""
     from tpu_dra_torch import bench
-    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _cuda
 
     counts = {}
     for steps, seq, prefix in ((4, LONG_S, "long_ctx"),
                                (3, XL_S, "long_ctx_xl")):
-        fk.reset_launches()
+        _cuda.reset_launches()
         res = bench.bench_long_context(steps=steps, seq=seq, prefix=prefix)
         _free()
-        emit("long_ctx", launches=fk.launches(),
-             kernel_launches=fk.kernel_launches(), **res)
+        emit("long_ctx", launches=_cuda.launches(), **res)
         check(math.isfinite(res["loss"]), f"non-finite {prefix} loss")
         counts = check_path_launches(prefix,
                                      res["n_layers"] * res["step_calls"])
@@ -2881,11 +2883,11 @@ def phase_remat(xl_none: dict) -> dict:
     forward runs again in the backward). The "none" reading is
     long_ctx's own run at S=16384 (`xl_none`). Returns the three."""
     from tpu_dra_torch import bench
-    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _cuda
 
     out = {"none": xl_none}
     for remat in ("dots", "full"):
-        fk.reset_launches()
+        _cuda.reset_launches()
         res = bench.bench_long_context(steps=3, seq=XL_S,
                                        prefix="long_ctx_xl", remat=remat)
         _free()
@@ -2909,21 +2911,20 @@ def phase_moe() -> dict:
     """bench.bench_moe: the MoE LM at the flagship's widths on the card,
     launch counts zeroed just before and read just after (every block's
     attention through the Hopper kernels; every MoE block's route,
-    dispatch and combine through the MoE kernels, MOE_BLOCK_LAUNCHES per
-    step call)."""
+    dispatch and combine through the MoE kernels, MOE_BLOCK_LAUNCHES
+    ["top1"] per step call)."""
     from tpu_dra_torch import bench
-    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _cuda
     from tpu_dra_torch.workloads import _moe_kernels as mk
 
-    fk.reset_launches()
-    mk.reset_launches()
+    _cuda.reset_launches()
     res = bench.bench_moe(steps=3)
     _free()
     counts = check_path_launches("moe", res["n_layers"] * res["step_calls"])
-    moe_counts = mk.launches()
+    moe_counts = kernel_launches(mk.ARGTYPES)
     per_block = res["moe_blocks"] * res["step_calls"]
-    want = {**dict.fromkeys(mk.WRAPPERS, 0),
-            **{name: n * per_block for name, n in MOE_BLOCK_LAUNCHES.items()}}
+    want = {name: n * per_block
+            for name, n in MOE_BLOCK_LAUNCHES["top1"].items()}
     check(moe_counts == want, f"moe kernel launches {moe_counts}, want {want}")
     emit("moe", kernel_launches=counts, moe_kernel_launches=moe_counts, **res)
     return {**res, "moe_kernel_launches": moe_counts}
@@ -2935,12 +2936,13 @@ def phase_dsv3() -> dict:
     zeroed just before DSV3_STEPS step calls and read just after: every
     block's attention through the Hopper kernels (the wrappers' sm90
     route, never the mma one), every MoE block's route, dispatch and
-    combine through the top-k kernels, TOPK_BLOCK_LAUNCHES per step
-    call, none through the top-1 layer's route and row dot. Returns
-    {"attention": {"DqkxDv": {kernel: launches}}, "moe": {row name:
+    combine through the top-k kernels, MOE_BLOCK_LAUNCHES["topk"] per
+    step call, none through the top-1 layer's route. Returns
+    {"attention": {"DqkxDv": {kernel: launches}}, "moe": {kernel:
     launches}, "losses": [...]}."""
     import torch
 
+    from tpu_dra_torch.workloads import _cuda
     from tpu_dra_torch.workloads import _flash_kernels as fk
     from tpu_dra_torch.workloads import _moe_kernels as mk
     from tpu_dra_torch.workloads import dsv3_model as dm
@@ -2952,34 +2954,29 @@ def phase_dsv3() -> dict:
                            generator=gen, device="cuda")
     step(tokens)   # the first call builds the kernels
     torch.cuda.synchronize()
-    fk.reset_launches()
-    mk.reset_launches()
+    _cuda.reset_launches()
     losses = [step(tokens).item() for _ in range(DSV3_STEPS)]
     torch.cuda.synchronize()
     calls = cfg.n_layers * DSV3_STEPS
     blocks = (cfg.n_layers - cfg.first_dense) * DSV3_STEPS
-    routes = {"flash_fwd": dict(fk.fwd.route_launches),
-              "flash_bwd": dict(fk.bwd.route_launches)}
-    want = {name: {r: calls if r == "sm90" else 0 for r in kernels}
-            for name, kernels in (("flash_fwd", fk.FWD_KERNELS),
-                                  ("flash_bwd", fk.BWD_KERNELS))}
-    check(routes == want, f"dsv3 attention routes {routes}, want {want}")
-    moe_counts = mk.launches()
-    want = {"moe_route": 0, "moe_row_dot": 0,
-            **{_topk_wrapper(name): n * blocks
-               for name, n in TOPK_BLOCK_LAUNCHES.items()}}
+    attention = kernel_launches(fk.ARGTYPES)
+    want = {name: calls if name in (fk.FWD_KERNELS["sm90"],
+                                    fk.BWD_KERNELS["sm90"]) else 0
+            for name in fk.ARGTYPES}
+    check(attention == want,
+          f"dsv3 attention launches {attention}, want {want}")
+    moe_counts = kernel_launches(mk.ARGTYPES)
+    want = {name: n * blocks
+            for name, n in MOE_BLOCK_LAUNCHES["topk"].items()}
     check(moe_counts == want,
           f"dsv3 moe kernel launches {moe_counts}, want {want}")
     check(all(math.isfinite(x) for x in losses), f"dsv3 losses {losses}")
     dims = f"{cfg.qk_nope_dim + cfg.qk_rope_dim}x{cfg.v_head_dim}"
-    res = {"attention": {dims: fk.kernel_launches()},
-           "moe": {name: moe_counts[_topk_wrapper(name)]
-                   for name in TOPK_BLOCK_LAUNCHES},
+    res = {"attention": {dims: attention}, "moe": moe_counts,
            "losses": losses}
     emit("dsv3", n_layers=cfg.n_layers, moe_blocks=cfg.n_layers
          - cfg.first_dense, step_calls=DSV3_STEPS, batch=DSV3_BATCH,
-         seq=cfg.max_seq, route_launches=routes,
-         moe_kernel_launches=moe_counts, **res)
+         seq=cfg.max_seq, **res)
     del step
     _free()
     return res
@@ -2996,6 +2993,7 @@ def phase_ring_local() -> dict:
     TOL_REL; both timed (CUDA events, forward + backward)."""
     import torch
 
+    from tpu_dra_torch.workloads import _cuda
     from tpu_dra_torch.workloads import _flash_kernels as fk
     from tpu_dra_torch.workloads.flashattention import (
         flash_attention_with_lse,
@@ -3008,12 +3006,12 @@ def phase_ring_local() -> dict:
     q, k, v, dout, _ = _inputs(b, XL_S, h, d, seed=500)
     q, k, v = (x.detach().contiguous().requires_grad_() for x in (q, k, v))
     cases: dict = {}
-    fk.reset_launches()
+    _cuda.reset_launches()
     out = ring_attention_local(q, k, v, RING_N, causal=True, impl="flash",
                                partial_counts=cases)
     grads = torch.autograd.grad(out, (q, k, v), dout)
     torch.cuda.synchronize()
-    counts = fk.kernel_launches()
+    counts = kernel_launches(fk.ARGTYPES)
     steps = cases.get(DIAGONAL, 0) + cases.get(PAST, 0)
     want = {name: steps if name in MODEL_PATH_KERNELS else 0
             for name in counts}
@@ -3069,6 +3067,7 @@ def phase_mesh_workloads() -> dict:
     from tpu_dra_torch import bench
     from tpu_dra_torch.native import gpuinfo
     from tpu_dra_torch.topology.meshexport import plan_from_env
+    from tpu_dra_torch.workloads import _cuda
     from tpu_dra_torch.workloads import _flash_kernels as fk
     from tpu_dra_torch.workloads import _moe_kernels as mk
     from tpu_dra_torch.workloads import meshbuild
@@ -3083,15 +3082,13 @@ def phase_mesh_workloads() -> dict:
     records = {}
     for name, kw in meshbuild.default_runs(
             {}, {"steps": MESH_TRAIN_STEPS, "warm_steps": 1,
-                 "barrier": fk.reset_launches}):
-        fk.reset_launches()
-        mk.reset_launches()
+                 "barrier": _cuda.reset_launches}):
+        _cuda.reset_launches()
         rec = meshbuild.launch_workload(name, plan, devices, **kw)
         _free()
         rec = {k: v for k, v in rec.items() if k != "window"}
-        rec["launches"] = fk.launches()
-        rec["kernel_launches"] = fk.kernel_launches()
-        rec["moe_kernel_launches"] = mk.launches()
+        rec["kernel_launches"] = kernel_launches(fk.ARGTYPES)
+        rec["moe_kernel_launches"] = kernel_launches(mk.ARGTYPES)
         emit("mesh_workload", name=name, plan_devices=plan.n_devices, **rec)
         records[name] = rec
     train = records["train"]
@@ -3100,18 +3097,18 @@ def phase_mesh_workloads() -> dict:
     check(train["grid"] == [1, 1], f"train grid {train['grid']}")
     check_path_launches("mesh_workloads train",
                         train["n_layers"] * train["steps"],
-                        (train["launches"], train["kernel_launches"]))
+                        train["kernel_launches"])
     for name in ("ringattention", "ulysses", "sp_train"):
         check(sum(records[name]["kernel_launches"].values()) > 0,
               f"{name} launched no kernel on the card")
     check(not any(train["moe_kernel_launches"].values()),
           f"the flagship train launched {train['moe_kernel_launches']}")
     # The expert-parallel FFN's forward: per call the route, the dispatch
-    # and the combine.
+    # (a gather) and the combine (a k-way sum at k = 1).
     ep = records["moe"]["moe_kernel_launches"]
-    check(ep["moe_route"] > 0
-          and ep == {**dict.fromkeys(ep, 0), "moe_route": ep["moe_route"],
-                     "moe_gather_rows": 2 * ep["moe_route"]},
+    n = ep["moe_route"]
+    check(n > 0 and ep == {**dict.fromkeys(ep, 0), "moe_route": n,
+                           "moe_gather_rows": n, "moe_combine_rows": n},
           f"mesh moe launched {ep}")
     # sp_train's fp32 D16 model: its backward is the mma.sync route's.
     sp = records["sp_train"]["kernel_launches"]
@@ -3215,6 +3212,7 @@ def phase_model_parity_fp32(seed=3) -> dict:
     versions, whose only difference is summation order."""
     import torch
 
+    from tpu_dra_torch.workloads import _cuda
     from tpu_dra_torch.workloads import _flash_kernels as fk
     from tpu_dra_torch.workloads.model import ModelConfig, init_params
 
@@ -3225,9 +3223,9 @@ def phase_model_parity_fp32(seed=3) -> dict:
     tokens = torch.randint(
         0, base["vocab"], (1, base["max_seq"]),
         generator=torch.Generator().manual_seed(seed + 1000)).cuda()
-    fk.reset_launches()
+    _cuda.reset_launches()
     lk, loss_k, gk, names = _model_run(base, params, tokens, "auto")
-    counts = fk.kernel_launches()
+    counts = kernel_launches(fk.ARGTYPES)
     check(math.isfinite(loss_k) and bool(torch.isfinite(lk).all()),
           "non-finite fp32 kernel-path logits or loss")
     # Two forwards (logits, loss), through the mma.sync forward, and one
@@ -3326,8 +3324,8 @@ def main() -> int:
             "max_abs_err": err[base], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-    kernels += moe_kernel_rows(moe_times, {**moe_res["moe_kernel_launches"],
-                                           **dsv3_res["moe"]})
+    kernels += moe_kernel_rows(moe_times, {
+        "top1": moe_res["moe_kernel_launches"], "topk": dsv3_res["moe"]})
     kernels += mla_kernel_rows(mla_checks, mla_times, dsv3_res["attention"])
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))

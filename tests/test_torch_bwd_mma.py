@@ -47,6 +47,7 @@ import jax
 import jax.numpy as jnp
 
 from tpu_dra.workloads import flashattention as jfa
+from tpu_dra_torch.workloads import _cuda
 from tpu_dra_torch.workloads import _flash_kernels as fk
 from tpu_dra_torch.workloads import flashattention as tfa
 
@@ -63,21 +64,21 @@ B, H = 1, 2
 MMA_INPUTS = ([(torch.float32, d) for d in fk.FP32_HEAD_DIMS]
               + [(torch.bfloat16, d)
                  for d in range(16, fk.MAX_HEAD_DIM + 1, 16)
-                 if d not in fk.BWD_SM90_HEAD_DIMS])
+                 if d not in fk.SM90_HEAD_DIMS])
 
 
 class TestRoute:
     @pytest.mark.parametrize("dtype,d", MMA_INPUTS)
     def test_route_and_source(self, dtype, d):
-        assert fk.bwd_route(dtype, d) == "mma"
+        assert fk.route(dtype, d) == "mma"
         name = fk.BWD_KERNELS["mma"]
         assert name == "flash_bwd_mma"
-        assert (fk.CSRC / f"{name}.cu").is_file()
+        assert (_cuda.CSRC / f"{name}.cu").is_file()
 
     def test_pair_is_gone(self):
         """The dq/dkv pair left with its sources, entries and wrappers."""
         for name in ("flash_bwd_dq", "flash_bwd_dkv"):
-            assert not (fk.CSRC / f"{name}.cu").exists()
+            assert not (_cuda.CSRC / f"{name}.cu").exists()
             assert name not in fk.ARGTYPES
             assert not hasattr(fk, name.removeprefix("flash_"))
 
@@ -85,7 +86,7 @@ class TestRoute:
         """The entry dispatches through flash_common.cuh's
         dispatch_head_dim, whose cases are the head dims the wrapper lets
         through: FP32_HEAD_DIMS in fp32, every multiple of 16 in bf16."""
-        common = (fk.CSRC / "flash_common.cuh").read_text()
+        common = (_cuda.CSRC / "flash_common.cuh").read_text()
         body = common[common.index("cudaError_t dispatch_head_dim"):
                       common.index("// Dispatch on (element type, D)")]
         fp32, bf16 = body.split("} else {")
@@ -93,7 +94,7 @@ class TestRoute:
                  for part in (fp32, bf16)]
         assert cases[0] == list(fk.FP32_HEAD_DIMS)
         assert cases[1] == list(range(16, fk.MAX_HEAD_DIM + 1, 16))
-        source = (fk.CSRC / "flash_bwd_mma.cu").read_text()
+        source = (_cuda.CSRC / "flash_bwd_mma.cu").read_text()
         assert "flash::dispatch<bwd_mma::Launch>" in source
 
 
@@ -103,16 +104,16 @@ class TestEntrySignature:
         pointers; B S H D Dv; q/k's and v's strides; causal, rope,
         element bytes; the stream."""
         args = fk.ARGTYPES["flash_bwd_mma"]
-        assert args[:13] == [fk._PTR] * 13
-        assert args[13:] == fk._SHAPE + [fk._PTR]
-        assert args[-2] is fk._INT
+        assert args[:13] == [_cuda.PTR] * 13
+        assert args[13:] == fk._SHAPE + [_cuda.PTR]
+        assert args[-2] is _cuda.INT
 
     def test_c_declaration_matches_argtypes(self):
-        source = (fk.CSRC / "flash_bwd_mma.cu").read_text()
+        source = (_cuda.CSRC / "flash_bwd_mma.cu").read_text()
         decl = re.search(r'extern "C" int flash_bwd_mma\((.*?)\)\s*\{',
                          source, re.S).group(1)
         params = [p.strip() for p in decl.split(",")]
-        kinds = {"void*": fk._PTR, "int": fk._INT, "long long": fk._I64}
+        kinds = {"void*": _cuda.PTR, "int": _cuda.INT, "long long": _cuda.I64}
         got = []
         for p in params:
             typ = p.rsplit(" ", 1)[0].removeprefix("const ")
@@ -140,12 +141,12 @@ class TestCpuPath:
         tables = tfa._rope_operands(96, d, dtype, torch.device("cpu"))
         o, lse = fk.fwd(q, k, v, tables, causal=True)
         delta = (dout.float() * o.float()).sum(-1).transpose(1, 2)
-        fk.reset_launches()
+        _cuda.reset_launches()
         dq, dk, dv = fk.bwd(q, k, v, dout, lse, delta, dlse, tables,
                             causal=True)
         assert dq.dtype == dk.dtype == dv.dtype == dtype
-        assert fk.launches() == {"flash_fwd": 0, "flash_bwd": 0}
-        assert fk.kernel_launches() == {
+        launches = _cuda.launches()
+        assert {name: launches[name] for name in fk.ARGTYPES} == {
             "flash_fwd_sm90": 0, "flash_fwd": 0, "flash_bwd_sm90": 0,
             "flash_bwd_mma": 0}
 

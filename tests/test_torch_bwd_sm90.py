@@ -1,5 +1,6 @@
 """The fused Hopper backward (csrc/flash_bwd_sm90.cu) on the CPU: its
-route, its C entry's signature, the ``bwd`` wrapper's CPU path, and an
+C entry's signature (its route: tests/test_torch_fwd_sm90.py, which holds
+both directions'), the ``bwd`` wrapper's CPU path, and an
 emulation of its arithmetic held against the JAX package's flash
 backward (``_flash_bwd_rule``, interpret mode).
 
@@ -48,6 +49,7 @@ import torch
 import jax.numpy as jnp
 
 from tpu_dra.workloads import flashattention as jfa
+from tpu_dra_torch.workloads import _cuda
 from tpu_dra_torch.workloads import _flash_kernels as fk
 from tpu_dra_torch.workloads import flashattention as tfa
 
@@ -60,39 +62,15 @@ B, H = 1, 2
 TOL = 5e-3
 
 
-class TestRoute:
-    @pytest.mark.parametrize("d", fk.BWD_SM90_HEAD_DIMS)
-    def test_bf16_at_sm90_head_dims(self, d):
-        assert fk.bwd_route(torch.bfloat16, d) == "sm90"
-
-    @pytest.mark.parametrize("d", [16, 32, 48, 80, 96, 112])
-    def test_bf16_at_other_head_dims(self, d):
-        assert fk.bwd_route(torch.bfloat16, d) == "mma"
-
-    @pytest.mark.parametrize("d", fk.FP32_HEAD_DIMS)
-    def test_fp32_keeps_the_pair(self, d):
-        assert fk.bwd_route(torch.float32, d) == "mma"
-
-    def test_same_head_dims_as_the_hopper_forward(self):
-        """Every model path (bf16, D=128) runs both Hopper kernels."""
-        assert fk.BWD_SM90_HEAD_DIMS == fk.FWD_SM90_HEAD_DIMS
-
-    def test_each_route_names_its_sources(self):
-        assert fk.BWD_KERNELS == {"sm90": "flash_bwd_sm90",
-                                  "mma": "flash_bwd_mma"}
-        for name in fk.BWD_KERNELS.values():
-            assert (fk.CSRC / f"{name}.cu").is_file()
-
-
 class TestEntrySignature:
     def test_c_interface(self):
         """q, k, v, dout, lse, delta, dlse, cos, sinm, dq_acc, dq, dk, dv
         pointers; B S H D Dv; q/k's and v's strides; causal, rope,
         element bytes; the stream."""
         args = fk.ARGTYPES["flash_bwd_sm90"]
-        assert args[:13] == [fk._PTR] * 13
-        assert args[13:] == fk._SHAPE + [fk._PTR]
-        assert args[-2] is fk._INT   # element bytes
+        assert args[:13] == [_cuda.PTR] * 13
+        assert args[13:] == fk._SHAPE + [_cuda.PTR]
+        assert args[-2] is _cuda.INT   # element bytes
 
     def test_pair_signatures_kept(self):
         """The mma route's one fused kernel, which took the dq/dkv pair's
@@ -122,18 +100,22 @@ class TestCpuPath:
         o, lse = fk.fwd(q, k, v, tables, causal=True)
         delta = (dout.float() * o.float()).sum(-1).transpose(1, 2)
         args = (q, k, v, dout, lse, delta, dlse, tables)
-        fk.reset_launches()
+        _cuda.reset_launches()
         dq, dk, dv = fk.bwd(*args, causal=True)
         assert torch.equal(dq, fk.bwd_dq_plain(*args, causal=True))
         want_dk, want_dv = fk.bwd_dkv_plain(*args, causal=True)
         assert torch.equal(dk, want_dk) and torch.equal(dv, want_dv)
-        assert all(n == 0 for n in fk.launches().values())
-        assert all(n == 0 for n in fk.kernel_launches().values())
+        assert all(n == 0 for n in _cuda.launches().values())
 
     def test_kernel_launches_names_every_kernel(self):
-        fk.reset_launches()
-        assert set(fk.kernel_launches()) == {
-            "flash_fwd_sm90", "flash_fwd", "flash_bwd_sm90", "flash_bwd_mma"}
+        """The launch counts are keyed by C entry point: each flash
+        kernel's, zero after a reset."""
+        _cuda.reset_launches()
+        launches = _cuda.launches()
+        assert {"flash_fwd_sm90", "flash_fwd", "flash_bwd_sm90",
+                "flash_bwd_mma"} <= set(launches)
+        assert set(fk.ARGTYPES) <= set(launches)
+        assert not any(launches.values())
 
     def test_autograd_backward_goes_through_bwd(self, monkeypatch):
         """_FlashAttention.backward makes one call to the fused wrapper."""

@@ -33,6 +33,7 @@ import torch
 from portbench.models.dsv3_lm import model_config
 from portbench.reference import dsv3_lm as ref
 from portbench.reference.precision import fp32_matmuls
+from tpu_dra_torch.workloads import _cuda
 from tpu_dra_torch.workloads import _flash_kernels as fk
 from tpu_dra_torch.workloads import _moe_kernels as mk
 from tpu_dra_torch.workloads import dsv3_model as dm
@@ -257,8 +258,8 @@ class TestPlainKernels:
 
 class TestSplitHeadDims:
     def test_routes_and_refusals(self):
-        assert fk.fwd_route(torch.bfloat16, 192, 128) == "sm90"
-        assert fk.bwd_route(torch.bfloat16, 192, 128) == "sm90"
+        assert fk.route(torch.bfloat16, 192, 128) == "sm90"
+        assert fk.route(torch.bfloat16, 192, 192) == "mma"
         q = torch.zeros(1, 64, 2, 192, dtype=torch.bfloat16)
         v = torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16)
         got = fk._kernel_inputs(q, q, v, None)
@@ -305,7 +306,7 @@ def test_split_kernels_match_plain(b, s, causal, cuda_device):
     v = kv[..., 128:]
     do = torch.randn(b, s, 4, 128, generator=g, device=cuda_device).to(
         torch.bfloat16)
-    fk.reset_launches()
+    _cuda.reset_launches()
     o, lse = fk.fwd(q, k, v, None, causal=causal)
     o_p, lse_p = fk.fwd_plain(q, k, v, None, causal=causal)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
@@ -313,8 +314,8 @@ def test_split_kernels_match_plain(b, s, causal, cuda_device):
     got = fk.bwd(q, k, v, do, lse, delta, dlse, None, causal=causal)
     want = fk.bwd_plain(q, k, v, do, lse, delta, dlse, None, causal=causal)
     torch.cuda.synchronize()
-    assert fk.kernel_launches()["flash_fwd_sm90"] == 1
-    assert fk.kernel_launches()["flash_bwd_sm90"] == 1
+    assert _cuda.launches()["flash_fwd_sm90"] == 1
+    assert _cuda.launches()["flash_bwd_sm90"] == 1
     assert _rel(o.float(), o_p.float()) < 5e-3
     assert (lse - lse_p).abs().max().item() < 1e-4
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
@@ -331,7 +332,7 @@ def test_moe_kernels_match_plain(cuda_device):
     expert = torch.stack([torch.randperm(64, generator=g)[:k]
                           for _ in range(t)])
     want = mk.route_topk_plain(expert, k, 8, 16)
-    mk.reset_launches()
+    _cuda.reset_launches()
     got = mk.route_topk(expert.to(cuda_device), k, 8, 16)
     n = int(want[4][0])
     for name, a, w in zip(("slot", "pair", "token", "offsets", "stats"),
@@ -352,7 +353,7 @@ def test_moe_kernels_match_plain(cuda_device):
                        slot.to(cuda_device), k).cpu()
     torch.testing.assert_close(dots, mk.pair_dot_plain(a, src, slot, k),
                                rtol=1e-5, atol=1e-3)
-    assert mk.launches()["moe_route_topk"] == 1
+    assert _cuda.launches()["moe_route_topk"] == 1
 
 
 @pytest.mark.card
@@ -370,14 +371,15 @@ def test_step_on_the_kernels(cuda_device):
     step = dm.make_train_step(dm.DSV3LM(cfg, params))
     tokens = torch.randint(0, cfg.vocab, (2, 1025), device=cuda_device)
     step(tokens)
-    fk.reset_launches()
-    mk.reset_launches()
+    _cuda.reset_launches()
     loss = step(tokens)
     torch.cuda.synchronize()
     assert math.isfinite(loss.item())
-    assert fk.kernel_launches() == {"flash_fwd_sm90": 2, "flash_fwd": 0,
-                                    "flash_bwd_sm90": 2, "flash_bwd_mma": 0}
-    launches = mk.launches()
+    launches = _cuda.launches()
+    assert {name: launches[name] for name in fk.ARGTYPES} == {
+        "flash_fwd_sm90": 2, "flash_fwd": 0, "flash_bwd_sm90": 2,
+        "flash_bwd_mma": 0}
+    assert launches["moe_route"] == 0
     assert launches["moe_route_topk"] == 1
     assert launches["moe_combine_rows"] == 2      # combine, dispatch's dx
     assert launches["moe_gather_rows"] == 2       # dispatch, combine's dy

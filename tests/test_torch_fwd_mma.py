@@ -57,6 +57,7 @@ import jax.numpy as jnp
 
 from test_torch_bwd_mma import _rel, _rope_np, _rz32, split_kernel, split_one
 from tpu_dra.workloads import flashattention as jfa
+from tpu_dra_torch.workloads import _cuda
 from tpu_dra_torch.workloads import _flash_kernels as fk
 from tpu_dra_torch.workloads import flashattention as tfa
 
@@ -73,33 +74,33 @@ B, H = 1, 2
 MMA_INPUTS = ([(torch.float32, d) for d in fk.FP32_HEAD_DIMS]
               + [(torch.bfloat16, d)
                  for d in range(16, fk.MAX_HEAD_DIM + 1, 16)
-                 if d not in fk.FWD_SM90_HEAD_DIMS])
+                 if d not in fk.SM90_HEAD_DIMS])
 
 
 class TestRoute:
     @pytest.mark.parametrize("dtype,d", MMA_INPUTS)
     def test_route_and_source(self, dtype, d):
-        assert fk.fwd_route(dtype, d) == "mma"
+        assert fk.route(dtype, d) == "mma"
         name = fk.FWD_KERNELS["mma"]
         assert name == "flash_fwd"
-        assert (fk.CSRC / f"{name}.cu").is_file()
+        assert (_cuda.CSRC / f"{name}.cu").is_file()
 
     def test_dispatch_covers_the_route(self):
         """The entry dispatches through flash_common.cuh's
         dispatch_head_dim (tests/test_torch_bwd_mma.py holds its cases
         against FP32_HEAD_DIMS and the bf16 head dims)."""
-        source = (fk.CSRC / "flash_fwd.cu").read_text()
+        source = (_cuda.CSRC / "flash_fwd.cu").read_text()
         assert "flash::dispatch<fwd::Launch>" in source
 
     def test_one_copy_of_the_split(self):
         """Both mma.sync kernels take the truncation split and the
         fp32 loaders from flash_common.cuh; the round-to-nearest split is
         gone."""
-        common = (fk.CSRC / "flash_common.cuh").read_text()
+        common = (_cuda.CSRC / "flash_common.cuh").read_text()
         assert "0xffffe000u" in common
         assert "cvt.rna" not in common and "split_tf32" not in common
         for name in ("flash_fwd", "flash_bwd_mma"):
-            source = (fk.CSRC / f"{name}.cu").read_text()
+            source = (_cuda.CSRC / f"{name}.cu").read_text()
             assert "0xffffe000" not in source.split("#include")[1], name
             assert "flash::split(" in source, name
 
@@ -109,16 +110,16 @@ class TestEntrySignature:
         """q, k, v, cos, sinm, o, lse, kr pointers; B S H D Dv; q/k's
         and v's strides; causal, rope, element bytes; the stream."""
         args = fk.ARGTYPES["flash_fwd"]
-        assert args[:8] == [fk._PTR] * 8
-        assert args[8:] == fk._SHAPE + [fk._PTR]
-        assert args[-2] is fk._INT
+        assert args[:8] == [_cuda.PTR] * 8
+        assert args[8:] == fk._SHAPE + [_cuda.PTR]
+        assert args[-2] is _cuda.INT
 
     def test_c_declaration_matches_argtypes(self):
-        source = (fk.CSRC / "flash_fwd.cu").read_text()
+        source = (_cuda.CSRC / "flash_fwd.cu").read_text()
         decl = re.search(r'extern "C" int flash_fwd\((.*?)\)\s*\{',
                          source, re.S).group(1)
         params = [p.strip() for p in decl.split(",")]
-        kinds = {"void*": fk._PTR, "int": fk._INT, "long long": fk._I64}
+        kinds = {"void*": _cuda.PTR, "int": _cuda.INT, "long long": _cuda.I64}
         got = [kinds[p.rsplit(" ", 1)[0].removeprefix("const ")]
                for p in params]
         assert got == fk.ARGTYPES["flash_fwd"]

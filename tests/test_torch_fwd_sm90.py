@@ -1,5 +1,6 @@
-"""The Hopper forward (csrc/flash_fwd_sm90.cu) on the CPU: its route, its
-C entry's signature, the rope-table structure it relies on, and an
+"""The Hopper forward (csrc/flash_fwd_sm90.cu) on the CPU: the route both
+directions share (``route``, each direction's kernel named per route),
+its C entry's signature, the rope-table structure it relies on, and an
 emulation of its arithmetic held against the JAX package's flash
 attention (interpret mode).
 
@@ -34,6 +35,7 @@ import torch
 import jax.numpy as jnp
 
 from tpu_dra.workloads import flashattention as jfa
+from tpu_dra_torch.workloads import _cuda
 from tpu_dra_torch.workloads import _flash_kernels as fk
 from tpu_dra_torch.workloads import flashattention as tfa
 
@@ -44,24 +46,49 @@ LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
 
 
+# Each direction's kernel per route; route() serves both.
+KERNELS = {"fwd": fk.FWD_KERNELS, "bwd": fk.BWD_KERNELS}
+SOURCES = {"fwd": {"sm90": "flash_fwd_sm90", "mma": "flash_fwd"},
+           "bwd": {"sm90": "flash_bwd_sm90", "mma": "flash_bwd_mma"}}
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
 class TestRoute:
-    @pytest.mark.parametrize("d", fk.FWD_SM90_HEAD_DIMS)
-    def test_bf16_at_sm90_head_dims(self, d):
-        assert fk.fwd_route(torch.bfloat16, d) == "sm90"
+    @pytest.mark.parametrize("d", fk.SM90_HEAD_DIMS)
+    def test_bf16_at_sm90_head_dims(self, direction, d):
+        kernel = KERNELS[direction][fk.route(torch.bfloat16, d)]
+        assert kernel == SOURCES[direction]["sm90"]
 
     @pytest.mark.parametrize("d", [16, 32, 48, 80, 96, 112])
-    def test_bf16_at_other_head_dims(self, d):
-        assert fk.fwd_route(torch.bfloat16, d) == "mma"
+    def test_bf16_at_other_head_dims(self, direction, d):
+        kernel = KERNELS[direction][fk.route(torch.bfloat16, d)]
+        assert kernel == SOURCES[direction]["mma"]
 
     @pytest.mark.parametrize("d", fk.FP32_HEAD_DIMS)
-    def test_fp32_keeps_mma(self, d):
-        assert fk.fwd_route(torch.float32, d) == "mma"
+    def test_fp32_keeps_mma(self, direction, d):
+        kernel = KERNELS[direction][fk.route(torch.float32, d)]
+        assert kernel == SOURCES[direction]["mma"]
 
-    def test_each_route_names_a_source(self):
-        assert fk.FWD_KERNELS == {"sm90": "flash_fwd_sm90", "mma": "flash_fwd"}
-        for name in fk.FWD_KERNELS.values():
-            assert (fk.CSRC / f"{name}.cu").is_file()
+    def test_each_route_names_a_source(self, direction):
+        assert KERNELS[direction] == SOURCES[direction]
+        for name in KERNELS[direction].values():
+            assert (_cuda.CSRC / f"{name}.cu").is_file()
 
+    def test_cpu_path_counts_no_kernel(self, direction):
+        """The wrapper's plain version runs on CPU tensors; no entry
+        point counts a launch."""
+        _cuda.reset_launches()
+        q = torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16)
+        o, lse = fk.fwd(q, q, q, None, causal=True)
+        if direction == "bwd":
+            fk.bwd(q, q, q, o, lse, lse, lse, None, causal=True)
+        launches = _cuda.launches()
+        assert {*fk.FWD_KERNELS.values(), *fk.BWD_KERNELS.values()} <= set(
+            launches)
+        assert not any(launches.values())
+
+
+class TestRefusals:
     @pytest.mark.parametrize("dtype,d,match", [
         (torch.bfloat16, 144, "head dim"),        # past MAX_HEAD_DIM
         (torch.bfloat16, 24, "head dim"),         # not a multiple of 16
@@ -74,14 +101,6 @@ class TestRoute:
         with pytest.raises((ValueError, TypeError), match=match):
             fk._kernel_inputs(q, q, q, None)
 
-    def test_cpu_path_counts_no_kernel(self):
-        fk.reset_launches()
-        q = torch.zeros(1, 64, 2, 128, dtype=torch.bfloat16)
-        fk.fwd(q, q, q, None, causal=True)
-        assert fk.kernel_launches() == {"flash_fwd_sm90": 0, "flash_fwd": 0,
-                                        "flash_bwd_sm90": 0,
-                                        "flash_bwd_mma": 0}
-
 
 class TestEntrySignature:
     def test_same_c_interface_as_flash_fwd(self):
@@ -90,16 +109,17 @@ class TestEntrySignature:
         takes the same, with its roped-k scratch pointer after lse."""
         fwd_args = fk.ARGTYPES["flash_fwd"]
         assert fwd_args[:7] + fwd_args[8:] == fk.ARGTYPES["flash_fwd_sm90"]
-        assert fwd_args[7] is fk._PTR
+        assert fwd_args[7] is _cuda.PTR
         args = fk.ARGTYPES["flash_fwd_sm90"]
-        assert args[:7] == [fk._PTR] * 7 and args[-1] is fk._PTR
-        assert args[-2] is fk._INT   # element bytes
+        assert args[:7] == [_cuda.PTR] * 7 and args[-1] is _cuda.PTR
+        assert args[-2] is _cuda.INT   # element bytes
 
     def test_every_source_has_argtypes(self):
         from tpu_dra_torch.workloads import _moe_kernels  # noqa: F401
 
-        assert {p.stem for p in fk.CSRC.glob("*.cu")} == set(fk.ENTRY_POINTS)
-        assert set(fk.ARGTYPES) <= set(fk.ENTRY_POINTS)
+        assert {p.stem for p in _cuda.CSRC.glob("*.cu")} == set(
+            _cuda.ENTRY_POINTS)
+        assert set(fk.ARGTYPES) <= set(_cuda.ENTRY_POINTS)
 
 
 class TestRopeTableHalves:

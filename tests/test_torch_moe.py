@@ -176,6 +176,61 @@ def test_slot_form_matches_the_dense_masks(factor, dtype):
     assert _rel(drouter.numpy(), want_grads[1].numpy()) <= GRAD_TOL[dtype]
 
 
+def _plain_slot_ffn(params, x, capacity_factor, compute_dtype):
+    """moe_ffn's top-1 slot form in plain autograd: route_top1's slots,
+    the dispatch an index into x's rows with a zero row after them, the
+    combine each token's slot row times its gate in fp32, rounded once.
+    The gate scales rounded to the rows' dtype (the forward's value), and
+    its gradient, the fp32 dot of dout and the row, reaches the fp32 gate
+    unrounded (a term that is zero in the forward)."""
+    import torch.nn.functional as F
+
+    cd = compute_dtype
+    n_experts = params["router"].shape[-1]
+    b, s, d = x.shape
+    capacity = tmoe.capacity_of(capacity_factor, b * s, n_experts)
+    route = tmoe.route_top1(x, params["router"], n_experts, capacity)
+
+    def rows_at(rows, idx):
+        idx = idx.reshape(-1).long()
+        padded = torch.cat([rows, rows.new_zeros(1, d)])
+        return padded[torch.where(idx < 0, rows.shape[0], idx)]
+
+    buffers = rows_at(x.to(cd).reshape(b * s, d), route.token_of_slot)
+    h = F.gelu(torch.einsum("ecd,edf->ecf", buffers.view(n_experts, -1, d),
+                            params["w_up"].to(cd)), approximate="tanh")
+    out_buf = torch.einsum("ecf,efd->ecd", h, params["w_down"].to(cd))
+    picked = rows_at(out_buf.reshape(-1, d), route.slot).float()
+    gate = route.gate.reshape(-1, 1)
+    rounded = gate.detach().to(cd).float()
+    out = picked * rounded + (gate - gate.detach()) * picked
+    return out.to(cd).view(b, s, d).to(x.dtype), route.aux
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("factor", [1.25, 0.5], ids=["cap1.25", "cap0.5"])
+def test_moe_ffn_is_the_plain_slot_form_bit_for_bit(factor, dtype):
+    """moe_ffn (the k-way dispatch and combine at k = 1) against the
+    top-1 slot form in plain autograd: the output, the aux and the
+    gradients of x, the router, w_up and w_down, bit for bit."""
+    tree, x = _ref_moe(4)
+    results = []
+    for fn in (tmoe.moe_ffn, _plain_slot_ffn):
+        params = {k: v.clone().requires_grad_()
+                  for k, v in _port(tree).items()}
+        xt = torch.from_numpy(x).requires_grad_()
+        out, aux = fn(params, xt, capacity_factor=factor,
+                      compute_dtype=dtype)
+        grads = torch.autograd.grad(out.square().sum() + aux,
+                                    [xt, params["router"], params["w_up"],
+                                     params["w_down"]])
+        results.append((out.detach(), aux.detach(), *grads))
+    for name, got, want in zip(("out", "aux", "dx", "drouter", "dw_up",
+                                "dw_down"), *results):
+        assert got.dtype == want.dtype and torch.equal(got, want), name
+
+
 def test_moe_ffn_matches_reference():
     import jax.numpy as jnp
 

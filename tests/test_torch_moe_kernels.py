@@ -2,11 +2,13 @@
 tpu_dra_torch/workloads/_moe_kernels.py).
 
 Here, on the CPU: the plain versions against loops written out token by
-token, and the wrappers' refusals. On the card (marker ``card``; each
-test skips without a CUDA device): the kernels against the plain
-versions — route's five outputs and the dispatch and combine (forward,
-dx, d(out_buf)) bit for bit, the gate's gradient within fp32 rounding —
-and a MoE LM train step that launches them with no host synchronisation.
+token, the wrappers' refusals, the C declarations against the argtypes,
+and the kernel modules' independence (neither imports the other). On
+the card (marker ``card``; each test skips without a CUDA device): the
+kernels against the plain versions — route's five outputs and the top-1
+dispatch and combine (forward, dx, d(out_buf)) bit for bit, the gate's
+gradient within fp32 rounding — and a MoE LM train step that launches
+them with no host synchronisation.
 
     python -m pytest tests/test_torch_moe_kernels.py -q           # here
     python -m pytest tests/test_torch_moe_kernels.py -q -m card   # card
@@ -14,11 +16,15 @@ and a MoE LM train step that launches them with no host synchronisation.
 This file imports neither jax nor the reference package.
 """
 
+import ast
 import re
+import subprocess
+import sys
 
 import pytest
 import torch
 
+from tpu_dra_torch.workloads import _cuda
 from tpu_dra_torch.workloads import _moe_kernels as mk
 from tpu_dra_torch.workloads import moe
 
@@ -28,9 +34,16 @@ torch.set_num_threads(2)
 # factor 1.25.
 T_CELL, E_CELL = 8 * 1024, 8
 C_CELL = moe.capacity_of(1.25, T_CELL, E_CELL)
-# The top-k route's kernels (tests/test_torch_dsv3.py), which the top-1
-# path never launches.
-TOPK_IDLE = {"moe_route_topk": 0, "moe_combine_rows": 0, "moe_pair_dot": 0}
+
+
+def _moe_launches(**counts):
+    """Every MoE entry point's launch count: `counts`, zero elsewhere."""
+    return {**dict.fromkeys(mk.ARGTYPES, 0), **counts}
+
+
+def _read_moe_launches():
+    launches = _cuda.launches()
+    return {name: launches[name] for name in mk.ARGTYPES}
 
 
 @pytest.fixture
@@ -104,20 +117,19 @@ def test_gather_rows_plain_rounds_once(dtype):
     src = torch.randn(6, 16, generator=g).to(dtype)
     idx = torch.tensor([3, -1, 0, 5, -1, 3, 2], dtype=torch.int32)
     scale = torch.rand(7, generator=g)
-    by_src = torch.rand(6, generator=g)
     copy = mk.gather_rows_plain(src, idx)
     scaled = mk.gather_rows_plain(src, idx, scale)
-    scaled_src = mk.gather_rows_plain(src, idx, by_src, scale_by_src=True)
     for i, j in enumerate(idx.tolist()):
         if j < 0:
-            for out in (copy, scaled, scaled_src):
+            for out in (copy, scaled):
                 assert not out[i].any()
             continue
         assert torch.equal(copy[i], src[j])
         assert torch.equal(scaled[i], (src[j].float() * scale[i]).to(dtype))
-        assert torch.equal(scaled_src[i],
-                           (src[j].float() * by_src[j]).to(dtype))
-    dots = mk.row_dot_plain(scaled, src, idx)
+    # The top-1 combine and its gate's gradient: the k-way sum and the
+    # pair dot at k = 1.
+    assert torch.equal(mk.combine_rows_plain(src, idx, scale, 1), scaled)
+    dots = mk.pair_dot_plain(scaled, src, idx, 1)
     for i, j in enumerate(idx.tolist()):
         want = 0.0 if j < 0 else float((scaled[i].double()
                                         * src[j].double()).sum())
@@ -126,18 +138,42 @@ def test_gather_rows_plain_rounds_once(dtype):
 
 @pytest.mark.parametrize("entry", list(mk.ARGTYPES))
 def test_c_declaration_matches_argtypes(entry):
-    """Each entry point of csrc/moe_route.cu takes what its registered
+    """Each entry point of csrc/moe_route.cu takes what its declared
     argtypes say, and the build loads it with them."""
-    from tpu_dra_torch.workloads import _flash_kernels as fk
-
-    source = (fk.CSRC / "moe_route.cu").read_text()
+    source = (_cuda.CSRC / "moe_route.cu").read_text()
     decl = re.search(rf'extern "C" int {entry}\((.*?)\)\s*\{{', source,
                      re.S).group(1)
-    kinds = {"void*": fk._PTR, "int": fk._INT}
+    kinds = {"void*": _cuda.PTR, "int": _cuda.INT}
     got = [kinds[p.strip().rsplit(" ", 1)[0].removeprefix("const ")]
            for p in decl.split(",")]
     assert got == mk.ARGTYPES[entry]
-    assert fk.ENTRY_POINTS["moe_route"][entry] == got
+    assert _cuda.ENTRY_POINTS["moe_route"][entry] == got
+    assert set(re.findall(r'extern "C" int (\w+)\(', source)) == set(
+        mk.ARGTYPES)
+
+
+KERNEL_MODULES = ("_flash_kernels", "_moe_kernels")
+
+
+@pytest.mark.parametrize("module", KERNEL_MODULES)
+def test_kernel_modules_do_not_import_each_other(module):
+    """Each kernel module sits on _cuda alone: importing it loads neither
+    the other kernel module nor anything that does, and its source names
+    none of the other's names."""
+    other, = set(KERNEL_MODULES) - {module}
+    code = (f"import sys, tpu_dra_torch.workloads.{module}; "
+            f"print('tpu_dra_torch.workloads.{other}' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, timeout=120)
+    assert out.stdout.strip() == "False"
+    tree = ast.parse((_cuda.CSRC.parent / f"{module}.py").read_text())
+    names = {n.id for n in ast.walk(tree) if isinstance(n, ast.Name)}
+    names |= {a.name.rsplit(".", 1)[-1] for n in ast.walk(tree)
+              if isinstance(n, (ast.Import, ast.ImportFrom))
+              for a in n.names}
+    names |= {n.module.rsplit(".", 1)[-1] for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module}
+    assert other not in names
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
@@ -153,15 +189,15 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 
 
 def test_cpu_path_counts_no_kernel():
-    mk.reset_launches()
+    _cuda.reset_launches()
     expert, offset, capacity, lo, hi = _route_inputs("small")
     _, slot, token_of_slot, _, _ = mk.route(expert, offset, capacity, lo,
                                             hi)
     x = torch.randn(len(expert), 8)
     mk.gather_rows(x, token_of_slot)
-    mk.row_dot(x, x, slot)
-    assert mk.launches() == {"moe_route": 0, "moe_gather_rows": 0,
-                             "moe_row_dot": 0, **TOPK_IDLE}
+    mk.combine_rows(x, slot, None, 1)
+    mk.pair_dot(x, x, slot, 1)
+    assert _read_moe_launches() == _moe_launches()
 
 
 # ---------------------------------------------------------------------------
@@ -173,11 +209,11 @@ def test_cpu_path_counts_no_kernel():
 def test_route_kernel_matches_plain(case, cuda_device):
     expert, offset, capacity, lo, hi = _route_inputs(case, seed=11)
     want = mk.route_plain(expert, offset, capacity, lo, hi)
-    mk.reset_launches()
+    _cuda.reset_launches()
     got = mk.route(expert.to(cuda_device), offset.to(cuda_device), capacity,
                    lo, hi)
     torch.cuda.synchronize()
-    assert mk.launches()["moe_route"] == 1
+    assert _cuda.launches()["moe_route"] == 1
     for name, g, w in zip(("pos", "slot", "token_of_slot", "counts", "kept"),
                           got, want):
         assert g.dtype == torch.int32 and g.is_cuda, name
@@ -185,11 +221,15 @@ def test_route_kernel_matches_plain(case, cuda_device):
 
 
 def _dispatch_and_combine(x, out_buf, gate, slot, token_of_slot, dbuf, dout):
-    """Forward and backward of the dispatch and combine Functions."""
+    """Forward and backward of the dispatch and combine Functions as the
+    top-1 layer calls them (k = 1, the gate rounded to the rows' dtype in
+    the forward)."""
     x, out_buf, gate = (t.clone().requires_grad_()
                         for t in (x, out_buf, gate))
-    buf = moe._Dispatch.apply(x, slot, token_of_slot)
-    out = moe._Combine.apply(out_buf, gate, slot, token_of_slot)
+    scale, gate_of_slot = moe.top1_scales(gate, token_of_slot, out_buf.dtype)
+    buf = moe._Dispatch.apply(x, token_of_slot, slot, 1)
+    out = moe._Combine.apply(out_buf, gate, scale, slot, token_of_slot,
+                             gate_of_slot, 1)
     dx, = torch.autograd.grad(buf, x, dbuf)
     d_buf, d_gate = torch.autograd.grad(out, [out_buf, gate], dout)
     return buf, out, dx, d_buf, d_gate
@@ -214,11 +254,11 @@ def test_dispatch_and_combine_match_plain(dtype, d, cuda_device):
     gate = torch.rand(T_CELL, generator=g)
     args = (x, out_buf, gate, slot, token_of_slot, dbuf, dout)
     want = _dispatch_and_combine(*args)
-    mk.reset_launches()
+    _cuda.reset_launches()
     got = _dispatch_and_combine(*(t.to(cuda_device) for t in args))
     torch.cuda.synchronize()
-    assert mk.launches() == {"moe_route": 0, "moe_gather_rows": 4,
-                             "moe_row_dot": 1, **TOPK_IDLE}
+    assert _read_moe_launches() == _moe_launches(
+        moe_gather_rows=2, moe_combine_rows=2, moe_pair_dot=1)
     for name, g_, w in zip(("buf", "out", "dx", "d_out_buf"), got, want):
         assert g_.dtype == dtype and torch.equal(g_.cpu(), w), name
     d_gate, want_gate = got[4].cpu(), want[4]
@@ -244,7 +284,7 @@ def test_moe_lm_step_runs_the_kernels_without_a_host_sync(cuda_device):
                             device=cuda_device) for _ in range(2)]
     step(tokens[0])            # the first call builds and caches
     torch.cuda.synchronize()
-    mk.reset_launches()
+    _cuda.reset_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         loss = step(tokens[1])
@@ -252,8 +292,9 @@ def test_moe_lm_step_runs_the_kernels_without_a_host_sync(cuda_device):
         torch.cuda.set_sync_debug_mode("default")
     assert torch.isfinite(loss).item()
     n_moe = sum(cfg.is_moe_block(i) for i in range(cfg.n_layers))
-    # Per MoE block: the route; dispatch and combine forward and
-    # backward; the gate's gradient.
-    assert mk.launches() == {"moe_route": n_moe,
-                             "moe_gather_rows": 4 * n_moe,
-                             "moe_row_dot": n_moe, **TOPK_IDLE}
+    # Per MoE block: the route; the dispatch and the combine's backward
+    # (gathers); the combine and the dispatch's backward (k-way sums at
+    # k = 1); the gate's gradient.
+    assert _read_moe_launches() == _moe_launches(
+        moe_route=n_moe, moe_gather_rows=2 * n_moe,
+        moe_combine_rows=2 * n_moe, moe_pair_dot=n_moe)

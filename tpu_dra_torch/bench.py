@@ -400,10 +400,10 @@ def bench_mesh_gpus(train_steps: int = 3) -> dict:
     step; then bench_psum over the same env. Returns rank 0's records
     and the train step's median and global tokens/s."""
     from tpu_dra_torch.topology.meshexport import plan_from_env
-    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _cuda
     from tpu_dra_torch.workloads import meshbuild
 
-    fk.build()   # once, before the ranks load the libraries
+    _cuda.build()   # once, before the ranks load the libraries
     nvml = gpuinfo.NativeBackend()
     try:
         env = node_env(nvml)
@@ -1942,14 +1942,14 @@ class _TenantBarrier:
         self.wait_go = wait_go
 
     def __call__(self) -> None:
-        from tpu_dra_torch.workloads import _flash_kernels as fk
+        from tpu_dra_torch.workloads import _cuda
 
         if self.wait_go:
             print(json.dumps({"ready": os.getpid()}), flush=True)
             line = sys.stdin.readline().strip()
             if line != GO:
                 raise RuntimeError(f"tenant waited for {GO!r}, read {line!r}")
-        fk.reset_launches()
+        _cuda.reset_launches()
 
 
 def claim_child(argv) -> int:
@@ -1970,7 +1970,7 @@ def claim_child(argv) -> int:
     import argparse
 
     from tpu_dra_torch.topology.meshexport import plan_from_env
-    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _cuda
     from tpu_dra_torch.workloads import meshbuild
 
     ap = argparse.ArgumentParser(prog=CLAIM_CHILD)
@@ -2002,7 +2002,7 @@ def claim_child(argv) -> int:
            "uuid": None, "max_memory_allocated": None, "mem_get_info": None,
            "plan": {"coords": plan.coords, "topology": plan.fabric_dims,
                     "generation": plan.generation},
-           "launches": fk.launches(), "kernel_launches": fk.kernel_launches()}
+           "launches": _cuda.launches()}
     if device.type == "cuda":
         out["uuid"] = str(torch.cuda.get_device_properties(device).uuid)
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
@@ -2111,8 +2111,7 @@ def _tenant_reading(rec: dict) -> dict:
             "max_memory_allocated": rec["max_memory_allocated"],
             "mem_get_info": rec["mem_get_info"],
             "n_layers": rec["n_layers"], "steps": rec["steps"],
-            "launches": rec["launches"],
-            "kernel_launches": rec["kernel_launches"]}
+            "launches": rec["launches"]}
 
 
 def _check_tenants(recs, claim_uuid, device_type) -> list:
@@ -2367,11 +2366,11 @@ def bench_cd_gpus(backend=None, device_type: str = "cuda",
     from tpu_dra_torch.testing import DomainSim, run_nodes
     from tpu_dra_torch.topology.meshexport import plan_from_env
     from tpu_dra_torch.workloads import meshbuild
-    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _cuda
 
     if backend is None:
         _require_card(device_type)
-        fk.build()   # once, before the ranks load the libraries
+        _cuda.build()   # once, before the ranks load the libraries
         nvml = gpuinfo.NativeBackend()
         try:
             gpus = nvml.gpus()

@@ -37,7 +37,9 @@ To compare two trees on one card, unpack the other into a directory
 that .gitignore lists and run this script on each in turn (A, B, B, A):
 each run is its own process and builds into its own tree. Needs a CUDA
 card and the CUDA toolkit (nvcc and cuobjdump side by side); uses only
-the wrappers' public signatures, which every tree of the port shares.
+the wrappers' public signatures, which every tree of the port shares,
+and the tree's ``build`` (``_cuda.build``, or ``_flash_kernels.build`` in
+trees before that module).
 """
 
 from __future__ import annotations
@@ -175,11 +177,15 @@ def main() -> int:
     from tpu_dra_torch.workloads import _flash_kernels as fk
     from tpu_dra_torch.workloads.flashattention import _rope_operands
 
+    try:   # the kernel layer both kernel modules sit on
+        from tpu_dra_torch.workloads import _cuda as layer
+    except ImportError:   # trees where _flash_kernels builds every source
+        layer = fk
     nvcc = gpuinfo.nvcc()
     if nvcc is None:
         raise RuntimeError("nvcc not found")
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
-    libs = fk.build()
+    libs = layer.build()
     # The libraries of the kernels the timed wrappers route to; in trees
     # without routes every library is a flash kernel's.
     timed = ({*getattr(fk, "FWD_KERNELS", {}).values(),

@@ -1,4 +1,5 @@
-"""Build, load and launch the hand-written CUDA flash-attention kernels.
+"""The hand-written CUDA flash-attention kernels: their routes, C entry
+points, wrappers and plain PyTorch versions.
 
 Four kernels, one per source under ``csrc/`` (see each source's header
 for the TPU kernels it replaces, what bounds it on the H100 and what its
@@ -7,64 +8,52 @@ shared memory at every sequence length, so each is the counterpart of
 resident TPU kernels and of their streaming (XL) twins:
 
 - ``flash_fwd_sm90`` (csrc/flash_fwd_sm90.cu) and ``flash_fwd``
-  (csrc/flash_fwd.cu) replace ``_fwd_kernel`` and ``_fwd_stream_kernel``.
-  ``fwd_route`` picks one per (dtype, D): bf16 at D in
-  ``FWD_SM90_HEAD_DIMS`` (64, 128: every forward of the model paths) runs
-  the Hopper kernel (128-row Q tiles, TMA ring, warp-specialised wgmma),
-  as does bf16 at the (q.k, v) head-dim pairs of ``SM90_SPLIT_HEAD_DIMS``
-  ((192, 128): the latent attention of dsv3_model.py, no fused rope);
-  fp32, and bf16 at the other head dims, run ``flash_fwd`` (64-row Q
-  tiles, cp.async ring, mma.sync; with rope a first launch writes the
-  roped k into a scratch buffer the wrapper allocates);
+  (csrc/flash_fwd.cu) replace ``_fwd_kernel`` and ``_fwd_stream_kernel``;
 - ``flash_bwd_sm90`` (csrc/flash_bwd_sm90.cu) and ``flash_bwd_mma``
   (csrc/flash_bwd_mma.cu) each replace ``_bwd_dq_kernel``,
   ``_bwd_dkv_kernel`` and their streaming twins in one fused pass that
-  adds dQ into an fp32 accumulator. ``bwd_route`` picks per (dtype, D):
-  bf16 at D in ``BWD_SM90_HEAD_DIMS`` (64, 128: every backward of the
-  model paths) runs the Hopper kernel (128-key K/V tiles, TMA ring,
-  warp-specialised wgmma); fp32, and bf16 at the other head dims, run
-  ``flash_bwd_mma`` (64-key K/V tiles, cp.async ring, mma.sync)
+  adds dQ into an fp32 accumulator
   (all in tpu_dra/workloads/flashattention.py).
+
+``route`` picks one route per (dtype, D, Dv) for both directions: bf16
+at D in ``SM90_HEAD_DIMS`` (64, 128: every model path), or at a (q.k, v)
+pair of ``SM90_SPLIT_HEAD_DIMS`` ((192, 128): the latent attention of
+dsv3_model.py, no fused rope), runs the Hopper kernels ("sm90": TMA ring,
+warp-specialised wgmma; 128-row Q tiles forward, 128-key K/V tiles
+backward); fp32, and bf16 at the other head dims, run the mma.sync
+kernels ("mma": cp.async ring; 64-row Q tiles forward, with rope a first
+launch writing the roped k into a scratch buffer the wrapper allocates;
+64-key K/V tiles backward). ``FWD_KERNELS`` and ``BWD_KERNELS`` name each
+direction's kernel per route.
 
 They take bf16 or fp32 inputs (``KERNEL_DTYPES``). fp32 products run as
 three TF32 tensor-core products each, to fp32 accuracy
-(csrc/flash_common.cuh says why).
-
-Build: ``nvcc`` compiles each source, all at once, into its own shared
-library with a plain C interface under ``build/tpu_dra_torch/`` at the
-repository root (listed in .gitignore), at first use. File names carry a
-hash of the sources and flags, so an edit rebuilds. The libraries are
-loaded with ``ctypes``; every pointer and the stream are ``c_void_p``.
-The same build serves every other source under ``csrc/``: its wrapper
-module declares the source's C entry points with ``register`` (the MoE
-FFN's routing kernels, csrc/moe_route.cu, from _moe_kernels.py).
+(csrc/flash_common.cuh says why). _cuda.py builds, loads and launches
+them; this module declares their entry points there.
 
 Each wrapper (``fwd``, ``bwd``) takes [B, S, H, D] tensors (v, o, dO and
 dV [B, S, H, Dv], Dv = D but at a split pair). For CPU
 tensors it runs its plain PyTorch version beside it in this module
 (``fwd_plain``, ``bwd_plain``, the latter built of ``bwd_dq_plain`` and
 ``bwd_dkv_plain``); for CUDA tensors it launches its route's kernel on
-the current stream, adds one to its ``launches`` count and to
-``route_launches[route]``, and raises if the launch fails. There is no
-other path: no fallback from a failed build or launch, and none from one
-route to the other.
+the current stream (_cuda.launch, which counts it under the kernel's
+name). There is no other path: no fallback from a failed build or
+launch, and none from one route to the other.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import math
-import os
-import subprocess
-from pathlib import Path
 
 import torch
 
-from tpu_dra_torch.native import gpuinfo
+from tpu_dra_torch.workloads import _cuda
 
 NEG_INF = -1e30
-# Rows per tile of every kernel (stationary and streamed side alike).
+# The length rule of non-causal attention (flashattention.py): S a
+# multiple of BLOCK, or at most BLOCK, as the reference refuses lengths
+# its blocks do not divide. The mma.sync kernels tile 64 rows; the
+# Hopper kernels tile 128 and mask keys past S in every mode.
 BLOCK = 64
 MAX_HEAD_DIM = 128
 # What the kernels take, and the element size each is told.
@@ -73,31 +62,22 @@ KERNEL_DTYPES = {torch.bfloat16: 2, torch.float32: 4}
 # dispatch_head_dim): the reference's streaming-tier test shape and the
 # flagship's. bf16 takes every multiple of 16 up to MAX_HEAD_DIM.
 FP32_HEAD_DIMS = (16, 128)
-# The head dims the Hopper forward (csrc/flash_fwd_sm90.cu) is built for,
-# in bf16.
-FWD_SM90_HEAD_DIMS = (64, 128)
-# The forward kernel of each route.
-FWD_KERNELS = {"sm90": "flash_fwd_sm90", "mma": "flash_fwd"}
-# The head dims the Hopper backward (csrc/flash_bwd_sm90.cu) is built
-# for, in bf16, and the backward kernel of each route.
-BWD_SM90_HEAD_DIMS = (64, 128)
-BWD_KERNELS = {"sm90": "flash_bwd_sm90", "mma": "flash_bwd_mma"}
+# The head dims both Hopper kernels (csrc/flash_{fwd,bwd}_sm90.cu) are
+# built for, in bf16.
+SM90_HEAD_DIMS = (64, 128)
 # The (q.k, v) head-dim pairs both Hopper kernels are built for besides,
 # in bf16 and without fused rope: multi-head latent attention (DeepSeek-
 # V2/V3), 128 "nope" + 64 roped dims for q and k, 128 for v. Only the
 # Hopper route takes them.
 SM90_SPLIT_HEAD_DIMS = ((192, 128),)
+# Each direction's kernel (C entry point) per route.
+FWD_KERNELS = {"sm90": "flash_fwd_sm90", "mma": "flash_fwd"}
+BWD_KERNELS = {"sm90": "flash_bwd_sm90", "mma": "flash_bwd_mma"}
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_dra_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
-
-_PTR = ctypes.c_void_p
-_INT = ctypes.c_int
-_I64 = ctypes.c_longlong
+_PTR, _INT, _I64 = _cuda.PTR, _cuda.INT, _cuda.I64
 # B S H D Dv, q/k's strides, v's strides, causal, rope, element bytes
 _SHAPE = [_INT] * 5 + [_I64] * 6 + [_INT] * 3
+# Each source's one entry, named after it; the stream last.
 ARGTYPES = {
     # flash_fwd_sm90's operands, then the roped-k scratch.
     "flash_fwd": [_PTR] * 8 + _SHAPE + [_PTR],
@@ -105,84 +85,7 @@ ARGTYPES = {
     "flash_bwd_sm90": [_PTR] * 13 + _SHAPE + [_PTR],
     "flash_bwd_mma": [_PTR] * 13 + _SHAPE + [_PTR],
 }
-# {source stem: {C entry point: argtypes}} of every source the libraries
-# are loaded for: each flash source's one entry, named after it, and
-# what register() adds.
-ENTRY_POINTS = {stem: {stem: args} for stem, args in ARGTYPES.items()}
-
-_loaded: dict[str, ctypes.CDLL] = {}
-
-
-def register(source: str, entries: dict[str, list]) -> None:
-    """Declare the C entry points of csrc/<source>.cu and their argtypes:
-    the same build compiles the source, and _call launches its entries."""
-    ENTRY_POINTS[source] = dict(entries)
-
-
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cu*")):
-        h.update(path.name.encode())
-        h.update(path.read_bytes())
-    return h.hexdigest()[:16]
-
-
-def build() -> dict[str, Path]:
-    """Compile every kernel source that has no library for the current
-    sources yet, one nvcc per source, all started together. Returns
-    {kernel name: library path}; raises with the compilers' output if
-    any source fails."""
-    nvcc = gpuinfo.nvcc()
-    if nvcc is None:
-        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin)")
-    digest = _digest()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    libs = {src.stem: BUILD_DIR / f"lib{src.stem}_{digest}.so"
-            for src in sorted(CSRC.glob("*.cu"))}
-    jobs = []
-    for name, lib in libs.items():
-        if lib.exists():
-            continue
-        tmp = lib.with_suffix(f".tmp{os.getpid()}")
-        proc = subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, lib, tmp, proc))
-    log = []
-    failed = []
-    for name, lib, tmp, proc in jobs:
-        out, _ = proc.communicate(timeout=900)
-        log.append(f"== {name}\n{out}")
-        if proc.returncode:
-            failed.append(name)
-        else:
-            tmp.replace(lib)
-    if failed:
-        raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(log))
-    return libs
-
-
-def _lib(name: str) -> ctypes.CDLL:
-    """The library that holds C entry point `name`: every library built,
-    and each declared source's loaded, at the first call that needs it."""
-    if name not in _loaded:
-        libs = build()
-        for stem, entries in ENTRY_POINTS.items():
-            if entries.keys() & _loaded.keys():
-                continue
-            lib = ctypes.CDLL(str(libs[stem]))
-            for entry, argtypes in entries.items():
-                fn = getattr(lib, entry)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-                _loaded[entry] = lib
-    return _loaded[name]
-
-
-def _call(name: str, *args) -> None:
-    err = getattr(_lib(name), name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+_cuda.declare({stem: {stem: args} for stem, args in ARGTYPES.items()})
 
 
 # ---------------------------------------------------------------------------
@@ -344,10 +247,6 @@ def _table_ptrs(tables):
                                                 tables[1].data_ptr())
 
 
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def _dims(q, causal, tables, v=None):
     """The shape arguments every kernel takes after its pointers: v (by
     default q) gives Dv and its own strides."""
@@ -359,20 +258,16 @@ def _dims(q, causal, tables, v=None):
             KERNEL_DTYPES[q.dtype])
 
 
-def _device_of(x: torch.Tensor) -> str:
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no flash kernel for device {x.device}")
-    return x.device.type
-
-
-def fwd_route(dtype: torch.dtype, d: int, dv: int = None) -> str:
-    """The forward kernel that serves (dtype, D, Dv): "sm90"
-    (flash_fwd_sm90: bf16 at D = Dv in FWD_SM90_HEAD_DIMS or at a pair of
-    SM90_SPLIT_HEAD_DIMS) or "mma" (flash_fwd: fp32, and bf16 at the other
-    head dims). wgmma takes fp32 only as TF32 with both operands K-major,
-    and P.V needs V MN-major, so fp32 keeps the 3xTF32 mma.sync kernel."""
+def route(dtype: torch.dtype, d: int, dv: int = None) -> str:
+    """The route that serves (dtype, D, Dv) in both directions: "sm90"
+    (flash_fwd_sm90, flash_bwd_sm90: bf16 at D = Dv in SM90_HEAD_DIMS or
+    at a pair of SM90_SPLIT_HEAD_DIMS) or "mma" (flash_fwd,
+    flash_bwd_mma: fp32, and bf16 at the other head dims). wgmma takes
+    fp32 only as TF32 with both operands K-major, and the forward's P.V
+    reads V, the backward dO, Q, dS and K, MN-major, so fp32 keeps the
+    3xTF32 mma.sync kernels."""
     dv = d if dv is None else dv
-    if dtype == torch.bfloat16 and ((d == dv and d in FWD_SM90_HEAD_DIMS)
+    if dtype == torch.bfloat16 and ((d == dv and d in SM90_HEAD_DIMS)
                                     or (d, dv) in SM90_SPLIT_HEAD_DIMS):
         return "sm90"
     return "mma"
@@ -382,24 +277,20 @@ def fwd(q, k, v, tables, *, causal: bool):
     """(o [B, S, H, D], lse [B, H, S] fp32) of attention over q, k, v
     ([B, S, H, D]); tables = the [S, D] (cos, sinm) rope tables, or None
     for no rope."""
-    if _device_of(q) == "cpu":
+    if _cuda.device_of(q, "flash") == "cpu":
         return fwd_plain(q, k, v, tables, causal=causal)
     q, k, v, tables = _kernel_inputs(q, k, v, tables)
     b, s, h, d = q.shape
-    route = fwd_route(q.dtype, d, v.shape[-1])
+    kernel = FWD_KERNELS[route(q.dtype, d, v.shape[-1])]
     o = torch.empty((b, s, h, v.shape[-1]), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), *_table_ptrs(tables),
             o.data_ptr(), lse.data_ptr()]
-    if route == "mma":
+    if kernel == "flash_fwd":
         # flash_fwd's first launch writes the roped k here.
         kr = None if tables is None else torch.empty_like(o)
         ptrs.append(None if kr is None else kr.data_ptr())
-    with torch.cuda.device(q.device):
-        _call(FWD_KERNELS[route], *ptrs, *_dims(q, causal, tables, v),
-              _stream(q))
-    fwd.launches += 1
-    fwd.route_launches[route] += 1
+    _cuda.launch(kernel, q, *ptrs, *_dims(q, causal, tables, v))
     return o, lse
 
 
@@ -412,70 +303,24 @@ def _bwd_inputs(q, v, dout, lse, delta, dlse):
     return (dout,) + tuple(x.float().contiguous() for x in (lse, delta, dlse))
 
 
-def bwd_route(dtype: torch.dtype, d: int, dv: int = None) -> str:
-    """The backward that serves (dtype, D, Dv): "sm90" (flash_bwd_sm90:
-    bf16 at D = Dv in BWD_SM90_HEAD_DIMS or at a pair of
-    SM90_SPLIT_HEAD_DIMS) or "mma" (flash_bwd_mma: fp32, and bf16 at the
-    other head dims). As in fwd_route, wgmma takes fp32 only as TF32 with
-    both operands K-major, and the backward reads dO, Q, dS and K
-    MN-major."""
-    dv = d if dv is None else dv
-    if dtype == torch.bfloat16 and ((d == dv and d in BWD_SM90_HEAD_DIMS)
-                                    or (d, dv) in SM90_SPLIT_HEAD_DIMS):
-        return "sm90"
-    return "mma"
-
-
 def bwd(q, k, v, dout, lse, delta, dlse, tables, *, causal: bool):
     """(dq, dk [B, S, H, D], dv [B, S, H, Dv]) of attention over q, k, v;
     dout [B, S, H, Dv]; lse, delta = rowsum(dO * O) and dlse (the lse
     cotangent) [B, H, S] fp32; tables as fwd's."""
-    if _device_of(q) == "cpu":
+    if _cuda.device_of(q, "flash") == "cpu":
         return bwd_plain(q, k, v, dout, lse, delta, dlse, tables,
                          causal=causal)
     q, k, v, tables = _kernel_inputs(q, k, v, tables)
-    route = bwd_route(q.dtype, q.shape[-1], v.shape[-1])
+    kernel = BWD_KERNELS[route(q.dtype, q.shape[-1], v.shape[-1])]
     dout, lse, delta, dlse = _bwd_inputs(q, v, dout, lse, delta, dlse)
     # dQ's fp32 accumulator: every K tile's CTA adds into it.
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dq, dk = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
               for _ in range(2))
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        _call(BWD_KERNELS[route], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-              dlse.data_ptr(), *_table_ptrs(tables), dq_acc.data_ptr(),
-              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-              *_dims(q, causal, tables, v), _stream(q))
-    bwd.launches += 1
-    bwd.route_launches[route] += 1
+    _cuda.launch(kernel, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dlse.data_ptr(), *_table_ptrs(tables), dq_acc.data_ptr(),
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 *_dims(q, causal, tables, v))
     return dq, dk, dv
-
-
-fwd.launches = 0
-fwd.route_launches = dict.fromkeys(FWD_KERNELS, 0)
-bwd.launches = 0
-bwd.route_launches = dict.fromkeys(BWD_KERNELS, 0)
-WRAPPERS = {"flash_fwd": fwd, "flash_bwd": bwd}
-
-
-def reset_launches() -> None:
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
-    WRAPPERS["flash_fwd"].route_launches = dict.fromkeys(FWD_KERNELS, 0)
-    WRAPPERS["flash_bwd"].route_launches = dict.fromkeys(BWD_KERNELS, 0)
-
-
-def launches() -> dict[str, int]:
-    return {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
-
-
-def kernel_launches() -> dict[str, int]:
-    """Launches of each CUDA kernel since the last reset_launches(), as
-    the wrappers' routes count them (FWD_KERNELS, BWD_KERNELS)."""
-    counts = {}
-    for wrapper, kernels in (("flash_fwd", FWD_KERNELS),
-                             ("flash_bwd", BWD_KERNELS)):
-        routes = WRAPPERS[wrapper].route_launches
-        counts.update((kernels[route], n) for route, n in routes.items())
-    return counts

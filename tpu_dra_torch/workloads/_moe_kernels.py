@@ -1,7 +1,7 @@
 """Launch the MoE FFN's routing and row-copy kernels (csrc/moe_route.cu).
 
-Six wrappers, one per C entry point, each with its plain PyTorch
-version beside it. For the top-1 route (moe.route_top1):
+Five wrappers, one per C entry point, each with its plain PyTorch
+version beside it. The top-1 route (moe.route_top1):
 
 - ``route`` (``moe_route``): each token's position within its expert in
   token order, continued from ``offset`` (the lower data ranks' counts),
@@ -9,20 +9,21 @@ version beside it. For the top-1 route (moe.route_top1):
   lies in [lo, hi) and c < C (else -1), the token of each slot (-1 where
   empty), the tokens routed to each expert and the tokens kept within
   capacity by any expert. One CTA scans the tokens.
-- ``gather_rows`` (``moe_gather_rows``): dst[i] = scale * src[idx[i]], or
-  zeros where idx[i] < 0; scale is scale[i], scale[idx[i]] with
-  ``scale_by_src``, or none (a copy). The product is taken in fp32 and
-  rounded once to the rows' dtype.
-- ``row_dot`` (``moe_row_dot``): out[t] = sum_d a[t, d] * b[idx[t], d] in
-  fp32, or 0 where idx[t] < 0.
 
-For the top-k dropless route over a rank's held experts (moe.route_topk):
+The top-k dropless route over a rank's held experts (moe.route_topk):
 
 - ``route_topk`` (``moe_route_topk``): each (token, k) pair's row in the
   held experts' [N, D] buffer (pairs in (b, s, k) order, each expert's
   rows in that order, experts one after another), the pair and the token
   of each row, the experts' row offsets and (N, the largest expert's
   rows). One CTA scans the pairs.
+
+The row copies, which both routings' dispatch and combine run (the
+top-1 route's at k = 1, its slots as rows):
+
+- ``gather_rows`` (``moe_gather_rows``): dst[i] = scale[i] * src[idx[i]],
+  or zeros where idx[i] < 0; without scale a copy. The product is taken
+  in fp32 and rounded once to the rows' dtype.
 - ``combine_rows`` (``moe_combine_rows``): out[t] = sum_k gate[t, k] *
   src[idx[t, k]] over the held pairs (the plain sum without gates), in
   fp32, rounded once.
@@ -31,12 +32,11 @@ For the top-k dropless route over a rank's held experts (moe.route_topk):
 
 The source's header says what bounds the kernels on the H100 and what
 their design does about it; they replace no TPU kernel (the reference's
-dense one-hot einsums). The kernels are built and loaded by
-_flash_kernels, with the flash kernels: this module registers the
-source's entry points there. For CPU tensors each
+dense one-hot einsums). _cuda.py builds, loads and launches them; this
+module declares the source's entry points there. For CPU tensors each
 wrapper runs its plain version; for CUDA tensors it launches its kernel
-on the current stream, adds one to its ``launches`` count and raises if
-the launch fails. There is no other path.
+on the current stream (_cuda.launch, which counts it under the entry's
+name). There is no other path.
 """
 
 from __future__ import annotations
@@ -44,23 +44,21 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tpu_dra_torch.workloads import _flash_kernels as fk
+from tpu_dra_torch.workloads import _cuda
 
 # What the row kernels take, and the element size each is told. Rows are
 # moved in 16-byte vectors, so D must be a multiple of ROW_MULTIPLE.
 ROW_DTYPES = {torch.bfloat16: 2, torch.float32: 4}
 ROW_MULTIPLE = 8
 
-_PTR, _INT = fk._PTR, fk._INT
+_PTR, _INT = _cuda.PTR, _cuda.INT
 # The C entry points of csrc/moe_route.cu; each takes the stream last.
 ARGTYPES = {
     # expert, offset, pos, slot, token_of_slot, counts, kept; T, E, C,
     # the rank's experts [e_lo, e_hi).
     "moe_route": [_PTR] * 7 + [_INT] * 5 + [_PTR],
-    # src, idx, scale, dst; rows, D, scale_by_src, element bytes.
-    "moe_gather_rows": [_PTR] * 4 + [_INT] * 4 + [_PTR],
-    # a, b, idx, out; rows, D, element bytes.
-    "moe_row_dot": [_PTR] * 4 + [_INT] * 3 + [_PTR],
+    # src, idx, scale, dst; rows, D, element bytes.
+    "moe_gather_rows": [_PTR] * 4 + [_INT] * 3 + [_PTR],
     # expert, slot, pair_of_row, token_of_row, offsets, stats; pairs, k,
     # the rank's experts [e_lo, e_hi).
     "moe_route_topk": [_PTR] * 6 + [_INT] * 4 + [_PTR],
@@ -71,7 +69,7 @@ ARGTYPES = {
 }
 # The most experts one route_topk call holds (csrc/moe_route.cu kMaxHeld).
 MAX_HELD = 16
-fk.register("moe_route", ARGTYPES)
+_cuda.declare({"moe_route": ARGTYPES})
 
 
 # ---------------------------------------------------------------------------
@@ -103,21 +101,14 @@ def _padded_index(idx, n_rows):
     return torch.where(idx < 0, n_rows, idx).long()
 
 
-def gather_rows_plain(src, idx, scale=None, scale_by_src: bool = False):
+def gather_rows_plain(src, idx, scale=None):
     """gather_rows' function: index_select on src with a zero row after
     it."""
     at = _padded_index(idx, src.shape[0])
     rows = torch.cat([src, src.new_zeros(1, src.shape[1])]).index_select(0, at)
     if scale is None:
         return rows
-    if scale_by_src:
-        scale = torch.cat([scale, scale.new_zeros(1)]).index_select(0, at)
     return (rows.float() * scale.float()[:, None]).to(src.dtype)
-
-
-def row_dot_plain(a, b, idx):
-    """row_dot's function, summed by torch.sum in fp32."""
-    return (a.float() * gather_rows_plain(b, idx).float()).sum(-1)
 
 
 def route_topk_plain(expert, k: int, lo: int, hi: int):
@@ -191,7 +182,7 @@ def route(expert, offset, capacity: int, lo: int, hi: int):
     order) and offset [E] (positions to continue from)."""
     if not 0 <= lo < hi <= offset.numel():
         raise ValueError(f"experts [{lo}, {hi}) outside [0, {offset.numel()})")
-    if fk._device_of(expert) == "cpu":
+    if _cuda.device_of(expert, "MoE") == "cpu":
         return route_plain(expert, offset, capacity, lo, hi)
     expert = expert.to(torch.int32).contiguous()
     offset = offset.to(torch.int32).contiguous()
@@ -202,57 +193,32 @@ def route(expert, offset, capacity: int, lo: int, hi: int):
                                 device=expert.device)
     counts = torch.empty(n_experts, dtype=torch.int32, device=expert.device)
     kept = torch.empty(1, dtype=torch.int32, device=expert.device)
-    with torch.cuda.device(expert.device):
-        fk._call("moe_route", expert.data_ptr(), offset.data_ptr(),
+    _cuda.launch("moe_route", expert, expert.data_ptr(), offset.data_ptr(),
                  pos.data_ptr(), slot.data_ptr(), token_of_slot.data_ptr(),
                  counts.data_ptr(), kept.data_ptr(), t, n_experts, capacity,
-                 lo, hi, fk._stream(expert))
-    route.launches += 1
+                 lo, hi)
     return pos, slot, token_of_slot, counts, kept
 
 
-def gather_rows(src, idx, scale=None, scale_by_src: bool = False):
-    """dst [len(idx), D] of src [N, D]: row i is scale * src[idx[i]], or
-    zeros where idx[i] < 0. scale (fp32) is indexed by i, or by idx[i]
-    with scale_by_src; None copies the rows as they are."""
-    if fk._device_of(src) == "cpu":
-        return gather_rows_plain(src, idx, scale, scale_by_src)
+def gather_rows(src, idx, scale=None):
+    """dst [len(idx), D] of src [N, D]: row i is scale[i] * src[idx[i]]
+    (scale fp32), or zeros where idx[i] < 0; None copies the rows as
+    they are."""
+    if _cuda.device_of(src, "MoE") == "cpu":
+        return gather_rows_plain(src, idx, scale)
     src = _rows(src)
     n = idx.numel()
     idx = _index(idx, n)
     if scale is not None:
         scale = scale.float().contiguous()
-        want = src.shape[0] if scale_by_src else n
-        if scale.shape != (want,):
+        if scale.shape != (n,):
             raise ValueError(f"scale of shape {tuple(scale.shape)}, want "
-                             f"({want},)")
+                             f"({n},)")
     dst = torch.empty((n, src.shape[1]), dtype=src.dtype, device=src.device)
-    with torch.cuda.device(src.device):
-        fk._call("moe_gather_rows", src.data_ptr(), idx.data_ptr(),
+    _cuda.launch("moe_gather_rows", src, src.data_ptr(), idx.data_ptr(),
                  None if scale is None else scale.data_ptr(), dst.data_ptr(),
-                 n, src.shape[1], int(scale_by_src), ROW_DTYPES[src.dtype],
-                 fk._stream(src))
-    gather_rows.launches += 1
+                 n, src.shape[1], ROW_DTYPES[src.dtype])
     return dst
-
-
-def row_dot(a, b, idx):
-    """out [T] fp32 of a [T, D] and b [N, D]: sum_d a[t, d] * b[idx[t], d],
-    or 0 where idx[t] < 0."""
-    if fk._device_of(a) == "cpu":
-        return row_dot_plain(a, b, idx)
-    a, b = _rows(a), _rows(b)
-    if a.dtype != b.dtype or a.shape[1] != b.shape[1]:
-        raise ValueError(f"rows differ: {a.dtype} {tuple(a.shape)}, "
-                         f"{b.dtype} {tuple(b.shape)}")
-    idx = _index(idx, a.shape[0])
-    out = torch.empty(a.shape[0], dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        fk._call("moe_row_dot", a.data_ptr(), b.data_ptr(), idx.data_ptr(),
-                 out.data_ptr(), a.shape[0], a.shape[1], ROW_DTYPES[a.dtype],
-                 fk._stream(a))
-    row_dot.launches += 1
-    return out
 
 
 def route_topk(expert, k: int, lo: int, hi: int):
@@ -265,7 +231,7 @@ def route_topk(expert, k: int, lo: int, hi: int):
     if not (0 <= lo < hi and hi - lo <= MAX_HELD):
         raise ValueError(f"held experts [{lo}, {hi}): between 1 and "
                          f"{MAX_HELD} of them")
-    if fk._device_of(expert) == "cpu":
+    if _cuda.device_of(expert, "MoE") == "cpu":
         return route_topk_plain(expert, k, lo, hi)
     expert = expert.reshape(-1).to(torch.int32).contiguous()
     n = expert.numel()
@@ -275,12 +241,10 @@ def route_topk(expert, k: int, lo: int, hi: int):
     offsets = torch.empty(hi - lo + 1, dtype=torch.int32,
                           device=expert.device)
     stats = torch.empty(2, dtype=torch.int32, device=expert.device)
-    with torch.cuda.device(expert.device):
-        fk._call("moe_route_topk", expert.data_ptr(), slot.data_ptr(),
-                 pair_of_row.data_ptr(), token_of_row.data_ptr(),
-                 offsets.data_ptr(), stats.data_ptr(), n, k, lo, hi,
-                 fk._stream(expert))
-    route_topk.launches += 1
+    _cuda.launch("moe_route_topk", expert, expert.data_ptr(),
+                 slot.data_ptr(), pair_of_row.data_ptr(),
+                 token_of_row.data_ptr(), offsets.data_ptr(),
+                 stats.data_ptr(), n, k, lo, hi)
     return slot, pair_of_row, token_of_row, offsets, stats
 
 
@@ -290,7 +254,7 @@ def combine_rows(src, idx, gate, k: int):
     sum), in fp32 and rounded once; zeros where none is."""
     if idx.numel() % k:
         raise ValueError(f"{idx.numel()} pairs for k = {k}")
-    if fk._device_of(src) == "cpu":
+    if _cuda.device_of(src, "MoE") == "cpu":
         return combine_rows_plain(src, idx, gate, k)
     src = _rows(src)
     n = idx.numel() // k
@@ -301,18 +265,16 @@ def combine_rows(src, idx, gate, k: int):
             raise ValueError(f"gate of shape {tuple(gate.shape)}, want "
                              f"({n * k},)")
     dst = torch.empty((n, src.shape[1]), dtype=src.dtype, device=src.device)
-    with torch.cuda.device(src.device):
-        fk._call("moe_combine_rows", src.data_ptr(), idx.data_ptr(),
+    _cuda.launch("moe_combine_rows", src, src.data_ptr(), idx.data_ptr(),
                  None if gate is None else gate.data_ptr(), dst.data_ptr(),
-                 n, k, src.shape[1], ROW_DTYPES[src.dtype], fk._stream(src))
-    combine_rows.launches += 1
+                 n, k, src.shape[1], ROW_DTYPES[src.dtype])
     return dst
 
 
 def pair_dot(a, b, idx, k: int):
     """out [len(idx)] fp32 of a [T, D] and b [N, D]: sum_d a[p // k, d] ·
     b[idx[p], d], or 0 where idx[p] < 0."""
-    if fk._device_of(a) == "cpu":
+    if _cuda.device_of(a, "MoE") == "cpu":
         return pair_dot_plain(a, b, idx, k)
     a, b = _rows(a), _rows(b)
     if a.dtype != b.dtype or a.shape[1] != b.shape[1]:
@@ -320,27 +282,7 @@ def pair_dot(a, b, idx, k: int):
                          f"{b.dtype} {tuple(b.shape)}")
     idx = _index(idx, a.shape[0] * k)
     out = torch.empty(idx.numel(), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        fk._call("moe_pair_dot", a.data_ptr(), b.data_ptr(), idx.data_ptr(),
-                 out.data_ptr(), idx.numel(), k, a.shape[1],
-                 ROW_DTYPES[a.dtype], fk._stream(a))
-    pair_dot.launches += 1
+    _cuda.launch("moe_pair_dot", a, a.data_ptr(), b.data_ptr(),
+                 idx.data_ptr(), out.data_ptr(), idx.numel(), k, a.shape[1],
+                 ROW_DTYPES[a.dtype])
     return out
-
-
-WRAPPERS = {"moe_route": route, "moe_gather_rows": gather_rows,
-            "moe_row_dot": row_dot, "moe_route_topk": route_topk,
-            "moe_combine_rows": combine_rows, "moe_pair_dot": pair_dot}
-
-
-def reset_launches() -> None:
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
-
-
-def launches() -> dict[str, int]:
-    """Launches of each kernel since the last reset_launches()."""
-    return {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
-
-
-reset_launches()

@@ -1,5 +1,6 @@
-// Top-1 MoE routing by slot index, and the row copies that move tokens into
-// and out of the experts' buffers, for Hopper (sm_90a): bf16 or fp32 rows.
+// MoE routing, top-1 by slot index and top-k dropless, and the row copies
+// that move tokens into and out of the experts' buffers, for Hopper (sm_90a):
+// bf16 or fp32 rows.
 //
 // Replaces no TPU kernel. The reference (tpu_dra/workloads/moe.py:
 // route_top1, _experts) builds dense one-hot [B,S,E,C] dispatch and combine
@@ -28,21 +29,11 @@
 //    [e_lo, e_hi) (else -1), the token of every slot (-1 where empty), the
 //    tokens routed to each expert and the tokens kept by any expert. No
 //    atomics: the result is the same on every run.
-// 2. moe_gather_rows: dst[i] = scale * src[idx[i]], or zeros where
-//    idx[i] < 0; scale is scale[i], or scale[idx[i]] with scale_by_src, or
-//    1 (a plain copy, bit for bit) without scale. One warp per row, 16-byte
-//    loads and stores (D a multiple of 8), every load of a lane issued
-//    before its stores. The product is taken in fp32 and rounded once,
-//    which is what a one-hot GEMM with fp32 accumulation gives: one term
-//    that is not zero.
-// 3. moe_row_dot: out[t] = sum_d a[t, d] * b[idx[t], d] in fp32, or 0 where
-//    idx[t] < 0 (the gate's gradient). One warp per row, a fixed order of
-//    partial sums and shuffles, so the result is reproducible.
 //
 // Top-k dropless routing over the experts a rank holds (the DeepSeek-V3
 // family's MoE, moe.py:route_topk), where every (token, k) pair whose
 // expert is held is computed and none is dropped:
-// 4. moe_route_topk: one CTA of 1024 threads over the (token, k) pairs in
+// 2. moe_route_topk: one CTA of 1024 threads over the (token, k) pairs in
 //    (b, s, k) order, 8 consecutive pairs a thread. A first pass counts
 //    each held expert's pairs; their exclusive prefix is where each
 //    expert's rows start in the [N, D] buffer (N the held pairs, the
@@ -54,13 +45,24 @@
 //    per expert. It writes each pair's row (or -1 where its expert is not
 //    held), the pair and the token of each row, the experts' row offsets
 //    and the held pairs and the largest expert's count. No atomics.
-// 5. moe_combine_rows: out[t] = sum_k gate[t, k] * src[idx[t, k]] over the
+//
+// The row copies of both routings' dispatch and combine (moe.py:_Dispatch,
+// _Combine; the top-1 route's at k = 1, its slots as rows):
+// 3. moe_gather_rows: dst[i] = scale[i] * src[idx[i]], or zeros where
+//    idx[i] < 0; without scale a plain copy, bit for bit (the dispatch,
+//    and the combine's backward). One warp per row, 16-byte loads and
+//    stores (D a multiple of 8), every load of a lane issued before its
+//    stores. The product is taken in fp32 and rounded once, which is what
+//    a one-hot GEMM with fp32 accumulation gives: one term that is not
+//    zero.
+// 4. moe_combine_rows: out[t] = sum_k gate[t, k] * src[idx[t, k]] over the
 //    pairs with idx >= 0 (or their plain sum without gates; zeros where
-//    none is held), in fp32 and rounded once: the k-way combine and the
+//    none is held), in fp32 and rounded once: the combine and the
 //    dispatch's backward. One warp per token, 16-byte loads.
-// 6. moe_pair_dot: out[p] = sum_d a[p / k, d] * b[idx[p], d] in fp32 (the
-//    k-way combine's gate gradient), moe_row_dot's kernel with the rows of
-//    `a` shared by k pairs.
+// 5. moe_pair_dot: out[p] = sum_d a[p / k, d] * b[idx[p], d] in fp32, or 0
+//    where idx[p] < 0 (the gates' gradient): row_dot_kernel, the rows of
+//    `a` shared by k pairs. One warp per pair, a fixed order of partial
+//    sums and shuffles, so the result is reproducible.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -354,8 +356,8 @@ struct Pack<float> {
 template <typename T>
 __global__ void __launch_bounds__(32 * kRowsPerBlock)
     gather_rows_kernel(const T* __restrict__ src, const int* __restrict__ idx,
-                       const float* __restrict__ scale, int scale_by_src,
-                       T* __restrict__ dst, int n_rows, int d) {
+                       const float* __restrict__ scale, T* __restrict__ dst,
+                       int n_rows, int d) {
   const int row = blockIdx.x * kRowsPerBlock + threadIdx.y;
   if (row >= n_rows) return;
   const int lane = threadIdx.x;
@@ -369,7 +371,7 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock)
   const uint4* in =
       reinterpret_cast<const uint4*>(src + static_cast<int64_t>(from) * d);
   const bool scaled = scale != nullptr;
-  const float s = scaled ? scale[scale_by_src ? from : row] : 1.0f;
+  const float s = scaled ? scale[row] : 1.0f;
   for (int v0 = lane; v0 < nv; v0 += 32 * kUnroll) {
     uint4 u[kUnroll];
 #pragma unroll
@@ -406,7 +408,8 @@ __global__ void __launch_bounds__(32 * kRowsPerBlock)
   float acc = 0.0f;
   if (from >= 0) {
     const int nv = d / Pack<T>::N;
-    // Row `row` of a, or with kShared the row its k pairs share.
+    // Row `row` of a, or with kShared the row its k pairs share
+    // (moe_pair_dot, the one entry, launches kShared = true).
     const int a_row = kShared ? row / k : row;
     const uint4* pa =
         reinterpret_cast<const uint4*>(a + static_cast<int64_t>(a_row) * d);
@@ -489,7 +492,7 @@ extern "C" int moe_route(const void* expert, const void* offset, void* pos,
 
 extern "C" int moe_gather_rows(const void* src, const void* idx,
                                const void* scale, void* dst, int n_rows, int d,
-                               int scale_by_src, int elem_bytes, void* stream) {
+                               int elem_bytes, void* stream) {
   if (n_rows == 0) return 0;
   const dim3 block(32, moe::kRowsPerBlock);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -497,34 +500,12 @@ extern "C" int moe_gather_rows(const void* src, const void* idx,
   const float* sc = static_cast<const float*>(scale);
   if (elem_bytes == 2) {
     moe::gather_rows_kernel<__nv_bfloat16><<<moe::row_grid(n_rows), block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(src), i, sc, scale_by_src,
+        static_cast<const __nv_bfloat16*>(src), i, sc,
         static_cast<__nv_bfloat16*>(dst), n_rows, d);
   } else if (elem_bytes == 4) {
     moe::gather_rows_kernel<float><<<moe::row_grid(n_rows), block, 0, s>>>(
-        static_cast<const float*>(src), i, sc, scale_by_src,
-        static_cast<float*>(dst), n_rows, d);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int moe_row_dot(const void* a, const void* b, const void* idx,
-                           void* out, int n_rows, int d, int elem_bytes,
-                           void* stream) {
-  if (n_rows == 0) return 0;
-  const dim3 block(32, moe::kRowsPerBlock);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* i = static_cast<const int*>(idx);
-  float* o = static_cast<float*>(out);
-  if (elem_bytes == 2) {
-    moe::row_dot_kernel<__nv_bfloat16, false><<<moe::row_grid(n_rows), block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a),
-        static_cast<const __nv_bfloat16*>(b), i, o, n_rows, d, 1);
-  } else if (elem_bytes == 4) {
-    moe::row_dot_kernel<float, false><<<moe::row_grid(n_rows), block, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b), i, o,
-        n_rows, d, 1);
+        static_cast<const float*>(src), i, sc, static_cast<float*>(dst),
+        n_rows, d);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

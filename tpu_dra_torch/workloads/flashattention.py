@@ -9,7 +9,7 @@ logsumexp; the backward recomputes probabilities tile by tile from
 added into an fp32 accumulator), for bf16 at D 64 and 128 (every model
 path), at q.k 192 / v 128 (latent attention, mla.py: the caller ropes the
 roped dims, so rope=False) and for the other inputs alike. The kernels are CUDA C++
-(``csrc/``, built and launched by ``_flash_kernels``); this module holds
+(``csrc/``, launched by ``_flash_kernels``); this module holds
 their contract: rope tables, the joint autograd over (out, lse), and the
 ``attend`` dispatch the model calls.
 
@@ -20,9 +20,9 @@ here keeps one stationary tile and streams the other side through
 shared memory at every S, so its shared memory does not grow with S:
 the forward a 128-row Q tile for bf16 at D 64 and 128 (flash_fwd_sm90,
 every model path) and a 64-row one otherwise (flash_fwd: fp32, other
-bf16 head dims; _flash_kernels.fwd_route), the fused backward a 128-key
-K/V tile (flash_bwd_sm90, the same dtypes and head dims;
-_flash_kernels.bwd_route) and a 64-key one otherwise (flash_bwd_mma).
+bf16 head dims), the fused backward a 128-key K/V tile (flash_bwd_sm90,
+the same dtypes and head dims) and a 64-key one otherwise (flash_bwd_mma;
+_flash_kernels.route picks for both directions).
 So one kernel per direction and (dtype, D) serves both tiers: the port
 has no ``_needs_streaming``, no ``STREAM_BLOCKS`` and no ``streaming=``
 flag.

@@ -8,7 +8,8 @@ reference builds dense one-hot [B,S,E,C] dispatch and combine tensors
 (static shapes under jit), the port routes by slot index: each kept token
 gets the slot e·C + c of an [E·C, D] expert buffer and each slot its
 token, so dispatch and combine, and their backward, are row gathers of a
-fixed shape (_moe_kernels: hand-written CUDA kernels on the card, their
+fixed shape: the top-k layer's _Dispatch and _Combine at k = 1, the slots
+as rows (_moe_kernels: hand-written CUDA kernels on the card, their
 plain versions on the CPU). The values are the dense einsums', whose one
 non-zero term per output is rounded once.
 
@@ -132,46 +133,60 @@ def route_top1(x: torch.Tensor, router_w: torch.Tensor, n_experts: int,
 
 
 class _Dispatch(torch.autograd.Function):
-    """buf [E_local·C, D] of x [T, D]: slot s holds x[token_of_slot[s]]
-    (zeros where empty); dx[t] = dbuf[slot[t]] (zeros where dropped)."""
+    """buf [N, D] of x [T, D]: row r holds x[token_of_row[r]] (zeros where
+    it is -1); dx[t] is the sum of dbuf over the token's k rows slot[t·k
+    + j] that are not -1, in fp32 and rounded once. Both routings: top-1
+    at k = 1 with its slots as rows, top-k over the held pairs' rows."""
 
     @staticmethod
-    def forward(ctx, x, slot, token_of_slot):
+    def forward(ctx, x, token_of_row, slot, k):
         ctx.save_for_backward(slot)
-        return mk.gather_rows(x, token_of_slot)
+        ctx.k = k
+        return mk.gather_rows(x, token_of_row)
 
     @staticmethod
     def backward(ctx, dbuf):
         with trace.device_span("moe.dispatch"):
             slot, = ctx.saved_tensors
-            return mk.gather_rows(dbuf, slot), None, None
+            return mk.combine_rows(dbuf, slot, None, ctx.k), None, None, None
 
 
 class _Combine(torch.autograd.Function):
-    """out [T, D] of out_buf [E_local·C, D] and gate [T] fp32:
-    out[t] = gate[t] · out_buf[slot[t]] (zeros where slot[t] < 0), the
-    gate in out_buf's dtype and the product in fp32, rounded once.
-    d(out_buf)[s] = gate[tok] · dout[tok] (tok = token_of_slot[s]) and
-    dgate[t] = dout[t] · out_buf[slot[t]] in fp32."""
+    """out [T, D] of y [N, D]: out[t] = sum_j scale[t·k + j] · y[slot[t·k
+    + j]] over the j with slot >= 0, in fp32 and rounded once. `scale`
+    [T·k] and gate_of_row [N] (fp32, no gradient) are the gates' values
+    as the layer multiplies by them (top-1: rounded to y's dtype, by pair
+    and by row); dy[r] = gate_of_row[r] · dout[token_of_row[r]], and the
+    gradient of `gates` [T·k] fp32 is dout[p // k] · y[slot[p]] in
+    fp32, unrounded."""
 
     @staticmethod
-    def forward(ctx, out_buf, gate, slot, token_of_slot):
-        scale = gate.to(out_buf.dtype).float()
-        ctx.save_for_backward(out_buf, scale, slot, token_of_slot)
-        return mk.gather_rows(out_buf, slot, scale)
+    def forward(ctx, y, gates, scale, slot, token_of_row, gate_of_row, k):
+        ctx.save_for_backward(y, slot, token_of_row, gate_of_row)
+        ctx.k = k
+        return mk.combine_rows(y, slot, scale, k)
 
     @staticmethod
     def backward(ctx, dout):
         with trace.device_span("moe.combine"):
-            out_buf, scale, slot, token_of_slot = ctx.saved_tensors
-            dout = dout.to(out_buf.dtype)
-            d_buf = d_gate = None
+            y, slot, token_of_row, gate_of_row = ctx.saved_tensors
+            dout = dout.to(y.dtype)
+            d_y = d_gates = None
             if ctx.needs_input_grad[0]:
-                d_buf = mk.gather_rows(dout, token_of_slot, scale,
-                                       scale_by_src=True)
+                d_y = mk.gather_rows(dout, token_of_row, gate_of_row)
             if ctx.needs_input_grad[1]:
-                d_gate = mk.row_dot(dout, out_buf, slot)
-            return d_buf, d_gate, None, None
+                d_gates = mk.pair_dot(dout, y, slot, ctx.k)
+            return d_y, d_gates, None, None, None, None, None
+
+
+def top1_scales(gate, token_of_slot, dtype):
+    """(scale [T], gate_of_slot [E_local·C]) fp32, no gradient: the
+    top-1 combine's factors, each token's gate rounded to `dtype` as the
+    reference's combine tensor holds it, and each slot's token's (0
+    where the slot is empty)."""
+    scale = gate.detach().reshape(-1).to(dtype).float()
+    # The -1 of an empty slot reads the pad's 0.
+    return scale, F.pad(scale, (0, 1))[token_of_slot.long()]
 
 
 def _experts(params, x, slot, token_of_slot, gate, compute_dtype):
@@ -184,17 +199,20 @@ def _experts(params, x, slot, token_of_slot, gate, compute_dtype):
     b, s, d = x.shape
     n_local = params["w_up"].shape[0]
     # Dispatch tokens to expert buffers: [E, C, D].
+    slot = slot.reshape(-1)
     with trace.device_span("moe.dispatch"):
-        buffers = _Dispatch.apply(x.to(cd).reshape(b * s, d),
-                                  slot.reshape(-1), token_of_slot)
+        buffers = _Dispatch.apply(x.to(cd).reshape(b * s, d), token_of_slot,
+                                  slot, 1)
         buffers = buffers.view(n_local, -1, d)
     with trace.device_span("moe.experts"):
         h = F.gelu(torch.einsum("ecd,edf->ecf", buffers,
                                 params["w_up"].to(cd)), approximate="tanh")
         out_buf = torch.einsum("ecf,efd->ecd", h, params["w_down"].to(cd))
     with trace.device_span("moe.combine"):
-        out = _Combine.apply(out_buf.reshape(-1, d), gate.reshape(-1),
-                             slot.reshape(-1), token_of_slot)
+        # Scaled by the rounded gate; the gradient reaches the fp32 gate.
+        scale, gate_of_slot = top1_scales(gate, token_of_slot, cd)
+        out = _Combine.apply(out_buf.reshape(-1, d), gate.reshape(-1), scale,
+                             slot, token_of_slot, gate_of_slot, 1)
         return out.view(b, s, d)
 
 
@@ -329,48 +347,6 @@ def route_topk(h: torch.Tensor, router_w: torch.Tensor,
                       offsets[1:], rows, aux)
 
 
-class _DispatchK(torch.autograd.Function):
-    """buf [N, D] of x [T, D]: row r holds x[token_of_row[r]]; dx[t] is
-    the sum of dbuf over the token's held pairs (rows slot[t·k + j])."""
-
-    @staticmethod
-    def forward(ctx, x, token_of_row, slot, k):
-        ctx.save_for_backward(slot)
-        ctx.k = k
-        return mk.gather_rows(x, token_of_row)
-
-    @staticmethod
-    def backward(ctx, dbuf):
-        with trace.device_span("moe.dispatch"):
-            slot, = ctx.saved_tensors
-            return mk.combine_rows(dbuf, slot, None, ctx.k), None, None, None
-
-
-class _CombineK(torch.autograd.Function):
-    """out [T, D] of y [N, D] and gates [T·k] fp32: out[t] = sum_j
-    gates[t·k + j] · y[slot[t·k + j]] over the held pairs, in fp32 and
-    rounded once. dy[r] = gate_of_row[r] · dout[token_of_row[r]];
-    dgates[p] = dout[p // k] · y[slot[p]] in fp32."""
-
-    @staticmethod
-    def forward(ctx, y, gates, slot, token_of_row, gate_of_row, k):
-        ctx.save_for_backward(y, slot, token_of_row, gate_of_row)
-        ctx.k = k
-        return mk.combine_rows(y, slot, gates.detach(), k)
-
-    @staticmethod
-    def backward(ctx, dout):
-        with trace.device_span("moe.combine"):
-            y, slot, token_of_row, gate_of_row = ctx.saved_tensors
-            dout = dout.to(y.dtype)
-            d_y = d_gates = None
-            if ctx.needs_input_grad[0]:
-                d_y = mk.gather_rows(dout, token_of_row, gate_of_row)
-            if ctx.needs_input_grad[1]:
-                d_gates = mk.pair_dot(dout, y, slot, ctx.k)
-            return d_y, d_gates, None, None, None, None
-
-
 def grouped_mm(x: torch.Tensor, w: torch.Tensor, ends: torch.Tensor,
                rows: list) -> torch.Tensor:
     """[N, out] of x [N, in] and w [G, in, out]: rows [rows[g],
@@ -412,15 +388,16 @@ def topk_ffn(params: Dict, h: torch.Tensor, *, top_k: int, experts: range,
     x = h.to(cd).reshape(b * s, d)
     trace.count("moe.row_bytes", d * x.element_size())
     with trace.device_span("moe.dispatch"):
-        buf = _DispatchK.apply(x, route.token_of_row, route.slot, top_k)
+        buf = _Dispatch.apply(x, route.token_of_row, route.slot, top_k)
     with trace.device_span("moe.experts"):
         w_in = torch.cat([params["w_gate"], params["w_up"]], -1).to(cd)
         gate, up = grouped_mm(buf, w_in, route.ends, route.rows).chunk(2, -1)
         y = grouped_mm(F.silu(gate) * up, params["w_down"].to(cd),
                        route.ends, route.rows)
     with trace.device_span("moe.combine"):
-        routed = _CombineK.apply(y, route.gates, route.slot,
-                                 route.token_of_row, route.gate_of_row, top_k)
+        routed = _Combine.apply(y, route.gates, route.gates.detach(),
+                                route.slot, route.token_of_row,
+                                route.gate_of_row, top_k)
     with trace.device_span("moe.shared"):
         shared = swiglu(x, torch.cat([params["shared_gate"],
                                       params["shared_up"]], -1).to(cd),
