@@ -440,6 +440,7 @@ SOURCES = {
     "flash_bwd_sm90": "tpu_dra_torch/workloads/csrc/flash_bwd_sm90.cu",
     "flash_bwd_mma": "tpu_dra_torch/workloads/csrc/flash_bwd_mma.cu",
     "moe_route": "tpu_dra_torch/workloads/csrc/moe_route.cu",
+    "loss_head": "tpu_dra_torch/workloads/csrc/loss_head.cu",
 }
 # Every TPU kernel in the repo, per route: (entry name, timed wrapper,
 # port kernel, replaces). Rows 4-6, the streaming tier, are the same
@@ -499,6 +500,16 @@ MOE_CALL_KERNELS = {"dispatch_fwd": "moe_gather_rows",
                     "combine_fwd": "moe_combine_rows",
                     "dispatch_bwd": "moe_combine_rows",
                     "gate_grad": "moe_pair_dot"}
+# The loss head's rows N = B x (S - 1) and vocabulary V in each cell: both
+# S=1024 cells (B8), flagship.s16k_uniform (B1 x S16384) and
+# moonlight.s8k_uniform (B6 x S8192 over its 20480-id slice).
+LOSS_SHAPES = {"s1k": (8 * 1023, 32768), "s16k": (16383, 32768),
+               "moonlight": (6 * 8191, 20480)}
+# lse within LOSS_TOL relative; nll within LOSS_TOL of max(|nll|, |lse|)
+# (it is lse less one logit); dlogits within one bf16 ulp.
+LOSS_TOL = 2e-6
+LOSS_REPLACES = ("replaces no TPU kernel (the reference computes the loss "
+                 "in XLA, tpu_dra/workloads/model.py: token_nll)")
 
 
 # The dsv3 phase's train step: the DeepSeek-V3 family at Moonlight's
@@ -1356,6 +1367,101 @@ def phase_times_fp32(peak_flops: float, peak_bytes: float) -> dict:
     return time_kernels("times_fp32", s=FP32_LONG_S, peak_flops=peak_flops,
                         peak_bytes=peak_bytes, dtype=torch.float32,
                         inner=3, **LONG_CHECK)
+
+
+def phase_loss_head(peak_bytes: float) -> dict:
+    """The loss head's kernels at each of LOSS_SHAPES (N(0, 3^2) bf16
+    logits, rows 1 and 2 at +60 and -60, random targets, dnll the mean's
+    1/N) against their plain versions on the same card tensors (LOSS_TOL;
+    dlogits within one bf16 ulp), then CUDA-event times beside the plain
+    versions and, as the yardstick the port never calls, F.cross_entropy
+    on the fp32 logits (its forward; its backward alone). Compulsory
+    bytes: each bf16 logit read once forward, read once and its gradient
+    written once backward, and the targets, lse, nll or dnll, 16 B a row
+    each way. Returns {shape: {kernel: {ms, plain_ms, library_ms, bytes,
+    bound_ms, max_abs_err}}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_dra_torch.workloads import _loss_kernels as lk
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    out = {}
+    for name, (n, v) in LOSS_SHAPES.items():
+        logits = (torch.randn(n, v, generator=gen, device="cuda")
+                  * 3).bfloat16()
+        logits[1], logits[2] = 60.0, -60.0
+        targets = torch.randint(0, v, (n,), generator=gen, device="cuda")
+        dnll = torch.full((n,), 1.0 / n, device="cuda")
+        lse, nll = lk.lse_nll(logits, targets)
+        want_lse, want_nll = lk.lse_nll_plain(logits, targets)
+        lse_err = float(((lse - want_lse).abs() / want_lse.abs()).max())
+        nll_err = float(((nll - want_nll).abs() / torch.maximum(
+            want_nll.abs(), want_lse.abs())).max())
+        check(lse_err <= LOSS_TOL and nll_err <= LOSS_TOL,
+              f"loss_lse_nll at {name}: lse off by {lse_err}, nll by "
+              f"{nll_err} relative")
+        d = lk.dlogits(logits, targets, lse, dnll)
+        want_d = lk.dlogits_plain(logits, targets, lse, dnll)
+        ulps = int(lk.bf16_ulps_apart(d, want_d).max())
+        check(ulps <= 1, f"loss_dlogits at {name}: {ulps} bf16 ulps off")
+        d_err = float((d.float() - want_d.float()).abs().max())
+        del d, want_d
+        x32 = logits.float().requires_grad_()
+        ce = F.cross_entropy(x32, targets)
+        fwd_bytes, bwd_bytes = 2 * n * v + 16 * n, 4 * n * v + 16 * n
+        res = {
+            "loss_lse_nll": {
+                "ms": time_ms(lambda: lk.lse_nll(logits, targets)),
+                "plain_ms": time_ms(lambda: lk.lse_nll_plain(logits, targets),
+                                    3, 3),
+                "library_ms": time_ms(lambda: F.cross_entropy(
+                    x32.detach(), targets, reduction="none"), 3, 3),
+                "bytes": fwd_bytes, "bound_ms": fwd_bytes / peak_bytes * 1e3,
+                "max_abs_err": float((nll - want_nll).abs().max())},
+            "loss_dlogits": {
+                "ms": time_ms(lambda: lk.dlogits(logits, targets, lse, dnll)),
+                "plain_ms": time_ms(lambda: lk.dlogits_plain(
+                    logits, targets, lse, dnll), 3, 3),
+                "library_ms": time_ms(lambda: torch.autograd.grad(
+                    ce, x32, retain_graph=True), 3, 3),
+                "bytes": bwd_bytes, "bound_ms": bwd_bytes / peak_bytes * 1e3,
+                "max_abs_err": d_err},
+        }
+        for r in res.values():
+            r["bound_share"] = r["bound_ms"] / r["ms"]
+        emit("loss_head", cell=name, rows=n, vocab=v, lse_rel_err=lse_err,
+             nll_rel_err=nll_err, dlogits_ulps=ulps,
+             peak_bytes_per_s=peak_bytes, kernels=res)
+        out[name] = res
+        del logits, targets, dnll, lse, nll, want_lse, want_nll, x32, ce
+        _free()
+    return out
+
+
+def check_loss_launches(where: str, step_calls: int, counts=None) -> dict:
+    """The loss head's launch counts since the last reset (or in
+    `counts`) on a bf16 model path: each kernel once per step call."""
+    from tpu_dra_torch.workloads import _loss_kernels as lk
+
+    got = kernel_launches(lk.ARGTYPES, counts)
+    want = dict.fromkeys(lk.ARGTYPES, step_calls)
+    check(got == want, f"loss kernel launches {got} in {where}, want {want}")
+    return got
+
+
+def loss_kernel_rows(times: dict, launches: dict) -> list:
+    """The kernels line's rows of the loss head's kernels, one per kernel
+    and shape of LOSS_SHAPES: phase_loss_head's `times` and the launches
+    per step call of the main path (`launches`)."""
+    return [{"name": f"{kernel}_{shape}", "route": "cuda",
+             "source": SOURCES["loss_head"], "replaces": LOSS_REPLACES,
+             "launches": launches[kernel], "max_abs_err": t["max_abs_err"],
+             "ms": t["ms"], "plain_ms": t["plain_ms"],
+             "bound_ms": t["bound_ms"], "bound_by": "bytes",
+             "library_ms": t["library_ms"]}
+            for shape, kernels in times.items()
+            for kernel, t in kernels.items()]
 
 
 def kernel_launches(entries, counts=None) -> dict:
@@ -2853,7 +2959,8 @@ def phase_main_path() -> tuple[dict, dict]:
     check(math.isfinite(res["loss"]), f"non-finite loss {res['loss']}")
     counts = check_path_launches("the main path",
                                  res["n_layers"] * res["step_calls"])
-    return res, counts
+    loss = check_loss_launches("the main path", res["step_calls"])
+    return {**res, "loss_launches": loss}, counts
 
 
 def phase_long_context() -> tuple[dict, dict]:
@@ -2873,6 +2980,7 @@ def phase_long_context() -> tuple[dict, dict]:
         check(math.isfinite(res["loss"]), f"non-finite {prefix} loss")
         counts = check_path_launches(prefix,
                                      res["n_layers"] * res["step_calls"])
+        check_loss_launches(prefix, res["step_calls"])
     return counts, {**res, "kernel_launches": counts}
 
 
@@ -2894,6 +3002,7 @@ def phase_remat(xl_none: dict) -> dict:
         counts = check_path_launches(
             f"long_ctx_xl remat={remat}", res["n_layers"] * res["step_calls"],
             forward_runs=res["forward_runs"])
+        check_loss_launches(f"long_ctx_xl remat={remat}", res["step_calls"])
         check(math.isfinite(res["loss"]), f"non-finite remat={remat} loss")
         out[remat] = {**res, "kernel_launches": counts}
     emit("remat", seq=XL_S, readings={
@@ -2921,6 +3030,7 @@ def phase_moe() -> dict:
     res = bench.bench_moe(steps=3)
     _free()
     counts = check_path_launches("moe", res["n_layers"] * res["step_calls"])
+    check_loss_launches("moe", res["step_calls"])
     moe_counts = kernel_launches(mk.ARGTYPES)
     per_block = res["moe_blocks"] * res["step_calls"]
     want = {name: n * per_block
@@ -2970,6 +3080,7 @@ def phase_dsv3() -> dict:
             for name, n in MOE_BLOCK_LAUNCHES["topk"].items()}
     check(moe_counts == want,
           f"dsv3 moe kernel launches {moe_counts}, want {want}")
+    check_loss_launches("dsv3", DSV3_STEPS)
     check(all(math.isfinite(x) for x in losses), f"dsv3 losses {losses}")
     dims = f"{cfg.qk_nope_dim + cfg.qk_rope_dim}x{cfg.v_head_dim}"
     res = {"attention": {dims: attention}, "moe": moe_counts,
@@ -3282,6 +3393,7 @@ def main() -> int:
     mla_times = phase_times_mla(peak_bf16, peak_bytes)
     moe_times = phase_moe_kernels(peak_bytes)
     _free()
+    loss_times = phase_loss_head(peak_bytes)
     claim = phase_claim_path()
     phase_compute_domain()
     phase_cluster(claim["claim_path"]["child"])
@@ -3292,7 +3404,7 @@ def main() -> int:
     phase_analysis()
     phase_race()
     phase_scale()
-    _, counts = phase_main_path()
+    main_res, counts = phase_main_path()
     _free()
     counts_xl, xl_none = phase_long_context()
     phase_remat(xl_none)
@@ -3327,6 +3439,9 @@ def main() -> int:
     kernels += moe_kernel_rows(moe_times, {
         "top1": moe_res["moe_kernel_launches"], "topk": dsv3_res["moe"]})
     kernels += mla_kernel_rows(mla_checks, mla_times, dsv3_res["attention"])
+    kernels += loss_kernel_rows(loss_times, {
+        name: n // main_res["step_calls"]
+        for name, n in main_res["loss_launches"].items()})
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(info["nvidia_smi"] or f"{info['name']}, power limit not reported")

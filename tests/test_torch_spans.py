@@ -47,6 +47,7 @@ PARENT = {
     "moe.route": "step.forward", "moe.dispatch": "step.forward",
     "moe.experts": "step.forward", "moe.combine": "step.forward",
     "mla.project": "step.forward", "moe.shared": "step.forward",
+    "loss.head": "step.forward",
 }
 MOE_SPANS = {"moe.route", "moe.dispatch", "moe.experts", "moe.combine"}
 # Ranges only the DeepSeek-V3 family opens (MLA's projections, the shared
@@ -203,6 +204,7 @@ class TestRangesInTheStep:
             held[r[2], holder[2]] += 1
         assert held["attention.fwd", "step.forward"] == cfg.n_layers
         assert held["attention.bwd", "step.backward"] == cfg.n_layers
+        assert held["loss.head", "step.forward"] == 1
         if cfg is not DENSE:
             n_moe = sum(cfg.is_moe_block(i) for i in range(cfg.n_layers))
             assert all(held[n, "step.forward"] == n_moe for n in MOE_SPANS)

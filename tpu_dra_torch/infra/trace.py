@@ -48,9 +48,9 @@ Ownership and hot-path rules:
 Beside the claim tracer sits the **device plane**: named ranges and
 counters inside the train step, on torch.profiler's clock, so that every
 device operation and idle gap of a profiled step falls under a program
-range (``device_span``, names in DEVICE_SPANS) and the MoE router's work
-is counted where it happens (``count``, names in DEVICE_COUNTERS). Its
-hot-path rules:
+range (``device_span``, names in DEVICE_SPANS) and the MoE router's and
+the loss head's work is counted where it happens (``count``, names in
+DEVICE_COUNTERS). Its hot-path rules:
 
 - Off (no torch.profiler session recording) a range costs one read of
   the profiler's Python flag and returns one shared no-op context: no
@@ -720,6 +720,7 @@ DEVICE_SPANS = (
     "mla.project",     # mla.MLA: q, kv_a, kv_b projections, kv norm, rope,
                        # q and k assembled
     "moe.shared",      # moe.topk_ffn: the shared expert
+    "loss.head",       # model.lm_loss: the head's GEMM and the loss
 )
 
 # Every counter: tokens kept within capacity (a device tensor), expert
@@ -727,10 +728,12 @@ DEVICE_SPANS = (
 # per route_topk call the held (token, k) pairs, the largest held
 # expert's pairs and the tokens with a held pair (device tensors), and
 # B x S, the experts held, the (token, k) pairs selected B x S x k and
-# the bytes of one token's row in the experts' buffer (host ints).
+# the bytes of one token's row in the experts' buffer (host ints); the
+# rows of logits the loss head's kernels took, B x (S - 1) per step (a
+# host int, per model._FusedNLL call).
 DEVICE_COUNTERS = ("moe.kept", "moe.slots", "moe.routed", "moe.assigned",
                    "moe.load_max", "moe.tokens_held", "moe.held",
-                   "moe.selected", "moe.row_bytes")
+                   "moe.selected", "moe.row_bytes", "loss.fused_rows")
 
 
 class _NoSpan:

@@ -160,23 +160,26 @@ class DSV3LM(_dense.TransformerLM):
     def head(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = _dense._rmsnorm(x, self.final_norm, cfg.norm_eps)
-        return (x @ self.unembed.to(cfg.dtype)).float()
+        return x @ self.unembed.to(cfg.dtype)
 
-    def forward(self, tokens: torch.Tensor):
+    def trunk(self, tokens: torch.Tensor):
         x = self.embed_tokens(tokens)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.blocks:
             x, aux = self.block_call(block, x)
             if aux is not None:
                 aux_total = aux_total + aux
-        return self.head(x), aux_total
+        return x, aux_total
+
+    def forward(self, tokens: torch.Tensor):
+        x, aux = self.trunk(tokens)
+        return self.head(x).float(), aux
 
 
 def loss_fn(model: DSV3LM, tokens: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross-entropy plus aux_weight times the summed
-    balance losses."""
-    logits, aux = model(tokens[:, :-1])
-    nll = _dense.token_nll(model, logits, tokens[:, 1:]).mean()
+    """Mean next-token cross-entropy (model.lm_loss) plus aux_weight
+    times the summed balance losses."""
+    nll, aux = _dense.lm_loss(model, tokens)
     return nll + model.cfg.aux_weight * aux
 
 

@@ -48,8 +48,8 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
-from tpu_dra_torch.infra.trace import device_span
-from tpu_dra_torch.workloads import _dist
+from tpu_dra_torch.infra.trace import count, device_span
+from tpu_dra_torch.workloads import _dist, _loss_kernels
 from tpu_dra_torch.workloads.flashattention import attend
 
 Params = Dict[str, Any]
@@ -341,7 +341,8 @@ class Block(nn.Module):
 
 class TransformerLM(nn.Module):
     """forward(tokens [B, S]) -> fp32 logits [B, S, vocab]; on a mesh
-    with a 'model' axis, this rank's vocab shard of them.
+    with a 'model' axis, this rank's vocab shard of them. The loss takes
+    ``head(trunk(tokens)[0])``, the logits in cfg.dtype.
 
     `params` is the full tree on one device, or this rank's shard
     (shard_params) on `mesh` (a _dist.Mesh)."""
@@ -377,29 +378,61 @@ class TransformerLM(nn.Module):
         return remat_call(self.cfg.remat, block, x)
 
     def head(self, x: torch.Tensor) -> torch.Tensor:
+        """The logits of the blocks' output x, in cfg.dtype."""
         cfg = self.cfg
         x = _rmsnorm(x, torch.ones(cfg.d_model, device=x.device),
                      cfg.norm_eps)
         x = _dist.copy_to(x, self.tp)
-        return (x @ self.unembed.to(cfg.dtype)).float()
+        return x @ self.unembed.to(cfg.dtype)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def trunk(self, tokens: torch.Tensor):
+        """(the blocks' output [B, S, d_model], the auxiliary loss: None
+        for the dense model)."""
         x = self.embed_tokens(tokens)
         for block in self.blocks:
             x = self.block_call(block, x)
-        return self.head(x)
+        return x, None
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return self.head(self.trunk(tokens)[0]).float()
+
+
+class _FusedNLL(torch.autograd.Function):
+    """nll [N] of logits [N, V] and targets [N] by the loss head's
+    kernels (_loss_kernels: their plain versions on the CPU). Saves the
+    logits as they came, lse and the targets: no fp32 [N, V] tensor."""
+
+    @staticmethod
+    def forward(ctx, logits, targets):
+        lse, nll = _loss_kernels.lse_nll(logits, targets)
+        ctx.save_for_backward(logits, targets, lse)
+        count("loss.fused_rows", logits.shape[0])
+        return nll
+
+    @staticmethod
+    def backward(ctx, dnll):
+        logits, targets, lse = ctx.saved_tensors
+        return _loss_kernels.dlogits(logits, targets, lse, dnll), None
 
 
 def token_nll(model: TransformerLM, logits: torch.Tensor,
               targets: torch.Tensor) -> torch.Tensor:
-    """Per-token nll = logsumexp(logits) - logits[target]: the
-    log_softmax + gather math without a [B, S, V] fp32 log-prob array.
-    On a 'model' axis the logits are this rank's vocab shard: the
-    logsumexp is a max and a sum all-reduced, the target logit a masked
-    gather all-reduced."""
+    """Per-token nll = logsumexp(logits) - logits[target], fp32, of
+    logits [..., V] in any float dtype. bf16 logits on a card with no
+    'model' axis take the loss head's kernels (_FusedNLL), which read
+    them in bf16 and write their gradient in bf16; any other logits are
+    cast to fp32 and take logsumexp and a gather (the kernels' plain
+    versions). On a 'model' axis the logits are this rank's vocab shard:
+    the logsumexp is a max and a sum all-reduced, the target logit a
+    masked gather all-reduced."""
     if model.tp_size == 1:
-        lse = torch.logsumexp(logits, dim=-1)
-        return lse - logits.gather(-1, targets[..., None])[..., 0]
+        if (logits.device.type == "cuda"
+                and logits.dtype == _loss_kernels.KERNEL_DTYPE):
+            nll = _FusedNLL.apply(logits.reshape(-1, logits.shape[-1]),
+                                  targets.reshape(-1))
+            return nll.view(targets.shape)
+        return _loss_kernels.lse_nll_plain(logits, targets)[1]
+    logits = logits.float()
     group = model.tp
     with torch.no_grad():
         peak = logits.amax(-1)
@@ -415,10 +448,21 @@ def token_nll(model: TransformerLM, logits: torch.Tensor,
     return lse - target_logit
 
 
+def lm_loss(model: TransformerLM, tokens: torch.Tensor):
+    """(mean next-token nll over `tokens`' batch, the trunk's auxiliary
+    loss) of any of the LM families: the head's logits in cfg.dtype go
+    to token_nll as they are. Under torch.profiler the head and the loss
+    are the range ``loss.head``."""
+    x, aux = model.trunk(tokens[:, :-1])
+    with device_span("loss.head"):
+        logits = model.head(x)
+        nll = token_nll(model, logits, tokens[:, 1:]).mean()
+    return nll, aux
+
+
 def loss_fn(model: TransformerLM, tokens: torch.Tensor) -> torch.Tensor:
     """Mean next-token nll over `tokens`' batch."""
-    logits = model(tokens[:, :-1])
-    return token_nll(model, logits, tokens[:, 1:]).mean()
+    return lm_loss(model, tokens)[0]
 
 
 def build_train_step(model: nn.Module, lr: float = 1e-3, loss=loss_fn):

@@ -107,7 +107,7 @@ class MoETransformerLM(_dense.TransformerLM):
             return MoEBlock(self.cfg, leaves, self.mesh)
         return _dense.Block(self.cfg, leaves, self.mesh)
 
-    def forward(self, tokens: torch.Tensor):
+    def trunk(self, tokens: torch.Tensor):
         x = self.embed_tokens(tokens)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, block in enumerate(self.blocks):
@@ -116,14 +116,17 @@ class MoETransformerLM(_dense.TransformerLM):
                 aux_total = aux_total + aux
             else:
                 x = self.block_call(block, x)
-        return self.head(x), aux_total
+        return x, aux_total
+
+    def forward(self, tokens: torch.Tensor):
+        x, aux = self.trunk(tokens)
+        return self.head(x).float(), aux
 
 
 def loss_fn(model: MoETransformerLM, tokens: torch.Tensor) -> torch.Tensor:
-    """LM cross-entropy (the dense model's logsumexp form) plus the
+    """LM cross-entropy (the dense model's, model.lm_loss) plus the
     weighted router load-balancing aux."""
-    logits, aux = model(tokens[:, :-1])
-    nll = _dense.token_nll(model, logits, tokens[:, 1:]).mean()
+    nll, aux = _dense.lm_loss(model, tokens)
     return nll + model.cfg.router_aux_weight * aux
 
 
