@@ -433,6 +433,14 @@ FP32_MODEL_ATTN = dict(b=1, h=4, d=128)   # parity_fp32's attention
 MLA_ATTN = dict(b=6, h=16)
 MLA_S = 8191
 MLA_HEAD_DIMS = ((192, 128), (128, 128))
+# The MiMo-V2-Flash cell's attention calls (B1, S 32767 trained positions,
+# 64 query heads at (192, 128)): a global layer's over 4 K/V heads (dlse
+# zero: its lse has no consumer), a window layer's over 8 with a 128-key
+# window (dlse nonzero: the sink rescale reads its lse).
+MIMO_S = 32767
+MIMO_HEADS = 64
+MIMO_CALLS = {"global": dict(hkv=4, window=0),
+              "window": dict(hkv=8, window=128)}
 H100_SXM = "NVIDIA H100 80GB HBM3"
 SOURCES = {
     "flash_fwd_sm90": "tpu_dra_torch/workloads/csrc/flash_fwd_sm90.cu",
@@ -520,6 +528,16 @@ DSV3_STEP = dict(vocab=2048, d_model=2048, n_heads=16, n_layers=3,
                  v_head_dim=128, kv_rank=512, moe_d_ff=1408, n_routed=64,
                  experts_held=(0, TOPK_HELD), top_k=TOPK_K, n_shared=2)
 DSV3_BATCH, DSV3_STEPS = 2, 2
+# The mimo phase's train step: the MiMo-V2-Flash family at its published
+# widths and the cell's seven layers (global dense, window x 4, global,
+# window; 8 of 256 experts held, top-8), B1 x S4096 and a 2048-id
+# vocabulary.
+MIMO_STEP = dict(vocab=2048, d_model=4096, n_heads=MIMO_HEADS, n_layers=7,
+                 d_ff=16384, max_seq=4096, n_kv_heads=4, swa_kv_heads=8,
+                 qk_head_dim=192, v_head_dim=128, rope_dims=64,
+                 window=128, hybrid_pattern=(0, 1, 1, 1, 1, 0, 1),
+                 sink_offset=math.log(128), first_dense=1, moe_d_ff=2048,
+                 n_routed=256, experts_held=(0, 8), top_k=8)
 # What a bf16 model path at D=128 launches per forward/backward: the
 # Hopper kernels, never the mma.sync ones.
 MODEL_PATH_KERNELS = ("flash_fwd_sm90", "flash_bwd_sm90")
@@ -995,26 +1013,32 @@ def time_ms(fn, reps: int = 5, inner: int = 10) -> float:
 
 
 def bounds(b, s, h, d, peak_flops, peak_bytes, elem=2, dv=None,
-           rope=True) -> dict:
+           rope=True, hkv=None, window=0) -> dict:
     """Least time for each kernel's work at this shape (q and k of head
-    dim d, v of dv, d by default; the rope tables read where `rope`): the
-    larger of its tensor-core FLOPs (causal pairs only) over `peak_flops`
-    and its compulsory bytes (each input read once, each output written
-    once, in elements of `elem` bytes) over the memory rate."""
-    dv = dv or d
-    pairs = b * h * s * (s + 1) // 2
-    qk = b * s * h * d * elem         # one [B, S, H, D] operand
-    vo = b * s * h * dv * elem        # one [B, S, H, Dv] operand
+    dim d, v of dv, d by default; k and v at `hkv` heads, h by default;
+    the rope tables read where `rope`): the larger of its tensor-core
+    FLOPs (the causal pairs only, or with a `window` the band's, B H sum
+    of min(i + 1, W)) over `peak_flops` and its compulsory bytes (each
+    input read once, each output written once, in elements of `elem`
+    bytes) over the memory rate."""
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+
+    dv, hkv = dv or d, hkv or h
+    pairs = b * h * fk.band_pairs(s, window or s)
+    q = b * s * h * d * elem          # q (or dq): [B, S, H, D]
+    k = b * s * hkv * d * elem        # k (or dk): [B, S, Hkv, D]
+    v = b * s * hkv * dv * elem       # v (or dv): [B, S, Hkv, Dv]
+    o = b * s * h * dv * elem         # o (or dO): [B, S, H, Dv]
     row = b * h * s * 4               # one fp32 [B, H, S] row vector
     tables = 2 * s * d * elem if rope else 0   # cos and sinm
     work = {
         # q, k, v in; o, lse out. QK^T and PV.
-        "flash_fwd": (2 * (d + dv) * pairs, 2 * qk + 2 * vo + row + tables),
+        "flash_fwd": (2 * (d + dv) * pairs, q + k + v + o + row + tables),
         # The fused backward: q, k, v, dO, lse, delta, dlse in; dq, dk, dv
         # out. QK^T, dO V^T, P^T dO, dS^T Q, dS K (its fp32 dQ
         # accumulator is scratch).
         "flash_bwd": (2 * (3 * d + 2 * dv) * pairs,
-                      4 * qk + 3 * vo + 3 * row + tables),
+                      2 * q + 2 * k + 2 * v + o + 3 * row + tables),
     }
     out = {}
     for name, (flops, nbytes) in work.items():
@@ -1348,6 +1372,173 @@ def phase_times_mla(peak_flops: float, peak_bytes: float) -> dict:
         f"times_mla_{dqk}x{dv}", s=MLA_S, d=dqk, dv=dv, rope=False,
         peak_flops=peak_flops, peak_bytes=peak_bytes, plain_h=PLAIN_HEADS,
         inner=3, **MLA_ATTN) for dqk, dv in MLA_HEAD_DIMS}
+
+
+def check_groups(args, got, window, groups) -> dict:
+    """The grouped (and windowed) kernels' outputs `got` (o, lse, dq, dk,
+    dv) on `args` (q, k, v, dout, lse, delta, dlse, tables) against their
+    plain versions on the same tensors, for K/V heads `groups`, one query
+    head at a time (the dense plain backward at S 32767 holds [B, 1, S,
+    S] fp32 tensors of 4.3 GB): o, lse and dq per query head; dk and dv
+    of a K/V head as its query heads' plain partials summed in fp32 (each
+    rounded to bf16 first, within TOL_REL's room). Held at the (192, 128)
+    instances' tolerances (TOL_REL, TOL_LSE). Returns the readings."""
+    import torch
+
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+
+    q, k, v, dout, lse, delta, dlse, tables = args
+    o, lse_k, dq, dk, dv = got
+    group = q.shape[2] // k.shape[2]
+    names = ("out", "lse", "dq", "dk", "dv")
+    diffs = {name: Diff() for name in names}
+    for g in groups:
+        dk_ref = dv_ref = 0
+        for h in range(g * group, (g + 1) * group):
+            hs, gs = slice(h, h + 1), slice(g, g + 1)
+            sub = (q[:, :, hs], k[:, :, gs], v[:, :, gs], dout[:, :, hs],
+                   lse[:, hs], delta[:, hs], dlse[:, hs], tables)
+            o_ref, lse_ref = fk.fwd_plain(*sub[:3], tables, causal=True,
+                                          window=window)
+            diffs["out"].add(o[:, :, hs], o_ref)
+            diffs["lse"].add(lse_k[:, hs], lse_ref)
+            dq_ref, dk_h, dv_h = fk.bwd_plain(*sub, causal=True,
+                                              window=window)
+            diffs["dq"].add(dq[:, :, hs], dq_ref)
+            dk_ref, dv_ref = dk_ref + dk_h.float(), dv_ref + dv_h.float()
+            del sub, o_ref, lse_ref, dq_ref, dk_h, dv_h
+        diffs["dk"].add(dk[:, :, g:g + 1], dk_ref)
+        diffs["dv"].add(dv[:, :, g:g + 1], dv_ref)
+        del dk_ref, dv_ref
+    res = {"groups": list(groups), "lse_abs": diffs["lse"].abs,
+           **{f"{n}_rel": diffs[n].rel for n in names if n != "lse"},
+           **{f"{n}_abs": diffs[n].abs for n in names if n != "lse"}}
+    for key in ("out_rel", "dq_rel", "dk_rel", "dv_rel"):
+        check(res[key] <= TOL_REL, f"{key} {res[key]} > {TOL_REL} at "
+                                   f"window {window}: {res}")
+    check(res["lse_abs"] <= TOL_LSE,
+          f"lse_abs {res['lse_abs']} > {TOL_LSE} at window {window}")
+    return res
+
+
+def phase_mimo_attention(peak_flops: float, peak_bytes: float) -> dict:
+    """The Hopper kernels' grouped and window calls at the MiMo-V2-Flash
+    cell's shapes (MIMO_CALLS at S=MIMO_S, (192, 128)): the forward and
+    the fused backward once, held against their plain versions on the
+    same tensors for the first and the last K/V head's query heads
+    (check_groups); then CUDA-event times of both, the bound (bounds with
+    Hkv and the window), the plain versions' times at one query head over
+    one K/V head, and PyTorch's SDPA as the yardstick (GQA through
+    enable_gqa; the window through a boolean band mask; None where SDPA
+    refuses the shape or runs out of memory), plus the forward's (Q tile,
+    K tile) visits a call (fwd_tiles x B x Hq, the counter
+    attention.window_tiles) against the causal triangle's. Returns
+    {"global" | "window": {"checks": readings, wrapper: readings}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+
+    out = {}
+    b, s, hq, dqk, dv = 1, MIMO_S, MIMO_HEADS, 192, 128
+    for kind, call in MIMO_CALLS.items():
+        hkv, window = call["hkv"], call["window"]
+        gen = torch.Generator(device="cuda").manual_seed(41)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+
+        def operands(hq, hkv):
+            q, kv = randn(b, s, hq, dqk), randn(b, s, hkv, dqk + dv)
+            k, v = kv[..., :dqk], kv[..., dqk:]
+            dout = randn(b, s, hq, dv)
+            dlse = torch.randn(b, hq, s, generator=gen, device="cuda") * (
+                0.1 if window else 0.0)
+            o, lse = fk.fwd(q, k, v, None, causal=True, window=window)
+            delta = (dout.float() * o.float()).sum(-1).transpose(1, 2)
+            return (q, k, v, dout, lse, delta.contiguous(), dlse, None), o
+
+        args, o = operands(hq, hkv)
+        q, k, v = args[:3]
+        got = (o, args[4], *fk.bwd(*args, causal=True, window=window))
+        torch.cuda.synchronize()
+        checks = check_groups(args, got, window, (0, hkv - 1))
+        del got, o
+        _free()
+        ms = {"flash_fwd": time_ms(lambda: fk.fwd(q, k, v, None, causal=True,
+                                                  window=window), inner=3),
+              "flash_bwd": time_ms(lambda: fk.bwd(*args, causal=True,
+                                                  window=window), inner=3)}
+        library = {"flash_fwd": None, "flash_bwd": None}
+        qt = kt = vt = None
+        try:
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                          for x in (q, k, v))
+            mask = (None if not window else
+                    fk.band_mask(s, window, torch.device("cuda")))
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                    enable_gqa=True)
+            library["flash_fwd"] = time_ms(sdpa, 3, 1)
+            o_t = sdpa()
+            do_t = args[3].transpose(1, 2).contiguous()
+            library["flash_bwd"] = time_ms(lambda: torch.autograd.grad(
+                o_t, (qt, kt, vt), do_t, retain_graph=True), 3, 1)
+            del o_t, do_t
+        except (RuntimeError, torch.OutOfMemoryError):
+            pass
+        del qt, kt, vt, q, k, v, args
+        _free()
+        args, _ = operands(1, 1)
+        q, k, v = args[:3]
+        plain_ms = {
+            "flash_fwd": time_ms(lambda: fk.fwd_plain(
+                q, k, v, None, causal=True, window=window), 3, 1),
+            "flash_bwd": time_ms(lambda: fk.bwd_plain(
+                *args, causal=True, window=window), 3, 1)}
+        del q, k, v, args
+        _free()
+        bnd = bounds(b, s, hq, dqk, peak_flops, peak_bytes, dv=dv,
+                     rope=False, hkv=hkv, window=window)
+        out[kind] = {name: {"ms": ms[name], "plain_ms": plain_ms[name],
+                            "library_ms": library[name], **bnd[name]}
+                     for name in ms}
+        out[kind]["checks"] = checks
+        emit(f"mimo_attention_{kind}",
+             shape=dict(b=b, s=s, hq=hq, hkv=hkv, dqk=dqk, dv=dv,
+                        window=window, causal=True, rope=False),
+             fwd_tiles=b * hq * fk.fwd_tiles(s, window),
+             causal_tiles=b * hq * fk.fwd_tiles(s, 0),
+             plain_shape=dict(b=b, s=s, hq=1, hkv=1), **out[kind])
+    return out
+
+
+def mimo_kernel_rows(times: dict, launches: dict) -> list:
+    """The kernels line's rows of the grouped (global) and window calls
+    at the MiMo-V2-Flash cell's shapes: phase_mimo_attention's `times`
+    and checks, and the launches a step of each kind phase_mimo counted
+    ({"global" | "window": {kernel: n}})."""
+    rows = []
+    for kind, t in times.items():
+        res = t["checks"]
+        err = {"flash_fwd": res["out_abs"],
+               "flash_bwd": max(res[f"{n}_abs"] for n in ("dq", "dk", "dv"))}
+        for wrapper, kname in (("flash_fwd", "flash_fwd_sm90"),
+                               ("flash_bwd", "flash_bwd_sm90")):
+            rows.append({
+                "name": f"{wrapper}_mimo_{kind}", "route": "cuda",
+                "source": SOURCES[kname],
+                "replaces": "no TPU kernel (grouped K/V heads, a window)",
+                "launches": launches[kind][kname],
+                "max_abs_err": err[wrapper],
+                "ms": t[wrapper]["ms"], "plain_ms": t[wrapper]["plain_ms"],
+                "bound_ms": t[wrapper]["bound_ms"],
+                "bound_by": t[wrapper]["bound_by"],
+                "library_ms": t[wrapper]["library_ms"]})
+    return rows
 
 
 def phase_times(peak_flops: float, peak_bytes: float) -> dict:
@@ -3093,6 +3284,93 @@ def phase_dsv3() -> dict:
     return res
 
 
+def phase_mimo() -> dict:
+    """A bf16 train step of the MiMo-V2-Flash family (MIMO_STEP: its
+    published widths and the cell's seven layers) on the card, launch
+    counts zeroed just before one step call and read just after, under a
+    host-only profiler session so the step's own counters and ranges
+    record: every attention call through the Hopper kernels (none through
+    the mma ones), one forward and one backward per layer, the window
+    calls those under the range attention.window (one per window layer);
+    attention.window_tiles the band's tile count (fwd_tiles) per window
+    call, not the causal triangle's; every MoE block's routing through
+    the top-k kernels. Returns {"global" | "window": {kernel: launches a
+    step}}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_dra_torch.infra import trace
+    from tpu_dra_torch.workloads import _cuda
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _moe_kernels as mk
+    from tpu_dra_torch.workloads import mimo_model as mm
+
+    cfg = mm.MiMoConfig(**MIMO_STEP)
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    params = mm.init_params(cfg, gen)
+    sinks = [blk["attn"]["sinks"].clone() for blk in params["blocks"]
+             if "sinks" in blk["attn"]]
+    step = mm.make_train_step(mm.MiMoLM(cfg, params))
+    tokens = torch.randint(0, cfg.vocab, (1, cfg.max_seq + 1),
+                           generator=gen, device="cuda")
+    step(tokens)   # the first call builds the kernels
+    torch.cuda.synchronize()
+    trace.read_counters()
+    _cuda.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        loss = step(tokens).item()
+        torch.cuda.synchronize()
+    counts = trace.read_counters()
+    attention = kernel_launches(fk.ARGTYPES)
+    n_window = sum(cfg.hybrid_pattern)
+    want = {name: cfg.n_layers if name in (fk.FWD_KERNELS["sm90"],
+                                           fk.BWD_KERNELS["sm90"]) else 0
+            for name in fk.ARGTYPES}
+    check(attention == want,
+          f"mimo attention launches {attention}, want {want}")
+    ranges = sum(e.count for e in prof.key_averages()
+                 if e.key == "attention.window")
+    check(ranges == n_window,
+          f"mimo attention.window ranges {ranges}, want {n_window}")
+    s = cfg.max_seq
+    tiles = n_window * cfg.n_heads * fk.fwd_tiles(s, cfg.window)
+    pairs = n_window * cfg.n_heads * fk.band_pairs(s, cfg.window)
+    check(counts.get("attention.window_tiles") == tiles
+          and tiles < n_window * cfg.n_heads * fk.fwd_tiles(s, 0),
+          f"mimo attention.window_tiles {counts.get('attention.window_tiles')}"
+          f", want the band's {tiles}")
+    check(counts.get("attention.window_pairs") == pairs,
+          f"mimo attention.window_pairs {counts.get('attention.window_pairs')}"
+          f", want {pairs}")
+    moe_counts = kernel_launches(mk.ARGTYPES)
+    blocks = cfg.n_layers - cfg.first_dense
+    want = {name: n * blocks
+            for name, n in MOE_BLOCK_LAUNCHES["topk"].items()}
+    check(moe_counts == want,
+          f"mimo moe kernel launches {moe_counts}, want {want}")
+    check_loss_launches("mimo", 1)
+    check(math.isfinite(loss), f"mimo loss {loss}")
+    moved = [not torch.equal(blk["attn"]["sinks"], before) for blk, before
+             in zip((b for b in params["blocks"] if "sinks" in b["attn"]),
+                    sinks)]
+    check(all(moved), f"mimo sinks moved by the step: {moved}")
+    # Each layer's call launches one forward and one backward: the window
+    # layers' are those under attention.window, the rest the global ones.
+    per_kind = {"window": ranges, "global": cfg.n_layers - ranges}
+    res = {kind: {name: n // cfg.n_layers * calls
+                  for name, n in attention.items()}
+           for kind, calls in per_kind.items()}
+    emit("mimo", n_layers=cfg.n_layers, pattern=list(cfg.hybrid_pattern),
+         seq=s, loss=loss, launches=attention, window_ranges=ranges,
+         window_tiles=counts["attention.window_tiles"],
+         causal_tiles=n_window * cfg.n_heads * fk.fwd_tiles(s, 0),
+         window_pairs=counts["attention.window_pairs"], moe=moe_counts,
+         per_kind=res)
+    del step, params
+    _free()
+    return res
+
+
 def phase_ring_local() -> dict:
     """An N=RING_N ring emulated in one process at long_ctx_xl's attention
     shape (B1 S16384 H16 D128 bf16, rope off): each rank's steps in turn
@@ -3391,6 +3669,9 @@ def main() -> int:
     times_fp32 = phase_times_fp32(
         gpuinfo.PEAK_TF32_TFLOPS[H100_SXM] * 1e12 / 3, peak_bytes)
     mla_times = phase_times_mla(peak_bf16, peak_bytes)
+    _free()
+    mimo_times = phase_mimo_attention(peak_bf16, peak_bytes)
+    _free()
     moe_times = phase_moe_kernels(peak_bytes)
     _free()
     loss_times = phase_loss_head(peak_bytes)
@@ -3410,6 +3691,7 @@ def main() -> int:
     phase_remat(xl_none)
     moe_res = phase_moe()
     dsv3_res = phase_dsv3()
+    mimo_res = phase_mimo()
     phase_ring_local()
     phase_mesh_workloads()
     phase_model_parity()
@@ -3439,6 +3721,7 @@ def main() -> int:
     kernels += moe_kernel_rows(moe_times, {
         "top1": moe_res["moe_kernel_launches"], "topk": dsv3_res["moe"]})
     kernels += mla_kernel_rows(mla_checks, mla_times, dsv3_res["attention"])
+    kernels += mimo_kernel_rows(mimo_times, mimo_res)
     kernels += loss_kernel_rows(loss_times, {
         name: n // main_res["step_calls"]
         for name, n in main_res["loss_launches"].items()})

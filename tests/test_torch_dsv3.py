@@ -276,7 +276,8 @@ class TestSplitHeadDims:
         kv = torch.zeros(2, 64, 2, 256, dtype=torch.bfloat16)
         v = kv[..., 128:]
         assert fk._dims(q, True, None, v) == (
-            2, 64, 2, 192, 128, *q.stride()[:3], *kv.stride()[:3], 1, 0, 2)
+            2, 64, 2, 2, 192, 128, *q.stride()[:3], *q.stride()[:3],
+            *kv.stride()[:3], 1, 0, 0, 2)
 
 
 # ---------------------------------------------------------------------------

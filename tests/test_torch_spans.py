@@ -4,8 +4,9 @@ the CPU under torch.profiler's CPU activity.
 
 - Off (no profiler session), a range is the one shared no-op context
   and a count records nothing.
-- Under the profiler, a tiny dense step, a tiny MoE step and a tiny
-  DeepSeek-V3-family step open every range of DEVICE_SPANS that their
+- Under the profiler, a tiny dense step, a tiny MoE step, a tiny
+  DeepSeek-V3-family step and a tiny MiMo-V2-Flash-family step open
+  every range of DEVICE_SPANS that their
   paths reach, nested as the step nests them (the MoE dispatch and
   combine once more in the backward), and route_top1 and route_topk
   count what their own outputs hold.
@@ -25,7 +26,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from tpu_dra_torch.infra import trace
 from tpu_dra_torch.workloads import model as tm
-from tpu_dra_torch.workloads import dsv3_model, moe, moe_model
+from tpu_dra_torch.workloads import dsv3_model, mimo_model, moe, moe_model
 
 torch.set_num_threads(2)   # the suite runs 6 workers beside timing tests
 
@@ -40,6 +41,12 @@ DSV3 = dsv3_model.DSV3Config(vocab=64, d_model=32, n_heads=2, n_layers=2,
                              d_ff=48, max_seq=16, dtype=torch.float32,
                              attn_impl="flash", moe_d_ff=16, n_routed=8,
                              experts_held=(2, 6), top_k=2)
+MIMO = mimo_model.MiMoConfig(vocab=64, d_model=32, n_heads=4, n_layers=2,
+                             d_ff=48, max_seq=16, dtype=torch.float32,
+                             attn_impl="flash", n_kv_heads=2, swa_kv_heads=2,
+                             qk_head_dim=16, v_head_dim=8, rope_dims=8,
+                             window=4, hybrid_pattern=(0, 1), moe_d_ff=16,
+                             n_routed=8, experts_held=(2, 6), top_k=2)
 # Range -> the range that directly holds it in a step.
 PARENT = {
     "step.forward": "step", "step.backward": "step", "step.sgd": "step",
@@ -47,12 +54,15 @@ PARENT = {
     "moe.route": "step.forward", "moe.dispatch": "step.forward",
     "moe.experts": "step.forward", "moe.combine": "step.forward",
     "mla.project": "step.forward", "moe.shared": "step.forward",
-    "loss.head": "step.forward",
+    "loss.head": "step.forward", "attention.window": "step.forward",
 }
 MOE_SPANS = {"moe.route", "moe.dispatch", "moe.experts", "moe.combine"}
 # Ranges only the DeepSeek-V3 family opens (MLA's projections, the shared
 # expert).
 DSV3_SPANS = {"mla.project", "moe.shared"}
+# Ranges only the MiMo-V2-Flash family opens (a window layer's attention,
+# which holds its attention.fwd).
+MIMO_SPANS = {"attention.window"}
 # Ranges that their autograd Function's backward opens again, inside
 # step.backward.
 IN_BACKWARD_TOO = {"moe.dispatch", "moe.combine"}
@@ -67,6 +77,9 @@ def _no_counts_left():
 
 def _model(cfg, seed=0):
     g = torch.Generator().manual_seed(seed)
+    if isinstance(cfg, mimo_model.MiMoConfig):
+        return mimo_model.MiMoLM(
+            cfg, mimo_model.init_params(cfg, g, device="cpu"))
     if isinstance(cfg, dsv3_model.DSV3Config):
         return dsv3_model.DSV3LM(
             cfg, dsv3_model.init_params(cfg, g, device="cpu"))
@@ -77,6 +90,8 @@ def _model(cfg, seed=0):
 
 
 def _step(model):
+    if isinstance(model, mimo_model.MiMoLM):
+        return mimo_model.make_train_step(model, lr=1e-2)
     if isinstance(model, dsv3_model.DSV3LM):
         return dsv3_model.make_train_step(model, lr=1e-2)
     if isinstance(model, moe_model.MoETransformerLM):
@@ -178,8 +193,8 @@ class TestCounters:
 
 
 class TestRangesInTheStep:
-    @pytest.mark.parametrize("cfg", [DENSE, MOE, DSV3],
-                             ids=["dense", "moe", "dsv3"])
+    @pytest.mark.parametrize("cfg", [DENSE, MOE, DSV3, MIMO],
+                             ids=["dense", "moe", "dsv3", "mimo"])
     def test_every_range_nested_as_the_step(self, cfg):
         step = _step(_model(cfg))
         step(_tokens())
@@ -188,6 +203,8 @@ class TestRangesInTheStep:
         want = set(trace.DEVICE_SPANS)
         if cfg is not DSV3:
             want -= DSV3_SPANS
+        if cfg is not MIMO:
+            want -= MIMO_SPANS
         if cfg is DENSE:
             want -= MOE_SPANS
         assert {name for _, _, name in ranges} == want
@@ -199,10 +216,16 @@ class TestRangesInTheStep:
             if r[2] == "step":
                 assert holder is None
                 continue
-            if not (r[2] in IN_BACKWARD_TOO and holder[2] == "step.backward"):
+            in_window = (r[2], holder[2]) == ("attention.fwd",
+                                              "attention.window")
+            if not (r[2] in IN_BACKWARD_TOO and holder[2] == "step.backward"
+                    or in_window):
                 assert holder[2] == PARENT[r[2]], r
             held[r[2], holder[2]] += 1
-        assert held["attention.fwd", "step.forward"] == cfg.n_layers
+        n_window = sum(cfg.hybrid_pattern) if cfg is MIMO else 0
+        assert held["attention.fwd", "attention.window"] == n_window
+        assert held["attention.window", "step.forward"] == n_window
+        assert held["attention.fwd", "step.forward"] == cfg.n_layers - n_window
         assert held["attention.bwd", "step.backward"] == cfg.n_layers
         assert held["loss.head", "step.forward"] == 1
         if cfg is not DENSE:

@@ -721,6 +721,8 @@ DEVICE_SPANS = (
                        # q and k assembled
     "moe.shared",      # moe.topk_ffn: the shared expert
     "loss.head",       # model.lm_loss: the head's GEMM and the loss
+    "attention.window",  # mimo_model: a window layer's attend call and
+                         # its sink rescale
 )
 
 # Every counter: tokens kept within capacity (a device tensor), expert
@@ -730,10 +732,14 @@ DEVICE_SPANS = (
 # B x S, the experts held, the (token, k) pairs selected B x S x k and
 # the bytes of one token's row in the experts' buffer (host ints); the
 # rows of logits the loss head's kernels took, B x (S - 1) per step (a
-# host int, per model._FusedNLL call).
+# host int, per model._FusedNLL call); per sliding-window attention call
+# the (query, key) pairs its band holds, B x H x sum of min(i + 1, W), and
+# the (Q tile, K tile) pairs the forward kernel visits (host ints, per
+# flashattention.attend call with a window).
 DEVICE_COUNTERS = ("moe.kept", "moe.slots", "moe.routed", "moe.assigned",
                    "moe.load_max", "moe.tokens_held", "moe.held",
-                   "moe.selected", "moe.row_bytes", "loss.fused_rows")
+                   "moe.selected", "moe.row_bytes", "loss.fused_rows",
+                   "attention.window_pairs", "attention.window_tiles")
 
 
 class _NoSpan:

@@ -32,7 +32,13 @@ three TF32 tensor-core products each, to fp32 accuracy
 them; this module declares their entry points there.
 
 Each wrapper (``fwd``, ``bwd``) takes [B, S, H, D] tensors (v, o, dO and
-dV [B, S, H, Dv], Dv = D but at a split pair). For CPU
+dV [B, S, H, Dv], Dv = D but at a split pair). At a pair of
+``SM90_SPLIT_HEAD_DIMS`` ((192, 128), bf16, the Hopper route) k and v may
+hold Hkv heads, a divisor of H (grouped-query attention: query head h
+reads K/V head h // (H / Hkv); dK and dV come back [B, S, Hkv, *]), and a
+causal call may take a sliding window W (query i sees keys j with
+i - W < j <= i); every other input takes neither, and a group or window
+it is given raises. For CPU
 tensors it runs its plain PyTorch version beside it in this module
 (``fwd_plain``, ``bwd_plain``, the latter built of ``bwd_dq_plain`` and
 ``bwd_dkv_plain``); for CUDA tensors it launches its route's kernel on
@@ -68,15 +74,17 @@ SM90_HEAD_DIMS = (64, 128)
 # The (q.k, v) head-dim pairs both Hopper kernels are built for besides,
 # in bf16 and without fused rope: multi-head latent attention (DeepSeek-
 # V2/V3), 128 "nope" + 64 roped dims for q and k, 128 for v. Only the
-# Hopper route takes them.
+# Hopper route takes them, and only at them grouped K/V heads and a
+# sliding window (MiMo-V2-Flash's attention, mimo_model.py).
 SM90_SPLIT_HEAD_DIMS = ((192, 128),)
 # Each direction's kernel (C entry point) per route.
 FWD_KERNELS = {"sm90": "flash_fwd_sm90", "mma": "flash_fwd"}
 BWD_KERNELS = {"sm90": "flash_bwd_sm90", "mma": "flash_bwd_mma"}
 
 _PTR, _INT, _I64 = _cuda.PTR, _cuda.INT, _cuda.I64
-# B S H D Dv, q/k's strides, v's strides, causal, rope, element bytes
-_SHAPE = [_INT] * 5 + [_I64] * 6 + [_INT] * 3
+# B S H Hkv D Dv, q's, k's and v's strides, causal, window, rope,
+# element bytes
+_SHAPE = [_INT] * 6 + [_I64] * 9 + [_INT] * 4
 # Each source's one entry, named after it; the stream last.
 ARGTYPES = {
     # flash_fwd_sm90's operands, then the roped-k scratch.
@@ -108,72 +116,127 @@ def rope_rotate(x: torch.Tensor, cos_t: torch.Tensor, sinm_t: torch.Tensor,
 # Plain PyTorch versions (the kernels' functions, one dense pass each)
 # ---------------------------------------------------------------------------
 
-def _scores(q, k, tables, causal):
+def expand_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """x [B, S, Hkv, D] as [B, S, heads, D]: query head h reads K/V head
+    h // (heads / Hkv). The plain versions' form of grouped-query
+    attention (the kernels read the Hkv heads where they are)."""
+    group = heads // x.shape[2]
+    return x if group == 1 else x.repeat_interleave(group, dim=2)
+
+
+def sum_groups(x: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """x [B, S, H, D] summed over each K/V head's H / kv_heads query
+    heads: [B, S, kv_heads, D], in x's dtype."""
+    b, s, h, d = x.shape
+    if h == kv_heads:
+        return x
+    return x.view(b, s, kv_heads, h // kv_heads, d).sum(3)
+
+
+def band_mask(s: int, window: int, device=None) -> torch.Tensor:
+    """[S, S] bool, True where query i sees key j: j <= i, and with a
+    window W > 0 also i - j < W."""
+    ones = torch.ones(s, s, dtype=torch.bool, device=device)
+    keep = ones.tril()
+    return keep & ~ones.tril(-window) if window else keep
+
+
+def _scores(q, k, tables, causal, window=0):
     """Scaled fp32 scores [B, H, S, S] of (roped) q and k, masked with the
-    finite NEG_INF, plus the roped operands in the input dtype."""
+    finite NEG_INF, plus the roped operands in the input dtype (k at its
+    own Hkv heads)."""
     if tables is not None:
         q, k = rope_rotate(q, *tables), rope_rotate(k, *tables)
     s = q.shape[1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                          expand_heads(k, q.shape[2]).float())
     scores = scores * (1.0 / math.sqrt(q.shape[-1]))
     if causal:
-        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        keep = band_mask(s, window, q.device)
         scores = scores.masked_fill(~keep, NEG_INF)
     return scores, q, k
 
 
-def fwd_plain(q, k, v, tables, *, causal):
-    """(o [B, S, H, D], lse [B, H, S] fp32). Unnormalized p is rounded to
-    the input dtype before P.V and the sum is divided after, as in the
+def fwd_plain(q, k, v, tables, *, causal, window=0):
+    """(o [B, S, H, Dv], lse [B, H, S] fp32); k and v may hold fewer heads
+    (expand_heads), and a causal call a window. Unnormalized p is rounded
+    to the input dtype before P.V and the sum is divided after, as in the
     kernel."""
-    scores, _, _ = _scores(q, k, tables, causal)
+    scores, _, _ = _scores(q, k, tables, causal, window)
     row_max = scores.amax(-1, keepdim=True)
     p = torch.exp(scores - row_max)
     denom = p.sum(-1)
-    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    acc = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(),
+                       expand_heads(v, q.shape[2]).float())
     o = acc / denom.permute(0, 2, 1)[..., None]
     return o.to(q.dtype), row_max[..., 0] + torch.log(denom)
 
 
-def _probs_and_ds(q, k, v, dout, lse, delta, dlse, tables, causal):
-    scores, qr, kr = _scores(q, k, tables, causal)
+def _probs_and_ds(q, k, v, dout, lse, delta, dlse, tables, causal,
+                  window=0):
+    scores, qr, kr = _scores(q, k, tables, causal, window)
     p = torch.exp(scores - lse[..., None])
-    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(),
+                      expand_heads(v, q.shape[2]).float())
     ds = p * (dp + (dlse - delta)[..., None])
     return p, ds, qr, kr
 
 
-def bwd_dq_plain(q, k, v, dout, lse, delta, dlse, tables, *, causal):
+def bwd_dq_plain(q, k, v, dout, lse, delta, dlse, tables, *, causal,
+                 window=0):
     """dq [B, S, H, D]: scale * dS . K with dS rounded to the input dtype,
     then the inverse rotation."""
     _, ds, _, kr = _probs_and_ds(q, k, v, dout, lse, delta, dlse, tables,
-                                 causal)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(q.dtype).float(), kr.float())
+                                 causal, window)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(q.dtype).float(),
+                      expand_heads(kr, q.shape[2]).float())
     dq = dq * (1.0 / math.sqrt(q.shape[-1]))
     if tables is not None:
         dq = rope_rotate(dq, *tables, inverse=True)
     return dq.to(q.dtype)
 
 
-def bwd_dkv_plain(q, k, v, dout, lse, delta, dlse, tables, *, causal):
-    """(dk, dv) [B, S, H, D]: dV = P^T . dO; dK = scale * dS^T . Q, then
-    the inverse rotation; P and dS rounded to the input dtype."""
+def bwd_dkv_plain(q, k, v, dout, lse, delta, dlse, tables, *, causal,
+                  window=0):
+    """(dk [B, S, Hkv, D], dv [B, S, Hkv, Dv]): dV = P^T . dO; dK = scale
+    * dS^T . Q, then the inverse rotation; P and dS rounded to the input
+    dtype, each K/V head's query heads summed in fp32 and rounded once,
+    as the fused kernel accumulates them."""
     p, ds, qr, _ = _probs_and_ds(q, k, v, dout, lse, delta, dlse, tables,
-                                 causal)
+                                 causal, window)
+    hkv = k.shape[2]
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(v.dtype).float(), dout.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(k.dtype).float(), qr.float())
+    dv, dk = sum_groups(dv, hkv), sum_groups(dk, hkv)
     dk = dk * (1.0 / math.sqrt(q.shape[-1]))
     if tables is not None:
         dk = rope_rotate(dk, *tables, inverse=True)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def bwd_plain(q, k, v, dout, lse, delta, dlse, tables, *, causal):
+def bwd_plain(q, k, v, dout, lse, delta, dlse, tables, *, causal, window=0):
     """(dq, dk, dv): bwd_dq_plain and bwd_dkv_plain on the same operands,
     the plain version of the fused backward."""
     args = (q, k, v, dout, lse, delta, dlse, tables)
-    return (bwd_dq_plain(*args, causal=causal),
-            *bwd_dkv_plain(*args, causal=causal))
+    return (bwd_dq_plain(*args, causal=causal, window=window),
+            *bwd_dkv_plain(*args, causal=causal, window=window))
+
+
+def band_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal window W keeps over S positions, one
+    head: sum over i of min(i + 1, W)."""
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def fwd_tiles(s: int, window: int, rows: int = 128) -> int:
+    """(Q tile, K tile) pairs flash_fwd_sm90 visits for one head of a
+    causal call over S positions, by its own bounds: Q tile qt reads key
+    tiles from max(0, qt * rows - W + 1) // rows (0 with no window) up to
+    qt."""
+    n = -(-s // rows)
+    return sum(qt + 1 - (max(0, qt * rows - window + 1) // rows
+                         if window else 0) for qt in range(n))
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +262,8 @@ def _kernel_inputs(q, k, v, tables):
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"CUDA flash kernels take bfloat16 or float32, got "
                         f"{q.dtype}")
-    if q.dim() == 4 and q.shape == k.shape and v.shape[:3] == q.shape[:3] \
+    if q.dim() == 4 and k.dim() == 4 and k.shape[:2] == q.shape[:2] \
+            and k.shape[-1] == q.shape[-1] and v.shape[:3] == k.shape[:3] \
             and (q.shape[-1], v.shape[-1]) in SM90_SPLIT_HEAD_DIMS:
         return _split_inputs(q, k, v, tables)
     if not (q.shape == k.shape == v.shape) or q.dim() != 4:
@@ -225,8 +289,9 @@ def _kernel_inputs(q, k, v, tables):
 
 def _split_inputs(q, k, v, tables):
     """_kernel_inputs at a split head-dim pair: bf16 only, no rope tables
-    (the caller ropes the rotated dims), q and k sharing one aligned
-    layout (else both made contiguous) and v aligned in its own."""
+    (the caller ropes the rotated dims), k and v at H or at a divisor of
+    H heads (at a pair of SM90_SPLIT_HEAD_DIMS), and q, k and v each aligned
+    in its own layout (else made contiguous)."""
     if q.dtype != torch.bfloat16:
         raise TypeError(f"head dims {(q.shape[-1], v.shape[-1])}: the "
                         f"kernels take bfloat16 only, got {q.dtype}")
@@ -235,11 +300,29 @@ def _split_inputs(q, k, v, tables):
                          "rope (rotate the roped dims before the call)")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v on different devices")
-    if not (q.stride() == k.stride() and _aligned(q) and _aligned(k)):
-        q, k = q.contiguous(), k.contiguous()
-    if not _aligned(v):
-        v = v.contiguous()
+    q, k, v = (x if _aligned(x) else x.contiguous() for x in (q, k, v))
     return q, k, v, None
+
+
+def check_group(q, k, v, window: int, causal: bool) -> None:
+    """Raise for K/V heads or a window that attention over q, k, v does
+    not take: K/V heads dividing the query heads, a window W >= 0 only on
+    a causal call, and on a card fewer K/V heads or a window only at a
+    pair of SM90_SPLIT_HEAD_DIMS (the plain versions take any head dims)."""
+    heads, kv_heads = q.shape[2], k.shape[2]
+    if kv_heads < 1 or heads % kv_heads or v.shape[2] != kv_heads:
+        raise ValueError(f"K/V heads {k.shape[2]}, {v.shape[2]} do not "
+                         f"divide {heads} query heads alike")
+    if window < 0:
+        raise ValueError(f"window {window}: a window is a positive key "
+                         "count (0 for none)")
+    if window and not causal:
+        raise ValueError("a window needs causal attention")
+    dims = (q.shape[-1], v.shape[-1])
+    if q.device.type != "cpu" and (kv_heads != heads or window) \
+            and dims not in SM90_SPLIT_HEAD_DIMS:
+        raise ValueError(f"head dims {dims}: grouped K/V heads and a "
+                         f"window run at {SM90_SPLIT_HEAD_DIMS} only")
 
 
 def _table_ptrs(tables):
@@ -247,15 +330,16 @@ def _table_ptrs(tables):
                                                 tables[1].data_ptr())
 
 
-def _dims(q, causal, tables, v=None):
-    """The shape arguments every kernel takes after its pointers: v (by
-    default q) gives Dv and its own strides."""
+def _dims(q, causal, tables, v=None, k=None, window=0):
+    """The shape arguments every kernel takes after its pointers: k (by
+    default q) gives Hkv and its own strides, v (by default q) Dv and its
+    own strides."""
     v = q if v is None else v
+    k = q if k is None else k
     b, s, h, d = q.shape
-    st, vst = q.stride(), v.stride()
-    return (b, s, h, d, v.shape[-1], st[0], st[1], st[2], vst[0], vst[1],
-            vst[2], int(causal), int(tables is not None),
-            KERNEL_DTYPES[q.dtype])
+    return (b, s, h, k.shape[2], d, v.shape[-1], *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], int(causal), int(window),
+            int(tables is not None), KERNEL_DTYPES[q.dtype])
 
 
 def route(dtype: torch.dtype, d: int, dv: int = None) -> str:
@@ -273,12 +357,15 @@ def route(dtype: torch.dtype, d: int, dv: int = None) -> str:
     return "mma"
 
 
-def fwd(q, k, v, tables, *, causal: bool):
-    """(o [B, S, H, D], lse [B, H, S] fp32) of attention over q, k, v
-    ([B, S, H, D]); tables = the [S, D] (cos, sinm) rope tables, or None
-    for no rope."""
+def fwd(q, k, v, tables, *, causal: bool, window: int = 0):
+    """(o [B, S, H, Dv], lse [B, H, S] fp32) of attention over q [B, S, H,
+    D], k [B, S, Hkv, D] and v [B, S, Hkv, Dv]; tables = the [S, D] (cos,
+    sinm) rope tables, or None for no rope; window W > 0 (causal only):
+    query i sees keys (i - W, i]. Hkv < H and a window only where
+    check_group allows."""
+    check_group(q, k, v, window, causal)
     if _cuda.device_of(q, "flash") == "cpu":
-        return fwd_plain(q, k, v, tables, causal=causal)
+        return fwd_plain(q, k, v, tables, causal=causal, window=window)
     q, k, v, tables = _kernel_inputs(q, k, v, tables)
     b, s, h, d = q.shape
     kernel = FWD_KERNELS[route(q.dtype, d, v.shape[-1])]
@@ -290,37 +377,40 @@ def fwd(q, k, v, tables, *, causal: bool):
         # flash_fwd's first launch writes the roped k here.
         kr = None if tables is None else torch.empty_like(o)
         ptrs.append(None if kr is None else kr.data_ptr())
-    _cuda.launch(kernel, q, *ptrs, *_dims(q, causal, tables, v))
+    _cuda.launch(kernel, q, *ptrs, *_dims(q, causal, tables, v, k, window))
     return o, lse
 
 
 def _bwd_inputs(q, v, dout, lse, delta, dlse):
     b, s, h, _ = q.shape
-    if dout.shape != v.shape or lse.shape != (b, h, s) \
+    if dout.shape != (b, s, h, v.shape[-1]) or lse.shape != (b, h, s) \
             or delta.shape != (b, h, s) or dlse.shape != (b, h, s):
         raise ValueError("backward operands do not match q's [B, S, H, D]")
     dout = dout.to(q.dtype).contiguous()
     return (dout,) + tuple(x.float().contiguous() for x in (lse, delta, dlse))
 
 
-def bwd(q, k, v, dout, lse, delta, dlse, tables, *, causal: bool):
-    """(dq, dk [B, S, H, D], dv [B, S, H, Dv]) of attention over q, k, v;
-    dout [B, S, H, Dv]; lse, delta = rowsum(dO * O) and dlse (the lse
-    cotangent) [B, H, S] fp32; tables as fwd's."""
+def bwd(q, k, v, dout, lse, delta, dlse, tables, *, causal: bool,
+        window: int = 0):
+    """(dq [B, S, H, D], dk [B, S, Hkv, D], dv [B, S, Hkv, Dv]) of
+    attention over q, k, v; dout [B, S, H, Dv]; lse, delta = rowsum(dO *
+    O) and dlse (the lse cotangent) [B, H, S] fp32; tables and window as
+    fwd's."""
+    check_group(q, k, v, window, causal)
     if _cuda.device_of(q, "flash") == "cpu":
         return bwd_plain(q, k, v, dout, lse, delta, dlse, tables,
-                         causal=causal)
+                         causal=causal, window=window)
     q, k, v, tables = _kernel_inputs(q, k, v, tables)
     kernel = BWD_KERNELS[route(q.dtype, q.shape[-1], v.shape[-1])]
     dout, lse, delta, dlse = _bwd_inputs(q, v, dout, lse, delta, dlse)
     # dQ's fp32 accumulator: every K tile's CTA adds into it.
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dq, dk = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
-              for _ in range(2))
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
     _cuda.launch(kernel, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                  dlse.data_ptr(), *_table_ptrs(tables), dq_acc.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 *_dims(q, causal, tables, v))
+                 *_dims(q, causal, tables, v, k, window))
     return dq, dk, dv

@@ -75,12 +75,24 @@
 //    every head's first K tile launched together, as before, at B6 S8191
 //    H16 the reduce-adds and the streamed tiles missed L2 and the kernel
 //    took twice as long. Each CTA streams its Q tiles from the diagonal
-//    down.
+//    down (with grouped K/V heads, each query head's in turn).
 //
 // Registers per consumer thread (of 240) at (128, 128): dK 64 + dV 64 +
 // S^T 32 + dP^T 32 = 192 while S^T and dP^T run, dK 64 + dV 64 + dQ 32 +
 // P^T's and dS^T's fragments 32 = 192 while dQ and dK do. dQ's columns
 // are split evenly, 64 a consumer (at D=64 consumer 0 computes all 64).
+//
+// Grouped-query attention and a sliding window (every instance). The CTA
+// of a K/V tile of K/V head hk streams the Q tiles of each of its group's
+// H / Hkv query heads in turn, one flat loop (head outer, Q tile inner),
+// and keeps adding into the same dK and dV registers: dK and dV are
+// written once, [B, S, Hkv, D], never as per-query-head partials summed
+// afterwards. dQ's reduce-adds go to the streamed head's rows. A window W
+// streams only the Q tiles that meet the K tile's band: from the diagonal
+// to the one holding query k0 + 127 + W - 1, four 64-row tiles at W =
+// 128, where plain causal streams every tile below the diagonal. The
+// mask branch takes the band's upper edge too (some query more than W - 1
+// past some key), one unsigned compare per score, as the forward.
 //
 // Latent attention (DeepSeek-V3's MLA, (192, 128); no rope, which the
 // caller applies to the 64 roped dims): dK holds 96 registers a consumer
@@ -142,9 +154,12 @@ struct Args {
   const float* dlse;
   float* dq_acc;       // [B, S, H, D] fp32, zeroed by the caller
   int S, H, n_qt;      // n_qt = ceil(S / 64)
-  int n_kt, n_bh;      // K tiles per head, heads (B * H)
-  int group;           // heads whose K tiles run side by side (launch)
+  int Hkv, q_per_kv;   // K/V heads; query heads per K/V head, H / Hkv
+  int n_kt, n_bh;      // K tiles per head, K/V heads (B * Hkv)
+  int group;           // K/V heads whose K tiles run side by side (launch)
   int causal, rope;
+  int window;          // 0: none; else causal keys (i - window, i]
+  unsigned band;       // causal: kept iff (unsigned)(query - key) < band
   float scale_log2;    // sm_scale * log2(e)
   float sm_scale;
 };
@@ -303,15 +318,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* q_ready = full + kStages;      // Q rotated by both consumers
   uint64_t* empty = q_ready + kStages;     // both consumers done with it
 
-  // The CTA's head and K tile: heads in groups of a.group, each group's K
-  // tiles heaviest first (the diagonal's; causal), its heads side by side.
+  // The CTA's K/V head and K tile: heads in groups of a.group, each
+  // group's K tiles heaviest first (the diagonal's; causal), its heads
+  // side by side.
   const int g0 = blockIdx.x / (a.group * a.n_kt) * a.group;
   const int in_group = blockIdx.x - g0 * a.n_kt;
   const int heads = min(a.group, a.n_bh - g0);
-  const int bh = g0 + in_group % heads, b = bh / a.H, h = bh % a.H;
+  const int bh = g0 + in_group % heads, b = bh / a.Hkv, hk = bh % a.Hkv;
   const int k0 = in_group / heads * kKeys;
   const int qt0 = a.causal ? k0 / kQ : 0;  // the diagonal's Q tile
-  const int n_it = a.n_qt - qt0;
+  // Q tiles [qt0, qt1) of each query head: with a window, up to the one
+  // holding the last query that sees key k0 + 127.
+  const int qt1 =
+      a.window ? min(a.n_qt, (k0 + kKeys + a.window - 2) / kQ + 1) : a.n_qt;
+  const int n_it = (qt1 - qt0) * a.q_per_kv;
+  // Iteration it streams Q tile qt of query head h: each loop below steps
+  // (h, qt) along with it, head outer, tile inner (no division, which
+  // the producer's 24 registers would spill). Q tiles from the last down
+  // to the diagonal, heads inner and rotated by K tile so that the CTAs
+  // in flight share a Q tile in L2, measured slower on an H100 at S 32767
+  // (64 query heads over 4: 171.8 ms against 149.1) and spilled the (128,
+  // 128) consumer (PERF.md).
+  const int h0 = hk * a.q_per_kv;
+  auto next = [&](int& h, int& qt) {
+    if (++qt == qt1) {
+      qt = qt0;
+      ++h;
+    }
+  };
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
   auto stage = [&](int it) {
     return smem + L::kStage0 + (it % kStages) * L::kStage;
@@ -345,12 +379,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::mbar_arrive_expect_tx(kv_full, L::kKv + L::kV);
       for (int c = 0; c < DK / L::kKCols; ++c)
         sm90::tma_load_4d(k_tile + c * L::kKBox, &k_map, kv_full,
-                          c * L::kKCols, h, k0, b);
+                          c * L::kKCols, hk, k0, b);
       for (int c = 0; c < kVBoxes; ++c)
-        sm90::tma_load_4d(v_tile + c * kKvBox, &v_map, kv_full, c * 64, h, k0,
-                          b);
-      for (int it = 0; it < n_it; ++it) {
-        const int s = it % kStages, q0 = (qt0 + it) * kQ;
+        sm90::tma_load_4d(v_tile + c * kKvBox, &v_map, kv_full, c * 64, hk,
+                          k0, b);
+      for (int it = 0, h = h0, qt = qt0; it < n_it; ++it, next(h, qt)) {
+        const int s = it % kStages, q0 = qt * kQ;
         uint8_t* st = stage(it);
         sm90::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
         sm90::mbar_arrive_expect_tx(&full[s],
@@ -369,9 +403,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     } else if (warp == 1) {
       // lse in base 2 and dlse - delta of the stage's rows; 0 past S.
-      const long long row0 = (long long)bh * a.S;
-      for (int it = 0; it < n_it; ++it) {
-        const int s = it % kStages, q0 = (qt0 + it) * kQ;
+      for (int it = 0, h = h0, qt = qt0; it < n_it; ++it, next(h, qt)) {
+        const int s = it % kStages, q0 = qt * kQ;
+        const long long row0 = ((long long)b * a.H + h) * a.S;
         float* lse2 = row_vecs(it);
         float* corr = lse2 + kQ;
         sm90::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
@@ -387,8 +421,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       // The dQ writer: each tile's staged partial added into the
       // accumulator, one reduce-add per 32 columns; the staging is free
       // again once they have read it.
-      for (int it = 0; it < n_it; ++it) {
-        const int q0 = (qt0 + it) * kQ;
+      for (int it = 0, h = h0, qt = qt0; it < n_it; ++it, next(h, qt)) {
+        const int q0 = qt * kQ;
         sm90::mbar_wait(dq_full, it & 1);
         for (int c = 0; c < DK / 32; ++c)
           sm90::tma_reduce_add_4d(&dq_map, dq_stage + c * kDqBox, c * 32, h,
@@ -437,13 +471,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
   for (int i = 0; i < DV / 2; ++i) dv[i] = 0.f;
 
-  for (int it = 0; it < n_it; ++it) {
+  for (int it = 0, qt = qt0; it < n_it;
+       ++it, qt = qt + 1 == qt1 ? qt0 : qt + 1) {
     const int s = it % kStages, phase = (it / kStages) & 1;
     // The k-steps' descriptors are computed where they are used, each
     // tile: hoisted out of the loop they would hold 48 registers.
     uint64_t kw = kw_desc, vw = vw_desc, kdq = kdq_desc;
     asm volatile("" : "+l"(kw), "+l"(vw), "+l"(kdq));
-    const int q0 = (qt0 + it) * kQ;
+    const int q0 = qt * kQ;
     uint8_t* q_s = stage(it);
     uint8_t* do_s = q_s + L::kQt;
     const float* lse2 = row_vecs(it);
@@ -469,8 +504,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     // S^T and dP^T: 64 keys x 64 queries each (two halves of 32 queries
     // where kHalves).
     uint32_t pa[16], da[16];  // P^T and dS^T as bf16 A fragments
+    // The diagonal's, the ragged and the window's upper edge tiles (some
+    // query W or more past some key).
     const bool masked = (a.causal && q0 < k0 + kKeys) || q0 + kQ > a.S ||
-                        k0 + kKeys > a.S;
+                        k0 + kKeys > a.S ||
+                        (a.window && q0 + kQ - 1 - k0 >= a.window);
     // P^T in place of n-tile jl of S^T's accumulator `st` (n-tile jg of the
     // tile: st[4 jl + e] is key row g (e < 2) or g + 8, query q0 + 8 jg +
     // 2t + (e & 1)), masked where `mask`.
@@ -482,7 +520,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (mask) {
           const int query = q0 + 8 * jg + 2 * t + (e & 1);
           const int key = e < 2 ? key_g : key_g8;
-          if ((a.causal && query < key) || query >= a.S || key >= a.S)
+          if ((a.causal && static_cast<unsigned>(query - key) >= a.band) ||
+              query >= a.S || key >= a.S)
             x = kNegInf;
         }
         st[4 * jl + e] = sm90::ex2(x);
@@ -704,10 +743,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid == 0) {
     for (int c = 0; c < DK / 64; ++c)
       sm90::tma_store_4d(&dk_map, k_tile + c * kKvBox + w * 64 * 128, c * 64,
-                         h, k0 + 64 * w, b);
+                         hk, k0 + 64 * w, b);
     for (int c = 0; c < kVBoxes; ++c)
       sm90::tma_store_4d(&dv_map, v_tile + c * kKvBox + w * 64 * 128, c * 64,
-                         h, k0 + 64 * w, b);
+                         hk, k0 + 64 * w, b);
     sm90::tma_store_wait();
   }
 }
@@ -761,26 +800,31 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    const float* dlse, const void* cos_t, const void* sinm_t,
                    float* dq_acc, void* dq, void* dk, void* dv, int B, int S,
-                   int H, long long in_b, long long in_s, long long in_h,
-                   long long v_b, long long v_s, long long v_h, int causal,
+                   int H, int Hkv, long long q_b, long long q_s, long long q_h,
+                   long long k_b, long long k_s, long long k_h, long long v_b,
+                   long long v_s, long long v_h, int causal, int window,
                    int rope, cudaStream_t stream) {
   if (rope && !Smem<DK, DV>::kRope) return cudaErrorInvalidValue;
-  // q (64-row boxes), k (128-row boxes of Smem's kKCols columns) in the
-  // callers' strides, v (128-row boxes) in its own; dout, dv [B, S, H, DV]
-  // and dk [B, S, H, DK] contiguous in 64-row boxes; dQ's accumulator in
-  // boxes of a tile's 64 rows by 32 columns.
-  const long long k_b = (long long)S * H * DK, k_s = (long long)H * DK;
+  if (Hkv < 1 || H % Hkv || window < 0 || (window && !causal))
+    return cudaErrorInvalidValue;
+  // q (64-row boxes), k (128-row boxes of Smem's kKCols columns) and v
+  // (128-row boxes) in the callers' strides; dout [B, S, H, DV], dk [B, S,
+  // Hkv, DK] and dv [B, S, Hkv, DV] contiguous in 64-row boxes; dQ's
+  // accumulator [B, S, H, DK] in boxes of a tile's 64 rows by 32 columns.
+  const long long a_b = (long long)S * H * DK, a_s = (long long)H * DK;
   const long long o_b = (long long)S * H * DV, o_s = (long long)H * DV;
+  const long long dk_b = (long long)S * Hkv * DK, dk_s = (long long)Hkv * DK;
+  const long long dv_b = (long long)S * Hkv * DV, dv_s = (long long)Hkv * DV;
   CUtensorMap maps[9] = {};
-  if (!(sm90::encode_bshd(&maps[0], q, B, S, H, DK, in_b, in_s, in_h, kQ) &&
-        sm90::encode_bshd(&maps[1], k, B, S, H, DK, in_b, in_s, in_h, kKeys,
+  if (!(sm90::encode_bshd(&maps[0], q, B, S, H, DK, q_b, q_s, q_h, kQ) &&
+        sm90::encode_bshd(&maps[1], k, B, S, Hkv, DK, k_b, k_s, k_h, kKeys,
                           Smem<DK, DV>::kKCols * 2) &&
-        sm90::encode_bshd(&maps[2], v, B, S, H, DV, v_b, v_s, v_h, kKeys) &&
+        sm90::encode_bshd(&maps[2], v, B, S, Hkv, DV, v_b, v_s, v_h, kKeys) &&
         sm90::encode_bshd(&maps[3], dout, B, S, H, DV, o_b, o_s, DV, kQ) &&
-        sm90::encode_bshd(&maps[4], dk, B, S, H, DK, k_b, k_s, DK, 64) &&
-        sm90::encode_bshd(&maps[5], dv, B, S, H, DV, o_b, o_s, DV, 64) &&
+        sm90::encode_bshd(&maps[4], dk, B, S, Hkv, DK, dk_b, dk_s, DK, 64) &&
+        sm90::encode_bshd(&maps[5], dv, B, S, Hkv, DV, dv_b, dv_s, DV, 64) &&
         sm90::encode_bshd_box(&maps[8], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
-                              dq_acc, B, S, H, DK, k_b, k_s, DK, kQ)))
+                              dq_acc, B, S, H, DK, a_b, a_s, DK, kQ)))
     return cudaErrorInvalidValue;
   // The tables' first halves (Smem says why), 64 positions per box.
   if (rope && !(sm90::encode_rows(&maps[6], cos_t, S, DK / 2, DK, kQ) &&
@@ -796,19 +840,24 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   a.S = S;
   a.H = H;
   a.n_qt = (S + kQ - 1) / kQ;
+  a.Hkv = Hkv;
+  a.q_per_kv = H / Hkv;
   a.n_kt = (S + kKeys - 1) / kKeys;
-  a.n_bh = B * H;
-  // Heads in flight together: every CTA of a head reads the head's Q and
-  // dO and adds into its dQ rows, so as many heads as keep those within
-  // half of L2 (25 MB) share the card at a time, and the reads and the
-  // reduce-adds hit L2; at least two (one head's tail beside the next
+  a.n_bh = B * Hkv;
+  // K/V heads in flight together: every CTA of a K/V head reads its query
+  // heads' Q and dO and adds into their dQ rows, so as many as keep those
+  // within half of L2 (25 MB) share the card at a time, and the reads and
+  // the reduce-adds hit L2; at least two (one head's tail beside the next
   // head's heavy tiles), a power of two.
-  const long long head_bytes = (long long)S * (DK * 4 + (DK + DV) * 2);
+  const long long head_bytes =
+      (long long)S * a.q_per_kv * (DK * 4 + (DK + DV) * 2);
   a.group = 2;
-  while (a.group * 2 <= B * H && a.group * 2 * head_bytes <= (25ll << 20))
+  while (a.group * 2 <= B * Hkv && a.group * 2 * head_bytes <= (25ll << 20))
     a.group *= 2;
   a.causal = causal;
   a.rope = rope;
+  a.window = window;
+  a.band = window ? static_cast<unsigned>(window) : 0x80000000u;
   // 1/sqrt(Dqk) rounded once from double, as the TPU kernels' Python
   // float.
   a.sm_scale = static_cast<float>(1.0 / sqrt(static_cast<double>(DK)));
@@ -834,26 +883,28 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace bwd_sm90
 
-// q, k [B, S, H, D] sharing strides (in_b, in_s, in_h), v [B, S, H, Dv]
-// in strides (v_b, v_s, v_h), D stride 1, 16-byte-aligned bases and
-// strides; dout [B, S, H, Dv] contiguous; lse, delta, dlse [B, H, S] fp32;
-// cos_t/sinm_t [S, D]; dq_acc [B, S, H, D] fp32 scratch, zeroed by the
-// caller; dq, dk [B, S, H, D] and dv [B, S, H, Dv] contiguous bf16 out.
-// Takes bf16 (elem_bytes 2) at (D, Dv) = (64, 64), (128, 128) and (192,
-// 128) (rope only where D == Dv); anything else returns
-// cudaErrorInvalidValue, as does a tensor map the driver refuses. Returns
-// the first CUDA error of its two launches (0 on success); allocates
-// nothing, never syncs.
+// q [B, S, H, D] in strides (q_b, q_s, q_h), k [B, S, Hkv, D] in (k_b,
+// k_s, k_h), v [B, S, Hkv, Dv] in (v_b, v_s, v_h), D stride 1, 16-byte-
+// aligned bases and strides, Hkv dividing H; dout [B, S, H, Dv]
+// contiguous; lse, delta, dlse [B, H, S] fp32; cos_t/sinm_t [S, D];
+// dq_acc [B, S, H, D] fp32 scratch, zeroed by the caller; dq [B, S, H,
+// D], dk [B, S, Hkv, D] and dv [B, S, Hkv, Dv] contiguous bf16 out;
+// window 0 (none) or W > 0 with causal. Takes bf16 (elem_bytes 2) at (D,
+// Dv) = (64, 64), (128, 128) and (192, 128) (rope only where D == Dv);
+// anything else returns cudaErrorInvalidValue, as does a tensor map the
+// driver refuses. Returns the first CUDA error of its two launches (0 on
+// success); allocates nothing, never syncs.
 extern "C" int flash_bwd_sm90(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, const void* dlse,
                               const void* cos_t, const void* sinm_t,
                               void* dq_acc, void* dq, void* dk, void* dv,
-                              int B, int S, int H, int D, int Dv,
-                              long long in_b, long long in_s, long long in_h,
+                              int B, int S, int H, int Hkv, int D, int Dv,
+                              long long q_b, long long q_s, long long q_h,
+                              long long k_b, long long k_s, long long k_h,
                               long long v_b, long long v_s, long long v_h,
-                              int causal, int rope, int elem_bytes,
-                              void* stream) {
+                              int causal, int window, int rope,
+                              int elem_bytes, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse_f = static_cast<const float*>(lse);
   const float* delta_f = static_cast<const float*>(delta);
@@ -863,14 +914,17 @@ extern "C" int flash_bwd_sm90(const void* q, const void* k, const void* v,
   if (D == 64 && Dv == 64)
     return static_cast<int>(bwd_sm90::launch<64, 64>(
         q, k, v, dout, lse_f, delta_f, dlse_f, cos_t, sinm_t, acc, dq, dk, dv,
-        B, S, H, in_b, in_s, in_h, v_b, v_s, v_h, causal, rope, st));
+        B, S, H, Hkv, q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, causal,
+        window, rope, st));
   if (D == 128 && Dv == 128)
     return static_cast<int>(bwd_sm90::launch<128, 128>(
         q, k, v, dout, lse_f, delta_f, dlse_f, cos_t, sinm_t, acc, dq, dk, dv,
-        B, S, H, in_b, in_s, in_h, v_b, v_s, v_h, causal, rope, st));
+        B, S, H, Hkv, q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, causal,
+        window, rope, st));
   if (D == 192 && Dv == 128)
     return static_cast<int>(bwd_sm90::launch<192, 128>(
         q, k, v, dout, lse_f, delta_f, dlse_f, cos_t, sinm_t, acc, dq, dk, dv,
-        B, S, H, in_b, in_s, in_h, v_b, v_s, v_h, causal, rope, st));
+        B, S, H, Hkv, q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, causal,
+        window, rope, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -481,16 +481,20 @@ struct Launch {
 // kr and the tables are all bf16 (elem_bytes 2) or all fp32 (elem_bytes
 // 4), at the head dims of flash::dispatch_head_dim; anything else returns
 // cudaErrorInvalidValue. Returns the first CUDA error of its launches (0
-// on success); allocates nothing, never syncs. Dv and v's strides (v_b,
-// v_s, v_h) are flash_fwd_sm90's: here they must be D and q's strides.
+// on success); allocates nothing, never syncs. Hkv, Dv, k's and v's
+// strides and the window are flash_fwd_sm90's: here Hkv must be H, Dv D,
+// k's and v's strides q's, and the window 0.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          const void* cos_t, const void* sinm_t, void* o,
-                         void* lse, void* kr, int B, int S, int H, int D,
-                         int Dv, long long in_b, long long in_s,
-                         long long in_h, long long v_b, long long v_s,
-                         long long v_h, int causal, int rope, int elem_bytes,
-                         void* stream) {
-  if (Dv != D || v_b != in_b || v_s != in_s || v_h != in_h)
+                         void* lse, void* kr, int B, int S, int H, int Hkv,
+                         int D, int Dv, long long in_b, long long in_s,
+                         long long in_h, long long k_b, long long k_s,
+                         long long k_h, long long v_b, long long v_s,
+                         long long v_h, int causal, int window, int rope,
+                         int elem_bytes, void* stream) {
+  // One K/V head per query head and no window: q, k and v share a layout.
+  if (Hkv != H || window != 0 || Dv != D || k_b != in_b || k_s != in_s ||
+      k_h != in_h || v_b != in_b || v_s != in_s || v_h != in_h)
     return static_cast<int>(cudaErrorInvalidValue);
   flash::Operands x = {};
   x.q = q;

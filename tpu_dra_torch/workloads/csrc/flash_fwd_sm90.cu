@@ -2,6 +2,9 @@
 // = (64, 64), (128, 128) and (192, 128): causal or full attention of one
 // 128-row Q tile against every 128-key K/V tile it needs, with RoPE fused
 // where q.k and v share a head dim, writing O and the per-row logsumexp.
+// Grouped-query attention (H query heads over Hkv K/V heads, query head h
+// reading K/V head h / (H / Hkv)) and a causal sliding window (query i
+// sees keys j with i - W < j <= i) at every instance.
 // TMA loads into a ring of shared-memory stages, a producer warpgroup and
 // two consumer warpgroups running wgmma.
 //
@@ -58,6 +61,17 @@
 // tile and v's width are the same), and Q (48 KB) + 2 x (K 48 KB, V 32 KB)
 // = 208 KB of shared memory. The scale is 1/sqrt(Dqk).
 //
+// Grouped-query attention costs nothing per tile: the CTA of query head h
+// loads K/V head h / (H / Hkv), whose tiles its neighbours in the grid
+// (the other query heads of the group) read from L2. A window W visits
+// only the key tiles from the one holding key q0 - W + 1 up to the
+// diagonal: ceil((W - 1) / 128) + 1 tiles a Q tile, not qt + 1. At W =
+// 128 that is two, and a window call is bound by its q, k, v and o bytes,
+// where a global call at S = 32768 is bound by operations. The window's compares run
+// only on the band's edge tiles (the mask branch, as on the diagonal),
+// one unsigned compare per score: kept iff (unsigned)(row - col) < band,
+// band = W, or 2^31 for plain causal (row >= col).
+//
 // Rounding points are the TPU kernels': roped q/k rounded to bf16 before
 // the dot, scores scaled after it, masked scores -1e30 (only on the
 // diagonal and ragged tiles; keys >= S are masked in every mode),
@@ -88,7 +102,10 @@ struct Args {
   const bf16* sinm_t;
   float* lse;          // [B, H, S]
   int S, H, n_tiles;   // n_tiles = ceil(S / 128), Q and K alike
+  int group;           // query heads per K/V head, H / Hkv
   int causal, rope;
+  int window;          // 0: none; else causal keys (i - window, i]
+  unsigned band;       // causal: kept iff (unsigned)(row - col) < band
   float scale_log2;    // sm_scale * log2(e)
 };
 
@@ -179,8 +196,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int qt = a.n_tiles - 1 - blockIdx.x;  // longest causal rows first
   const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int hk = h / a.group;  // the K/V head this query head reads
   const int q0 = qt * kRows;
-  const int n_kt = a.causal ? qt + 1 : a.n_tiles;
+  // Key tiles [kt0, kt0 + n_kt): from the first (or, with a window, the
+  // one holding key q0 - W + 1) up to the diagonal, or all of them.
+  const int kt0 = a.window ? max(0, q0 - a.window + 1) / kRows : 0;
+  const int n_kt = (a.causal ? qt + 1 : a.n_tiles) - kt0;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
   if (threadIdx.x == 0) {
@@ -212,15 +233,16 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::mbar_wait(&empty_k[s], ((it / kStages) & 1) ^ 1);
         sm90::mbar_arrive_expect_tx(&full_k[s],
                                     L::kTile + (a.rope ? L::kTables : 0));
+        const int k0 = (kt0 + it) * kRows;
         for (int c = 0; c < kBoxes; ++c)
           sm90::tma_load_4d(k_tile + c * kBoxBytes, &k_map, &full_k[s],
-                            c * 64, h, it * kRows, b);
+                            c * 64, hk, k0, b);
         if constexpr (L::kRope) {
           if (a.rope) {
             uint8_t* tables = k_tile + L::kTile + L::kVTile;
-            sm90::tma_load_2d(tables, &cos_map, &full_k[s], 0, it * kRows);
+            sm90::tma_load_2d(tables, &cos_map, &full_k[s], 0, k0);
             sm90::tma_load_2d(tables + L::kTables / 2, &sinm_map, &full_k[s],
-                              0, it * kRows);
+                              0, k0);
           }
         }
       };
@@ -232,7 +254,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         sm90::mbar_arrive_expect_tx(&full_v[s], L::kVTile);
         for (int c = 0; c < kVBoxes; ++c)
           sm90::tma_load_4d(v_tile + c * kBoxBytes, &v_map, &full_v[s],
-                            c * 64, h, it * kRows, b);
+                            c * 64, hk, (kt0 + it) * kRows, b);
       };
       // K runs a tile ahead of V: its stage frees a softmax earlier, and
       // the consumers rotate it a tile before they multiply by it.
@@ -258,7 +280,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int s = it % kStages;
     uint8_t* k_tile = smem + L::kTile + s * L::kStage;
     sm90::mbar_wait(&full_k[s], (it / kStages) & 1);
-    if constexpr (L::kRope) rope_k<DK>(k_tile, 64 * w, it * kRows, a.S, tid);
+    if constexpr (L::kRope)
+      rope_k<DK>(k_tile, 64 * w, (kt0 + it) * kRows, a.S, tid);
     sm90::fence_proxy_async();
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(&k_ready[s]);
@@ -315,8 +338,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   // Unmasked tiles fold the scale into the exponent's FMA (the max of
   // the raw scores, scaled, is the max of the scaled ones).
   auto softmax = [&](int it) {
-    const int k0 = it * kRows;
-    const bool masked = (a.causal && it == qt) || k0 + kRows > a.S;
+    const int k0 = (kt0 + it) * kRows;
+    // The diagonal's, the ragged and the window's lower edge tiles (some
+    // row's band starts above k0).
+    const bool masked = (a.causal && kt0 + it == qt) || k0 + kRows > a.S ||
+                        (a.window && k0 < q0 + kRows - a.window);
     float mx[2] = {m_run[0], m_run[1]};
     if (masked) {
 #pragma unroll
@@ -326,7 +352,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           float x = sc[4 * j + e] * a.scale_log2;
           const int col = k0 + 8 * j + 2 * t + (e & 1);
           const int row = e < 2 ? row_g : row_g8;
-          if ((a.causal && col > row) || col >= a.S) x = kNegInf;
+          if ((a.causal && static_cast<unsigned>(row - col) >= a.band) ||
+              col >= a.S)
+            x = kNegInf;
           sc[4 * j + e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
         }
@@ -452,14 +480,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int DK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* cos_t, const void* sinm_t, void* o, float* lse,
-                   int B, int S, int H, long long in_b, long long in_s,
-                   long long in_h, long long v_b, long long v_s, long long v_h,
-                   int causal, int rope, cudaStream_t stream) {
+                   int B, int S, int H, int Hkv, long long q_b, long long q_s,
+                   long long q_h, long long k_b, long long k_s, long long k_h,
+                   long long v_b, long long v_s, long long v_h, int causal,
+                   int window, int rope, cudaStream_t stream) {
   if (rope && !Smem<DK, DV>::kRope) return cudaErrorInvalidValue;
+  if (Hkv < 1 || H % Hkv || window < 0 || (window && !causal))
+    return cudaErrorInvalidValue;
   CUtensorMap maps[6] = {};
-  if (!(sm90::encode_bshd(&maps[0], q, B, S, H, DK, in_b, in_s, in_h, kRows) &&
-        sm90::encode_bshd(&maps[1], k, B, S, H, DK, in_b, in_s, in_h, kRows) &&
-        sm90::encode_bshd(&maps[2], v, B, S, H, DV, v_b, v_s, v_h, kRows)))
+  if (!(sm90::encode_bshd(&maps[0], q, B, S, H, DK, q_b, q_s, q_h, kRows) &&
+        sm90::encode_bshd(&maps[1], k, B, S, Hkv, DK, k_b, k_s, k_h, kRows) &&
+        sm90::encode_bshd(&maps[2], v, B, S, Hkv, DV, v_b, v_s, v_h, kRows)))
     return cudaErrorInvalidValue;
   // o: [B, S, H, DV] contiguous, stored 64 rows (one consumer) per box.
   if (!sm90::encode_bshd(&maps[3], o, B, S, H, DV, (long long)S * H * DV,
@@ -476,8 +507,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   a.S = S;
   a.H = H;
   a.n_tiles = (S + kRows - 1) / kRows;
+  a.group = H / Hkv;
   a.causal = causal;
   a.rope = rope;
+  a.window = window;
+  a.band = window ? static_cast<unsigned>(window) : 0x80000000u;
   // 1/sqrt(Dqk) rounded once from double, as the TPU kernels' Python
   // float, then carried into base 2.
   a.scale_log2 = static_cast<float>(1.0 / sqrt(static_cast<double>(DK))) *
@@ -495,35 +529,37 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace flash_sm90
 
-// The same C interface as flash_fwd (flash_fwd.cu): q, k [B, S, H, D]
-// sharing strides (in_b, in_s, in_h), v [B, S, H, Dv] in strides (v_b,
-// v_s, v_h), D stride 1, 16-byte-aligned bases and strides; o [B, S, H,
-// Dv] contiguous; lse [B, H, S] fp32; cos_t/sinm_t [S, D]. Takes bf16
-// (elem_bytes 2) at (D, Dv) = (64, 64), (128, 128) and (192, 128) (rope
-// only where D == Dv); anything else returns cudaErrorInvalidValue, as
-// does a tensor map the driver refuses. Returns the CUDA error of the
+// The same C interface as flash_fwd (flash_fwd.cu): q [B, S, H, D] in
+// strides (q_b, q_s, q_h), k [B, S, Hkv, D] in (k_b, k_s, k_h), v [B, S,
+// Hkv, Dv] in (v_b, v_s, v_h), D stride 1, 16-byte-aligned bases and
+// strides, Hkv dividing H; o [B, S, H, Dv] contiguous; lse [B, H, S]
+// fp32; cos_t/sinm_t [S, D]; window 0 (none) or W > 0 with causal. Takes
+// bf16 (elem_bytes 2) at (D, Dv) = (64, 64), (128, 128) and (192, 128)
+// (rope only where D == Dv); anything else returns cudaErrorInvalidValue,
+// as does a tensor map the driver refuses. Returns the CUDA error of the
 // launch (0 on success); allocates nothing, never syncs.
 extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v,
                               const void* cos_t, const void* sinm_t, void* o,
-                              void* lse, int B, int S, int H, int D, int Dv,
-                              long long in_b, long long in_s, long long in_h,
-                              long long v_b, long long v_s, long long v_h,
-                              int causal, int rope, int elem_bytes,
-                              void* stream) {
+                              void* lse, int B, int S, int H, int Hkv, int D,
+                              int Dv, long long q_b, long long q_s,
+                              long long q_h, long long k_b, long long k_s,
+                              long long k_h, long long v_b, long long v_s,
+                              long long v_h, int causal, int window, int rope,
+                              int elem_bytes, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
   if (elem_bytes != 2) return static_cast<int>(cudaErrorInvalidValue);
   if (D == 64 && Dv == 64)
     return static_cast<int>(flash_sm90::launch<64, 64>(
-        q, k, v, cos_t, sinm_t, o, lse_f, B, S, H, in_b, in_s, in_h, v_b, v_s,
-        v_h, causal, rope, st));
+        q, k, v, cos_t, sinm_t, o, lse_f, B, S, H, Hkv, q_b, q_s, q_h, k_b,
+        k_s, k_h, v_b, v_s, v_h, causal, window, rope, st));
   if (D == 128 && Dv == 128)
     return static_cast<int>(flash_sm90::launch<128, 128>(
-        q, k, v, cos_t, sinm_t, o, lse_f, B, S, H, in_b, in_s, in_h, v_b, v_s,
-        v_h, causal, rope, st));
+        q, k, v, cos_t, sinm_t, o, lse_f, B, S, H, Hkv, q_b, q_s, q_h, k_b,
+        k_s, k_h, v_b, v_s, v_h, causal, window, rope, st));
   if (D == 192 && Dv == 128)
     return static_cast<int>(flash_sm90::launch<192, 128>(
-        q, k, v, cos_t, sinm_t, o, lse_f, B, S, H, in_b, in_s, in_h, v_b, v_s,
-        v_h, causal, rope, st));
+        q, k, v, cos_t, sinm_t, o, lse_f, B, S, H, Hkv, q_b, q_s, q_h, k_b,
+        k_s, k_h, v_b, v_s, v_h, causal, window, rope, st));
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -27,6 +27,13 @@ So one kernel per direction and (dtype, D) serves both tiers: the port
 has no ``_needs_streaming``, no ``STREAM_BLOCKS`` and no ``streaming=``
 flag.
 
+Grouped-query attention (k and v at fewer heads than q, a divisor) and a
+causal sliding window (``window=W``: query i sees keys i - W < j <= i)
+run on the (192, 128) Hopper instances (MiMo-V2-Flash, mimo_model.py):
+the kernels read each K/V head where it is, and skip the key tiles
+outside the band; K and V are never expanded to the query heads on the
+card. The plain paths take them at any head dims.
+
 Causal inputs of any length run on the kernels: they mask the ragged last
 tile themselves (keys past S sit above every real row's diagonal, rows
 past S are never stored), so nothing is padded here. Non-causal S must
@@ -41,6 +48,7 @@ import math
 
 import torch
 
+from tpu_dra_torch.infra import trace
 from tpu_dra_torch.infra.trace import device_span
 from tpu_dra_torch.workloads import _flash_kernels
 from tpu_dra_torch.workloads._flash_kernels import BLOCK
@@ -109,12 +117,13 @@ class _FlashAttention(torch.autograd.Function):
     attention's merge) passes its cotangent through dS."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, rope):
+    def forward(ctx, q, k, v, causal, rope, window):
         tables = (_rope_operands(q.shape[1], q.shape[-1], q.dtype, q.device)
                   if rope else None)
-        out, lse = _flash_kernels.fwd(q, k, v, tables, causal=causal)
+        out, lse = _flash_kernels.fwd(q, k, v, tables, causal=causal,
+                                      window=window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.tables = causal, tables
+        ctx.causal, ctx.tables, ctx.window = causal, tables, window
         ctx.set_materialize_grads(False)
         return out, lse
 
@@ -130,38 +139,56 @@ class _FlashAttention(torch.autograd.Function):
             # the kernels, [B, H, S] like lse.
             delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
             dq, dk, dv = _flash_kernels.bwd(q, k, v, dout, lse, delta, dlse,
-                                            ctx.tables, causal=ctx.causal)
-        return dq, dk, dv, None, None
+                                            ctx.tables, causal=ctx.causal,
+                                            window=ctx.window)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention_with_lse(q, k, v, *, causal: bool = True,
-                             rope: bool = False):
-    """q, k, v: [B, S, H, D] -> (out [B, S, H, D], lse [B, H, S] fp32).
+                             rope: bool = False, window: int = None):
+    """q [B, S, H, D], k [B, S, Hkv, D], v [B, S, Hkv, Dv] -> (out [B, S,
+    H, Dv], lse [B, H, S] fp32); Hkv = H but at the grouped pairs
+    (_flash_kernels.check_group).
 
     Differentiable in BOTH outputs: lse is the per-row logsumexp of the
     scaled scores, which makes per-call results mergeable (ring
-    attention). Causal S may be anything; non-causal S must be a multiple
-    of the kernels' 64-row tile, or at most one tile.
+    attention) and gives a learned sink its weight (mimo_model.py).
+    Causal S may be anything; non-causal S must be a multiple of the
+    kernels' 64-row tile, or at most one tile.
 
     rope=True applies rope_half to q/k inside the kernels with positions
-    = sequence index."""
+    = sequence index. window=W (causal): query i sees keys (i - W, i]."""
     s = q.shape[1]
     if not (causal or s <= BLOCK or s % BLOCK == 0):
         raise ValueError(f"seq len {s} not divisible by blocks "
                          f"({BLOCK}, {BLOCK}): non-causal S must be a "
                          "whole number of kernel tiles, as the reference "
                          "requires of its blocks")
-    return _FlashAttention.apply(q, k, v, causal, rope)
+    return _FlashAttention.apply(q, k, v, causal, rope, window or 0)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, rope: bool = False):
+def flash_attention(q, k, v, *, causal: bool = True, rope: bool = False,
+                    window: int = None):
     """q, k, v: [B, S, H, D] -> [B, S, H, D]; see flash_attention_with_lse."""
-    out, _ = flash_attention_with_lse(q, k, v, causal=causal, rope=rope)
+    out, _ = flash_attention_with_lse(q, k, v, causal=causal, rope=rope,
+                                      window=window)
     return out
 
 
+def _count_window(q, window: int) -> None:
+    """Under a profiler, a window call's counters: the (query, key) pairs
+    its band holds and the (Q tile, K tile) pairs the forward kernel
+    visits, B x H of each."""
+    if window and trace.recording():
+        b, s, h = q.shape[:3]
+        trace.count("attention.window_pairs",
+                    b * h * _flash_kernels.band_pairs(s, window))
+        trace.count("attention.window_tiles",
+                    b * h * _flash_kernels.fwd_tiles(s, window))
+
+
 def attend(q, k, v, *, causal: bool = True, impl: str = "auto",
-           rope: bool = False):
+           rope: bool = False, window: int = None, with_lse: bool = False):
     """Attention entrypoint for the workload models.
 
     impl: "auto" (the plain reference for CPU tensors, the flash path —
@@ -175,14 +202,25 @@ def attend(q, k, v, *, causal: bool = True, impl: str = "auto",
     path is chosen — in-kernel on the flash path, external on the
     reference path — so all impls compute the same function.
 
-    Under torch.profiler the call is the range ``attention.fwd``.
+    k and v may hold fewer heads than q (a divisor: grouped-query
+    attention), and window=W restricts a causal call to keys (i - W, i];
+    on the flash path only where _flash_kernels.check_group allows.
+    with_lse=True returns (out, lse [B, H, S] fp32), both differentiable.
+
+    Under torch.profiler the call is the range ``attention.fwd``; a
+    window call counts ``attention.window_pairs`` and
+    ``attention.window_tiles``.
     """
     if impl not in ("auto", "flash", "reference"):
         raise ValueError(f"unknown attention impl {impl!r}")
     with device_span("attention.fwd"):
+        _count_window(q, window)
         if impl == "flash" or (impl == "auto" and q.device.type != "cpu"):
-            return flash_attention(q, k, v, causal=causal, rope=rope)
+            out, lse = flash_attention_with_lse(q, k, v, causal=causal,
+                                                rope=rope, window=window)
+            return (out, lse) if with_lse else out
         if rope:
             positions = torch.arange(q.shape[1], device=q.device)[None, :]
             q, k = rope_half(q, positions), rope_half(k, positions)
-        return reference_attention(q, k, v, causal=causal)
+        return reference_attention(q, k, v, causal=causal, window=window,
+                                   with_lse=with_lse)

@@ -374,13 +374,16 @@ def topk_ffn(params: Dict, h: torch.Tensor, *, top_k: int, experts: range,
     E_i(h), the balance loss), in `compute_dtype` with the router in
     fp32. `params`: router [D, E] and bias [E] (fp32), the held experts'
     w_gate, w_up [E_held, D, F] and w_down [E_held, F, D], and the shared
-    expert's shared_gate, shared_up [D, F_s] and shared_down [F_s, D].
+    expert's shared_gate, shared_up [D, F_s] and shared_down [F_s, D]; a
+    layer with no shared expert (MiMo-V2-Flash's) has none of the three,
+    and its output is the routed sum alone.
 
     Ranges under torch.profiler: ``moe.route``, ``moe.dispatch`` (tokens
     gathered into their rows; again in the backward), ``moe.experts``
     (two grouped GEMMs and the SwiGLU), ``moe.combine`` (the k-way
-    gate-weighted sum; again in the backward) and ``moe.shared``; the
-    counter ``moe.row_bytes`` is the bytes of one token's row."""
+    gate-weighted sum; again in the backward) and ``moe.shared`` (where
+    the layer has a shared expert); the counter ``moe.row_bytes`` is the
+    bytes of one token's row."""
     cd = compute_dtype
     b, s, d = h.shape
     route = route_topk(h, params["router"], params["bias"], top_k, experts,
@@ -398,6 +401,8 @@ def topk_ffn(params: Dict, h: torch.Tensor, *, top_k: int, experts: range,
         routed = _Combine.apply(y, route.gates, route.gates.detach(),
                                 route.slot, route.token_of_row,
                                 route.gate_of_row, top_k)
+    if "shared_gate" not in params:
+        return routed.view(b, s, d), route.aux
     with trace.device_span("moe.shared"):
         shared = swiglu(x, torch.cat([params["shared_gate"],
                                       params["shared_up"]], -1).to(cd),

@@ -28,7 +28,7 @@ from typing import Optional
 
 import torch
 
-from tpu_dra_torch.workloads import _dist
+from tpu_dra_torch.workloads import _dist, _flash_kernels
 
 NEG_INF = -1e30
 # Each step's case, by where the visiting block sits against the local
@@ -37,19 +37,23 @@ FUTURE, DIAGONAL, PAST = 0, 1, 2
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True) -> torch.Tensor:
-    """Unsharded attention, q/k/v [B, S, H, D]. Scores are formed and
-    scaled in the input dtype, then softmaxed in fp32, as the JAX
-    reference does."""
-    d = q.shape[-1]
+                        causal: bool = True, window: Optional[int] = None,
+                        with_lse: bool = False):
+    """Unsharded attention, q [B, S, H, D], k [B, S, Hkv, D], v [B, S, Hkv,
+    Dv] (Hkv a divisor of H: query head h reads K/V head h // (H / Hkv)).
+    Scores are formed and scaled in the input dtype, then softmaxed in
+    fp32, as the JAX reference does. window=W (causal): query i sees keys
+    (i - W, i]. with_lse=True returns (out, lse [B, H, S] fp32), the rows'
+    logsumexp of the scaled scores."""
+    h, s, d = q.shape[2], q.shape[1], q.shape[-1]
+    k, v = (_flash_kernels.expand_heads(x, h) for x in (k, v))
     scores = (torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(d)).float()
     if causal:
-        s = q.shape[1]
-        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        keep = _flash_kernels.band_mask(s, window or 0, q.device)
         scores = scores.masked_fill(~keep, NEG_INF)
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
-    return out.to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v).to(q.dtype)
+    return (out, torch.logsumexp(scores, dim=-1)) if with_lse else out
 
 
 def _torch_partial(q, k, v, causal):
