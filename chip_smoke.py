@@ -1432,7 +1432,10 @@ def phase_mimo_attention(peak_flops: float, peak_bytes: float) -> dict:
     enable_gqa; the window through a boolean band mask; None where SDPA
     refuses the shape or runs out of memory), plus the forward's (Q tile,
     K tile) visits a call (fwd_tiles x B x Hq, the counter
-    attention.window_tiles) against the causal triangle's. Returns
+    attention.window_tiles) against the causal triangle's. Beside the
+    global backward, its floor: the same work with K and V copied to Hq
+    heads (the MHA path, no dK/dV reduce-adds), timed in turns with the
+    grouped call (A B B A; `expanded_ms`, `grouped_abba_ms`). Returns
     {"global" | "window": {"checks": readings, wrapper: readings}}."""
     import torch
     import torch.nn.functional as F
@@ -1470,6 +1473,17 @@ def phase_mimo_attention(peak_flops: float, peak_bytes: float) -> dict:
                                                   window=window), inner=3),
               "flash_bwd": time_ms(lambda: fk.bwd(*args, causal=True,
                                                   window=window), inner=3)}
+        abba = None
+        if hkv != hq and not window:
+            expanded = (q, fk.expand_heads(k, hq).contiguous(),
+                        fk.expand_heads(v, hq).contiguous(), *args[3:])
+            abba = {"grouped": [], "expanded": []}
+            for name in ("grouped", "expanded", "expanded", "grouped"):
+                call_args = args if name == "grouped" else expanded
+                abba[name].append(time_ms(
+                    lambda: fk.bwd(*call_args, causal=True), inner=3))
+            del expanded
+            _free()
         library = {"flash_fwd": None, "flash_bwd": None}
         qt = kt = vt = None
         try:
@@ -1506,6 +1520,11 @@ def phase_mimo_attention(peak_flops: float, peak_bytes: float) -> dict:
         out[kind] = {name: {"ms": ms[name], "plain_ms": plain_ms[name],
                             "library_ms": library[name], **bnd[name]}
                      for name in ms}
+        if abba is not None:
+            out[kind]["flash_bwd"].update(
+                expanded_ms=statistics.median(abba["expanded"]),
+                grouped_abba_ms=statistics.median(abba["grouped"]),
+                abba=abba)
         out[kind]["checks"] = checks
         emit(f"mimo_attention_{kind}",
              shape=dict(b=b, s=s, hq=hq, hkv=hkv, dqk=dqk, dv=dv,
@@ -3293,9 +3312,10 @@ def phase_mimo() -> dict:
     the mma ones), one forward and one backward per layer, the window
     calls those under the range attention.window (one per window layer);
     attention.window_tiles the band's tile count (fwd_tiles) per window
-    call, not the causal triangle's; every MoE block's routing through
-    the top-k kernels. Returns {"global" | "window": {kernel: launches a
-    step}}."""
+    call, not the causal triangle's; attention.dkv_reduce_ctas the split
+    global calls' K tiles x B x Hq (0 from the window calls); every MoE
+    block's routing through the top-k kernels. Returns {"global" |
+    "window": {kernel: launches a step}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3342,6 +3362,11 @@ def phase_mimo() -> dict:
     check(counts.get("attention.window_pairs") == pairs,
           f"mimo attention.window_pairs {counts.get('attention.window_pairs')}"
           f", want {pairs}")
+    n_global = cfg.n_layers - n_window
+    ctas = n_global * -(-s // fk.SM90_BWD_KEYS) * cfg.n_heads
+    check(counts.get("attention.dkv_reduce_ctas") == ctas,
+          f"mimo attention.dkv_reduce_ctas "
+          f"{counts.get('attention.dkv_reduce_ctas')}, want {ctas}")
     moe_counts = kernel_launches(mk.ARGTYPES)
     blocks = cfg.n_layers - cfg.first_dense
     want = {name: n * blocks
@@ -3364,7 +3389,8 @@ def phase_mimo() -> dict:
          seq=s, loss=loss, launches=attention, window_ranges=ranges,
          window_tiles=counts["attention.window_tiles"],
          causal_tiles=n_window * cfg.n_heads * fk.fwd_tiles(s, 0),
-         window_pairs=counts["attention.window_pairs"], moe=moe_counts,
+         window_pairs=counts["attention.window_pairs"],
+         dkv_reduce_ctas=counts["attention.dkv_reduce_ctas"], moe=moe_counts,
          per_kind=res)
     del step, params
     _free()

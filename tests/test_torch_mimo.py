@@ -13,12 +13,15 @@ model_config).
 Here, on the CPU: logits, loss and every gradient (the sinks' too); the
 plain kernels' window and group paths against a loop over heads and
 rows; the sink rescale against an explicit extra logit column; the
-window's edge; the tile and pair counts; what the wrappers refuse; the
-share test for a layer with no shared expert. On the card (marker
-``card``): the (192, 128) Hopper kernels with grouped K/V heads and the
-window against their plain versions, at 64 query heads over 4 and 8 K/V
-heads, at S 32768 and ragged lengths, the window's tile skipping, and a
-train step on the kernels.
+window's edge; the tile and pair counts; what the wrappers refuse; when
+the fused backward splits a call (grouped K/V heads, no window), its
+workspace and its counter; the share test for a layer with no shared
+expert. On the card (marker ``card``): the (192, 128) Hopper kernels
+with grouped K/V heads and the window against their plain versions, at
+64 query heads over 4 and 8 K/V heads, at S 32768 and ragged lengths
+(the unwindowed calls split, the rest not, by counter and kernel name),
+the unsplit calls' dk and dv reproducible bit for bit, the window's tile
+skipping, and a train step on the kernels.
 
     python -m pytest tests/test_torch_mimo.py -q            # here
     python -m pytest tests/test_torch_mimo.py -q -m card    # card
@@ -286,6 +289,69 @@ class TestRefusals:
             *kv.stride()[:3], 1, 128, 0, 2)
 
 
+class TestSplitRule:
+    """The fused Hopper backward splits a call (one CTA per K tile and
+    query head, dK and dV reduce-added in fp32) only for grouped K/V heads
+    with no window; its workspace and its counter follow the rule."""
+
+    CASES = [(64, 4, 0, True), (64, 8, 128, False), (16, 16, 0, False),
+             (16, 16, 128, False)]
+
+    def _meta(self, b, s, hq, hkv):
+        return (torch.empty(b, s, hq, 192, device="meta"),
+                torch.empty(b, s, hkv, 192, device="meta"),
+                torch.empty(b, s, hkv, 128, device="meta"))
+
+    @pytest.mark.parametrize("hq,hkv,window,split", CASES)
+    def test_rule_and_workspace(self, hq, hkv, window, split):
+        assert fk.split_dkv(hq, hkv, window) is split
+        b, s = 2, 1000
+        q, k, v = self._meta(b, s, hq, hkv)
+        extra = b * s * hkv * (192 + 128) if split else 0
+        assert fk.bwd_workspace(q, k, v, window) == b * s * hq * 192 + extra
+        n_kt = -(-s // 128)
+        assert fk.dkv_reduce_ctas(q, k, window) == (
+            n_kt * b * hq if split else 0)
+        # At the MiMo cell's B1 S32767: 256 K tiles a query head.
+        cell_q, cell_k, _ = self._meta(1, 32767, hq, hkv)
+        assert fk.dkv_reduce_ctas(cell_q, cell_k, window) == (
+            256 * hq if split else 0)
+
+    @pytest.mark.parametrize("hq,hkv,window,split", CASES)
+    def test_counted_per_call_under_a_profiler(self, hq, hkv, window, split,
+                                               monkeypatch):
+        """bwd's kernel path (its launch stubbed, CPU tensors) counts
+        attention.dkv_reduce_ctas once per call while a profiler records:
+        n_kt x B x H for a split call, 0 for any other; nothing without a
+        profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from tpu_dra_torch.infra import trace
+
+        monkeypatch.setattr(_cuda, "device_of", lambda x, kind: "cuda")
+        launched = []
+        monkeypatch.setattr(_cuda, "launch",
+                            lambda name, *a: launched.append(name))
+        b, s = 1, 300
+        g = torch.Generator().manual_seed(0)
+        q = torch.randn(b, s, hq, 192, generator=g).to(torch.bfloat16)
+        kv = torch.randn(b, s, hkv, 320, generator=g).to(torch.bfloat16)
+        k, v = kv[..., :192], kv[..., 192:]
+        dout = torch.randn(b, s, hq, 128, generator=g).to(torch.bfloat16)
+        lse, delta, dlse = (torch.zeros(b, hq, s) for _ in range(3))
+        args = (q, k, v, dout, lse, delta, dlse, None)
+        trace.read_counters()
+        fk.bwd(*args, causal=True, window=window)
+        assert "attention.dkv_reduce_ctas" not in trace.read_counters()
+        with profile(activities=[ProfilerActivity.CPU]):
+            for _ in range(2):
+                fk.bwd(*args, causal=True, window=window)
+        counts = trace.read_counters()
+        assert launched == ["flash_bwd_sm90"] * 3
+        want = 2 * 3 * b * hq if split else 0   # 3 K tiles of 128 keys
+        assert counts["attention.dkv_reduce_ctas"] == want
+
+
 class TestNoSharedExpert:
     def test_share_sums_to_the_uncut_layer(self):
         """The two shares of eight of the 16 experts of a layer with no
@@ -372,12 +438,30 @@ def _operands(s, hkv, device, seed=0, b=1, hq=64):
 
 
 def _kernels(q, k, v, do, dlse, window):
+    """Both kernels once; the backward under a profiler, whose counter and
+    kernel names must agree on the split (split_dkv): K tiles x B x H
+    reduce-adding CTAs and a flash_bwd_dkv_epilogue launch for a grouped
+    call with no window, 0 and none for any other."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_dra_torch.infra import trace
+
     _cuda.reset_launches()
     o, lse = fk.fwd(q, k, v, None, causal=True, window=window)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-    grads = fk.bwd(q, k, v, do, lse, delta, dlse, None, causal=True,
-                   window=window)
-    torch.cuda.synchronize()
+    trace.read_counters()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        grads = fk.bwd(q, k, v, do, lse, delta, dlse, None, causal=True,
+                       window=window)
+        torch.cuda.synchronize()
+    ctas = trace.read_counters()["attention.dkv_reduce_ctas"]
+    split = fk.split_dkv(q.shape[2], k.shape[2], window)
+    b, s, h = q.shape[:3]
+    assert ctas == (-(-s // 128) * b * h if split else 0)
+    epilogues = [e.name for e in prof.events()
+                 if "flash_bwd_dkv_epilogue" in e.name]
+    assert bool(epilogues) is split, epilogues
     assert _cuda.launches()["flash_fwd_sm90"] == 1
     assert _cuda.launches()["flash_bwd_sm90"] == 1
     return o, lse, delta, grads
@@ -397,7 +481,8 @@ def test_grouped_window_kernels_match_plain(hkv, window, s, cuda_device):
     5e-3 on o and 1e-3 on the gradients, lse within 1e-4
     (test_torch_dsv3's bounds for the (192, 128) instances: P rounded per
     tile on one side, per block on the other; dK and dV summed over the
-    group in fp32 on both)."""
+    group in fp32 on both). The calls with no window run split (_kernels
+    checks the counter and the dK/dV epilogue)."""
     q, k, v, do, dlse = _operands(s, hkv, cuda_device, seed=s + hkv)
     o, lse, delta, (dq, dk, dv) = _kernels(q, k, v, do, dlse, window)
     size = 64 // hkv
@@ -456,26 +541,65 @@ def test_grouped_window_kernels_at_the_cells_length(hkv, window, s,
     and the gradients, 2e-4 on lse. The kernels round p and dS to bf16
     before their products and every output once (2^-9 relative each);
     1e-2 is ~5 of those on a norm, and the (192, 128) kernels read
-    3e-3 to 5e-3 there against fp32 (PERF.md)."""
+    3e-3 to 5e-3 there against fp32 (PERF.md). The first and the last
+    K/V group; the calls with no window run split (_kernels)."""
     q, k, v, do, dlse = _operands(s, hkv, cuda_device, seed=7)
     o, lse, _, (dq, dk, dv) = _kernels(q, k, v, do, dlse, window)
     size = 64 // hkv
-    qj, kj, vj = (x.float().requires_grad_() for x in
-                  (_group(q, 0, size), k[:, :, :1], v[:, :, :1]))
     rows = 1024 if window else 256
-    o_r, lse_r = _fp32_group(qj, kj, vj, window, rows)
-    loss = ((o_r * _group(do, 0, size).float()).sum()
-            + (lse_r * dlse[:, :size]).sum())
-    want = torch.autograd.grad(loss, (qj, kj, vj))
-    readings = {"o": _rel(_group(o, 0, size), o_r),
-                "lse": (lse[:, :size] - lse_r).abs().max().item()}
-    for name, a, w in zip(("dq", "dk", "dv"),
-                          (_group(dq, 0, size), dk[:, :, :1], dv[:, :, :1]),
-                          want):
-        readings[name] = _rel(a, w)
-    print(f"readings hkv={hkv} window={window} s={s}: {readings}")
-    assert readings["lse"] < 2e-4, readings
-    assert all(readings[n] < 1e-2 for n in ("o", "dq", "dk", "dv")), readings
+    for j in (0, hkv - 1):
+        qj, kj, vj = (x.float().requires_grad_() for x in
+                      (_group(q, j, size), k[:, :, j:j + 1],
+                       v[:, :, j:j + 1]))
+        heads = slice(j * size, (j + 1) * size)
+        o_r, lse_r = _fp32_group(qj, kj, vj, window, rows)
+        loss = ((o_r * _group(do, j, size).float()).sum()
+                + (lse_r * dlse[:, heads]).sum())
+        want = torch.autograd.grad(loss, (qj, kj, vj))
+        readings = {"o": _rel(_group(o, j, size), o_r),
+                    "lse": (lse[:, heads] - lse_r).abs().max().item()}
+        del o_r, lse_r, loss
+        got = (_group(dq, j, size), dk[:, :, j:j + 1], dv[:, :, j:j + 1])
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            readings[name] = _rel(a, w)
+        del want, qj, kj, vj
+        print(f"readings hkv={hkv} window={window} s={s} group={j}: "
+              f"{readings}")
+        assert readings["lse"] < 2e-4, readings
+        assert all(readings[n] < 1e-2 for n in ("o", "dq", "dk", "dv")), \
+            readings
+
+
+@pytest.mark.card
+def test_split_call_at_two_batch_rows(cuda_device):
+    """A split call (64 query heads over 4, no window) at B 2 and a ragged
+    S: every CTA's batch row and K/V head come from its block index, so
+    both rows' first and last K/V groups match the plain backward within
+    test_grouped_window_kernels_match_plain's 1e-3."""
+    q, k, v, do, dlse = _operands(777, 4, cuda_device, seed=3, b=2)
+    _, lse, delta, (dq, dk, dv) = _kernels(q, k, v, do, dlse, 0)
+    for j in (0, 3):
+        heads = slice(j * 16, (j + 1) * 16)
+        want = fk.bwd_plain(q[:, :, heads], k[:, :, j:j + 1],
+                            v[:, :, j:j + 1], do[:, :, heads],
+                            lse[:, heads], delta[:, heads], dlse[:, heads],
+                            None, causal=True)
+        got = (dq[:, :, heads], dk[:, :, j:j + 1], dv[:, :, j:j + 1])
+        for name, a, w in zip(("dq", "dk", "dv"), got, want):
+            assert _rel(a, w) < 1e-3, (name, j)
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("hkv,window", [(64, 0), (64, 128), (8, 128)])
+def test_unsplit_calls_sum_dk_dv_in_one_order(hkv, window, cuda_device):
+    """The calls that do not split (every K/V head its own query head's,
+    or a window) keep dK and dV in one CTA's registers: two launches give
+    the same dk and dv bit for bit, and none counts a reduce-adding CTA
+    (_kernels)."""
+    q, k, v, do, dlse = _operands(2048, hkv, cuda_device, seed=5)
+    _, _, _, (_, dk1, dv1) = _kernels(q, k, v, do, dlse, window)
+    _, _, _, (_, dk2, dv2) = _kernels(q, k, v, do, dlse, window)
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
 
 
 def _ms(fn, reps=5):

@@ -735,11 +735,14 @@ DEVICE_SPANS = (
 # host int, per model._FusedNLL call); per sliding-window attention call
 # the (query, key) pairs its band holds, B x H x sum of min(i + 1, W), and
 # the (Q tile, K tile) pairs the forward kernel visits (host ints, per
-# flashattention.attend call with a window).
+# flashattention.attend call with a window); the fused backward's CTAs
+# that reduce-add dK and dV, K tiles x B x H per split call and 0 per
+# other call (a host int, per _flash_kernels.bwd call on a card).
 DEVICE_COUNTERS = ("moe.kept", "moe.slots", "moe.routed", "moe.assigned",
                    "moe.load_max", "moe.tokens_held", "moe.held",
                    "moe.selected", "moe.row_bytes", "loss.fused_rows",
-                   "attention.window_pairs", "attention.window_tiles")
+                   "attention.window_pairs", "attention.window_tiles",
+                   "attention.dkv_reduce_ctas")
 
 
 class _NoSpan:

@@ -38,7 +38,10 @@ hold Hkv heads, a divisor of H (grouped-query attention: query head h
 reads K/V head h // (H / Hkv); dK and dV come back [B, S, Hkv, *]), and a
 causal call may take a sliding window W (query i sees keys j with
 i - W < j <= i); every other input takes neither, and a group or window
-it is given raises. For CPU
+it is given raises. A grouped call with no window runs the fused
+Hopper backward split (``split_dkv``): one CTA per (K tile, query head),
+whose fp32 dK and dV are reduce-added, so that call's dk and dv, like
+every dq, are summed in an order that changes from run to run. For CPU
 tensors it runs its plain PyTorch version beside it in this module
 (``fwd_plain``, ``bwd_plain``, the latter built of ``bwd_dq_plain`` and
 ``bwd_dkv_plain``); for CUDA tensors it launches its route's kernel on
@@ -53,6 +56,7 @@ import math
 
 import torch
 
+from tpu_dra_torch.infra import trace
 from tpu_dra_torch.workloads import _cuda
 
 NEG_INF = -1e30
@@ -80,6 +84,8 @@ SM90_SPLIT_HEAD_DIMS = ((192, 128),)
 # Each direction's kernel (C entry point) per route.
 FWD_KERNELS = {"sm90": "flash_fwd_sm90", "mma": "flash_fwd"}
 BWD_KERNELS = {"sm90": "flash_bwd_sm90", "mma": "flash_bwd_mma"}
+# Keys of the stationary K/V tile of one flash_bwd_sm90 CTA (kKeys).
+SM90_BWD_KEYS = 128
 
 _PTR, _INT, _I64 = _cuda.PTR, _cuda.INT, _cuda.I64
 # B S H Hkv D Dv, q's, k's and v's strides, causal, window, rope,
@@ -325,6 +331,38 @@ def check_group(q, k, v, window: int, causal: bool) -> None:
                          f"window run at {SM90_SPLIT_HEAD_DIMS} only")
 
 
+def split_dkv(heads: int, kv_heads: int, window: int) -> bool:
+    """Whether the fused Hopper backward splits a call: grouped K/V heads
+    (heads != kv_heads) and no window. A split call runs one CTA per (K
+    tile, query head), the MHA loop and launch order, and reduce-adds each
+    CTA's fp32 dK and dV into a K/V head's accumulator, which a last
+    launch rounds once; any other call sums a K/V tile's dK and dV in one
+    CTA's registers (a window's band keeps its few Q tiles in L2 there).
+    csrc/flash_bwd_sm90.cu's launch applies the same test."""
+    return heads != kv_heads and not window
+
+
+def bwd_workspace(q, k, v, window: int) -> int:
+    """fp32 elements of the backward's one zero-filled workspace: dQ's
+    accumulator [B, S, H, D], then for a split call (split_dkv) the K/V
+    heads' dK and dV accumulator [B, S, Hkv, D + Dv]."""
+    b, s, h, d = q.shape
+    kv_heads = k.shape[2]
+    extra = (b * s * kv_heads * (d + v.shape[-1])
+             if split_dkv(h, kv_heads, window) else 0)
+    return b * s * h * d + extra
+
+
+def dkv_reduce_ctas(q, k, window: int) -> int:
+    """CTAs of one backward call that reduce-add dK and dV: ceil(S / 128)
+    K tiles x B x H for a split call, else 0 (the counter
+    attention.dkv_reduce_ctas)."""
+    b, s, h, _ = q.shape
+    if not split_dkv(h, k.shape[2], window):
+        return 0
+    return -(-s // SM90_BWD_KEYS) * b * h
+
+
 def _table_ptrs(tables):
     return (None, None) if tables is None else (tables[0].data_ptr(),
                                                 tables[1].data_ptr())
@@ -395,7 +433,8 @@ def bwd(q, k, v, dout, lse, delta, dlse, tables, *, causal: bool,
     """(dq [B, S, H, D], dk [B, S, Hkv, D], dv [B, S, Hkv, Dv]) of
     attention over q, k, v; dout [B, S, H, Dv]; lse, delta = rowsum(dO *
     O) and dlse (the lse cotangent) [B, H, S] fp32; tables and window as
-    fwd's."""
+    fwd's. On a card, under a profiler, counts attention.dkv_reduce_ctas
+    (dkv_reduce_ctas: 0 but for a split call)."""
     check_group(q, k, v, window, causal)
     if _cuda.device_of(q, "flash") == "cpu":
         return bwd_plain(q, k, v, dout, lse, delta, dlse, tables,
@@ -403,8 +442,10 @@ def bwd(q, k, v, dout, lse, delta, dlse, tables, *, causal: bool,
     q, k, v, tables = _kernel_inputs(q, k, v, tables)
     kernel = BWD_KERNELS[route(q.dtype, q.shape[-1], v.shape[-1])]
     dout, lse, delta, dlse = _bwd_inputs(q, v, dout, lse, delta, dlse)
-    # dQ's fp32 accumulator: every K tile's CTA adds into it.
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    # dQ's fp32 accumulator, every K tile's CTA adds into it, and a split
+    # call's dK and dV accumulator after it: one zero fill.
+    dq_acc = torch.zeros(bwd_workspace(q, k, v, window), dtype=torch.float32,
+                         device=q.device)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
@@ -413,4 +454,5 @@ def bwd(q, k, v, dout, lse, delta, dlse, tables, *, causal: bool,
                  dlse.data_ptr(), *_table_ptrs(tables), dq_acc.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  *_dims(q, causal, tables, v, k, window))
+    trace.count("attention.dkv_reduce_ctas", dkv_reduce_ctas(q, k, window))
     return dq, dk, dv

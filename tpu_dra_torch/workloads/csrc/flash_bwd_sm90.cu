@@ -62,7 +62,8 @@
 //    The epilogue kernel scales, inverse-rotates and rounds the
 //    accumulator once. The reductions make dq's sums run in an order that
 //    changes from run to run; dk and dv are summed by one CTA in a fixed
-//    order and are reproducible bit for bit.
+//    order and are reproducible bit for bit, except in a split call (below),
+//    whose dk and dv are reduce-added as dq is.
 // 5. RoPE. K is rotated once per CTA, in place (tables from L2); each
 //    streamed Q tile is rotated in place by both consumers, 32 rows each,
 //    from the table halves that arrive with it (the forward's scheme; only
@@ -75,19 +76,34 @@
 //    every head's first K tile launched together, as before, at B6 S8191
 //    H16 the reduce-adds and the streamed tiles missed L2 and the kernel
 //    took twice as long. Each CTA streams its Q tiles from the diagonal
-//    down (with grouped K/V heads, each query head's in turn).
+//    down. A CTA that streamed all 16 query heads of a K/V head in turn
+//    (64 over 4 at S 32767) lost the same reuse: CTAs of different K tiles
+//    reach each head's end at different times, so those in flight spread
+//    over several heads and unrelated Q tiles, and each tile's Q, dO and dQ
+//    went through HBM (139.8 ms a call, where the same work with K/V copied
+//    to 64 heads took 117.7 on an H100; PERF.md). Hence the split below.
 //
 // Registers per consumer thread (of 240) at (128, 128): dK 64 + dV 64 +
 // S^T 32 + dP^T 32 = 192 while S^T and dP^T run, dK 64 + dV 64 + dQ 32 +
 // P^T's and dS^T's fragments 32 = 192 while dQ and dK do. dQ's columns
 // are split evenly, 64 a consumer (at D=64 consumer 0 computes all 64).
 //
-// Grouped-query attention and a sliding window (every instance). The CTA
-// of a K/V tile of K/V head hk streams the Q tiles of each of its group's
-// H / Hkv query heads in turn, one flat loop (head outer, Q tile inner),
-// and keeps adding into the same dK and dV registers: dK and dV are
-// written once, [B, S, Hkv, D], never as per-query-head partials summed
-// afterwards. dQ's reduce-adds go to the streamed head's rows. A window W
+// Grouped-query attention and a sliding window (every instance). With a
+// window, the CTA of a K/V tile of K/V head hk streams the Q tiles of each
+// of its group's H / Hkv query heads in turn, one flat loop (head outer, Q
+// tile inner), and keeps adding into the same dK and dV registers: dK and
+// dV are written once, [B, S, Hkv, D], never as per-query-head partials
+// summed afterwards (a band's four Q tiles a head stay in L2 as it is).
+// Without a window the call is split (launch tests H != Hkv and no window,
+// as _flash_kernels.split_dkv does): one CTA per (K tile, query head h),
+// which loads K/V head h / (H / Hkv) and streams head h's Q tiles alone,
+// the MHA loop, in the MHA launch order over query heads (a group's are
+// consecutive, so they share their K/V tiles in L2). At its end it
+// reduce-adds its scaled, inverse-rotated fp32 dK and dV, staged in dQ's
+// boxes over the tiles it no longer reads, into a [B, S, Hkv, D + Dv]
+// accumulator that follows dQ's in the workspace, and a third launch,
+// flash_bwd_dkv_epilogue, rounds it once: sum_groups' rounding, the group
+// summed in fp32. dQ's reduce-adds go to the streamed head's rows. A window W
 // streams only the Q tiles that meet the K tile's band: from the diagonal
 // to the one holding query k0 + 127 + W - 1, four 64-row tiles at W =
 // 128, where plain causal streams every tile below the diagonal. The
@@ -154,9 +170,14 @@ struct Args {
   const float* dlse;
   float* dq_acc;       // [B, S, H, D] fp32, zeroed by the caller
   int S, H, n_qt;      // n_qt = ceil(S / 64)
-  int Hkv, q_per_kv;   // K/V heads; query heads per K/V head, H / Hkv
-  int n_kt, n_bh;      // K tiles per head, K/V heads (B * Hkv)
-  int group;           // K/V heads whose K tiles run side by side (launch)
+  int Hkv;             // K/V heads
+  // A CTA's heads: it streams `q_heads` query heads (H / Hkv, or 1 where
+  // split), and a K/V head's query heads are `units_per_kv` CTAs' (1, or
+  // H / Hkv where split), `units` a batch row (Hkv x units_per_kv).
+  int q_heads, units_per_kv, units;
+  int n_kt, n_bh;      // K tiles per head, units in all (B x units)
+  int group;           // units whose K tiles run side by side (launch)
+  int split;           // dK and dV reduce-added in fp32 (launch says when)
   int causal, rope;
   int window;          // 0: none; else causal keys (i - window, i]
   unsigned band;       // causal: kept iff (unsigned)(query - key) < band
@@ -211,6 +232,11 @@ struct Smem {
   static constexpr int kBytes = kBarrierOff + 8 * (4 + 3 * kStages);
   static constexpr int kAlloc = kBytes + 1024;  // base rounded up to 1 KB
   static_assert(kAlloc <= 232448, "227 KB of shared memory per block");
+  // A split CTA's fp32 dK and dV, staged for their reduce-adds in dQ's
+  // boxes, a consumer's 64 keys after the other's, over the K, V and
+  // stage tiles: (DK + DV) / 32 boxes a consumer, 160 KB at (192, 128).
+  static constexpr int kDkvBoxes = (DK + DV) / 32;
+  static_assert(2 * kDkvBoxes * kDqBox <= kDs, "dK/dV staging past the stages");
 };
 
 // A descriptor over a tile of kCols-column boxes (the swizzle of that
@@ -296,6 +322,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const __grid_constant__ CUtensorMap cos_map,
                           const __grid_constant__ CUtensorMap sinm_map,
                           const __grid_constant__ CUtensorMap dq_map,
+                          const __grid_constant__ CUtensorMap dkv_map,
                           const Args a) {
   using L = Smem<DK, DV>;
   constexpr int D = DK;             // the rope paths' head dim (DK == DV)
@@ -318,20 +345,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* q_ready = full + kStages;      // Q rotated by both consumers
   uint64_t* empty = q_ready + kStages;     // both consumers done with it
 
-  // The CTA's K/V head and K tile: heads in groups of a.group, each
-  // group's K tiles heaviest first (the diagonal's; causal), its heads
-  // side by side.
+  // The CTA's unit (its K/V head and query heads) and K tile: units in
+  // groups of a.group, each group's K tiles heaviest first (the
+  // diagonal's; causal), its units side by side.
   const int g0 = blockIdx.x / (a.group * a.n_kt) * a.group;
   const int in_group = blockIdx.x - g0 * a.n_kt;
   const int heads = min(a.group, a.n_bh - g0);
-  const int bh = g0 + in_group % heads, b = bh / a.Hkv, hk = bh % a.Hkv;
+  // Its K/V head and first query head are derived where they are used (u
+  // / units_per_kv, u x q_heads): kept from here, they spilled the (128,
+  // 128) instance's producer and consumers.
+  const int bh = g0 + in_group % heads, b = bh / a.units, u = bh % a.units;
   const int k0 = in_group / heads * kKeys;
   const int qt0 = a.causal ? k0 / kQ : 0;  // the diagonal's Q tile
   // Q tiles [qt0, qt1) of each query head: with a window, up to the one
   // holding the last query that sees key k0 + 127.
   const int qt1 =
       a.window ? min(a.n_qt, (k0 + kKeys + a.window - 2) / kQ + 1) : a.n_qt;
-  const int n_it = (qt1 - qt0) * a.q_per_kv;
+  const int n_it = (qt1 - qt0) * a.q_heads;
   // Iteration it streams Q tile qt of query head h: each loop below steps
   // (h, qt) along with it, head outer, tile inner (no division, which
   // the producer's 24 registers would spill). Q tiles from the last down
@@ -339,7 +369,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   // in flight share a Q tile in L2, measured slower on an H100 at S 32767
   // (64 query heads over 4: 171.8 ms against 149.1) and spilled the (128,
   // 128) consumer (PERF.md).
-  const int h0 = hk * a.q_per_kv;
   auto next = [&](int& h, int& qt) {
     if (++qt == qt1) {
       qt = qt0;
@@ -375,7 +404,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     // ---- producer warpgroup -------------------------------------------
     sm90::regs_dec<kProducerRegs>();
     const int warp = tid / 32, lane = tid % 32;
+    const int h0 = u * a.q_heads;
     if (tid == 0) {
+      const int hk = u / a.units_per_kv;
       sm90::mbar_arrive_expect_tx(kv_full, L::kKv + L::kV);
       for (int c = 0; c < DK / L::kKCols; ++c)
         sm90::tma_load_4d(k_tile + c * L::kKBox, &k_map, kv_full,
@@ -723,8 +754,39 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   }
-  // The other consumer's dS . K products read every row of K.
+  // The other consumer's dS . K products read every row of K, and both
+  // consumers' products every stage's Q and dO.
   sm90::named_sync(kBothConsumers, 256);
+  const int hk = u / a.units_per_kv;
+  if (a.split) {
+    // dK and dV in fp32 into this consumer's boxes (dQ's staging layout:
+    // fragment rows g, g + 8, columns 8j + 2t), then one TMA reduce-add a
+    // box into the K/V head's [B, S, Hkv, DK + DV] accumulator (rows past
+    // S dropped by the map); the epilogue kernel rounds it once.
+    uint8_t* rows = smem + w * L::kDkvBoxes * kDqBox + (16 * warp + g) * 128 +
+                    (t & 1) * 8;
+    auto stage_f32 = [&](int box0, auto& acc, int j) {
+      const int chunk = 2 * (j % 4) + t / 2;  // 16-byte chunk in its box
+      uint8_t* at = rows + (box0 + j / 4) * kDqBox + ((chunk ^ g) << 4);
+      *reinterpret_cast<float2*>(at) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(at + 8 * 128) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    };
+#pragma unroll
+    for (int j = 0; j < DK / 8; ++j) stage_f32(0, dk, j);
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j) stage_f32(DK / 32, dv, j);
+    sm90::fence_proxy_async();
+    sm90::named_sync(1 + w, 128);
+    if (tid == 0) {
+      for (int c = 0; c < L::kDkvBoxes; ++c)
+        sm90::tma_reduce_add_4d(&dkv_map,
+                                smem + (w * L::kDkvBoxes + c) * kDqBox,
+                                c * 32, hk, k0 + 64 * w, b);
+      sm90::tma_store_wait();
+    }
+    return;
+  }
   // 64 keys x (columns of 4 j) of `acc`, rounded into `tile`'s rows.
   auto stage_rows = [&](uint8_t* tile, auto& acc, int j) {
     const int lo = sm90::swz_off(key_l, j, kKvBox) + 4 * t;
@@ -795,6 +857,25 @@ __global__ void __launch_bounds__(256)
       make_uint2(flash::pack_bf16(hi[0], hi[1]), flash::pack_bf16(hi[2], hi[3]));
 }
 
+// dk and dv rounded to bf16 once from a split call's [B, S, Hkv, DK + DV]
+// fp32 accumulator (dK already scaled and inverse-rotated): one thread per
+// 4 columns of a row; rows are the [B, S, Hkv] positions.
+template <int DK, int DV>
+__global__ void __launch_bounds__(256)
+    flash_bwd_dkv_epilogue(const float* acc, bf16* dk, bf16* dv,
+                           long long rows) {
+  constexpr int kChunks = (DK + DV) / 4;
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= rows * kChunks) return;
+  const long long r = i / kChunks;
+  const int c = static_cast<int>(i % kChunks) * 4;
+  const float4 x = *reinterpret_cast<const float4*>(acc + r * (DK + DV) + c);
+  const uint2 out =
+      make_uint2(flash::pack_bf16(x.x, x.y), flash::pack_bf16(x.z, x.w));
+  if (c < DK) *reinterpret_cast<uint2*>(dk + r * DK + c) = out;
+  else *reinterpret_cast<uint2*>(dv + r * DV + c - DK) = out;
+}
+
 template <int DK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
@@ -815,7 +896,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const long long o_b = (long long)S * H * DV, o_s = (long long)H * DV;
   const long long dk_b = (long long)S * Hkv * DK, dk_s = (long long)Hkv * DK;
   const long long dv_b = (long long)S * Hkv * DV, dv_s = (long long)Hkv * DV;
-  CUtensorMap maps[9] = {};
+  // Grouped K/V heads and no window: one CTA per (K tile, query head),
+  // whose dK and dV go by reduce-adds into the [B, S, Hkv, DK + DV] fp32
+  // accumulator that follows dQ's in the caller's workspace.
+  const bool split = H != Hkv && window == 0;
+  float* dkv_acc = dq_acc + (long long)B * S * H * DK;
+  CUtensorMap maps[10] = {};
   if (!(sm90::encode_bshd(&maps[0], q, B, S, H, DK, q_b, q_s, q_h, kQ) &&
         sm90::encode_bshd(&maps[1], k, B, S, Hkv, DK, k_b, k_s, k_h, kKeys,
                           Smem<DK, DV>::kKCols * 2) &&
@@ -825,6 +911,11 @@ cudaError_t launch(const void* q, const void* k, const void* v,
         sm90::encode_bshd(&maps[5], dv, B, S, Hkv, DV, dv_b, dv_s, DV, 64) &&
         sm90::encode_bshd_box(&maps[8], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
                               dq_acc, B, S, H, DK, a_b, a_s, DK, kQ)))
+    return cudaErrorInvalidValue;
+  if (split && !sm90::encode_bshd_box(
+                   &maps[9], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, dkv_acc, B, S,
+                   Hkv, DK + DV, (long long)S * Hkv * (DK + DV),
+                   (long long)Hkv * (DK + DV), DK + DV, 64))
     return cudaErrorInvalidValue;
   // The tables' first halves (Smem says why), 64 positions per box.
   if (rope && !(sm90::encode_rows(&maps[6], cos_t, S, DK / 2, DK, kQ) &&
@@ -841,18 +932,23 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   a.H = H;
   a.n_qt = (S + kQ - 1) / kQ;
   a.Hkv = Hkv;
-  a.q_per_kv = H / Hkv;
+  a.q_heads = split ? 1 : H / Hkv;
+  a.units_per_kv = split ? H / Hkv : 1;
+  a.units = Hkv * a.units_per_kv;
+  a.split = split;
   a.n_kt = (S + kKeys - 1) / kKeys;
-  a.n_bh = B * Hkv;
-  // K/V heads in flight together: every CTA of a K/V head reads its query
-  // heads' Q and dO and adds into their dQ rows, so as many as keep those
-  // within half of L2 (25 MB) share the card at a time, and the reads and
-  // the reduce-adds hit L2; at least two (one head's tail beside the next
-  // head's heavy tiles), a power of two.
+  a.n_bh = B * a.units;
+  // Units in flight together: every CTA of a unit reads its query heads'
+  // Q and dO and adds into their dQ rows, so as many as keep those within
+  // half of L2 (25 MB) share the card at a time, and the reads and the
+  // reduce-adds hit L2; at least two (one unit's tail beside the next
+  // unit's heavy tiles), a power of two. Split, a group's units are
+  // consecutive query heads of one K/V head, which read its K/V tiles
+  // together.
   const long long head_bytes =
-      (long long)S * a.q_per_kv * (DK * 4 + (DK + DV) * 2);
+      (long long)S * a.q_heads * (DK * 4 + (DK + DV) * 2);
   a.group = 2;
-  while (a.group * 2 <= B * Hkv && a.group * 2 * head_bytes <= (25ll << 20))
+  while (a.group * 2 <= a.n_bh && a.group * 2 * head_bytes <= (25ll << 20))
     a.group *= 2;
   a.causal = causal;
   a.rope = rope;
@@ -870,7 +966,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const dim3 grid(a.n_kt * a.n_bh);
   flash_bwd_sm90_kernel<DK, DV><<<grid, kThreads, smem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], maps[4], maps[5], maps[6], maps[7],
-      maps[8], a);
+      maps[8], maps[9], a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long rows = (long long)B * S * H;
@@ -878,6 +974,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   flash_bwd_dq_epilogue<DK><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
       dq_acc, a.cos_t, a.sinm_t, static_cast<bf16*>(dq), rows, S, H, rope,
       a.sm_scale);
+  if (!split) return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long kv_rows = (long long)B * S * Hkv;
+  const long long kv_threads = kv_rows * ((DK + DV) / 4);
+  flash_bwd_dkv_epilogue<DK, DV>
+      <<<(unsigned)((kv_threads + 255) / 256), 256, 0, stream>>>(
+          dkv_acc, static_cast<bf16*>(dk), static_cast<bf16*>(dv), kv_rows);
   return cudaGetLastError();
 }
 
@@ -887,13 +991,15 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // k_s, k_h), v [B, S, Hkv, Dv] in (v_b, v_s, v_h), D stride 1, 16-byte-
 // aligned bases and strides, Hkv dividing H; dout [B, S, H, Dv]
 // contiguous; lse, delta, dlse [B, H, S] fp32; cos_t/sinm_t [S, D];
-// dq_acc [B, S, H, D] fp32 scratch, zeroed by the caller; dq [B, S, H,
-// D], dk [B, S, Hkv, D] and dv [B, S, Hkv, Dv] contiguous bf16 out;
+// dq_acc fp32 scratch, zeroed by the caller: [B, S, H, D], followed where
+// Hkv != H and window is 0 (a split call) by [B, S, Hkv, D + Dv]; dq [B,
+// S, H, D], dk [B, S, Hkv, D] and dv [B, S, Hkv, Dv] contiguous bf16 out;
 // window 0 (none) or W > 0 with causal. Takes bf16 (elem_bytes 2) at (D,
 // Dv) = (64, 64), (128, 128) and (192, 128) (rope only where D == Dv);
-// anything else returns cudaErrorInvalidValue, as does a tensor map the
-// driver refuses. Returns the first CUDA error of its two launches (0 on
-// success); allocates nothing, never syncs.
+// anything else returns cudaErrorInvalidValue, as does a tensor map that
+// cuTensorMapEncodeTiled refuses. Returns the first CUDA error of its
+// launches (two, three when split; 0 on success); allocates nothing, never
+// syncs.
 extern "C" int flash_bwd_sm90(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, const void* dlse,
