@@ -115,6 +115,25 @@ Phases, each printing one JSON line ({"phase": ...}):
                   moe_combine_rows' two (the combine and the dispatch's
                   backward) bit for bit, moe_pair_dot (the gates'
                   gradient) within MOE_PAIR_DOT_TOL;
+   kimi_kda     — Kimi Delta Attention's chunk kernels (csrc/kda_chunk.cu)
+                  at the Kimi Linear cell's shape (B1 S32767 H32, dk = dv
+                  128) on two sets of decays, 1 to 16 times softplus a
+                  head and the same times KDA_WEAK (state carried over
+                  hundreds of the 512 chunks): the forward and the
+                  backward once, o, dq, dk, dv, dg and dbeta against the
+                  plain chunk form on the same tensors for the first and
+                  the last head (norm of the difference over the plain's,
+                  KDA_TOL), launches a call; CUDA-event medians of the
+                  forward and the backward timed A B B A; the bound
+                  (portbench/models/kimi_lm.py: kda_bounds); the plain
+                  chunk form's time over all heads; and each kernel's
+                  registers and stack from ptxas;
+   kimi_mixer   — the KDA layer's fused prologue and epilogue
+                  (csrc/mixer_prep.cu) at the cell's shape [1, 32767,
+                  4096] bf16: short_conv (normed and not), short_conv_bwd,
+                  gated_norm and gated_norm_bwd against their plain
+                  versions on the same tensors (KDA_TOL), CUDA-event times
+                  against the plain versions' and the bytes bound;
 7. claim_path   — the device plane through the kubelet plugin: the
                   node's GPUs discovered through NVML (NativeBackend, the
                   host driver's libnvidia-ml.so.1; its count, names and
@@ -322,6 +341,15 @@ Phases, each printing one JSON line ({"phase": ...}):
                   and step call one moe_route_topk, two moe_gather_rows,
                   two moe_combine_rows and one moe_pair_dot, and no
                   moe_route;
+   kimi         — a bf16 step of the Kimi Linear family at its published
+                  widths and the cell's eight layers (B1 S4096, a 2048-id
+                  vocabulary), launches zeroed just before its loss alone
+                  and before one step call: per KDA layer 2 KDA launches
+                  forward and 5 backward, 3 short convs and 1 gated norm
+                  each way, one attention.kda range and its two counters;
+                  per MLA layer one Hopper forward and backward; the
+                  top-k MoE and loss-head kernels; the kernels line's KDA
+                  and mixer rows take their launches from this step;
 12. ring_local  — an N=4 ring emulated in one process at long_ctx_xl's
                   attention shape (B1 S16384 H16 D128 bf16, s_local 4096,
                   rope off) through the ring's own per-step partial and
@@ -441,6 +469,36 @@ MIMO_S = 32767
 MIMO_HEADS = 64
 MIMO_CALLS = {"global": dict(hkv=4, window=0),
               "window": dict(hkv=8, window=128)}
+# The Kimi Linear cell's KDA calls (B1, S 32767 trained positions, 32
+# heads of dk = dv = 128) and the limit on each of o, dq, dk, dv, dg and
+# dbeta against the plain chunk form: ||diff|| / ||plain||, the Hopper
+# rows' limit.
+KIMI_S = 32767
+KIMI_HEADS = 32
+KDA_TOL = 5e-3
+# The kimi_kda phase's second set of decays: the same per-head scales
+# times KDA_WEAK, so the mildest head decays by ~0.05 nats a chunk and
+# its state carries over some hundred of the 512 chunks.
+KDA_WEAK = 1e-3
+# What one KDA call launches: its forward the intra-chunk pass and the
+# state pass; its backward those again (the chunks' states recomputed),
+# then the state's backward pass, the states' gradients and the
+# intra-chunk backward.
+KDA_CALL_LAUNCHES = {
+    "kda_fwd": {"kda_intra": 1, "kda_state_fwd": 1},
+    "kda_bwd": {"kda_intra": 1, "kda_state_fwd": 1, "kda_state_bwd": 1,
+                "kda_dstate": 1, "kda_intra_bwd": 1}}
+# The KDA layer's prologue and epilogue kernels (csrc/mixer_prep.cu):
+# each call's compulsory bytes per element of its [B, T, C] bf16
+# activations (the conv reads x, writes out; its backward reads x and
+# dout, writes dx; the gated norm reads o and gate, writes out; its
+# backward reads o, gate and dout, writes do and dgate), and what one
+# KDA layer launches of each (short convs of q, k and v, one gated
+# norm).
+MIXER_BYTES = {"short_conv_fwd": 4, "short_conv_bwd": 6,
+               "gated_norm_fwd": 6, "gated_norm_bwd": 10}
+MIXER_LAYER_LAUNCHES = {"short_conv_fwd": 3, "short_conv_bwd": 3,
+                        "gated_norm_fwd": 1, "gated_norm_bwd": 1}
 H100_SXM = "NVIDIA H100 80GB HBM3"
 SOURCES = {
     "flash_fwd_sm90": "tpu_dra_torch/workloads/csrc/flash_fwd_sm90.cu",
@@ -449,6 +507,8 @@ SOURCES = {
     "flash_bwd_mma": "tpu_dra_torch/workloads/csrc/flash_bwd_mma.cu",
     "moe_route": "tpu_dra_torch/workloads/csrc/moe_route.cu",
     "loss_head": "tpu_dra_torch/workloads/csrc/loss_head.cu",
+    "kda_chunk": "tpu_dra_torch/workloads/csrc/kda_chunk.cu",
+    "mixer_prep": "tpu_dra_torch/workloads/csrc/mixer_prep.cu",
 }
 # Every TPU kernel in the repo, per route: (entry name, timed wrapper,
 # port kernel, replaces). Rows 4-6, the streaming tier, are the same
@@ -538,6 +598,12 @@ MIMO_STEP = dict(vocab=2048, d_model=4096, n_heads=MIMO_HEADS, n_layers=7,
                  window=128, hybrid_pattern=(0, 1, 1, 1, 1, 0, 1),
                  sink_offset=math.log(128), first_dense=1, moe_d_ff=2048,
                  n_routed=256, experts_held=(0, 8), top_k=8)
+# The kimi phase's train step: the Kimi Linear cell's configuration file
+# (its published widths and eight layers: KDA x 3 and MLA, twice; 8 of
+# 256 experts held, top-8), B1 x S4096 and a 2048-id vocabulary.
+KIMI_CONFIG = os.path.join("portbench", "configs", "kimi_linear.json")
+KIMI_STEP = dict(vocab_size=2048, vocab=2048)
+KIMI_STEP_S = 4096
 # What a bf16 model path at D=128 launches per forward/backward: the
 # Hopper kernels, never the mma.sync ones.
 MODEL_PATH_KERNELS = ("flash_fwd_sm90", "flash_bwd_sm90")
@@ -1558,6 +1624,252 @@ def mimo_kernel_rows(times: dict, launches: dict) -> list:
                 "bound_by": t[wrapper]["bound_by"],
                 "library_ms": t[wrapper]["library_ms"]})
     return rows
+
+
+def _ptxas(source: str) -> dict:
+    """{kernel: {"registers", "stack_bytes", "spill_bytes"}} of `source`
+    as ptxas -v reports them at the tree's flags."""
+    from tpu_dra_torch.native import gpuinfo
+    from tpu_dra_torch.workloads import _cuda
+
+    out = os.path.join(ROOT, "build", "ptxas_" + os.path.basename(source)
+                       + ".so")
+    proc = subprocess.run([gpuinfo.nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v",
+                           "-o", out, os.path.join(ROOT, source)],
+                          capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0, f"ptxas -v of {source}: {proc.stderr[-2000:]}")
+    rows, name = {}, None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"Function properties for _Z\d+(\w+?)P", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m and name:
+            rows[name] = {"stack_bytes": int(m.group(1)),
+                          "spill_bytes": int(m.group(2))}
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in rows:
+            rows[name]["registers"] = int(m.group(1))
+    return rows
+
+
+def phase_kimi_kda(peak_flops: float, peak_bytes: float) -> dict:
+    """The KDA chunk kernels at the Kimi Linear cell's shape (B1, KIMI_S,
+    KIMI_HEADS, 128) on two sets of decays: per-head scales from 1 to 16
+    times softplus (the cell's strength: a chunk's state is all but gone
+    a chunk later), and the same times KDA_WEAK (the state carried over
+    hundreds of chunks). On each, the forward and the backward once, held
+    against the plain chunk form on the same tensors for the first and
+    the last head (one head at a time: ||diff|| / ||plain|| of o, dq, dk,
+    dv, dg and dbeta, each within KDA_TOL), and the launches of a lone
+    call (KDA_CALL_LAUNCHES); on the first set, CUDA-event medians of the
+    forward (A) and the backward (B) timed A B B A; the bound of a call
+    (kda_bounds); the plain chunk form's times over all heads; ptxas's
+    registers, stack and spills per kernel. Returns {"kda_fwd" |
+    "kda_bwd": readings, "checks": {...}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from portbench.models.kimi_lm import kda_bounds
+    from tpu_dra_torch.workloads import _cuda
+    from tpu_dra_torch.workloads import _kda_kernels as kk
+
+    b, s, h, d = 1, KIMI_S, KIMI_HEADS, 128
+    gen = torch.Generator(device="cuda").manual_seed(43)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q = (F.normalize(randn(b, s, h, d), dim=-1) / math.sqrt(d)).bfloat16()
+    k = F.normalize(randn(b, s, h, d), dim=-1).bfloat16()
+    v = randn(b, s, h, d).bfloat16()
+    a = torch.exp(torch.linspace(0.0, math.log(16.0), h, device="cuda"))
+    g = (-a[:, None] * F.softplus(randn(b, s, h, d))).contiguous()
+    beta = torch.sigmoid(randn(b, s, h))
+    do = randn(b, s, h, d).bfloat16()
+    checks = {}
+
+    def held(args, tag):
+        _cuda.reset_launches()
+        o = kk.chunk_fwd(*args)
+        fwd = kernel_launches(kk.ARGTYPES)
+        _cuda.reset_launches()
+        grads = kk.chunk_bwd(*args, do)
+        bwd = kernel_launches(kk.ARGTYPES)
+        torch.cuda.synchronize()
+        for name, got in (("kda_fwd", fwd), ("kda_bwd", bwd)):
+            want = {n: KDA_CALL_LAUNCHES[name].get(n, 0) for n in kk.ARGTYPES}
+            check(got == want, f"kda {name} launches {got}, want {want}")
+        for head in (0, h - 1):
+            one = [x[:, :, head:head + 1].contiguous() for x in args]
+            want = (kk.chunk_fwd_plain(*one),) + kk.chunk_bwd_plain(
+                *one, do[:, :, head:head + 1].contiguous())
+            for name, got, ref in zip(("o", "dq", "dk", "dv", "dg", "dbeta"),
+                                      (o,) + grads, want):
+                got = got[:, :, head:head + 1].float()
+                rel = float((got - ref.float()).norm()
+                            / ref.float().norm().clamp(min=1e-30))
+                checks[f"{name}{tag}_h{head}"] = rel
+                check(rel <= KDA_TOL,
+                      f"kda {name}{tag} head {head}: {rel} > {KDA_TOL}")
+            del one, want
+        del o, grads
+        _free()
+
+    args = (q, k, v, g, beta)
+    held(args, "")
+    weak = (-(a * KDA_WEAK)[:, None] * F.softplus(randn(b, s, h, d)))
+    held((q, k, v, weak.contiguous(), beta), "_weak")
+    del weak
+    abba = {"kda_fwd": [], "kda_bwd": []}
+    for name in ("kda_fwd", "kda_bwd", "kda_bwd", "kda_fwd"):
+        fn = ((lambda: kk.chunk_fwd(*args)) if name == "kda_fwd"
+              else (lambda: kk.chunk_bwd(*args, do)))
+        abba[name].append(time_ms(fn, reps=3, inner=2))
+    plain_ms = {"kda_fwd": time_ms(lambda: kk.chunk_fwd_plain(*args), 3, 1),
+                "kda_bwd": time_ms(lambda: kk.chunk_bwd_plain(*args, do),
+                                   3, 1)}
+    del q, k, v, g, beta, do, args
+    _free()
+    bnd = kda_bounds(b, s, h, d, d, peak_flops, peak_bytes)
+    out = {name: {"ms": statistics.median(abba[name]), "abba": abba[name],
+                  "plain_ms": plain_ms[name], "library_ms": None,
+                  **bnd[name]} for name in abba}
+    out["checks"] = checks
+    out["ptxas"] = _ptxas(SOURCES["kda_chunk"])
+    emit("kimi_kda", shape=dict(b=b, s=s, h=h, dk=d, dv=d), tol=KDA_TOL,
+         weak=KDA_WEAK, **out)
+    return out
+
+
+def phase_kimi_mixer(peak_bytes: float) -> dict:
+    """The KDA layer's fused prologue and epilogue (csrc/mixer_prep.cu)
+    at the Kimi Linear cell's shape ([1, KIMI_S, KIMI_HEADS x 128] bf16):
+    short_conv with the head's L2 norm and q's scale and without the norm
+    (v's form), short_conv_bwd of each, gated_norm and gated_norm_bwd,
+    every output held against the plain version's on the same card
+    tensors (||diff|| / ||plain||, KDA_TOL); CUDA-event medians of each
+    kernel (the conv in its normed form) timed in order and back, the
+    plain version's time, and the compulsory bytes (MIXER_BYTES) over the
+    memory rate. Returns {kernel: readings, "checks": {...}}."""
+    import torch
+
+    from tpu_dra_torch.workloads import _mixer_kernels as mx
+
+    b, t, c = 1, KIMI_S, KIMI_HEADS * mx.HEAD
+    gen = torch.Generator(device="cuda").manual_seed(28)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    l2_eps, eps, q_scale = 1e-6, 1e-5, 1.0 / math.sqrt(mx.HEAD)
+    x, dout = randn(b, t, c).bfloat16(), randn(b, t, c).bfloat16()
+    w = randn(mx.TAPS, c, scale=0.5)
+    o, gate = randn(b, t, c).bfloat16(), randn(b, t, c).bfloat16()
+    bias, scale = randn(c, scale=0.1), 1 + randn(mx.HEAD, scale=0.1)
+
+    def conv_plain(norm, sc):
+        return lambda x_, w_: mx.short_conv_plain(x_, w_, norm, sc, l2_eps,
+                                                  mx.HEAD)
+
+    def norm_plain(o_, g_, b_, s_):
+        return mx.gated_norm_plain(o_, g_, b_, s_, eps)
+
+    checks = {}
+
+    def compare(tag, got, want):
+        for name, a, ref in zip(tag.split(), got, want):
+            rel = float((a.float() - ref.float()).norm()
+                        / ref.float().norm().clamp(min=1e-30))
+            checks[name] = rel
+            check(rel <= KDA_TOL, f"mixer {name}: {rel} > {KDA_TOL}")
+
+    for norm, sc, tag in ((True, q_scale, "norm"), (False, 1.0, "plain")):
+        compare(f"conv_out_{tag}",
+                (mx.short_conv(x, w, norm, sc, l2_eps),),
+                (conv_plain(norm, sc)(x, w),))
+        compare(f"conv_dx_{tag} conv_dw_{tag}",
+                mx.short_conv_bwd(x, w, dout, norm, sc, l2_eps),
+                mx._plain_grads(conv_plain(norm, sc), (x, w), dout))
+        _free()
+    compare("norm_out", (mx.gated_norm(o, gate, bias, scale, eps),),
+            (norm_plain(o, gate, bias, scale),))
+    compare("norm_do norm_dgate norm_dbias norm_dscale",
+            mx.gated_norm_bwd(o, gate, bias, scale, dout, eps),
+            mx._plain_grads(norm_plain, (o, gate, bias, scale), dout))
+    _free()
+    calls = {  # kernel: (its call, the plain version's)
+        "short_conv_fwd": (
+            lambda: mx.short_conv(x, w, True, q_scale, l2_eps),
+            lambda: conv_plain(True, q_scale)(x, w)),
+        "short_conv_bwd": (
+            lambda: mx.short_conv_bwd(x, w, dout, True, q_scale, l2_eps),
+            lambda: mx._plain_grads(conv_plain(True, q_scale), (x, w),
+                                    dout)),
+        "gated_norm_fwd": (
+            lambda: mx.gated_norm(o, gate, bias, scale, eps),
+            lambda: norm_plain(o, gate, bias, scale)),
+        "gated_norm_bwd": (
+            lambda: mx.gated_norm_bwd(o, gate, bias, scale, dout, eps),
+            lambda: mx._plain_grads(norm_plain, (o, gate, bias, scale),
+                                    dout)),
+    }
+    order = list(calls)
+    runs = {name: [] for name in order}
+    for name in order + order[::-1]:
+        runs[name].append(time_ms(calls[name][0], reps=3, inner=5))
+    out = {}
+    for name, (_, plain) in calls.items():
+        bound_ms = MIXER_BYTES[name] * b * t * c / peak_bytes * 1e3
+        out[name] = {"ms": statistics.median(runs[name]), "runs": runs[name],
+                     "plain_ms": time_ms(plain, 3, 1), "bound_ms": bound_ms,
+                     "bound_by": "bytes", "library_ms": None}
+    out["checks"] = checks
+    del x, dout, w, o, gate, bias, scale, calls
+    _free()
+    emit("kimi_mixer", shape=dict(b=b, t=t, c=c), tol=KDA_TOL, **out)
+    return out
+
+
+def kda_kernel_rows(times: dict, launches: dict) -> list:
+    """The kernels line's rows of the KDA forward and backward at the Kimi
+    Linear cell's shape: phase_kimi_kda's readings, and the launches of
+    each a step that phase_kimi counted ({"kda_fwd" | "kda_bwd":
+    {kernel: n}})."""
+    checks = times["checks"]
+    err = {"kda_fwd": max(v for n, v in checks.items()
+                          if n.startswith("o_")),
+           "kda_bwd": max(v for n, v in checks.items()
+                          if not n.startswith("o_"))}
+    return [{"name": name, "route": "cuda", "source": SOURCES["kda_chunk"],
+             "replaces": "no TPU kernel (the JAX package has no linear "
+                         "attention)",
+             "launches": sum(launches[name].values()),
+             "max_rel_err": err[name], "ms": times[name]["ms"],
+             "plain_ms": times[name]["plain_ms"],
+             "bound_ms": times[name]["bound_ms"],
+             "bound_by": times[name]["bound_by"], "library_ms": None}
+            for name in ("kda_fwd", "kda_bwd")]
+
+
+def mixer_kernel_rows(times: dict, launches: dict) -> list:
+    """The kernels line's rows of the KDA layer's prologue and epilogue
+    kernels at the Kimi Linear cell's shape: phase_kimi_mixer's readings
+    (each row's error the largest of its outputs') and the launches a
+    step that phase_kimi counted ({kernel: n})."""
+    prefix = {"short_conv_fwd": "conv_out", "short_conv_bwd": "conv_d",
+              "gated_norm_fwd": "norm_out", "gated_norm_bwd": "norm_d"}
+    return [{"name": name, "route": "cuda", "source": SOURCES["mixer_prep"],
+             "replaces": "no TPU kernel (the JAX package has no linear "
+                         "attention)",
+             "launches": launches[name],
+             "max_rel_err": max(v for n, v in times["checks"].items()
+                                if n.startswith(prefix[name])),
+             "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+             "bound_ms": times[name]["bound_ms"], "bound_by": "bytes",
+             "library_ms": None}
+            for name in MIXER_BYTES]
 
 
 def phase_times(peak_flops: float, peak_bytes: float) -> dict:
@@ -3397,6 +3709,112 @@ def phase_mimo() -> dict:
     return res
 
 
+def phase_kimi() -> dict:
+    """A bf16 train step of the Kimi Linear family (KIMI_CONFIG: its
+    published widths and the cell's eight layers, KDA x 3 then MLA,
+    twice; 8 of 256 experts held, top-8) at KIMI_STEP_S and KIMI_STEP's
+    vocabulary on the card, the launch counts zeroed just before the
+    step's loss alone (no gradient) and again just before one step call,
+    the step under a host-only profiler session so its own counters and
+    ranges record. Checked: every KDA layer's chunk op through the
+    KDA kernels, KDA_CALL_LAUNCHES a call each way, and its short convs
+    and gated norm through the mixer kernels, MIXER_LAYER_LAUNCHES a
+    layer; one range attention.kda per KDA layer, attention.kda_tokens B
+    x S and attention.kda_chunks B x H x ceil(S / 64) per KDA layer;
+    every MLA layer's attention through the Hopper kernels, one forward
+    and one backward a layer, none through the mma ones; every MoE
+    block's routing through the top-k kernels; the loss head's kernels
+    once; a_log, the decays' scale, moved by the step. Returns
+    {"kda_fwd" | "kda_bwd": {kernel: launches a step}, "mixer": {kernel:
+    launches a step}}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.models.kimi_lm import model_config
+    from tpu_dra_torch.infra import trace
+    from tpu_dra_torch.workloads import _cuda
+    from tpu_dra_torch.workloads import _flash_kernels as fk
+    from tpu_dra_torch.workloads import _kda_kernels as kk
+    from tpu_dra_torch.workloads import _mixer_kernels as mx
+    from tpu_dra_torch.workloads import _moe_kernels as mk
+    from tpu_dra_torch.workloads import kimi_model as km
+
+    with open(os.path.join(ROOT, KIMI_CONFIG)) as f:
+        keys = dict(json.load(f), **KIMI_STEP)
+    cfg = model_config(keys, KIMI_STEP_S)
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    params = km.init_params(cfg, gen)
+    a_log = [blk["attn"]["a_log"].clone() for blk in params["blocks"]
+             if "a_log" in blk["attn"]]
+    model = km.KimiLM(cfg, params)
+    step = km.make_train_step(model)
+    b, s = 1, cfg.max_seq
+    tokens = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
+                           device="cuda")
+    step(tokens)   # the first call builds the kernels
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    with torch.no_grad():
+        km.loss_fn(model, tokens).item()
+    fwd = kernel_launches(kk.ARGTYPES)
+    fwd_mixer = kernel_launches(mx.ARGTYPES)
+    trace.read_counters()
+    _cuda.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        loss = step(tokens).item()
+        torch.cuda.synchronize()
+    counts = trace.read_counters()
+    n_kda = sum(cfg.kda_pattern)
+    n_mla = cfg.n_layers - n_kda
+    total = kernel_launches(kk.ARGTYPES)
+    kda = {"kda_fwd": fwd,
+           "kda_bwd": {n: total[n] - fwd[n] for n in kk.ARGTYPES}}
+    for name, got in kda.items():
+        want = {n: n_kda * KDA_CALL_LAUNCHES[name].get(n, 0)
+                for n in kk.ARGTYPES}
+        check(got == want, f"kimi {name} launches a step {got}, want {want}")
+    mixer = kernel_launches(mx.ARGTYPES)
+    want = {n: n_kda * c for n, c in MIXER_LAYER_LAUNCHES.items()}
+    check(mixer == want, f"kimi mixer launches a step {mixer}, want {want}")
+    want = {n: c if n.endswith("_fwd") else 0 for n, c in want.items()}
+    check(fwd_mixer == want,
+          f"kimi mixer launches in the forward {fwd_mixer}, want {want}")
+    attention = kernel_launches(fk.ARGTYPES)
+    want = {name: n_mla if name in (fk.FWD_KERNELS["sm90"],
+                                    fk.BWD_KERNELS["sm90"]) else 0
+            for name in fk.ARGTYPES}
+    check(attention == want,
+          f"kimi attention launches {attention}, want {want}")
+    ranges = sum(e.count for e in prof.key_averages()
+                 if e.key == "attention.kda")
+    check(ranges == n_kda, f"kimi attention.kda ranges {ranges}, "
+                           f"want {n_kda}")
+    want = {"attention.kda_tokens": n_kda * b * s,
+            "attention.kda_chunks": n_kda * b * cfg.kda_heads
+            * kk.n_chunks(s)}
+    got = {n: counts.get(n) for n in want}
+    check(got == want, f"kimi counters {got}, want {want}")
+    moe_counts = kernel_launches(mk.ARGTYPES)
+    blocks = cfg.n_layers - cfg.first_dense
+    want = {name: n * blocks
+            for name, n in MOE_BLOCK_LAUNCHES["topk"].items()}
+    check(moe_counts == want,
+          f"kimi moe kernel launches {moe_counts}, want {want}")
+    check_loss_launches("kimi", 1)
+    check(math.isfinite(loss), f"kimi loss {loss}")
+    moved = [not torch.equal(blk["attn"]["a_log"], before) for blk, before
+             in zip((x for x in params["blocks"] if "a_log" in x["attn"]),
+                    a_log)]
+    check(all(moved), f"kimi a_log moved by the step: {moved}")
+    res = {**kda, "mixer": mixer}
+    emit("kimi", n_layers=cfg.n_layers, pattern=list(cfg.kda_pattern),
+         seq=s, loss=loss, attention=attention, kda_ranges=ranges,
+         **got, moe=moe_counts, launches=res)
+    del step, model, params
+    _free()
+    return res
+
+
 def phase_ring_local() -> dict:
     """An N=RING_N ring emulated in one process at long_ctx_xl's attention
     shape (B1 S16384 H16 D128 bf16, rope off): each rank's steps in turn
@@ -3698,6 +4116,10 @@ def main() -> int:
     _free()
     mimo_times = phase_mimo_attention(peak_bf16, peak_bytes)
     _free()
+    kda_times = phase_kimi_kda(peak_bf16, peak_bytes)
+    _free()
+    mixer_times = phase_kimi_mixer(peak_bytes)
+    _free()
     moe_times = phase_moe_kernels(peak_bytes)
     _free()
     loss_times = phase_loss_head(peak_bytes)
@@ -3718,6 +4140,7 @@ def main() -> int:
     moe_res = phase_moe()
     dsv3_res = phase_dsv3()
     mimo_res = phase_mimo()
+    kimi_res = phase_kimi()
     phase_ring_local()
     phase_mesh_workloads()
     phase_model_parity()
@@ -3748,6 +4171,8 @@ def main() -> int:
         "top1": moe_res["moe_kernel_launches"], "topk": dsv3_res["moe"]})
     kernels += mla_kernel_rows(mla_checks, mla_times, dsv3_res["attention"])
     kernels += mimo_kernel_rows(mimo_times, mimo_res)
+    kernels += kda_kernel_rows(kda_times, kimi_res)
+    kernels += mixer_kernel_rows(mixer_times, kimi_res["mixer"])
     kernels += loss_kernel_rows(loss_times, {
         name: n // main_res["step_calls"]
         for name, n in main_res["loss_launches"].items()})

@@ -63,6 +63,8 @@ DSV3_SPANS = {"mla.project", "moe.shared"}
 # Ranges only the MiMo-V2-Flash family opens (a window layer's attention,
 # which holds its attention.fwd).
 MIMO_SPANS = {"attention.window"}
+# Ranges only the Kimi Linear family opens (a KDA layer's mixing).
+KIMI_SPANS = {"attention.kda"}
 # Ranges that their autograd Function's backward opens again, inside
 # step.backward.
 IN_BACKWARD_TOO = {"moe.dispatch", "moe.combine"}
@@ -205,6 +207,7 @@ class TestRangesInTheStep:
             want -= DSV3_SPANS
         if cfg is not MIMO:
             want -= MIMO_SPANS
+        want -= KIMI_SPANS
         if cfg is DENSE:
             want -= MOE_SPANS
         assert {name for _, _, name in ranges} == want

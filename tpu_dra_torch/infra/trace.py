@@ -723,6 +723,9 @@ DEVICE_SPANS = (
     "loss.head",       # model.lm_loss: the head's GEMM and the loss
     "attention.window",  # mimo_model: a window layer's attend call and
                          # its sink rescale
+    "attention.kda",   # kda.kda: a KDA layer from its input projections'
+                       # outputs through the gated RMSNorm (convs, norms,
+                       # gates, the chunk kernels)
 )
 
 # Every counter: tokens kept within capacity (a device tensor), expert
@@ -737,12 +740,15 @@ DEVICE_SPANS = (
 # the (Q tile, K tile) pairs the forward kernel visits (host ints, per
 # flashattention.attend call with a window); the fused backward's CTAs
 # that reduce-add dK and dV, K tiles x B x H per split call and 0 per
-# other call (a host int, per _flash_kernels.bwd call on a card).
+# other call (a host int, per _flash_kernels.bwd call on a card); per
+# KDA layer call the tokens it mixes, B x S, and the chunks of its
+# recurrence, B x H x ceil(S / 64) (host ints, per kda.kda call).
 DEVICE_COUNTERS = ("moe.kept", "moe.slots", "moe.routed", "moe.assigned",
                    "moe.load_max", "moe.tokens_held", "moe.held",
                    "moe.selected", "moe.row_bytes", "loss.fused_rows",
                    "attention.window_pairs", "attention.window_tiles",
-                   "attention.dkv_reduce_ctas")
+                   "attention.dkv_reduce_ctas", "attention.kda_tokens",
+                   "attention.kda_chunks")
 
 
 class _NoSpan:

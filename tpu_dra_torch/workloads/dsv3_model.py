@@ -43,6 +43,7 @@ class DSV3Config(ModelConfig):
     v_head_dim: int = 32
     kv_rank: int = 32
     rope_theta: float = 50000.0
+    mla_use_nope: bool = False    # MLA without rotation (Kimi Linear's)
     first_dense: int = 1          # blocks [0, first_dense) are dense
     moe_d_ff: int = 64            # each routed expert's (and shared unit's)
     n_routed: int = 16            # the router's experts

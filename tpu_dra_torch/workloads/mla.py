@@ -12,14 +12,16 @@ On the normed residual h:
   theta_j = rope_theta^(-2j / rope_dims), with half-split pairing: plane j
   rotates dims (j, j + rope_dims / 2). DeepSeek's code pairs interleaved
   dims (2j, 2j + 1); half-split pairing permutes q_pe and k_pe alike and
-  leaves every score as it was;
+  leaves every score as it was. In the NoPE form (``mla_use_nope``, Kimi
+  Linear's MLA layers) nothing is rotated: q_pe and the shared k_pe keep
+  their shapes and enter the scores as they are;
 - k = [k_nope | k_pe], o = softmax_causal(q k^T / sqrt(nope + rope)) v,
   then o W_o.
 
 Attention is ``flashattention.attend`` with rope=False: on the card the
-Hopper kernels at (q.k, v) head dims (192, 128), the rotation applied
-here to the roped dims only. Projections run in the config's dtype over
-fp32 masters, as the flagship's do.
+Hopper kernels at (q.k, v) head dims (192, 128), the rotation (where the
+config has one) applied here to the roped dims only. Projections run in
+the config's dtype over fp32 masters, as the flagship's do.
 """
 
 from __future__ import annotations
@@ -59,7 +61,8 @@ def mla(cfg, p, h: torch.Tensor) -> torch.Tensor:
     [kv_rank, H (nope + v)] and wo [H v, D] (fp32 masters, [in, out]).
 
     Under torch.profiler the projections, the latent's norm, the rotation
-    and the assembly of q and k are the range ``mla.project``."""
+    and the assembly of q and k are the range ``mla.project``. With
+    cfg.mla_use_nope nothing is rotated."""
     cd = cfg.dtype
     b, s, _ = h.shape
     heads, nope, rdims = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
@@ -69,9 +72,11 @@ def mla(cfg, p, h: torch.Tensor) -> torch.Tensor:
         c = _rmsnorm(c, p["kv_norm"], cfg.norm_eps)
         kv = (c @ p["wkv_b"].to(cd)).view(b, s, heads, nope + cfg.v_head_dim)
         k_nope, v = kv.split([nope, cfg.v_head_dim], -1)
-        cos, sin = rope_tables(s, rdims, cfg.rope_theta, h.device)
-        q = torch.cat([q[..., :nope], rope(q[..., nope:], cos, sin)], -1)
-        k_pe = rope(k_pe.view(b, s, 1, rdims), cos, sin)
+        k_pe = k_pe.view(b, s, 1, rdims)
+        if not cfg.mla_use_nope:
+            cos, sin = rope_tables(s, rdims, cfg.rope_theta, h.device)
+            q = torch.cat([q[..., :nope], rope(q[..., nope:], cos, sin)], -1)
+            k_pe = rope(k_pe, cos, sin)
         k = torch.cat([k_nope, k_pe.expand(b, s, heads, rdims)], -1)
     o = attend(q, k, v, causal=True, impl=cfg.attn_impl, rope=False)
     return o.reshape(b, s, heads * cfg.v_head_dim) @ p["wo"].to(cd)
